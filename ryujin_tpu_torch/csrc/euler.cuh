@@ -8,10 +8,13 @@
 // rounded to T once (EqConsts), as Python scalars meet a tensor of T.
 //
 // Canvas layout: every array is planes-first [planes, H, W], row-major,
-// n = H * W.  Lattice offset k is (DY[k], DX[k]) in (y, x), ordered as
-// ryujin_tpu.offline.structured.lattice_offsets(2, 1); the transposed
-// slot of k is K-1-k.  A neighbour is read at ((y+dy) mod H, (x+dx) mod W),
-// the wrap of torch.roll; wrapped reads only ever feed masked edges.
+// n = H * W.  Lattice offset k is (dy[k], dx[k]) in (y, x), ordered as
+// offline.structured.lattice_offsets(2, reach); the transposed slot of k
+// is K-1-k for every reach.  A neighbour is read at ((y+dy) mod H,
+// (x+dx) mod W), the wrap of torch.roll; wrapped reads only ever feed
+// masked edges.  The reach-1 kernels (pk1, pk2, pk3) have K = 8 and the
+// offsets DY/DX at compile time; the stream kernels and pk_up take K and
+// the offset list of the launch from Consts.
 #pragma once
 
 #include <cfloat>
@@ -23,6 +26,7 @@ namespace ryujin {
 constexpr int K = 8;
 constexpr int K2 = K / 2;
 constexpr int C = 4;  // rho, m_1, m_2, E
+constexpr int MAX_K = 48;  // offsets a launch can carry (reach 3)
 
 __host__ __device__ constexpr int DY(int k) { return k < 3 ? -1 : (k < 5 ? 0 : 1); }
 __host__ __device__ constexpr int DX(int k) {
@@ -35,6 +39,7 @@ struct Consts {
   double evc_factor, relaxation_factor, newton_tol, measure_inv;
   double weight, w0, w1;  // 1 - sum(stage weights), stage weights
   int newton_iterations, pow_n, n_stages, H, W;
+  int K, dy[MAX_K], dx[MAX_K];  // lattice offsets of the canvas
 };
 
 template <typename T> struct Limits;
@@ -54,9 +59,10 @@ struct EqConsts {
   T g, gm1, gp1, inv_gp1, harten_deriv_exp, rf_factor, rf_ratio_exp;
   T sqrt2, lambda_fac, relax_small, relax, one_minus_relax, vacuum_cutoff;
   T eps, tiny, big, reg, evc_factor, relax_factor, two_relax_factor;
-  T newton_tol, measure_inv, weight, w0, w1;
+  T newton_tol, measure_inv, weight, weight_m1, w0, w1;
   double gamma_d, pow_e;
   int pow_n, newton_iterations, n_stages, H, W;
+  int K, dy[MAX_K], dx[MAX_K];
 
   static EqConsts make(const Consts& c) {
     EqConsts e;
@@ -86,6 +92,7 @@ struct EqConsts {
     e.newton_tol = T(c.newton_tol);
     e.measure_inv = T(c.measure_inv);
     e.weight = T(c.weight);
+    e.weight_m1 = T(c.weight - 1.0);
     e.w0 = T(c.w0);
     e.w1 = T(c.w1);
     e.gamma_d = g;
@@ -95,6 +102,11 @@ struct EqConsts {
     e.n_stages = c.n_stages;
     e.H = c.H;
     e.W = c.W;
+    e.K = c.K;
+    for (int k = 0; k < MAX_K; ++k) {
+      e.dy[k] = c.dy[k];
+      e.dx[k] = c.dx[k];
+    }
     return e;
   }
 };
@@ -117,11 +129,16 @@ __device__ __forceinline__ bool this_cell(int H, int W, Cell& c) {
   return c.x < W && c.y < H;
 }
 
-__device__ __forceinline__ int64_t nbr(const Cell& c, int k, int H, int W) {
-  int yj = c.y + DY(k), xj = c.x + DX(k);
+// Flat index of the cell at offset (dy, dx), |dy| <= H and |dx| <= W.
+__device__ __forceinline__ int64_t nbr_at(const Cell& c, int dy, int dx, int H, int W) {
+  int yj = c.y + dy, xj = c.x + dx;
   yj = yj < 0 ? yj + H : (yj >= H ? yj - H : yj);
   xj = xj < 0 ? xj + W : (xj >= W ? xj - W : xj);
   return int64_t(yj) * W + xj;
+}
+
+__device__ __forceinline__ int64_t nbr(const Cell& c, int k, int H, int W) {
+  return nbr_at(c, DY(k), DX(k), H, W);
 }
 
 template <typename T>

@@ -6,25 +6,30 @@
 // (ryujin_tpu/solver/pallas_step.py:3265-3285), which runs
 // hyperbolic.phase_update per 8-row tile.
 //
-// Bound on an H100: memory traffic.  It reads the 32-plane P (the
-// largest stream of the substep), l (8) at the cell and the transposed
-// plane at each neighbour, the mask (8), U (4), 1/n_i and the bounds (3),
-// and writes U (4) and l' (8).
+// Bound on an H100: memory traffic.  It reads the C * K planes of P (the
+// largest stream of the substep: 32 at K = 8, 96 at K = 24), l (K) at the
+// cell and the transposed plane at each neighbour, the mask (K), U (4),
+// 1/n_i and the bounds (3), and writes U (4) and l' (K).
 //
 // Design: one thread per canvas cell, 128 threads along x.  l_T is plane
-// 7-k of neighbour k; l_sym stays in registers between the update and the
-// re-limit, and P is read a second time (an L1/L2 hit) instead of being
-// held.  No mask on the transposed read is needed: this is a single-block
-// canvas and PK3 writes l = 0 on every masked slot.
+// K-1-k of neighbour k; l_sym stays in registers between the update and
+// the re-limit, and P is read a second time (an L1/L2 hit) instead of
+// being held.  To keep l_sym[K] in registers the kernel is a template on
+// K, instantiated for K = 8 (reach 1) and K = 24 (reach 2): both loops
+// unroll fully, so every index into l_sym and into the launch's offset
+// table is a compile-time constant.  No mask on the transposed read is
+// needed: this is a single-block canvas and PK3 writes l = 0 on every
+// masked slot.
 #include "euler.cuh"
 
 namespace ryujin {
 
-template <typename T>
+template <typename T, int K>
 __global__ void __launch_bounds__(128)
 pk_up_kernel(const T* __restrict__ inv_n, const T* __restrict__ mask, const T* __restrict__ U,
              const T* __restrict__ bounds, const T* __restrict__ P, const T* __restrict__ l,
-             T* __restrict__ U_next, T* __restrict__ l_new, const EqConsts<T> e) {
+             T* __restrict__ U_next, T* __restrict__ l_new,
+             const __grid_constant__ EqConsts<T> e) {
   Cell c;
   if (!this_cell(e.H, e.W, c)) return;
   const int64_t i = c.i, n = c.n;
@@ -35,7 +40,7 @@ pk_up_kernel(const T* __restrict__ inv_n, const T* __restrict__ mask, const T* _
   for (int k = 0; k < K; ++k) {
     l_sym[k] = T(0);
     if (!(mask[k * n + i] > T(0))) continue;
-    const int64_t j = nbr(c, k, e.H, e.W);
+    const int64_t j = nbr_at(c, e.dy[k], e.dx[k], e.H, e.W);
     l_sym[k] = mn(l[k * n + i], l[(K - 1 - k) * n + j]);
 #pragma unroll
     for (int q = 0; q < C; ++q) acc[q] += l_sym[k] * P[(q * K + k) * n + i];
@@ -71,8 +76,15 @@ template <typename T>
 int launch_pk_up(const T* inv_n, const T* mask, const T* U, const T* bounds, const T* P,
                  const T* l, T* U_next, T* l_new, const Consts* consts, cudaStream_t stream) {
   const EqConsts<T> e = EqConsts<T>::make(*consts);
-  pk_up_kernel<T><<<canvas_grid(e.H, e.W), canvas_block(), 0, stream>>>(
-      inv_n, mask, U, bounds, P, l, U_next, l_new, e);
+  const dim3 grid = canvas_grid(e.H, e.W), block = canvas_block();
+  if (e.K == 8)
+    pk_up_kernel<T, 8><<<grid, block, 0, stream>>>(inv_n, mask, U, bounds, P, l, U_next, l_new,
+                                                    e);
+  else if (e.K == 24)
+    pk_up_kernel<T, 24><<<grid, block, 0, stream>>>(inv_n, mask, U, bounds, P, l, U_next,
+                                                     l_new, e);
+  else
+    return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
 }
 

@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ryujin_tpu.offline.mesh import Boundary
+from ..offline.mesh import Boundary
 
 
 def _pos(x):
@@ -254,6 +254,42 @@ class Euler:
         quotient = torch.abs(numerator) / (denominator + hd_i * torch.abs(eta_i))
         return torch.clamp_max(evc_factor * quotient, 1.0)
 
+    # Slot-streaming form of the indicator (ryujin_tpu/equations/euler.py:
+    # 473-505): the stencil reduction one lattice offset at a time, as
+    # running (left, right) sums of [n]-sized slabs, for the stream
+    # kernels' plain versions.  Same math as indicator_alpha up to the
+    # order of the sums.
+    def indicator_init(self, U_i, prec_i, f_i=None):
+        """Node-local state shared by every indicator_accum call."""
+        eta_i = prec_i[1]
+        rho_i_inv = 1.0 / self.density(U_i)
+        d_eta_i = self.harten_entropy_derivative(U_i)
+        d_eta_i = torch.cat(
+            [(d_eta_i[0] - eta_i * rho_i_inv)[None], d_eta_i[1:]], 0
+        )
+        if f_i is None:
+            f_i = self.f(U_i)
+        return eta_i, rho_i_inv, d_eta_i, f_i
+
+    def indicator_accum(self, state, U_j, prec_j, f_j, c_k, mask_k):
+        """One stencil slot's (left [n], right [C, n]) increments."""
+        eta_i, rho_i_inv, _, f_i = state
+        left = (
+            (prec_j[1] / self.density(U_j) - eta_i * rho_i_inv)
+            * torch.sum(self.momentum(U_j) * c_k, 0)
+            * mask_k
+        )
+        right = torch.sum((f_j - f_i) * c_k[None], 1) * mask_k[None]
+        return left, right
+
+    def indicator_finalize(self, state, left, right, hd_i,
+                           evc_factor: float = 1.0):
+        eta_i, _, d_eta_i, _ = state
+        numerator = left - torch.sum(d_eta_i * right, 0)
+        denominator = torch.abs(left) + torch.sum(torch.abs(d_eta_i * right), 0)
+        quotient = torch.abs(numerator) / (denominator + hd_i * torch.abs(eta_i))
+        return torch.clamp_max(evc_factor * quotient, 1.0)
+
     # ---- limiter --------------------------------------------------------------
     def limiter_bounds(self, U_i, prec_i, U_j, prec_j, scaled_c_ij, mask,
                        hd_i, relaxation_factor: float = 1.0):
@@ -288,6 +324,65 @@ class Euler:
             torch.amax(torch.where(on, s_interp, -big), 0), s_i
         )
 
+        return self._relax_bounds(
+            rho_min, rho_max, s_min, s_interp_max, rho_relax_num,
+            rho_relax_den, hd_i, relaxation_factor,
+        )
+
+    # Slot-streaming form of the limiter bounds (ryujin_tpu/equations/
+    # euler.py:583-647): running (rho_min, rho_max, s_min, s_interp_max,
+    # rho_relax_num, k_count) per node, seeded with the diagonal (j = i)
+    # contributions, one offset folded in per accum call.
+    def limiter_bounds_init(self, U_i, prec_i):
+        rho_i = self.density(U_i)
+        s_i = prec_i[0]
+        return {
+            "rho_i": rho_i,
+            "m_i": self.momentum(U_i),
+            "rho_min": rho_i,
+            "rho_max": rho_i,
+            "s_min": s_i,
+            "s_interp_max": s_i,
+            "rho_relax_num": 2.0 * rho_i,
+            "k_count": torch.zeros_like(rho_i),
+            "U_i": U_i,
+        }
+
+    def limiter_bounds_accum(self, st, U_j, prec_j, scaled_c_k, mask_k):
+        big = torch.finfo(U_j.dtype).max
+        on = mask_k > 0
+        rho_j = self.density(U_j)
+        rho_ij_bar = 0.5 * (
+            st["rho_i"] + rho_j
+            + torch.sum((st["m_i"] - self.momentum(U_j)) * scaled_c_k, 0)
+        )
+        s_interp = self.specific_entropy(0.5 * (st["U_i"] + U_j))
+        st = dict(st)
+        st["rho_min"] = torch.minimum(
+            st["rho_min"], torch.where(on, rho_ij_bar, big)
+        )
+        st["rho_max"] = torch.maximum(
+            st["rho_max"], torch.where(on, rho_ij_bar, -big)
+        )
+        st["s_min"] = torch.minimum(
+            st["s_min"], torch.where(on, prec_j[0], big)
+        )
+        st["s_interp_max"] = torch.maximum(
+            st["s_interp_max"], torch.where(on, s_interp, -big)
+        )
+        st["rho_relax_num"] = st["rho_relax_num"] + (st["rho_i"] + rho_j) * mask_k
+        st["k_count"] = st["k_count"] + mask_k
+        return st
+
+    def limiter_bounds_finalize(self, st, hd_i, relaxation_factor: float = 1.0):
+        return self._relax_bounds(
+            st["rho_min"], st["rho_max"], st["s_min"], st["s_interp_max"],
+            st["rho_relax_num"], st["k_count"] + 1.0, hd_i, relaxation_factor,
+        )
+
+    def _relax_bounds(self, rho_min, rho_max, s_min, s_interp_max,
+                      rho_relax_num, rho_relax_den, hd_i, relaxation_factor):
+        """The relaxation of the accumulated bounds (limiter.h:330-363)."""
         if self.dim == 2:
             r_i = torch.sqrt(torch.sqrt(hd_i)) ** 3
         elif self.dim == 1:
@@ -296,7 +391,7 @@ class Euler:
             r_i = torch.sqrt(hd_i)
         r_i = r_i * relaxation_factor
 
-        eps = torch.finfo(dtype).eps
+        eps = torch.finfo(rho_min.dtype).eps
         rho_relaxation = torch.abs(rho_relax_num) / (torch.abs(rho_relax_den) + eps)
         relaxation = 2.0 * relaxation_factor * rho_relaxation
 

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of ryujin_tpu_torch/csrc.
 
-All of csrc/*.cu goes through one nvcc invocation into a shared library
-with a plain C interface, loaded with ctypes.  The library lands in
+Every csrc/*.cu is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ctypes.  The library lands in
 ryujin_tpu_torch/_build/, keyed by a hash of the sources and the command
-line, and is built at first use.  Every entry point takes device
+lines, and is built at first use.  Every entry point takes device
 pointers and the CUDA stream as `void *`, launches on that stream without
 synchronising, and returns cudaGetLastError().
 """
@@ -20,6 +21,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..offline.structured import lattice_offsets
+
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
@@ -27,7 +30,11 @@ GENCODE = "arch=compute_90a,code=sm_90a"
 
 # entry point -> number of device-pointer arguments (before the Consts
 # pointer and the stream)
-ENTRY_POINTS = {"pk1": 7, "pk2": 14, "pk3": 16, "pk_up": 8}
+ENTRY_POINTS = {
+    "pk1": 7, "pk2": 14, "pk3": 16, "pk_up": 8,
+    "pk1_stream": 8, "pk2_stream": 13, "pk3_stream": 15,
+}
+MAX_K = 48  # lattice offsets a launch can carry (cG Q3: reach 3, K = 48)
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -53,6 +60,9 @@ class Consts(ctypes.Structure):
         ("n_stages", ctypes.c_int),
         ("H", ctypes.c_int),
         ("W", ctypes.c_int),
+        ("K", ctypes.c_int),
+        ("dy", ctypes.c_int * MAX_K),
+        ("dx", ctypes.c_int * MAX_K),
     ]
 
 
@@ -64,8 +74,8 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def nvcc_command(out: Path) -> List[str]:
-    """The one nvcc invocation.  -fmad=false keeps a * b + c as two
+def compile_command(src: Path, obj: Path) -> List[str]:
+    """nvcc for one source.  -fmad=false keeps a * b + c as two
     roundings, as the plain-torch references (one tensor op each) round
     it: with contraction on, the f32 indicator alpha (a noise-dominated
     ratio in smooth flow) and the limiter's Newton bracket (its accept test
@@ -74,8 +84,15 @@ def nvcc_command(out: Path) -> List[str]:
     0, at a cost of 2% of PK3's time (H100 SXM, 700 W)."""
     return [
         nvcc(), "-gencode", GENCODE, "-std=c++17", "-O3", "-fmad=false",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out),
-    ] + [str(s) for s in sources()]
+        "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(obj),
+        str(src),
+    ]
+
+
+def link_command(objs: List[Path], out: Path) -> List[str]:
+    return [nvcc(), "-gencode", GENCODE, "-shared", "-o", str(out)] + [
+        str(o) for o in objs
+    ]
 
 
 def _tag() -> str:
@@ -83,7 +100,8 @@ def _tag() -> str:
     for s in sorted(CSRC.glob("*.cu*")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    h.update(" ".join(nvcc_command(Path("x"))[1:]).encode())
+    h.update(" ".join(compile_command(Path("x.cu"), Path("x.o"))[1:]).encode())
+    h.update(" ".join(link_command([], Path("x"))[1:]).encode())
     return h.hexdigest()[:16]
 
 
@@ -91,27 +109,58 @@ def library_path() -> Path:
     return BUILD_DIR / f"libryujin_kernels_{_tag()}.so"
 
 
+def _failed(cmd, res) -> RuntimeError:
+    return RuntimeError(
+        f"nvcc failed (exit {res.returncode}):\n{' '.join(cmd)}\n"
+        f"{res.stdout}\n{res.stderr}"
+    )
+
+
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.
-    Raises RuntimeError with nvcc's output on failure.  nvcc's resource
-    report (-Xptxas -v) is kept beside the library as `<lib>.log`."""
+    """Compile the kernels unless the library for these sources exists:
+    one nvcc per source, all running at once, then one link.  Raises
+    RuntimeError with nvcc's output on failure.  nvcc's resource report
+    (-Xptxas -v) is kept beside the library as `<lib>.log`."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".building-{os.getpid()}.so")
-    cmd = nvcc_command(tmp)
+    stem = f"{so.stem}.building-{os.getpid()}"
+    jobs = []
     try:
+        for src in sources():
+            obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+            cmd = compile_command(src, obj)
+            try:
+                proc = subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True,
+                )
+            except OSError as exc:
+                raise RuntimeError(
+                    f"cannot run nvcc ({cmd[0]}): {exc}"
+                ) from exc
+            jobs.append((cmd, obj, proc))
+        log = []
+        for cmd, obj, proc in jobs:
+            out, err = proc.communicate(timeout=900)
+            res = subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+            if res.returncode != 0:
+                raise _failed(cmd, res)
+            log.append(out + err)
+        tmp = BUILD_DIR / f"{stem}.so"
+        cmd = link_command([obj for _, obj, _ in jobs], tmp)
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    except OSError as exc:
-        raise RuntimeError(f"cannot run nvcc ({cmd[0]}): {exc}") from exc
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    so.with_suffix(".so.log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, so)
+        if res.returncode != 0:
+            raise _failed(cmd, res)
+        so.with_suffix(".so.log").write_text("".join(log))
+        os.replace(tmp, so)
+    finally:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+            obj.unlink(missing_ok=True)
     return so
 
 
@@ -140,6 +189,11 @@ def consts(eq, params, ca, stage_weights=()) -> Consts:
     parameters, the canvas and the (static) stage weights."""
     if len(stage_weights) > 2:
         raise ValueError("the kernels take at most 2 stages")
+    if ca.K > MAX_K or len(ca.shape) != 2:
+        raise ValueError(
+            f"the kernels take a 2D canvas with at most {MAX_K} lattice "
+            f"offsets, not {ca.K} on {ca.shape}"
+        )
     g = eq.params.gamma
     e = 2.0 * g / (g - 1.0)
     er = round(e)
@@ -162,6 +216,9 @@ def consts(eq, params, ca, stage_weights=()) -> Consts:
         n_stages=len(stage_weights),
         H=ca.shape[0],
         W=ca.shape[1],
+        K=ca.K,
+        dy=(ctypes.c_int * MAX_K)(*(o[0] for o in ca.offsets)),
+        dx=(ctypes.c_int * MAX_K)(*(o[1] for o in ca.offsets)),
     )
 
 
@@ -208,6 +265,16 @@ def on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or reference for device {t.device}")
+
+
+def check_reach1(ca) -> None:
+    """Raise unless `ca` is the reach-1 K = 8 canvas that pk1, pk2 and pk3
+    are compiled for."""
+    if tuple(ca.offsets) != lattice_offsets(2, 1):
+        raise ValueError(
+            "pk1, pk2 and pk3 take the reach-1 K = 8 lattice; canvases of a "
+            "larger reach take the stream kernels"
+        )
 
 
 def statics(ca, names) -> Dict[str, tuple]:

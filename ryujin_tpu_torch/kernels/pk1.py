@@ -21,6 +21,7 @@ def pk1(eq, p, ca, U, prec):
     Masked slots hold lambda 0, padded cells alpha 0."""
     if not build.on_card(U):
         return pk1_reference(eq, p, ca, U, prec)
+    build.check_reach1(ca)
     n, K = ca.n, ca.K
     build.check(U.device, U.dtype, {
         "U": (U, (eq.n_comp, n)),

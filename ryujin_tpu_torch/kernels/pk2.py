@@ -38,6 +38,7 @@ def pk2(eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau):
         return pk2_reference(
             eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau
         )
+    build.check_reach1(ca)
     n, K, C = ca.n, ca.K, eq.n_comp
     sU = stage_tensor(stage_U, stage_weights, C, n)
     tensors = {

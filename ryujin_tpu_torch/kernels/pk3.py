@@ -36,6 +36,7 @@ def pk3(eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U, stage_weights,
             eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U,
             stage_weights, tau,
         )
+    build.check_reach1(ca)
     n, K, C = ca.n, ca.K, eq.n_comp
     sU = stage_tensor(stage_U, stage_weights, C, n)
     tensors = {

@@ -1,5 +1,6 @@
-"""pk_up: the symmetrized limited update, PK4 (re-limits) and PK5 (last)
-(CUDA kernel csrc/pk_up.cu; TPU kernel pallas_step.py:3265)."""
+"""pk_up: the symmetrized limited update, PK4 (re-limits) and PK5 (last),
+on the K = 8 (reach 1) and K = 24 (reach 2) canvases (CUDA kernel
+csrc/pk_up.cu; TPU kernel pallas_step.py:3265)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ import torch
 
 from ..solver.hyperbolic import phase_update
 from . import build
+
+INSTANCES = (8, 24)  # the K the kernel template is instantiated for
 
 
 def pk_up_reference(eq, p, ca, U_cur, bounds, P, l, last):
@@ -21,6 +24,10 @@ def pk_up(eq, p, ca, U_cur, bounds, P, l, last: bool):
     if not build.on_card(U_cur):
         return pk_up_reference(eq, p, ca, U_cur, bounds, P, l, last)
     n, K, C = ca.n, ca.K, eq.n_comp
+    if K not in INSTANCES:
+        raise ValueError(
+            f"pk_up is built for K in {INSTANCES} lattice offsets, not {K}"
+        )
     build.check(U_cur.device, U_cur.dtype, {
         "U_cur": (U_cur, (C, n)),
         "bounds": (bounds, (eq.n_bounds, n)),

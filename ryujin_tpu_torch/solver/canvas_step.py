@@ -1,13 +1,16 @@
-"""The substep on the 2D reach-1 single-block canvas through the CUDA
-kernels PK1-PK3 and pk_up: the counterpart of ryujin_tpu/solver/
-pallas_step.py (PallasStepper.step, :2582-3318) for the Mach-3 step.
+"""The substep on the 2D single-block canvas through the CUDA kernels: the
+counterpart of ryujin_tpu/solver/pallas_step.py (PallasStepper.step,
+:2582-3318) for the Mach-3 step.
 
-One substep launches, in order: PK1 (half-slot lambda + alpha), the
-boundary-pair lambda fixup, the d rebuild and tau reduction in torch,
-PK2 (U_low, F, bounds), PK3 (P, first limiter pass, okp), and pk_up twice
-(PK4 re-limits, PK5 is the last update).  Every kernel wrapper runs its
-plain-torch reference for CPU tensors, so the same orchestration is
-testable on the CPU.
+One substep launches, in order: PK1 (half-slot wavespeeds + alpha), the
+boundary-pair fixup, the d rebuild and tau reduction in torch, PK2
+(U_low, F, bounds), PK3 (P, first limiter pass, okp), and pk_up twice
+(PK4 re-limits, PK5 is the last update).  A reach-1 canvas (cG Q1, K = 8)
+runs pk1 / pk2 / pk3 on the raw lambda; a canvas of a larger reach (cG Q2:
+reach 2, K = 24) runs the slot-streaming pk1_stream / pk2_stream /
+pk3_stream on the pre-scaled e = lambda * cmax (`CanvasStepper.stream`).
+Every kernel wrapper runs its plain-torch reference for CPU tensors, so
+the same orchestration is testable on the CPU.
 """
 
 from __future__ import annotations
@@ -18,11 +21,14 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from ryujin_tpu.offline.structured import StructuredData, lattice_offsets
+from ..offline.structured import StructuredData, lattice_offsets
 
 from ..kernels.pk1 import pk1
+from ..kernels.pk1_stream import pk1_stream
 from ..kernels.pk2 import pk2
+from ..kernels.pk2_stream import pk2_stream
 from ..kernels.pk3 import pk3
+from ..kernels.pk3_stream import pk3_stream
 from ..kernels.pk_up import pk_up
 from .hyperbolic import d_from_lambda, tau_max_from_d
 from .stencil import StructuredStencil, check_single_block
@@ -127,22 +133,31 @@ class CanvasArrays:
 
 
 class CanvasStepper:
-    """Runs HyperbolicModule.step through the kernels.  Takes only the
-    step2d settings (symmetric half-slot Riemann, no prescale, no
-    streaming, no initial precomputed values, no sideband, multi-block or
-    slab) and rejects any other configuration."""
+    """Runs HyperbolicModule.step through the kernels.  Takes the 2D Euler
+    equations on a single-block lattice canvas of reach 1 or more
+    (symmetric half-slot Riemann, no initial precomputed values, no
+    sideband, multi-block, slab or dG incidence) and rejects any other
+    configuration."""
 
     def __init__(self, eq, params, sd: StructuredData, dtype, device,
                  lambda_fixup: Callable):
         if getattr(eq, "name", None) != "euler" or sd.dim != 2:
             raise ValueError("the canvas kernels take the 2D Euler equations")
-        if tuple(map(tuple, sd.offsets)) != lattice_offsets(2, 1):
+        offsets = tuple(map(tuple, sd.offsets))
+        reach = max(abs(o) for off in offsets for o in off)
+        if offsets != lattice_offsets(2, reach):
             raise ValueError(
-                "the canvas kernels take the reach-1 K=8 lattice stencil"
+                "the canvas kernels take the full lattice stencil of the "
+                f"canvas's reach ({reach}), K = {(2 * reach + 1) ** 2 - 1}"
             )
         self.eq = eq
         self.params = params
         self.lambda_fixup = lambda_fixup
+        # The one place that chooses the kernel form: a canvas of reach > 1
+        # runs the slot-streaming PK1-PK3 on pre-scaled wavespeeds, reach 1
+        # the stacked K = 8 kernels (PallasStepper decides the same at
+        # pallas_step.py:2734-2745, 2982-2985 and 3040-3042).
+        self.stream = reach > 1
         self.arrays = CanvasArrays.from_structured(sd, dtype, device)
         self.stencil = self.arrays.stencil
 
@@ -150,16 +165,24 @@ class CanvasStepper:
              compute_tau):
         """Same contract as HyperbolicModule.step."""
         eq, p, ca, st = self.eq, self.params, self.arrays, self.stencil
-        lam, alpha = pk1(eq, p, ca, U, prec)
-        lam = self.lambda_fixup(lam, U)
-        d = d_from_lambda(st, lam, ca.g_cmax.reshape(ca.K, -1))
+        if self.stream:
+            # e = lambda * cmax: the glue and PK2/PK3 never read cmax
+            lam, alpha = pk1_stream(eq, p, ca, U, prec)
+            lam = self.lambda_fixup(lam, U, prescaled=True)
+            d = d_from_lambda(st, lam)
+            run_pk2, run_pk3 = pk2_stream, pk3_stream
+        else:
+            lam, alpha = pk1(eq, p, ca, U, prec)
+            lam = self.lambda_fixup(lam, U)
+            d = d_from_lambda(st, lam, ca.g_cmax.reshape(ca.K, -1))
+            run_pk2, run_pk3 = pk2, pk3
         tau_max = tau_max_from_d(st, d, cfl, tau_cap)
         if compute_tau:
             tau = tau_max
-        U_low, F, bounds = pk2(
+        U_low, F, bounds = run_pk2(
             eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau
         )
-        P, l, okp = pk3(
+        P, l, okp = run_pk3(
             eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U,
             stage_weights, tau,
         )

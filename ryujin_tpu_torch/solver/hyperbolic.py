@@ -1,8 +1,9 @@
 """The hyperbolic module in PyTorch: graph-viscosity IDP substep with
 convex limiting (ryujin_tpu/solver/hyperbolic.py).
 
-Scope: the Euler equations on a 2D single-block structured canvas (the
-Mach-3 step of bench case step2d), with the symmetric half-slot Riemann
+Scope: the Euler equations on a 2D single-block structured canvas of any
+lattice reach (the Mach-3 step of bench cases step2d, cG Q1 with K = 8,
+and q2step2d, cG Q2 with K = 24), with the symmetric half-slot Riemann
 evaluation and the scatter route for boundary conditions.  The phase
 functions are plain tensor code on full canvases; `HyperbolicModule.step`
 runs them for CPU tensors and the hand-written CUDA kernels
@@ -22,9 +23,8 @@ from typing import Callable, List, Sequence
 import numpy as np
 import torch
 
-from ryujin_tpu.offline.mesh import Boundary
-from ryujin_tpu.offline.structured import StructuredData
-
+from ..offline.mesh import Boundary
+from ..offline.structured import StructuredData
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +66,8 @@ def _boundary_pair_data(sd: StructuredData, dtype, device):
     """Host precompute of the coupling-boundary-pair slots: directed
     slots k < K/2 whose transposed coefficient c_ji differs from -c_ij
     (both endpoints on the domain boundary, offline_data.template.h:
-    1367-1462).  Returns {k, i, j, n_T, w_fwd, w_rev} tensors or None.
+    1367-1462).  Returns {k, i, j, n_T, w_fwd, w_rev, c_rev_norm} tensors
+    or None.
 
     numpy throughout; c_ij is rounded to `dtype` first, as the JAX
     version reads it back from its device stencil."""
@@ -112,17 +113,24 @@ def _boundary_pair_data(sd: StructuredData, dtype, device):
         "n_T": t(c_r / np.maximum(nr, 1e-300)[None]),
         "w_fwd": t(nf / np.maximum(cmax, 1e-300)),
         "w_rev": t(nr / np.maximum(cmax, 1e-300)),
+        "c_rev_norm": t(nr),
     }
 
 
-def d_from_lambda(st, lam_half, cmax):
+def d_from_lambda(st, lam_half, cmax=None):
     """d = lambda * max(|c_ij|, |c_ji|) on live edges from the half-slot
-    lambda [K/2, n]: slot k >= K/2 reads plane K-1-k of its neighbour."""
-    lam_pad = torch.cat([lam_half, torch.zeros_like(lam_half)], 0)
-    lam_full = torch.cat([lam_half, st.transpose_edge(lam_pad)[st.K // 2 :]], 0)
-    return torch.where(
-        st.mask > 0, lam_full * cmax, torch.zeros_like(lam_full)
-    )
+    lambda [K/2, n]: slot k >= K/2 reads plane K-1-k of its neighbour.
+    cmax=None takes lam_half as already scaled by cmax (the stream
+    kernels' e; cmax_k(i) == cmax_{K-1-k}(j), so the transposed read of e
+    is d itself)."""
+    K = st.K
+    lam_T = torch.stack([
+        st.shift(lam_half[K - 1 - k], st.offsets[k]) for k in range(K // 2, K)
+    ])
+    lam_full = torch.cat([lam_half, lam_T], 0)
+    if cmax is not None:
+        lam_full = lam_full * cmax
+    return torch.where(st.mask > 0, lam_full, torch.zeros_like(lam_full))
 
 
 def d_from_e(mask, e, e_T):
@@ -288,7 +296,8 @@ class HyperbolicModule:
     """Owns the stencil and boundary data and provides prepare/step.
 
     `initial_state_fn(positions [dim, k], t) -> states [C, k]` supplies
-    the Dirichlet data.  All arrays are allocated on `device`."""
+    the Dirichlet data.  All arrays are allocated on `device`: the card
+    unless the caller names another (the CPU tests pass "cpu")."""
 
     def __init__(
         self,
@@ -297,7 +306,7 @@ class HyperbolicModule:
         initial_state_fn: Callable,
         params: HyperbolicModuleParams = HyperbolicModuleParams(),
         dtype=torch.float64,
-        device="cpu",
+        device="cuda",
     ):
         if params.riemann_newton_max_iterations != 0:
             raise NotImplementedError(
@@ -354,10 +363,14 @@ class HyperbolicModule:
         self.stencil = self.canvas.stencil
         self.cmax = self.canvas.arrays.g_cmax.reshape(self.stencil.K, -1)
 
-    def _lambda_fixup(self, lam, Up):
+    def _lambda_fixup(self, lam, Up, prescaled=False):
         """Correct the half-slot lambda at coupling boundary pairs:
         lam_hat = max(lam_fwd |c_ij|, lam_rev |c_ji|) / cmax, so that
-        d = lam_hat * cmax equals the reference's max(d_ij, d_ji)."""
+        d = lam_hat * cmax equals the reference's max(d_ij, d_ji).
+
+        prescaled: `lam` already holds d = lambda * cmax (the stream
+        kernels' e); the current value scales by w_fwd = |c_ij| / cmax as
+        before, and the fresh reverse lambda takes the raw |c_ji|."""
         bp = self._bp
         if bp is None:
             return lam
@@ -369,7 +382,8 @@ class HyperbolicModule:
             pa_i=eq.riemann_precompute(U_j), pa_j=eq.riemann_precompute(U_i),
         )
         cur = lam[bp["k"], bp["i"]]
-        val = torch.maximum(cur * bp["w_fwd"], lam_rev * bp["w_rev"])
+        w_rev = bp["c_rev_norm"] if prescaled else bp["w_rev"]
+        val = torch.maximum(cur * bp["w_fwd"], lam_rev * w_rev)
         return lam.index_put((bp["k"], bp["i"]), val)
 
     # ---- step 1: boundary conditions + precomputation -------------------

@@ -1,10 +1,12 @@
 """Lattice-canvas stencil in PyTorch (ryujin_tpu/solver/hyperbolic.py
-StructuredStencil, :144-398), for a single-block canvas without ghosts.
+StructuredStencil, :144-398), for a single-block canvas without ghosts,
+of any lattice reach (K = (2 reach + 1)^dim - 1 offsets).
 
 Neighbour access is a static shift of the canvas: `nbr` gives
 out[..., k, i] = X[..., i + offsets[k]] with the same wrap as jnp.roll /
 torch.roll; values wrapped in at the canvas edge only ever feed masked
-edges.  The transposed slot of offset k is K-1-k.
+edges.  The offsets are ordered so that offsets[k] == -offsets[K-1-k]:
+the transposed slot of offset k is K-1-k for every reach.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-from ryujin_tpu.offline.structured import StructuredData
+from ..offline.structured import StructuredData
 
 
 def _unsupported(what: str):
@@ -66,6 +68,12 @@ class StructuredStencil:
         d = len(self.shape)
         dims = tuple(range(Xc.ndim - d, Xc.ndim))
         return torch.roll(Xc, tuple(-o for o in off), dims)
+
+    def shift(self, X: torch.Tensor, off) -> torch.Tensor:
+        """[..., n] -> [..., n]: out[..., i] = X[..., i + off], one slot of
+        `nbr` (the per-offset read of the slot-streaming forms)."""
+        lead = X.shape[:-1]
+        return self._shift(X.reshape(lead + self.shape), off).reshape(X.shape)
 
     def nbr(self, X: torch.Tensor) -> torch.Tensor:
         """[..., n] -> [..., K, n] by K static canvas shifts."""

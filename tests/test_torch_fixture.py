@@ -1,12 +1,14 @@
 """The shared fixture of the PyTorch port's tests, and its own check.
 
-The fixture is the Mach-3 forward-facing step at refinement 0 (104 x 256
-canvas, 16,449 real nodes) with the uniform Mach-3 inflow times a smooth
-numpy-seeded density/energy bump, so the Riemann solver, the indicator
-and both limiter branches do real work.  The JAX package runs its CPU
-reference path (backend "xla", float64 from tests/conftest.py); the port
-runs torch float64 on the CPU.  Both take the same StructuredData,
-parameters and state.
+The fixture is the Mach-3 forward-facing step at refinement 0 with the
+uniform Mach-3 inflow times a smooth numpy-seeded density/energy bump, so
+the Riemann solver, the indicator and both limiter branches do real work:
+cG Q1 (104 x 256 canvas, 16,449 real nodes, K = 8) by default, cG Q2
+(184 x 512 canvas, 65,153 real nodes, reach 2, K = 24) on request.  The
+JAX package runs its CPU reference path (backend "xla", float64 from
+tests/conftest.py) on a StructuredData built by ryujin_tpu.offline; the
+port runs torch float64 on the CPU on one built by its own
+ryujin_tpu_torch.offline.  Both take the same parameters and state.
 """
 
 import functools
@@ -33,6 +35,11 @@ from ryujin_tpu.solver.hyperbolic import (  # noqa: E402
 )
 
 from ryujin_tpu_torch import convert  # noqa: E402
+from ryujin_tpu_torch.offline import (  # noqa: E402
+    assembly as t_assembly,
+    geometry as t_geometry,
+    structured as t_structured,
+)
 from ryujin_tpu_torch.equations.euler_initial_states import (  # noqa: E402
     make_initial_state,
 )
@@ -44,11 +51,22 @@ INFLOW = (1.4, 3.0, 1.0)
 
 
 @functools.lru_cache(maxsize=None)
-def step_case():
+def port_sd(ansatz="cG Q1"):
+    """The fixture's StructuredData from the port's own offline layer."""
+    mesh = t_geometry.step(refinement=0)
+    return t_structured.pack_structured(
+        t_assembly.assemble(mesh, ansatz=ansatz), mesh
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def step_case(ansatz="cG Q1"):
     """(sd, jax_eq, jax_init, U0 numpy [C, n_pad], torch eq, torch params,
-    torch init) of the shared fixture."""
+    torch init) of the shared fixture; sd is the JAX package's."""
     mesh = geometry.step(refinement=0)
-    sd = structured.pack_structured(assembly.assemble(mesh), mesh)
+    sd = structured.pack_structured(
+        assembly.assemble(mesh, ansatz=ansatz), mesh
+    )
     jeq = JEuler(dim=2)
     jinit = j_make_initial_state(jeq, "uniform", primitive_state=INFLOW)
     U = np.array(j_interpolate_nodal(jinit, sd, jeq, 0.0, jnp.float64))
@@ -66,11 +84,13 @@ def step_case():
 
 
 @functools.lru_cache(maxsize=None)
-def modules():
-    """(JAX HyperbolicModule on the XLA path, torch HyperbolicModule)."""
-    sd, jeq, jinit, _, eq, params, init = step_case()
+def modules(ansatz="cG Q1"):
+    """(JAX HyperbolicModule on the XLA path, torch HyperbolicModule on
+    the port's own StructuredData, on the CPU)."""
+    sd, jeq, jinit, _, eq, params, init = step_case(ansatz)
     jhm = JHyperbolicModule(jeq, sd, jinit, dtype=jnp.float64)
-    hm = HyperbolicModule(eq, sd, init, params=params, dtype=torch.float64)
+    hm = HyperbolicModule(eq, port_sd(ansatz), init, params=params,
+                          dtype=torch.float64, device="cpu")
     return jhm, hm
 
 
