@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
-It drives the port's two paths on the Mach-3 forward-facing step, both in
-f32 with ERK33: step2d (cG Q1, reach 1, K = 8: pk1, pk2, pk3, pk_up) and
-q2step2d (cG Q2, reach 2, K = 24: pk1_stream, pk2_stream, pk3_stream,
-pk_up).  Phases (each prints its own lines; any failure exits non-zero):
+It drives the port's three paths, all in f32 with ERK33: step2d and
+q2step2d on the Mach-3 forward-facing step (cG Q1, reach 1, K = 8: pk1,
+pk2, pk3, pk_up; cG Q2, reach 2, K = 24: pk1_stream, pk2_stream,
+pk3_stream, pk_up) and box3d, 3D Euler on the Mach-3 box (cG Q1, K = 26:
+the 3D instances of pk1_stream, pk2_stream, pk3_stream and pk_up, on the
+two-direction Riemann route).  Phases (each prints its own lines; any
+failure exits non-zero):
 
 1. the card (nvidia-smi name and power limit) and the kernel build from
    ryujin_tpu_torch/csrc with nvcc (one process per source, seconds taken);
@@ -33,7 +36,16 @@ pk_up).  Phases (each prints its own lines; any failure exits non-zero):
 5. the q2step2d slice (CFL 0.9 / 0.45, bang-bang recovery), with the same
    gates; restarts are printed, and every substep, redone ones included,
    must have launched pk1_stream, pk2_stream, pk3_stream once and pk_up
-   twice.
+   twice;
+6. box3d, refinement 2 (the (72, 72, 128) canvas, K = 26, two-direction
+   route): the four 3D kernels against their plain-torch references on a
+   state developed through the kernels, with times and bounds; 6b: both
+   3D routes (the half-slot route on a 3 x 2 x 2 box, the two-direction
+   route on a 7 x 4 x 4 box, refinement 1) in f32 and f64; 6c: three
+   ERK33 steps with bang-bang recovery, kernels vs the plain path on the
+   card, on both small boxes in f64, with the launch counts;
+7. the box3d slice (CFL 0.9 / 0.45, bang-bang recovery), with the gates of
+   phase 5.
 
 The lines before the last are the kernels' JSON record and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -78,6 +90,17 @@ Q2_DEVELOP_STEPS = 150
 Q2_WARMUP = 150
 Q2_STEPS = 50
 Q2_PLAIN_TIMED_STEPS = 2
+# box3d: refinement, steps through the kernels before the comparisons,
+# warmup and timed steps of the slice, plain-torch timed steps; the small
+# boxes of phase 6b/6c (subdivisions at refinement 1) and their steps
+# through the kernels before the comparisons
+BOX_REFINEMENT = 2
+BOX_DEVELOP_STEPS = 150
+BOX_WARMUP = 150
+BOX_STEPS = 50
+BOX_PLAIN_TIMED_STEPS = 2
+SMALL_BOXES = (((3, 2, 2), True), ((7, 4, 4), False))  # (subdiv, half-slot)
+SMALL_BOX_STEPS = 5
 # launches per kernel timing
 REPS = 20
 
@@ -100,24 +123,39 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 # Floating-point operations per live edge (and per stage state on it),
 # counted from the device functions of csrc/euler.cuh with a
-# transcendental as one operation: a flux tensor 14, a flux divergence
-# 4 x 5, the two-rarefaction lambda_max with its precompute 95 (on half
-# the slots), the indicator sums 22, the bounds accumulation 40, one
-# limiter call with both Newton iterations 150.
+# transcendental as one operation.  2D: a flux tensor 14, a flux
+# divergence 4 x 5, the two-rarefaction lambda_max with its precompute 95
+# (on half the slots on the half-slot route), the indicator sums 22, the
+# bounds accumulation 40, one limiter call with both Newton iterations
+# 150.  3D: a flux tensor 24, a flux divergence 5 x 8, lambda_max 99, the
+# indicator sums 30, the bounds 46, the limiter 154.
 EDGE_FLOPS = {
-    "pk1": (14 + 22 + 95 / 2, 0), "pk1_stream": (14 + 22 + 95 / 2 + 0.5, 0),
-    "pk2": (14 + 36 + 40, 14 + 24), "pk2_stream": (14 + 36 + 40, 14 + 24),
-    "pk3": (14 + 40 + 150, 14 + 24), "pk3_stream": (14 + 40 + 150, 14 + 24),
-    "pk_up": (9 + 4 + 150, 0),
+    2: {
+        "pk1": (14 + 22 + 95 / 2, 0), "pk1_stream": (14 + 22 + 95 / 2 + 0.5, 0),
+        "pk2": (14 + 36 + 40, 14 + 24), "pk2_stream": (14 + 36 + 40, 14 + 24),
+        "pk3": (14 + 40 + 150, 14 + 24), "pk3_stream": (14 + 40 + 150, 14 + 24),
+        "pk_up": (9 + 4 + 150, 0),
+    },
+    3: {
+        "pk1_stream": (24 + 30 + 99 / 2 + 0.5, 0),  # two-direction: + 99 / 2
+        "pk2_stream": (24 + 60 + 46, 24 + 40),
+        "pk3_stream": (24 + 65 + 154, 24 + 40),
+        "pk_up": (11 + 5 + 154, 0),
+    },
 }
 TPU_SOURCE = {
-    "pk1": "ryujin_tpu/solver/pallas_step.py:2676",
-    "pk2": "ryujin_tpu/solver/pallas_step.py:2841",
-    "pk3": "ryujin_tpu/solver/pallas_step.py:3044",
-    "pk_up": "ryujin_tpu/solver/pallas_step.py:3265",
-    "pk1_stream": "ryujin_tpu/solver/pallas_step.py:1904",
-    "pk2_stream": "ryujin_tpu/solver/pallas_step.py:2879",
-    "pk3_stream": "ryujin_tpu/solver/pallas_step.py:3093",
+    (2, "pk1"): "ryujin_tpu/solver/pallas_step.py:2676",
+    (2, "pk2"): "ryujin_tpu/solver/pallas_step.py:2841",
+    (2, "pk3"): "ryujin_tpu/solver/pallas_step.py:3044",
+    (2, "pk_up"): "ryujin_tpu/solver/pallas_step.py:3265",
+    (2, "pk1_stream"): "ryujin_tpu/solver/pallas_step.py:1904",
+    (2, "pk2_stream"): "ryujin_tpu/solver/pallas_step.py:2879",
+    (2, "pk3_stream"): "ryujin_tpu/solver/pallas_step.py:3093",
+    # the 3D z-slab path, _step_slab on _tiled_call_3d_slab (:821)
+    (3, "pk1_stream"): "ryujin_tpu/solver/pallas_step.py:1904",
+    (3, "pk2_stream"): "ryujin_tpu/solver/pallas_step.py:2317",
+    (3, "pk3_stream"): "ryujin_tpu/solver/pallas_step.py:2409",
+    (3, "pk_up"): "ryujin_tpu/solver/pallas_step.py:2528",
 }
 
 
@@ -150,7 +188,8 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(name, inputs, outputs, mask, live_edges, n_stages, dtype):
+def bound_ms(name, dim, half, inputs, outputs, mask, live_edges, n_stages,
+             dtype):
     """(least ms, "bytes" or "operations", least ms with the mask as
     stored) for one launch: every plane the function needs read once and
     every output written once over the memory rate, against the operations
@@ -163,7 +202,9 @@ def bound_ms(name, inputs, outputs, mask, live_edges, n_stages, dtype):
     K, n = mask.shape[0], mask[0].numel()
     mask_bits = 4 * n * -(-K // 32)
     mask_stored = mask.numel() * mask.element_size()
-    per_edge, per_stage = EDGE_FLOPS[name]
+    per_edge, per_stage = EDGE_FLOPS[dim][name]
+    if dim == 3 and name == "pk1_stream" and not half:
+        per_edge += 99 / 2 + 0.5  # lambda and its scaling on every slot
     flops = live_edges * (per_edge + n_stages * per_stage)
     by_ops = flops / PEAK_FLOPS[dtype] * 1e3
     by_bytes = (nbytes + mask_bits) / PEAK_BYTES_PER_S * 1e3
@@ -173,23 +214,29 @@ def bound_ms(name, inputs, outputs, mask, live_edges, n_stages, dtype):
     return by_ops, "operations", stored
 
 
-def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None):
+def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
+                    tag=""):
     """Each kernel of the substep against its reference on identical
     inputs.  U_a is the state entering the substep, U_b a second prepared
     state; the stage inputs are those of the third ERK33 substep (weights
     0.75, -2).  `stream` picks the slot-streaming PK1-PK3 (default: as the
-    stepper of `hm` does).  With `records`, also times every kernel and
-    its reference and fills records[name] = {max_abs_err, ms, plain_ms,
-    bound_ms, bound_by, bound_ms_mask_as_stored}.  Returns False if any
+    stepper of `hm` does); the Riemann route is the module's (`hm.half`).
+    With `records`, also times every kernel and its reference and fills
+    records[name + tag] = {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    bound_ms_mask_as_stored, source, replaces}.  Returns False if any
     output is off its tolerance."""
     from ryujin_tpu_torch.kernels import (
         pk1, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
     )
-    from ryujin_tpu_torch.solver.hyperbolic import d_from_lambda, tau_max_from_d
+    from ryujin_tpu_torch.solver.hyperbolic import (
+        d_from_e, d_from_lambda, tau_max_from_d,
+    )
 
     eq, p, ca = hm.eq, hm.params, hm.canvas.arrays
     if stream is None:
         stream = hm.canvas.stream
+    half = hm.half
+    dim = len(ca.shape)
     st = ca.stencil
     dt = U_a.dtype
     K, n = ca.K, ca.n
@@ -233,15 +280,21 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None):
         return d
 
     sfx = "_stream" if stream else ""
-    n1, n2, n3, nu = "pk1" + sfx, "pk2" + sfx, "pk3" + sfx, f"pk_up[K={K}]"
+    n1, n2, n3 = ("pk1" + sfx + tag, "pk2" + sfx + tag, "pk3" + sfx + tag)
+    nu = f"pk_up[K={K}]"
+    kw = {"half": half} if stream else {}
     mods = {"pk1": pk1, "pk2": pk2, "pk3": pk3, "pk_up": pk_up,
             "pk1_stream": pk1_stream, "pk2_stream": pk2_stream,
             "pk3_stream": pk3_stream}
 
     def pair(name):
-        """(kernel wrapper, plain-torch reference) of kernel `name`."""
+        """(kernel wrapper, plain-torch reference) of kernel `name`, with
+        the route's keyword for the stream forms."""
         name = name.split("[")[0]
-        return getattr(mods[name], name), getattr(mods[name], name + "_reference")
+        fk, fr = getattr(mods[name], name), getattr(mods[name], name + "_reference")
+        if name.endswith("_stream"):
+            return (lambda *a: fk(*a, **kw)), (lambda *a: fr(*a, **kw))
+        return fk, fr
 
     def run(name, *args):
         fk, fr = pair(name)
@@ -250,13 +303,16 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None):
     errs = {}
     args1 = (eq, p, ca, U, prec)
     (lam_k, alpha_k), (lam, alpha) = run(n1, *args1)
-    half_live = live[: K // 2]
+    e_live = live[: lam.shape[0]]
     errs[n1] = max(
-        err(f"{n1} {'e' if stream else 'lambda'}", lam_k, lam, half_live, "rel"),
+        err(f"{n1} {'e' if stream else 'lambda'}", lam_k, lam, e_live, "rel"),
         err(f"{n1} alpha", alpha_k, alpha, real, "rel"),
     )
-    lam = hm._lambda_fixup(lam, U, prescaled=stream)
-    d = d_from_lambda(st, lam, None if stream else ca.g_cmax.reshape(K, -1))
+    if stream and not half:
+        d = d_from_e(st.mask, lam, st.transpose_edge(lam))
+    else:
+        lam = hm._lambda_fixup(lam, U, prescaled=stream)
+        d = d_from_lambda(st, lam, None if stream else ca.g_cmax.reshape(K, -1))
     cap = torch.full((), float("inf"), dtype=dt, device=U.device)
     tau = tau_max_from_d(st, d, 0.9, cap)
 
@@ -293,11 +349,13 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None):
     # it writes, for its bound.  Of g_node = (m_i, 1/m_i, n_nbrs,
     # node_mask, value_mask) PK1 reads m_i and node_mask, PK2 m_i and
     # 1/m_i, PK3 the first four; of prec = (s, eta) PK1 reads eta, PK2 s.
-    # The stream forms read cmax only in PK1 and only on the half slots.
+    # The stream forms read cmax only in PK1, only on the half slots and
+    # only on the half-slot route.
     node = ca.g_node
     traffic = {
         n1: ([ca.g_cij, node[[0, 3]], U, prec[1:]]
-             + ([ca.g_cmax[: K // 2]] if stream else []), [lam_k, alpha_k]),
+             + ([ca.g_cmax[: K // 2]] if stream and half else []),
+             [lam_k, alpha_k]),
         n2: ([ca.g_cij, ca.g_cii, node[:2], U, prec[:1], lam, alpha, stage_U,
               tau] + ([] if stream else [ca.g_cmax]), [Ul_k, F_k, b_k]),
         n3: ([ca.g_cij, ca.g_mij, node[:4], U, lam, alpha, F, U_low, bounds,
@@ -312,15 +370,38 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None):
         plain = time_ms(lambda: fr(*a), max(reps // 4, 2))
         base = name.split("[")[0]
         least, by, stored = bound_ms(
-            base, *traffic[name], ca.g_mask, live_edges,
+            base, dim, half, *traffic[name], ca.g_mask, live_edges,
             len(weights) if base[:3] in ("pk2", "pk3") else 0, dt)
         records[name] = {"max_abs_err": errs[name], "ms": ms,
                          "plain_ms": plain, "bound_ms": least, "bound_by": by,
-                         "bound_ms_mask_as_stored": stored}
+                         "bound_ms_mask_as_stored": stored,
+                         "source": f"ryujin_tpu_torch/csrc/{base}.cu",
+                         "replaces": TPU_SOURCE[(dim, base)]}
         print(f"  {name:12s} kernel {ms:.4f} ms   plain {plain:.4f} ms   "
               f"bound {least:.4f} ms ({by}; {stored:.4f} ms with the mask "
               f"as stored)   {100 * least / ms:.1f} % of bound", flush=True)
     return ok
+
+
+def bumped(sd, U0, blast=False):
+    """U0 times a smooth density and energy bump around (1, 0.5[, 0.5]),
+    or, with `blast`, with an 8:1 density and 1000:1 energy contrast in a
+    ball of radius 0.2 there."""
+    pos = torch.as_tensor(sd.positions.T, dtype=U0.dtype, device=U0.device)
+    centre = torch.tensor([1.0, 0.5, 0.5][: pos.shape[0]], dtype=U0.dtype,
+                          device=U0.device)[:, None]
+    dist2 = torch.sum((pos - centre) ** 2, 0)
+    U0 = U0.clone()
+    if blast:
+        disc = dist2 < 0.2 ** 2
+        disc &= torch.as_tensor(sd.node_mask > 0, device=U0.device)
+        U0[0, disc] *= 8.0
+        U0[-1, disc] *= 1000.0
+    else:
+        bump = 1.0 + 0.25 * torch.exp(-8.0 * dist2)
+        U0[0] *= bump
+        U0[-1] *= bump
+    return U0
 
 
 def card_vs_plain_f64(ti_kernels, ti_plain, sd, U0, plain_device, steps=3,
@@ -333,18 +414,7 @@ def card_vs_plain_f64(ti_kernels, ti_plain, sd, U0, plain_device, steps=3,
     agree to 1e-10 and the restart and warning counts are equal; with
     `blast` also only if a step was redone.  `counted` = (wrappers, want)
     also holds the launch counts to want x 3 x (steps + restarts)."""
-    pos = torch.as_tensor(sd.positions.T, dtype=torch.float64)
-    centre = torch.tensor([[1.0], [0.5]], dtype=torch.float64)
-    dist2 = torch.sum((pos - centre) ** 2, 0)
-    U0 = U0.cpu().clone()
-    if blast:
-        disc = (dist2 < 0.2 ** 2) & torch.as_tensor(sd.node_mask > 0)
-        U0[0, disc] *= 8.0
-        U0[3, disc] *= 1000.0
-    else:
-        bump = 1.0 + 0.25 * torch.exp(-8.0 * dist2)
-        U0[0] *= bump
-        U0[3] *= bump
+    U0 = bumped(sd, U0.cpu(), blast)
     if counted:
         for fn in counted[0].values():
             fn.launches = 0
@@ -431,7 +501,9 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); nothing to check", flush=True)
         sys.exit(1)
-    from ryujin_tpu_torch.bench import build_q2step2d, build_step2d
+    from ryujin_tpu_torch.bench import (
+        build_box3d, build_q2step2d, build_step2d,
+    )
     from ryujin_tpu_torch.kernels import (
         build, pk1, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
     )
@@ -573,13 +645,104 @@ def main():
         records_q2[name]["launches"] = launches[name]
     records_q2["pk_up[K=24]"]["launches"] = launches["pk_up"]
     records.update(records_q2)
+    del hm, ti, U_a, U_b, U0
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: box3d kernels against their references ---------------------
+    # The box3d flow is uniform and stays so (a steady state of its
+    # boundary conditions), which leaves the limiter idle; the kernels are
+    # compared on a state developed from a blast in the box instead.
+    print(f"phase 6: box3d, refinement {BOX_REFINEMENT}, f32, "
+          f"{BOX_DEVELOP_STEPS} ERK33 steps through the kernels from a blast "
+          "contrast", flush=True)
+    t0 = time.perf_counter()
+    eq, sd, hm, ti, U0 = build_box3d(BOX_REFINEMENT, torch.float32, dev)
+    print(f"  setup {time.perf_counter() - t0:.1f} s: canvas {sd.shape}, "
+          f"{sd.n_nodes} real nodes, K = {sd.max_degree}, route "
+          f"{'half-slot' if hm.half else 'two-direction'}", flush=True)
+    if hm.half or not hm.canvas.stream:
+        fail("box3d did not choose the stream kernels on the two-direction "
+             "route")
+    U_a, _, t_a, _, restarts, warns = ti.advance(bumped(sd, U0, blast=True),
+                                                 0.0, BOX_DEVELOP_STEPS)
+    U_b, _, _, _, _, _ = ti.advance(U_a, t_a, 1)
+    torch.cuda.synchronize()
+    real = torch.as_tensor(sd.node_mask > 0, device=dev)
+    print(f"  t = {t_a.item():.4e}, restarts {int(restarts)}, warnings "
+          f"{int(warns)}", flush=True)
+    if not bool(eq.is_admissible(U_a[:, real]).all()):
+        fail("box3d: the developed state is not admissible")
+    records_3d = {}
+    ok = compare_kernels(hm, U_a, U_b, TOL_F32, REPS, records_3d,
+                         tag="[3D two-direction]")
+    del U_a, U_b
+    torch.cuda.empty_cache()
+
+    print(f"phase 6b: both 3D routes on small boxes (refinement 1), f32 and "
+          f"f64, after {SMALL_BOX_STEPS} ERK33 steps through the kernels from "
+          "a bumped inflow", flush=True)
+    small = {}
+    for subdiv, half in SMALL_BOXES:
+        route = "half-slot" if half else "two-direction"
+        for dt, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+            _, sd_s, hm_s, ti_s, U0_s = build_box3d(1, dt, dev, subdiv=subdiv)
+            print(f"  box {subdiv}: canvas {sd_s.shape}, {sd_s.n_nodes} real "
+                  f"nodes, route {route}, {dt}", flush=True)
+            if hm_s.half != half:
+                fail(f"box {subdiv} did not choose the {route} route")
+            Ua_s, _, t_s, _, _, _ = ti_s.advance(bumped(sd_s, U0_s), 0.0,
+                                                 SMALL_BOX_STEPS)
+            Ub_s = ti_s.advance(Ua_s, t_s, 1)[0]
+            # the half-slot instances of PK1-PK3 are timed here; pk_up
+            # (one instance for both routes) keeps its box3d record
+            timed = {} if half and dt == torch.float32 else None
+            ok &= compare_kernels(hm_s, Ua_s, Ub_s, tol, REPS, timed,
+                                  tag=f"[3D {route}]")
+            if timed:
+                records_3d.update(
+                    (k, v) for k, v in timed.items() if "half-slot" in k
+                )
+            if dt == torch.float64:
+                small[subdiv] = (sd_s, hm_s, U0_s)
+
+    print("phase 6c: 3 ERK33 steps with bang-bang recovery, kernels vs the "
+          "plain path on the card, both small boxes, f64", flush=True)
+    for subdiv, half in SMALL_BOXES:
+        sd_s, hm_s, U0_s = small[subdiv]
+        print(f"  box {subdiv}, route "
+              f"{'half-slot' if half else 'two-direction'}", flush=True)
+        ti_k = TimeIntegrator(hm_s, "erk 33", cfl_min=0.45, cfl_max=0.9,
+                              cfl_recovery_strategy="bang bang control")
+        ok &= card_vs_plain_f64(
+            ti_k, plain_integrator(hm_s, "bang bang control"), sd_s, U0_s,
+            dev, counted=(streamed, want),
+        )
+        if half:
+            for name in ("pk1_stream", "pk2_stream", "pk3_stream"):
+                records_3d[name + "[3D half-slot]"]["launches"] = (
+                    streamed[name].launches
+                )
+    del small
+    if not ok:
+        fail("a 3D kernel disagrees with its plain-torch reference")
+
+    # ---- phase 7: the box3d slice ----------------------------------------------
+    launches = run_slice(
+        "phase 7, box3d", eq, sd, ti,
+        plain_integrator(hm, "bang bang control"), U0, BOX_WARMUP, BOX_STEPS,
+        BOX_PLAIN_TIMED_STEPS, streamed, want, card, allow_restarts=True,
+    )
+    for name in ("pk1_stream", "pk2_stream", "pk3_stream"):
+        records_3d[name + "[3D two-direction]"]["launches"] = launches[name]
+    records_3d["pk_up[K=26]"]["launches"] = launches["pk_up"]
+    records.update(records_3d)
 
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
-            "source": f"ryujin_tpu_torch/csrc/{name.split('[')[0]}.cu",
-            "replaces": TPU_SOURCE[name.split("[")[0]],
+            "source": rec["source"],
+            "replaces": rec["replaces"],
             "launches": rec["launches"],
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"],

@@ -1,16 +1,23 @@
-"""Throughput of the port on the 2D Euler Mach-3 forward-facing step.
+"""Throughput of the port on the Euler Mach-3 flows of bench.py.
 
     python -m ryujin_tpu_torch.bench
     BENCH_CASE=q2step2d python -m ryujin_tpu_torch.bench
+    BENCH_CASE=box3d python -m ryujin_tpu_torch.bench
 
-Runs two of bench.py's cases on a CUDA device, in f32 with ERK33 through
-the CUDA kernels:
+Runs three of bench.py's cases on a CUDA device, in f32 with ERK33
+through the CUDA kernels:
 
   step2d    (default) cG Q1, refinement 3, CFL 0.9, cfl_recovery_strategy
             "none", 1500-step warmup; metric euler2d_mach3_step_throughput
   q2step2d  cG Q2 (reach-2 canvas, K = 24, the slot-streaming kernels),
             refinement 2, CFL 0.9 / 0.45 with "bang bang control",
             1000-step warmup; metric euler2d_mach3_step_cgq2
+  box3d     3D, cG Q1 on the box [0, 3] x [0, 1] x [0, 1] (31 x 16 x 16
+            cells, refinement 2; inflow dirichlet, outflow do_nothing, slip
+            walls), a (D, H, W) canvas with K = 26 and the slot-streaming
+            kernels on the two-direction Riemann route, CFL 0.9 / 0.45
+            with "bang bang control", 1000-step warmup; metric
+            euler3d_mach3_box_throughput
 
 Prints one JSON line {"metric", "value", "unit", "vs_baseline"} (+ "reps"
 with BENCH_REPS > 1), where value is MQ/s = real nodes x substeps / wall
@@ -30,6 +37,7 @@ import time
 import torch
 
 from .offline import assembly, geometry, structured
+from .offline.mesh import Boundary
 
 from .equations.euler import Euler
 from .equations.euler_initial_states import make_initial_state
@@ -66,10 +74,38 @@ def build_q2step2d(refinement: int, dtype, device, ansatz: str = "cG Q2"):
     return _build_step(refinement, dtype, device, ansatz, "bang bang control")
 
 
+def build_box3d(refinement: int, dtype, device, subdiv=(31, 16, 16)):
+    """(eq, sd, hm, ti, U0) of the box3d case (bench.py:60-82): 3D Euler,
+    uniform Mach-3 inflow on [0, 3] x [0, 1] x [0, 1] with `subdiv` cells
+    before `refinement`, cG Q1 packed with z and y margins of 2, bang-bang
+    recovery.  (The JAX bench packs with the TPU kernels' margin gate,
+    which is not carried over.)"""
+    eq = Euler(dim=3)
+    mesh = geometry.rectangular_domain(
+        [0.0, 0.0, 0.0], [3.0, 1.0, 1.0], list(subdiv),
+        refinement=refinement,
+        boundary_conditions=[
+            Boundary.dirichlet, Boundary.do_nothing,
+            Boundary.slip, Boundary.slip, Boundary.slip, Boundary.slip,
+        ],
+        dim=3,
+    )
+    sd = structured.pack_structured(
+        assembly.assemble(mesh), mesh, margin=(2, 2)
+    )
+    init = make_initial_state(eq, "uniform", primitive_state=(1.4, 3.0, 1.0))
+    hm = HyperbolicModule(eq, sd, init, dtype=dtype, device=device)
+    ti = TimeIntegrator(hm, "erk 33", cfl_min=0.45, cfl_max=0.9,
+                        cfl_recovery_strategy="bang bang control")
+    U0 = interpolate_nodal(init, sd, eq, 0.0, dtype, device)
+    return eq, sd, hm, ti, U0
+
+
 # case -> (build_case, default refinement, default warmup steps, metric)
 CASES = {
     "step2d": (build_step2d, 3, 1500, "euler2d_mach3_step_throughput"),
     "q2step2d": (build_q2step2d, 2, 1000, "euler2d_mach3_step_cgq2"),
+    "box3d": (build_box3d, 2, 1000, "euler3d_mach3_box_throughput"),
 }
 
 

@@ -1,41 +1,50 @@
-// PK1, slot-streaming form: pre-scaled half-slot wavespeeds e = lambda *
-// cmax and the EVC indicator alpha, for a canvas of any lattice reach.
+// PK1, slot-streaming form: the wavespeeds e and the EVC indicator alpha,
+// for a canvas of any lattice reach, in 2D or 3D.
 //
-// Replaces: PallasStepper._pk1_stream with prescale
-// (ryujin_tpu/solver/pallas_step.py:1904-2018), which walks the lattice
-// offsets one at a time with running indicator sums.
+// Replaces: PallasStepper._pk1_stream (ryujin_tpu/solver/pallas_step.py:
+// 1904-2018), which walks the lattice offsets one at a time with running
+// indicator sums: the 2D stream path with prescale, and the 3D z-slab
+// path (_step_slab, :2164-2175) with prescale = sym.
 //
-// Bound on an H100: memory traffic.  At K = 24 it reads c_ij (48 planes),
-// the mask (24), cmax (12), the node plane, U (4) and prec (2), and writes
-// e (12) and alpha (1); the 12 Riemann solves and 24 flux tensors per cell
-// are small next to ~100 plane reads.  The neighbour reads of U and prec
-// span rows y-2 .. y+2 and hit L1/L2.
+// Two routes, a template argument each (HALF), as `sym` picks them in
+// _step_slab (:2092-2098):
+// - half-slot (HALF): e = lambda * cmax on the slots k < K/2 only.
+//   cmax_k(i) == cmax_{K-1-k}(j), so the transposed read of e in PK2/PK3
+//   is the graph viscosity d itself and neither reads cmax.
+// - two-direction (!HALF): e = |c_ij| lambda_max(U_i, U_j, n_ij) on all K
+//   slots; PK2/PK3 read d = max(e_k, e_T).  cmax is not read.  The
+//   hyperbolic module takes this route when the coupling-boundary-pair set
+//   is too large for the half-slot fixup (a 3D box's whole surface).
 //
-// Design: one thread per canvas cell, 128 threads along x.  K and the
-// offsets come with the launch; the loop over k is not unrolled and the
-// thread holds only the running sums (left, right[4]), so nothing of size
-// K lives in registers.  e = lambda * cmax is written on the slots
-// k < K/2: cmax_k(i) == cmax_{K-1-k}(j), so the transposed read of e in
-// PK2/PK3 is the graph viscosity d itself and neither reads cmax.  Masked
-// slots write e = 0 and add nothing; alpha is 0 where the node is not
-// real.  The exact edge mask is read, not the TPU kernel's derived one.
-// The sums run over k = 0 .. K-1 in order, as pk1_stream_reference does.
+// Bound on an H100: memory traffic.  At K = 26 in 3D it reads c_ij (78
+// planes), the mask (26), the node planes, U (5) and prec, and writes e
+// (13 or 26) and alpha (1).  The neighbour reads of U and prec span the
+// planes z-1 .. z+1 and hit L1/L2.
+//
+// Design: one thread per canvas cell, 128 threads along x, the grid over
+// (x-blocks, H, D).  K and the offsets come with the launch; the loop over
+// k is not unrolled and the thread holds only the running sums (left,
+// right[C]), so nothing of size K lives in registers.  Masked slots
+// write e = 0 and add nothing; alpha is 0 where the node is not real.
+// The exact edge mask is read, not the TPU kernel's derived one.  The
+// sums run over k = 0 .. K-1 in order, as pk1_stream_reference does.
 #include "euler.cuh"
 
 namespace ryujin {
 
-template <typename T>
+template <typename T, int DIM, bool HALF>
 __global__ void __launch_bounds__(128)
 pk1_stream_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
                   const T* __restrict__ mask, const T* __restrict__ node,
                   const T* __restrict__ U, const T* __restrict__ prec, T* __restrict__ e_out,
                   T* __restrict__ alpha, const __grid_constant__ EqConsts<T> e) {
+  constexpr int NC = DIM + 2;
   Cell c;
-  if (!this_cell(e.H, e.W, c)) return;
+  if (!this_cell<DIM>(e, c)) return;
   const int64_t i = c.i, n = c.n;
-  const int K = e.K, K2 = K / 2;
+  const int K = e.K, K_e = HALF ? K / 2 : K;
 
-  T ui[C];
+  T ui[NC];
   load_state(U, i, n, ui);
   T pa_i[5];
   riemann_precompute(e, ui, pa_i);
@@ -43,46 +52,58 @@ pk1_stream_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
   // indicator_init
   const T eta_i = prec[n + i];
   const T rho_i_inv = T(1) / ui[0];
-  T d_eta[C];
+  T d_eta[NC];
   {
-    const T rho_rho_e = ui[0] * ui[3] - T(0.5) * (ui[1] * ui[1] + ui[2] * ui[2]);
+    const T rho_rho_e = ui[0] * ui[NC - 1] - T(0.5) * mdot(ui, ui);
     const T factor = e.inv_gp1 * pow(rho_rho_e, e.harten_deriv_exp);
-    d_eta[0] = factor * ui[3] - eta_i * rho_i_inv;
-    d_eta[1] = -factor * ui[1];
-    d_eta[2] = -factor * ui[2];
-    d_eta[3] = factor * ui[0];
+    d_eta[0] = factor * ui[NC - 1] - eta_i * rho_i_inv;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) d_eta[1 + d] = -factor * ui[1 + d];
+    d_eta[NC - 1] = factor * ui[0];
   }
-  T fi[C][2];
+  T fi[NC][DIM];
   flux(e, ui, fi);
-  T left = T(0), right[C] = {T(0), T(0), T(0), T(0)};
+  T left = T(0), right[NC];
+#pragma unroll
+  for (int q = 0; q < NC; ++q) right[q] = T(0);
 
 #pragma unroll 1
   for (int k = 0; k < K; ++k) {
     T e_k = T(0);
     if (mask[k * n + i] > T(0)) {
-      const int64_t j = nbr_at(c, e.dy[k], e.dx[k], e.H, e.W);
-      T uj[C];
+      const int64_t j = nbr_k<DIM>(c, e, k);
+      T uj[NC];
       load_state(U, j, n, uj);
-      const T c0 = cij[k * n + i], c1 = cij[(K + k) * n + i];
+      T cv[DIM];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) cv[d] = cij[(d * K + k) * n + i];
 
-      if (k < K2) {
-        const T norm = sqrt(c0 * c0 + c1 * c1);
+      if (k < K_e) {
+        const T norm = sqrt(vdot(cv, cv));
         const T nn = mx(norm, e.tiny);
+        T nv[DIM];
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) nv[d] = cv[d] / nn;
         T pa_j[5];
         riemann_precompute(e, uj, pa_j);
-        e_k = lambda_max(e, ui, pa_i, uj, pa_j, c0 / nn, c1 / nn) * cmax[k * n + i];
+        const T lam = lambda_max(e, ui, pa_i, uj, pa_j, nv);
+        e_k = HALF ? lam * cmax[k * n + i] : norm * lam;
       }
 
       // indicator_accum
       const T eta_j = prec[n + j];
-      left += (eta_j / uj[0] - eta_i * rho_i_inv) * (uj[1] * c0 + uj[2] * c1);
-      T fj[C][2];
+      left += (eta_j / uj[0] - eta_i * rho_i_inv) * mproj(uj, cv);
+      T fj[NC][DIM];
       flux(e, uj, fj);
 #pragma unroll
-      for (int q = 0; q < C; ++q)
-        right[q] += (fj[q][0] - fi[q][0]) * c0 + (fj[q][1] - fi[q][1]) * c1;
+      for (int q = 0; q < NC; ++q) {
+        T r = (fj[q][0] - fi[q][0]) * cv[0];
+#pragma unroll
+        for (int d = 1; d < DIM; ++d) r = r + (fj[q][d] - fi[q][d]) * cv[d];
+        right[q] += r;
+      }
     }
-    if (k < K2) e_out[k * n + i] = e_k;
+    if (k < K_e) e_out[k * n + i] = e_k;
   }
 
   // indicator_finalize
@@ -90,7 +111,7 @@ pk1_stream_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
   if (node[3 * n + i] > T(0)) {
     T dot = T(0), dot_abs = T(0);
 #pragma unroll
-    for (int q = 0; q < C; ++q) {
+    for (int q = 0; q < NC; ++q) {
       dot += d_eta[q] * right[q];
       dot_abs += fabs(d_eta[q] * right[q]);
     }
@@ -107,8 +128,18 @@ int launch_pk1_stream(const T* cij, const T* cmax, const T* mask, const T* node,
                       cudaStream_t stream) {
   if (consts->K < 2 || consts->K > MAX_K || consts->K % 2) return int(cudaErrorInvalidValue);
   const EqConsts<T> e = EqConsts<T>::make(*consts);
-  pk1_stream_kernel<T><<<canvas_grid(e.H, e.W), canvas_block(), 0, stream>>>(
-      cij, cmax, mask, node, U, prec, e_out, alpha, e);
+  const dim3 grid = canvas_grid(e.D, e.H, e.W), block = canvas_block();
+  if (consts->dim == 2 && consts->half)
+    pk1_stream_kernel<T, 2, true><<<grid, block, 0, stream>>>(cij, cmax, mask, node, U, prec,
+                                                              e_out, alpha, e);
+  else if (consts->dim == 3 && consts->half)
+    pk1_stream_kernel<T, 3, true><<<grid, block, 0, stream>>>(cij, cmax, mask, node, U, prec,
+                                                              e_out, alpha, e);
+  else if (consts->dim == 3)
+    pk1_stream_kernel<T, 3, false><<<grid, block, 0, stream>>>(cij, cmax, mask, node, U, prec,
+                                                               e_out, alpha, e);
+  else
+    return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
 }
 

@@ -1,31 +1,38 @@
 // PK2, slot-streaming form: low-order update U_low, high-order right-hand
 // side F and the limiter bounds [rho_min, rho_max, s_min], for a canvas of
-// any lattice reach, from the pre-scaled half-slot wavespeeds e of PK1.
+// any lattice reach, in 2D or 3D, from the wavespeeds e of PK1.
 //
 // Replaces: the Pallas kernel `pk2_stream` of PallasStepper.step with
-// prescale (ryujin_tpu/solver/pallas_step.py:2879-2980), which folds one
-// lattice offset at a time into running sums and running bounds.
+// prescale (ryujin_tpu/solver/pallas_step.py:2879-2980) in 2D, and `pk2`
+// of PallasStepper._step_slab (:2317-2384) in 3D; both fold one lattice
+// offset at a time into running sums and running bounds.
 //
-// Bound on an H100: memory traffic.  At K = 24: c_ij (48 planes), mask
-// (24), c_ii (2), node, U (4), prec (2), e (12), alpha and up to two stage
-// states (4 each), with the neighbour reads of U, prec, e, alpha and the
-// stages; writes U_low (4), F (4) and bounds (3).  cmax is not read: the
-// graph viscosity of slot k is e_k at the cell for k < K/2 and plane
-// K-1-k of neighbour k otherwise.
+// Bound on an H100: memory traffic.  At K = 26 in 3D: c_ij (78 planes),
+// mask (26), c_ii (3), node, U (5), prec, e (13 or 26), alpha and up to
+// two stage states (5 each), with the neighbour reads of U, prec, e,
+// alpha and the stages; writes U_low (5), F (5) and bounds (3).  cmax is
+// not read.
 //
-// Design: one thread per canvas cell, 128 threads along x; K and the
-// offsets come with the launch and the loop over k is not unrolled.  The
-// thread carries only running accumulators: the low-order and F sums
-// (2 x 4) and the six bound accumulators of limiter_bounds_accum, seeded
-// with the diagonal terms.  Masked slots are skipped, which equals the
-// reference's multiplication by a zero mask on finite data.  tau is read
-// from device memory (no host sync).  Every sum runs over k = 0 .. K-1 in
-// order and adds the diagonal last, as pk2_stream_reference does.
+// The graph viscosity of slot k (_slot_d, :2056-2070), by route (HALF):
+// half-slot, e_k at the cell for k < K/2 and plane K-1-k of neighbour k
+// otherwise; two-direction, max(e_k at the cell, plane K-1-k of
+// neighbour k).
+//
+// Design: one thread per canvas cell, 128 threads along x, the grid over
+// (x-blocks, H, D); K and the offsets come with the launch and the loop
+// over k is not unrolled.  The thread carries only running accumulators:
+// the low-order and F sums (2 x C) and the six bound accumulators of
+// limiter_bounds_accum, seeded with the diagonal terms.  Masked slots are
+// skipped, which equals the reference's multiplication by a zero mask on
+// finite data.  tau is read from device memory (no host sync).  Every sum
+// runs over k = 0 .. K-1 in order and adds the diagonal last, as
+// pk2_stream_reference does.  The bounds relax by r_i = (h^d_i)^(3/4) in
+// 2D and (h^d_i)^(1/2) in 3D (euler/limiter.h:330-363).
 #include "euler.cuh"
 
 namespace ryujin {
 
-template <typename T>
+template <typename T, int DIM, bool HALF>
 __global__ void __launch_bounds__(128)
 pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
                   const T* __restrict__ cii, const T* __restrict__ node,
@@ -33,32 +40,36 @@ pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
                   const T* __restrict__ alpha, const T* __restrict__ sU,
                   const T* __restrict__ tau_ptr, T* __restrict__ U_low, T* __restrict__ F_out,
                   T* __restrict__ bounds, const __grid_constant__ EqConsts<T> e) {
+  constexpr int NC = DIM + 2;
   Cell c;
-  if (!this_cell(e.H, e.W, c)) return;
+  if (!this_cell<DIM>(e, c)) return;
   const int64_t i = c.i, n = c.n;
   const int K = e.K, K2 = K / 2;
   const int S = e.n_stages;
   const T w_s[2] = {e.w0, e.w1};
 
-  T ui[C];
+  T ui[NC];
   load_state(U, i, n, ui);
   const T s_i = prec[i];
   const T alpha_i = alpha[i];
   const T tau = *tau_ptr;
 
-  T fi[C][2];
+  T fi[NC][DIM];
   flux(e, ui, fi);
-  const T cii0 = cii[i], cii1 = cii[n + i];
+  T cvi[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) cvi[d] = cii[d * n + i];
 
-  T fs_i[2][C][2];
+  T fs_i[2][NC][DIM];
   for (int s = 0; s < S; ++s) {
-    T us[C];
-    load_state(sU + s * C * n, i, n, us);
+    T us[NC];
+    load_state(sU + s * NC * n, i, n, us);
     flux(e, us, fs_i[s]);
   }
 
-  T low_acc[C] = {T(0), T(0), T(0), T(0)};
-  T F_acc[C] = {T(0), T(0), T(0), T(0)};
+  T low_acc[NC], F_acc[NC];
+#pragma unroll
+  for (int q = 0; q < NC; ++q) low_acc[q] = F_acc[q] = T(0);
   // limiter_bounds_init: the diagonal (j = i) contributions
   T rho_min = ui[0], rho_max = ui[0], s_min = s_i, s_interp_max = s_i;
   T relax_num = T(2) * ui[0], k_count = T(0);
@@ -67,39 +78,44 @@ pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
   for (int k = 0; k < K; ++k) {
     const T mk = mask[k * n + i];
     if (!(mk > T(0))) continue;
-    const int64_t j = nbr_at(c, e.dy[k], e.dx[k], e.H, e.W);
-    const T d = k < K2 ? ed[k * n + i] : ed[(K - 1 - k) * n + j];
-    const T c0 = cij[k * n + i], c1 = cij[(K + k) * n + i];
-    T uj[C];
+    const int64_t j = nbr_k<DIM>(c, e, k);
+    const T d = HALF ? (k < K2 ? ed[k * n + i] : ed[(K - 1 - k) * n + j])
+                     : mx(ed[k * n + i], ed[(K - 1 - k) * n + j]);
+    T cv[DIM];
+#pragma unroll
+    for (int dd = 0; dd < DIM; ++dd) cv[dd] = cij[(dd * K + k) * n + i];
+    T uj[NC];
     load_state(U, j, n, uj);
-    T fj[C][2];
+    T fj[NC][DIM];
     flux(e, uj, fj);
     const T d_H = d * (T(0.5) * (alpha_i + alpha[j]));
 #pragma unroll
-    for (int q = 0; q < C; ++q) {
-      const T flux_ij = flux_div(fi, fj, q, c0, c1);
+    for (int q = 0; q < NC; ++q) {
+      const T flux_ij = flux_div(fi, fj, q, cv);
       const T dU = uj[q] - ui[q];
       low_acc[q] += flux_ij + d * dU;
       F_acc[q] += d_H * dU + e.weight * flux_ij;
     }
     for (int s = 0; s < S; ++s) {
-      T usj[C], fsj[C][2];
-      load_state(sU + s * C * n, j, n, usj);
+      T usj[NC], fsj[NC][DIM];
+      load_state(sU + s * NC * n, j, n, usj);
       flux(e, usj, fsj);
 #pragma unroll
-      for (int q = 0; q < C; ++q) F_acc[q] += w_s[s] * flux_div(fs_i[s], fsj, q, c0, c1);
+      for (int q = 0; q < NC; ++q) F_acc[q] += w_s[s] * flux_div(fs_i[s], fsj, q, cv);
     }
 
     // limiter_bounds_accum (euler/limiter.h:255-363)
     const T dr = mx(d, e.reg);
-    const T sc0 = c0 / dr, sc1 = c1 / dr;
-    const T rho_bar = T(0.5) * (ui[0] + uj[0] + ((ui[1] - uj[1]) * sc0 + (ui[2] - uj[2]) * sc1));
+    T rho_bar = (ui[1] - uj[1]) * (cv[0] / dr);
+#pragma unroll
+    for (int dd = 1; dd < DIM; ++dd) rho_bar = rho_bar + (ui[1 + dd] - uj[1 + dd]) * (cv[dd] / dr);
+    rho_bar = T(0.5) * (ui[0] + uj[0] + rho_bar);
     rho_min = mn(rho_min, rho_bar);
     rho_max = mx(rho_max, rho_bar);
     s_min = mn(s_min, prec[j]);
-    T u_half[C];
+    T u_half[NC];
 #pragma unroll
-    for (int q = 0; q < C; ++q) u_half[q] = T(0.5) * (ui[q] + uj[q]);
+    for (int q = 0; q < NC; ++q) u_half[q] = T(0.5) * (ui[q] + uj[q]);
     s_interp_max = mx(s_interp_max, specific_entropy(e, u_half));
     relax_num += (ui[0] + uj[0]) * mk;
     k_count += mk;
@@ -107,18 +123,23 @@ pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
 
   const T m_inv = node[n + i];
 #pragma unroll
-  for (int q = 0; q < C; ++q) {
-    const T flux_ii = flux_div(fi, fi, q, cii0, cii1);
+  for (int q = 0; q < NC; ++q) {
+    const T flux_ii = flux_div(fi, fi, q, cvi);
     U_low[q * n + i] = ui[q] + (tau * m_inv) * (low_acc[q] + flux_ii);
     T F = F_acc[q] + e.weight * flux_ii;
-    for (int s = 0; s < S; ++s) F = F + w_s[s] * flux_div(fs_i[s], fs_i[s], q, cii0, cii1);
+    for (int s = 0; s < S; ++s) F = F + w_s[s] * flux_div(fs_i[s], fs_i[s], q, cvi);
     F_out[q * n + i] = F;
   }
 
   // limiter_bounds_finalize (limiter.h:330-363)
   const T hd_i = node[i] * e.measure_inv;
-  const T sq = sqrt(sqrt(hd_i));
-  const T r_i = sq * sq * sq * e.relax_factor;
+  T r_i;
+  if constexpr (DIM == 2) {
+    const T sq = sqrt(sqrt(hd_i));
+    r_i = sq * sq * sq * e.relax_factor;
+  } else {
+    r_i = sqrt(hd_i) * e.relax_factor;
+  }
   const T rho_relaxation = fabs(relax_num) / (fabs(k_count + T(1)) + e.eps);
   const T relaxation = e.two_relax_factor * rho_relaxation;
   rho_min = mx((T(1) - r_i) * rho_min, rho_min - relaxation);
@@ -136,8 +157,18 @@ int launch_pk2_stream(const T* cij, const T* mask, const T* cii, const T* node, 
                       T* U_low, T* F, T* bounds, const Consts* consts, cudaStream_t stream) {
   if (consts->K < 2 || consts->K > MAX_K || consts->K % 2) return int(cudaErrorInvalidValue);
   const EqConsts<T> e = EqConsts<T>::make(*consts);
-  pk2_stream_kernel<T><<<canvas_grid(e.H, e.W), canvas_block(), 0, stream>>>(
-      cij, mask, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
+  const dim3 grid = canvas_grid(e.D, e.H, e.W), block = canvas_block();
+  if (consts->dim == 2 && consts->half)
+    pk2_stream_kernel<T, 2, true><<<grid, block, 0, stream>>>(
+        cij, mask, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
+  else if (consts->dim == 3 && consts->half)
+    pk2_stream_kernel<T, 3, true><<<grid, block, 0, stream>>>(
+        cij, mask, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
+  else if (consts->dim == 3)
+    pk2_stream_kernel<T, 3, false><<<grid, block, 0, stream>>>(
+        cij, mask, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
+  else
+    return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
 }
 

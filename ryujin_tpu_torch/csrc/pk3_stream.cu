@@ -1,32 +1,33 @@
 // PK3, slot-streaming form: antidiffusive fluxes P_ij with the
 // mass-matrix correction, the first limiter pass l_ij and the per-node
-// success flag okp, for a canvas of any lattice reach.
+// success flag okp, for a canvas of any lattice reach, in 2D or 3D.
 //
 // Replaces: the Pallas kernel `pk3_stream` of PallasStepper.step with
-// prescale (ryujin_tpu/solver/pallas_step.py:3093-3214), which computes
-// one lattice offset at a time and stores P_k and l_k as it goes.
+// prescale (ryujin_tpu/solver/pallas_step.py:3093-3214) in 2D, and `pk3`
+// of PallasStepper._step_slab (:2409-2502) in 3D; both compute one
+// lattice offset at a time and store P_k and l_k as they go.
 //
-// Bound on an H100: memory traffic, dominated by the C * K = 96 planes of
-// P it writes at K = 24 (the largest array of the substep) and l (24),
-// plus c_ij (48), m_ij (24), the mask (24) and the neighbour reads of U,
-// e, alpha, F, the lumped mass and the stages.  The limiter's Newton
-// iterations (one pow per evaluation) add branchy compute on the shocked
-// cells only.
+// Bound on an H100: memory traffic, dominated by the C * K planes of P it
+// writes (96 at K = 24 in 2D, 130 at K = 26 in 3D: the largest array of
+// the substep) and l (K), plus c_ij (dim * K), m_ij (K), the mask (K) and
+// the neighbour reads of U, e, alpha, F, the lumped mass and the stages.
+// The limiter's Newton iterations (one pow per evaluation) add branchy
+// compute on the shocked cells only.
 //
-// Design: one thread per canvas cell, 128 threads along x; K and the
-// offsets come with the launch and the loop over k is not unrolled.  The
-// thread keeps nothing per slot but `ok`: P_k and l_k go to device memory
-// as soon as they are computed.  The edge mask is folded into the stored
-// P, and masked slots write P = 0 and l = 0, so pk_up needs no guard on
-// its transposed read of l.  The limiter returns per lane where
-// psi(t_r) > 0 (exact, see limiter_limit).  The graph viscosity of slot k
-// is e_k at the cell for k < K/2 and plane K-1-k of neighbour k otherwise;
-// cmax is not read.
+// Design: one thread per canvas cell, 128 threads along x, the grid over
+// (x-blocks, H, D); K and the offsets come with the launch and the loop
+// over k is not unrolled.  The thread keeps nothing per slot but `ok`:
+// P_k and l_k go to device memory as soon as they are computed.  The edge
+// mask is folded into the stored P (as _step_slab does at :2498), and
+// masked slots write P = 0 and l = 0, so pk_up needs no guard on its
+// transposed read of l.  The limiter returns per lane where psi(t_r) > 0
+// (exact, see limiter_limit).  The graph viscosity of slot k is read by
+// route (HALF) as in pk2_stream.cu; cmax is not read.
 #include "euler.cuh"
 
 namespace ryujin {
 
-template <typename T>
+template <typename T, int DIM, bool HALF>
 __global__ void __launch_bounds__(128)
 pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
                   const T* __restrict__ mask, const T* __restrict__ node,
@@ -35,14 +36,15 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
                   const T* __restrict__ bounds, const T* __restrict__ sU,
                   const T* __restrict__ tau_ptr, T* __restrict__ P_out, T* __restrict__ l_out,
                   T* __restrict__ okp, const __grid_constant__ EqConsts<T> e) {
+  constexpr int NC = DIM + 2;
   Cell c;
-  if (!this_cell(e.H, e.W, c)) return;
+  if (!this_cell<DIM>(e, c)) return;
   const int64_t i = c.i, n = c.n;
   const int K = e.K, K2 = K / 2;
   const int S = e.n_stages;
   const T w_s[2] = {e.w0, e.w1};
 
-  T ui[C], fi_F[C], ul[C];
+  T ui[NC], fi_F[NC], ul[NC];
   load_state(U, i, n, ui);
   load_state(Fin, i, n, fi_F);
   load_state(U_low, i, n, ul);
@@ -53,12 +55,12 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
   const T pfac = tau * m_inv * node[2 * n + i];
   const bool real = node[3 * n + i] > T(0);
 
-  T fi[C][2];
+  T fi[NC][DIM];
   flux(e, ui, fi);
-  T fs_i[2][C][2];
+  T fs_i[2][NC][DIM];
   for (int s = 0; s < S; ++s) {
-    T us[C];
-    load_state(sU + s * C * n, i, n, us);
+    T us[NC];
+    load_state(sU + s * NC * n, i, n, us);
     flux(e, us, fs_i[s]);
   }
   T psi0[4];
@@ -70,34 +72,37 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
     const T mk = mask[k * n + i];
     if (!(mk > T(0))) {
 #pragma unroll
-      for (int q = 0; q < C; ++q) P_out[(q * K + k) * n + i] = T(0);
+      for (int q = 0; q < NC; ++q) P_out[(q * K + k) * n + i] = T(0);
       l_out[k * n + i] = T(0);
       continue;
     }
-    const int64_t j = nbr_at(c, e.dy[k], e.dx[k], e.H, e.W);
-    const T d = k < K2 ? ed[k * n + i] : ed[(K - 1 - k) * n + j];
+    const int64_t j = nbr_k<DIM>(c, e, k);
+    const T d = HALF ? (k < K2 ? ed[k * n + i] : ed[(K - 1 - k) * n + j])
+                     : mx(ed[k * n + i], ed[(K - 1 - k) * n + j]);
     const T d_H = d * (T(0.5) * (alpha_i + alpha[j]));
-    const T c0 = cij[k * n + i], c1 = cij[(K + k) * n + i];
-    T uj[C], fj[C][2];
+    T cv[DIM];
+#pragma unroll
+    for (int dd = 0; dd < DIM; ++dd) cv[dd] = cij[(dd * K + k) * n + i];
+    T uj[NC], fj[NC][DIM];
     load_state(U, j, n, uj);
     flux(e, uj, fj);
 
-    T P[C];
+    T P[NC];
 #pragma unroll
-    for (int q = 0; q < C; ++q)
-      P[q] = e.weight_m1 * flux_div(fi, fj, q, c0, c1) + (d_H - d) * (uj[q] - ui[q]);
+    for (int q = 0; q < NC; ++q)
+      P[q] = e.weight_m1 * flux_div(fi, fj, q, cv) + (d_H - d) * (uj[q] - ui[q]);
     for (int s = 0; s < S; ++s) {
-      T usj[C], fsj[C][2];
-      load_state(sU + s * C * n, j, n, usj);
+      T usj[NC], fsj[NC][DIM];
+      load_state(sU + s * NC * n, j, n, usj);
       flux(e, usj, fsj);
 #pragma unroll
-      for (int q = 0; q < C; ++q) P[q] = P[q] + w_s[s] * flux_div(fs_i[s], fsj, q, c0, c1);
+      for (int q = 0; q < NC; ++q) P[q] = P[q] + w_s[s] * flux_div(fs_i[s], fsj, q, cv);
     }
     const T m_ij = mij[k * n + i];
     const T b_ij = -m_ij / node[j];
     const T b_ji = -m_ij * m_inv;
 #pragma unroll
-    for (int q = 0; q < C; ++q) {
+    for (int q = 0; q < NC; ++q) {
       P[q] = (P[q] + b_ij * Fin[q * n + j] - b_ji * fi_F[q]) * pfac;
       P_out[(q * K + k) * n + i] = P[q];
     }
@@ -115,8 +120,18 @@ int launch_pk3_stream(const T* cij, const T* mij, const T* mask, const T* node, 
                       cudaStream_t stream) {
   if (consts->K < 2 || consts->K > MAX_K || consts->K % 2) return int(cudaErrorInvalidValue);
   const EqConsts<T> e = EqConsts<T>::make(*consts);
-  pk3_stream_kernel<T><<<canvas_grid(e.H, e.W), canvas_block(), 0, stream>>>(
-      cij, mij, mask, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+  const dim3 grid = canvas_grid(e.D, e.H, e.W), block = canvas_block();
+  if (consts->dim == 2 && consts->half)
+    pk3_stream_kernel<T, 2, true><<<grid, block, 0, stream>>>(
+        cij, mij, mask, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+  else if (consts->dim == 3 && consts->half)
+    pk3_stream_kernel<T, 3, true><<<grid, block, 0, stream>>>(
+        cij, mij, mask, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+  else if (consts->dim == 3)
+    pk3_stream_kernel<T, 3, false><<<grid, block, 0, stream>>>(
+        cij, mij, mask, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+  else
+    return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
 }
 

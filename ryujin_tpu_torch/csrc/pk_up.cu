@@ -4,67 +4,72 @@
 //
 // Replaces: the Pallas kernel `pk_up` of PallasStepper.step
 // (ryujin_tpu/solver/pallas_step.py:3265-3285), which runs
-// hyperbolic.phase_update per 8-row tile.
+// hyperbolic.phase_update per 8-row tile, and `pk_up` of
+// PallasStepper._step_slab (:2528-2563) on 3D z-slabs.
 //
 // Bound on an H100: memory traffic.  It reads the C * K planes of P (the
-// largest stream of the substep: 32 at K = 8, 96 at K = 24), l (K) at the
-// cell and the transposed plane at each neighbour, the mask (K), U (4),
-// 1/n_i and the bounds (3), and writes U (4) and l' (K).
+// largest stream of the substep: 32 at K = 8, 96 at K = 24, 130 at K = 26
+// in 3D), l (K) at the cell and the transposed plane at each neighbour,
+// the mask (K), U (C), 1/n_i and the bounds (3), and writes U (C) and
+// l' (K).
 //
-// Design: one thread per canvas cell, 128 threads along x.  l_T is plane
-// K-1-k of neighbour k; l_sym stays in registers between the update and
-// the re-limit, and P is read a second time (an L1/L2 hit) instead of
-// being held.  To keep l_sym[K] in registers the kernel is a template on
-// K, instantiated for K = 8 (reach 1) and K = 24 (reach 2): both loops
-// unroll fully, so every index into l_sym and into the launch's offset
-// table is a compile-time constant.  No mask on the transposed read is
-// needed: this is a single-block canvas and PK3 writes l = 0 on every
-// masked slot.
+// Design: one thread per canvas cell, 128 threads along x, the grid over
+// (x-blocks, H, D).  l_T is plane K-1-k of neighbour k; l_sym = min(l,
+// l_T) is read again in the re-limit loop, and so is P (L1/L2 hits),
+// instead of being held.  The kernel is a template on DIM and K,
+// instantiated for K = 8 and K = 24 in 2D (reach 1 and 2) and K = 26 in 3D
+// (reach 1), so the update loop unrolls with the launch's offsets at
+// compile-time indices.  The re-limit loop is not unrolled: K inlined
+// limiter bodies (≈30,000 instructions at K = 24) thrashed the
+// instruction cache, and rolled it is 16 % faster at K = 24, 3 times
+// faster at K = 26 on a blast state and 2-3 % slower at K = 8 (H100 SXM,
+// 700 W).  No mask on the transposed read is needed: this is a
+// single-block canvas and PK3 writes l = 0 on every masked slot.
 #include "euler.cuh"
 
 namespace ryujin {
 
-template <typename T, int K>
+template <typename T, int DIM, int K>
 __global__ void __launch_bounds__(128)
 pk_up_kernel(const T* __restrict__ inv_n, const T* __restrict__ mask, const T* __restrict__ U,
              const T* __restrict__ bounds, const T* __restrict__ P, const T* __restrict__ l,
              T* __restrict__ U_next, T* __restrict__ l_new,
              const __grid_constant__ EqConsts<T> e) {
+  constexpr int NC = DIM + 2;
   Cell c;
-  if (!this_cell(e.H, e.W, c)) return;
+  if (!this_cell<DIM>(e, c)) return;
   const int64_t i = c.i, n = c.n;
-
-  T l_sym[K];
-  T acc[C] = {T(0), T(0), T(0), T(0)};
+  T acc[NC];
+#pragma unroll
+  for (int q = 0; q < NC; ++q) acc[q] = T(0);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    l_sym[k] = T(0);
     if (!(mask[k * n + i] > T(0))) continue;
-    const int64_t j = nbr_at(c, e.dy[k], e.dx[k], e.H, e.W);
-    l_sym[k] = mn(l[k * n + i], l[(K - 1 - k) * n + j]);
+    const int64_t j = nbr_k<DIM>(c, e, k);
+    const T ls = mn(l[k * n + i], l[(K - 1 - k) * n + j]);
 #pragma unroll
-    for (int q = 0; q < C; ++q) acc[q] += l_sym[k] * P[(q * K + k) * n + i];
+    for (int q = 0; q < NC; ++q) acc[q] += ls * P[(q * K + k) * n + i];
   }
-  T un[C];
+  T un[NC];
   const T lam_i = inv_n[i];
 #pragma unroll
-  for (int q = 0; q < C; ++q) {
+  for (int q = 0; q < NC; ++q) {
     un[q] = U[q * n + i] + lam_i * acc[q];
     U_next[q * n + i] = un[q];
   }
   if (l_new == nullptr) return;
-
   const T bnd[3] = {bounds[i], bounds[n + i], bounds[2 * n + i]};
   T psi0[4];
   limiter_psi0(e, bnd[2], un, psi0);
-#pragma unroll
+#pragma unroll 1
   for (int k = 0; k < K; ++k) {
     T out = T(0);
     if (mask[k * n + i] > T(0)) {
-      const T rest = T(1) - l_sym[k];
-      T Pk[C];
+      const int64_t j = nbr_k<DIM>(c, e, k);
+      const T rest = T(1) - mn(l[k * n + i], l[(K - 1 - k) * n + j]);
+      T Pk[NC];
 #pragma unroll
-      for (int q = 0; q < C; ++q) Pk[q] = rest * P[(q * K + k) * n + i];
+      for (int q = 0; q < NC; ++q) Pk[q] = rest * P[(q * K + k) * n + i];
       bool success;
       out = rest * limiter_limit(e, bnd, un, psi0, Pk, success);
     }
@@ -76,13 +81,16 @@ template <typename T>
 int launch_pk_up(const T* inv_n, const T* mask, const T* U, const T* bounds, const T* P,
                  const T* l, T* U_next, T* l_new, const Consts* consts, cudaStream_t stream) {
   const EqConsts<T> e = EqConsts<T>::make(*consts);
-  const dim3 grid = canvas_grid(e.H, e.W), block = canvas_block();
-  if (e.K == 8)
-    pk_up_kernel<T, 8><<<grid, block, 0, stream>>>(inv_n, mask, U, bounds, P, l, U_next, l_new,
-                                                    e);
-  else if (e.K == 24)
-    pk_up_kernel<T, 24><<<grid, block, 0, stream>>>(inv_n, mask, U, bounds, P, l, U_next,
-                                                     l_new, e);
+  const dim3 grid = canvas_grid(e.D, e.H, e.W), block = canvas_block();
+  if (consts->dim == 2 && e.K == 8)
+    pk_up_kernel<T, 2, 8><<<grid, block, 0, stream>>>(inv_n, mask, U, bounds, P, l, U_next,
+                                                       l_new, e);
+  else if (consts->dim == 2 && e.K == 24)
+    pk_up_kernel<T, 2, 24><<<grid, block, 0, stream>>>(inv_n, mask, U, bounds, P, l, U_next,
+                                                        l_new, e);
+  else if (consts->dim == 3 && e.K == 26)
+    pk_up_kernel<T, 3, 26><<<grid, block, 0, stream>>>(inv_n, mask, U, bounds, P, l, U_next,
+                                                        l_new, e);
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());

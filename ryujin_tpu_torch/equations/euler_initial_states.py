@@ -17,33 +17,53 @@ import torch
 def galilei_wrap(state_fn, direction, position, dim):
     """Affine transform of InitialValues (initial_values.template.h:66-155):
     points are rotated so `direction` maps onto the x-axis around
-    `position`, and the momentum is rotated back."""
-    if dim != 2:
+    `position`, and the momentum is rotated back.  In 3D the rotation in
+    the x-z plane comes first for points and last for the momentum, as in
+    ryujin_tpu/equations/euler_initial_states.py:29-75."""
+    if dim not in (2, 3):
         raise NotImplementedError(
-            "the torch initial states are ported for dim 2 only "
+            "the torch initial states are ported for dim 2 and 3 "
             "(ROADMAP queue 1 item 7)"
         )
     direction = np.asarray(direction, dtype=np.float64)
-    n_x, n_y = (float(v) for v in direction / np.linalg.norm(direction))
+    direction = tuple(float(v) for v in direction / np.linalg.norm(direction))
     position = np.asarray(position, dtype=np.float64)
-    norm = math.sqrt(n_x * n_x + n_y * n_y)
-    rotate = norm > 1e-14
-    nx, ny = (n_x / norm, n_y / norm) if rotate else (1.0, 0.0)
+
+    def plane(a, b):
+        """(cos, sin) of the rotation taking direction's (a, b) components
+        onto a, or None where they vanish."""
+        n_a, n_b = direction[a], direction[b]
+        norm = math.sqrt(n_a * n_a + n_b * n_b)
+        return (n_a / norm, n_b / norm) if norm > 1e-14 else None
+
+    xy = plane(0, 1)
+    xz = plane(0, 2) if dim == 3 else None
+
+    def rotate(v, rot, b, back=False):
+        """v [dim, ...] with components 0 and b rotated by rot onto the
+        x-axis (points), or `back` from it (momentum)."""
+        c, s = rot
+        if back:
+            s = -s
+        rows = list(v)
+        rows[0] = c * v[0] + s * v[b]
+        rows[b] = -s * v[0] + c * v[b]
+        return torch.stack(rows, 0)
 
     def wrapped(points, t):
         d = points - torch.as_tensor(
             position, dtype=points.dtype, device=points.device
         ).reshape((dim,) + (1,) * (points.ndim - 1))
-        if rotate:
-            d = torch.stack(
-                [nx * d[0] + ny * d[1], -ny * d[0] + nx * d[1]], 0
-            )
+        if xz is not None:
+            d = rotate(d, xz, 2)
+        if xy is not None:
+            d = rotate(d, xy, 1)
         state = state_fn(d, t)
         m = state[1 : 1 + dim]
-        if rotate:
-            m = torch.stack(
-                [nx * m[0] - ny * m[1], ny * m[0] + nx * m[1]], 0
-            )
+        if xy is not None:
+            m = rotate(m, xy, 1, back=True)
+        if xz is not None:
+            m = rotate(m, xz, 2, back=True)
         return torch.cat([state[:1], m, state[1 + dim :]], 0)
 
     return wrapped

@@ -58,9 +58,13 @@ class Consts(ctypes.Structure):
         ("newton_iterations", ctypes.c_int),
         ("pow_n", ctypes.c_int),
         ("n_stages", ctypes.c_int),
+        ("D", ctypes.c_int),
         ("H", ctypes.c_int),
         ("W", ctypes.c_int),
+        ("dim", ctypes.c_int),
+        ("half", ctypes.c_int),
         ("K", ctypes.c_int),
+        ("dz", ctypes.c_int * MAX_K),
         ("dy", ctypes.c_int * MAX_K),
         ("dx", ctypes.c_int * MAX_K),
     ]
@@ -184,16 +188,27 @@ def library() -> ctypes.CDLL:
         return _LIB
 
 
-def consts(eq, params, ca, stage_weights=()) -> Consts:
+def consts(eq, params, ca, stage_weights=(), half=True) -> Consts:
     """The scalars every kernel takes, from the equation, the module
-    parameters, the canvas and the (static) stage weights."""
+    parameters, the canvas (2D [H, W] or 3D [D, H, W]), the (static) stage
+    weights and the route of the stream kernels: half=True for the
+    half-slot pre-scaled wavespeeds, False for the two-direction ones
+    (instantiated for 3D canvases only)."""
     if len(stage_weights) > 2:
         raise ValueError("the kernels take at most 2 stages")
-    if ca.K > MAX_K or len(ca.shape) != 2:
+    dim = len(ca.shape)
+    if ca.K > MAX_K or dim not in (2, 3):
         raise ValueError(
-            f"the kernels take a 2D canvas with at most {MAX_K} lattice "
-            f"offsets, not {ca.K} on {ca.shape}"
+            f"the kernels take a 2D or 3D canvas with at most {MAX_K} "
+            f"lattice offsets, not {ca.K} on {ca.shape}"
         )
+    if dim == 2 and not half:
+        raise ValueError(
+            "the two-direction route of the stream kernels is built for 3D "
+            "canvases only"
+        )
+    D, H, W = (1,) * (3 - dim) + tuple(ca.shape)
+    offsets = [(0,) * (3 - dim) + tuple(o) for o in ca.offsets]
     g = eq.params.gamma
     e = 2.0 * g / (g - 1.0)
     er = round(e)
@@ -214,11 +229,15 @@ def consts(eq, params, ca, stage_weights=()) -> Consts:
         newton_iterations=params.limiter_newton_max_iterations,
         pow_n=pow_n,
         n_stages=len(stage_weights),
-        H=ca.shape[0],
-        W=ca.shape[1],
+        D=D,
+        H=H,
+        W=W,
+        dim=dim,
+        half=int(half),
         K=ca.K,
-        dy=(ctypes.c_int * MAX_K)(*(o[0] for o in ca.offsets)),
-        dx=(ctypes.c_int * MAX_K)(*(o[1] for o in ca.offsets)),
+        dz=(ctypes.c_int * MAX_K)(*(o[0] for o in offsets)),
+        dy=(ctypes.c_int * MAX_K)(*(o[1] for o in offsets)),
+        dx=(ctypes.c_int * MAX_K)(*(o[2] for o in offsets)),
     )
 
 
@@ -268,8 +287,8 @@ def on_card(t: torch.Tensor) -> bool:
 
 
 def check_reach1(ca) -> None:
-    """Raise unless `ca` is the reach-1 K = 8 canvas that pk1, pk2 and pk3
-    are compiled for."""
+    """Raise unless `ca` is the 2D reach-1 K = 8 canvas that pk1, pk2 and
+    pk3 are compiled for."""
     if tuple(ca.offsets) != lattice_offsets(2, 1):
         raise ValueError(
             "pk1, pk2 and pk3 take the reach-1 K = 8 lattice; canvases of a "

@@ -1,7 +1,11 @@
-"""PK1, slot-streaming form: pre-scaled half-slot wavespeeds e = lambda *
-cmax [K/2, n] and the indicator alpha [n] for a canvas of any lattice
-reach (CUDA kernel csrc/pk1_stream.cu; TPU kernel `_pk1_stream` with
-prescale, pallas_step.py:1904)."""
+"""PK1, slot-streaming form: the wavespeeds e and the indicator alpha [n]
+for a 2D or 3D canvas of any lattice reach (CUDA kernel
+csrc/pk1_stream.cu; TPU kernel `_pk1_stream`, pallas_step.py:1904).
+
+Two routes (`half`): the half-slot route writes the pre-scaled e = lambda
+* cmax [K/2, n] (prescale), the two-direction route e = |c_ij| lambda
+[K, n] on every slot (3D canvases whose coupling-boundary-pair set is too
+large for the half-slot fixup; `sym` False in _step_slab)."""
 
 from __future__ import annotations
 
@@ -10,11 +14,12 @@ import torch
 from . import build
 
 
-def pk1_stream_reference(eq, p, ca, U, prec):
+def pk1_stream_reference(eq, p, ca, U, prec, half=True):
     """Plain torch: the per-offset loop on full canvases through the
     streaming indicator forms, summing over k = 0 .. K-1 in order."""
     st = ca.stencil
     K = st.K
+    K_e = K // 2 if half else K
     cmax = ca.g_cmax.reshape(K, -1)
     tiny = torch.finfo(U.dtype).tiny
     f = eq.f(U)
@@ -26,15 +31,15 @@ def pk1_stream_reference(eq, p, ca, U, prec):
         U_jk = st.shift(U, off)
         c_k = st.cij[:, k]
         mask_k = st.mask[k]
-        if k < K // 2:
+        if k < K_e:
             norm_k = torch.sqrt(torch.sum(c_k * c_k, 0))
             n_k = c_k / torch.clamp_min(norm_k, tiny)[None]
             lam_k = eq.riemann_lambda_max(
                 U, U_jk, n_k, pa_i=pa_i,
                 pa_j=tuple(st.shift(x, off) for x in pa_i),
             )
-            e.append(torch.where(mask_k > 0, lam_k * cmax[k],
-                                 torch.zeros_like(lam_k)))
+            e_k = lam_k * cmax[k] if half else norm_k * lam_k
+            e.append(torch.where(mask_k > 0, e_k, torch.zeros_like(e_k)))
         li, ri = eq.indicator_accum(
             ind, U_jk, st.shift(prec, off), st.shift(f, off), c_k, mask_k
         )
@@ -46,25 +51,25 @@ def pk1_stream_reference(eq, p, ca, U, prec):
     return torch.stack(e), alpha
 
 
-def pk1_stream(eq, p, ca, U, prec):
-    """(e [K/2, n], alpha [n]) of the prepared state U [C, n] and its
-    precomputed values prec [2, n] on the canvas `ca` (CanvasArrays).
-    Masked slots hold e = 0, padded cells alpha = 0."""
+def pk1_stream(eq, p, ca, U, prec, half=True):
+    """(e, alpha [n]) of the prepared state U [C, n] and its precomputed
+    values prec [2, n] on the canvas `ca` (CanvasArrays): e = lambda * cmax
+    [K/2, n] with `half`, e = |c_ij| lambda [K, n] without.  Masked slots
+    hold e = 0, padded cells alpha = 0."""
     if not build.on_card(U):
-        return pk1_stream_reference(eq, p, ca, U, prec)
+        return pk1_stream_reference(eq, p, ca, U, prec, half)
     n, K = ca.n, ca.K
+    c = build.consts(eq, p, ca, half=half)
     build.check(U.device, U.dtype, {
         "U": (U, (eq.n_comp, n)),
         "prec": (prec, (eq.n_precomputed, n)),
         **build.statics(ca, ("g_cij", "g_cmax", "g_mask", "g_node")),
     })
-    e = torch.empty((K // 2, n), dtype=U.dtype, device=U.device)
+    e = torch.empty((K // 2 if half else K, n), dtype=U.dtype, device=U.device)
     alpha = torch.empty((n,), dtype=U.dtype, device=U.device)
-    ptrs = [ca.g_cij, ca.g_cmax, ca.g_mask, ca.g_node, U, prec, e, alpha]
-    build.launch(
-        "pk1_stream", U.dtype, [build.ptr(t) for t in ptrs],
-        build.consts(eq, p, ca),
-    )
+    ptrs = [ca.g_cij, ca.g_cmax if half else None, ca.g_mask, ca.g_node, U,
+            prec, e, alpha]
+    build.launch("pk1_stream", U.dtype, [build.ptr(t) for t in ptrs], c)
     pk1_stream.launches += 1
     return e, alpha
 

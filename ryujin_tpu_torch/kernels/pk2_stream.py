@@ -1,7 +1,8 @@
 """PK2, slot-streaming form: low-order update U_low, high-order right-hand
-side F and the limiter bounds for a canvas of any lattice reach, from the
-pre-scaled wavespeeds e of PK1 (CUDA kernel csrc/pk2_stream.cu; TPU kernel
-`pk2_stream` with prescale, pallas_step.py:2879)."""
+side F and the limiter bounds for a 2D or 3D canvas of any lattice reach,
+from the wavespeeds e of PK1 on either route (CUDA kernel
+csrc/pk2_stream.cu; TPU kernels `pk2_stream` with prescale,
+pallas_step.py:2879, and `_step_slab`'s pk2, :2317)."""
 
 from __future__ import annotations
 
@@ -11,17 +12,21 @@ from . import build
 from .pk2 import stage_tensor
 
 
-def slot_d(st, e, k):
-    """The graph viscosity d of slot k from the pre-scaled half-slot e
-    [K/2, n]: e_k at the node for k < K/2, plane K-1-k of neighbour k
-    otherwise; 0 on masked slots."""
+def slot_d(st, e, k, half=True):
+    """The graph viscosity d of slot k (_slot_d, pallas_step.py:2056): from
+    the pre-scaled half-slot e [K/2, n], e_k at the node for k < K/2 and
+    plane K-1-k of neighbour k otherwise; from the two-direction e [K, n],
+    the larger of the two.  0 on masked slots."""
     K = st.K
-    lam_k = e[k] if k < K // 2 else st.shift(e[K - 1 - k], st.offsets[k])
-    return torch.where(st.mask[k] > 0, lam_k, torch.zeros_like(lam_k))
+    if half:
+        d_k = e[k] if k < K // 2 else st.shift(e[K - 1 - k], st.offsets[k])
+    else:
+        d_k = torch.maximum(e[k], st.shift(e[K - 1 - k], st.offsets[k]))
+    return torch.where(st.mask[k] > 0, d_k, torch.zeros_like(d_k))
 
 
 def pk2_stream_reference(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights,
-                         tau):
+                         tau, half=True):
     """Plain torch: the per-offset loop on full canvases with running
     sums and the streaming bounds forms, k = 0 .. K-1 in order and the
     diagonal terms last."""
@@ -39,7 +44,7 @@ def pk2_stream_reference(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights,
         U_jk = st.shift(U, off)
         c_k = st.cij[:, k]
         mask_k = st.mask[k]
-        d_k = slot_d(st, e, k)
+        d_k = slot_d(st, e, k, half)
         flux_ij_k = eq.flux_divergence(f, st.shift(f, off), c_k)
         dU_k = U_jk - U
         dH_k = d_k * (0.5 * (alpha + st.shift(alpha, off)))
@@ -62,21 +67,24 @@ def pk2_stream_reference(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights,
     return U_low, F, bounds
 
 
-def pk2_stream(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau):
-    """(U_low [C, n], F [C, n], bounds [3, n]).  e [K/2, n] is PK1's
-    pre-scaled output after the boundary-pair fixup; stage_U [S, C, n] with
-    the static weights stage_weights (S <= 2); tau a 0-d tensor on the
-    device, read by the kernel (no host sync)."""
+def pk2_stream(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau,
+               half=True):
+    """(U_low [C, n], F [C, n], bounds [3, n]).  e is PK1's output on the
+    route `half`: pre-scaled [K/2, n] after the boundary-pair fixup, or
+    two-direction [K, n]; stage_U [S, C, n] with the static weights
+    stage_weights (S <= 2); tau a 0-d tensor on the device, read by the
+    kernel (no host sync)."""
     if not build.on_card(U):
         return pk2_stream_reference(
-            eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau
+            eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau, half
         )
     n, K, C = ca.n, ca.K, eq.n_comp
+    c = build.consts(eq, p, ca, stage_weights, half)
     sU = stage_tensor(stage_U, stage_weights, C, n)
     tensors = {
         "U": (U, (C, n)),
         "prec": (prec, (eq.n_precomputed, n)),
-        "e": (e, (K // 2, n)),
+        "e": (e, (K // 2 if half else K, n)),
         "alpha": (alpha, (n,)),
         "tau": (tau, ()),
         **build.statics(ca, ("g_cij", "g_mask", "g_cii", "g_node")),
@@ -90,10 +98,7 @@ def pk2_stream(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau):
     bounds = torch.empty((eq.n_bounds, n), **kw)
     ptrs = [ca.g_cij, ca.g_mask, ca.g_cii, ca.g_node, U, prec, e, alpha, sU,
             tau, U_low, F, bounds]
-    build.launch(
-        "pk2_stream", U.dtype, [build.ptr(t) for t in ptrs],
-        build.consts(eq, p, ca, stage_weights),
-    )
+    build.launch("pk2_stream", U.dtype, [build.ptr(t) for t in ptrs], c)
     pk2_stream.launches += 1
     return U_low, F, bounds
 

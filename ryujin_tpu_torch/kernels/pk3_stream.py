@@ -1,7 +1,8 @@
 """PK3, slot-streaming form: antidiffusive fluxes P with the edge mask
 folded in, the first limiter pass l and the per-node success flag okp for
-a canvas of any lattice reach (CUDA kernel csrc/pk3_stream.cu; TPU kernel
-`pk3_stream` with prescale, pallas_step.py:3093)."""
+a 2D or 3D canvas of any lattice reach, from the wavespeeds e of PK1 on
+either route (CUDA kernel csrc/pk3_stream.cu; TPU kernels `pk3_stream`
+with prescale, pallas_step.py:3093, and `_step_slab`'s pk3, :2409)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from .pk2_stream import slot_d
 
 
 def pk3_stream_reference(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
-                         stage_weights, tau):
+                         stage_weights, tau, half=True):
     """Plain torch: the per-offset loop on full canvases; P_k and l_k are
     stored slot by slot, 0 on masked slots."""
     st = ca.stencil
@@ -31,7 +32,7 @@ def pk3_stream_reference(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
     for k, off in enumerate(st.offsets):
         c_k = st.cij[:, k]
         on = st.mask[k] > 0
-        d_k = slot_d(st, e, k)
+        d_k = slot_d(st, e, k, half)
         flux_ij_k = eq.flux_divergence(f, st.shift(f, off), c_k)
         dH_k = d_k * (0.5 * (alpha + st.shift(alpha, off)))
         P_k = (weight - 1.0) * flux_ij_k + (dH_k - d_k)[None] * (
@@ -59,18 +60,20 @@ def pk3_stream_reference(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
 
 
 def pk3_stream(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
-               stage_weights, tau):
-    """(P [C, K, n], l [K, n], okp [n]).  P and l are 0 on masked slots."""
+               stage_weights, tau, half=True):
+    """(P [C, K, n], l [K, n], okp [n]) from PK1's e on the route `half`
+    (as pk2_stream).  P and l are 0 on masked slots."""
     if not build.on_card(U):
         return pk3_stream_reference(
             eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U, stage_weights,
-            tau,
+            tau, half,
         )
     n, K, C = ca.n, ca.K, eq.n_comp
+    c = build.consts(eq, p, ca, stage_weights, half)
     sU = stage_tensor(stage_U, stage_weights, C, n)
     tensors = {
         "U": (U, (C, n)),
-        "e": (e, (K // 2, n)),
+        "e": (e, (K // 2 if half else K, n)),
         "alpha": (alpha, (n,)),
         "F": (F, (C, n)),
         "U_low": (U_low, (C, n)),
@@ -87,10 +90,7 @@ def pk3_stream(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
     okp = torch.empty((n,), **kw)
     ptrs = [ca.g_cij, ca.g_mij, ca.g_mask, ca.g_node, U, e, alpha, F, U_low,
             bounds, sU, tau, P, l, okp]
-    build.launch(
-        "pk3_stream", U.dtype, [build.ptr(t) for t in ptrs],
-        build.consts(eq, p, ca, stage_weights),
-    )
+    build.launch("pk3_stream", U.dtype, [build.ptr(t) for t in ptrs], c)
     pk3_stream.launches += 1
     return P, l, okp
 

@@ -1,22 +1,50 @@
 """pk_up: the symmetrized limited update, PK4 (re-limits) and PK5 (last),
-on the K = 8 (reach 1) and K = 24 (reach 2) canvases (CUDA kernel
-csrc/pk_up.cu; TPU kernel pallas_step.py:3265)."""
+on the 2D K = 8 (reach 1) and K = 24 (reach 2) canvases and the 3D K = 26
+(reach 1) canvas (CUDA kernel csrc/pk_up.cu; TPU kernels
+pallas_step.py:3265 and `_step_slab`'s pk_up, :2528)."""
 
 from __future__ import annotations
 
 import torch
 
-from ..solver.hyperbolic import phase_update
 from . import build
 
-INSTANCES = (8, 24)  # the K the kernel template is instantiated for
+# the (dim, K) the kernel template is instantiated for
+INSTANCES = ((2, 8), (2, 24), (3, 26))
 
 
 def pk_up_reference(eq, p, ca, U_cur, bounds, P, l, last):
-    """Plain torch: hyperbolic.phase_update with l_T the transposed gather."""
+    """Plain torch: hyperbolic.phase_update as a loop over the offsets in
+    the kernel's order, k = 0 .. K-1: l_sym_k = min(l_k, plane K-1-k of
+    neighbour k) on live slots, U + (1/n_i) sum_k l_sym_k P_k, and unless
+    `last` the re-limited l'_k = (1 - l_sym_k) l2_k, 0 on masked slots."""
     st = ca.stencil
-    return phase_update(eq, p, st, U_cur, bounds, P, l, st.transpose_edge(l),
-                        last)
+    K = st.K
+    on = st.mask > 0
+    zero = torch.zeros_like(l[0])
+    l_sym = [
+        torch.where(on[k], torch.minimum(l[k], st.shift(l[K - 1 - k], off)),
+                    zero)
+        for k, off in enumerate(st.offsets)
+    ]
+    acc = torch.zeros_like(U_cur)
+    for k in range(K):
+        acc = acc + torch.where(on[k][None], l_sym[k][None] * P[:, k],
+                                torch.zeros_like(acc))
+    U_next = U_cur + ca.g_lam.reshape(1, -1) * acc
+    if last:
+        return U_next, None
+    psi0 = eq.limiter_psi0(bounds, U_next)
+    l_new = torch.empty_like(l)
+    for k in range(K):
+        rest = 1.0 - l_sym[k]
+        l2, _ = eq.limiter_limit(
+            bounds, U_next, rest[None] * P[:, k], psi0,
+            newton_iterations=p.limiter_newton_max_iterations,
+            newton_tol=p.limiter_newton_tolerance,
+        )
+        l_new[k] = torch.where(on[k], rest * l2, zero)
+    return U_next, l_new
 
 
 def pk_up(eq, p, ca, U_cur, bounds, P, l, last: bool):
@@ -24,9 +52,10 @@ def pk_up(eq, p, ca, U_cur, bounds, P, l, last: bool):
     if not build.on_card(U_cur):
         return pk_up_reference(eq, p, ca, U_cur, bounds, P, l, last)
     n, K, C = ca.n, ca.K, eq.n_comp
-    if K not in INSTANCES:
+    if (len(ca.shape), K) not in INSTANCES:
         raise ValueError(
-            f"pk_up is built for K in {INSTANCES} lattice offsets, not {K}"
+            f"pk_up is built for (dim, K) in {INSTANCES}, not "
+            f"({len(ca.shape)}, {K})"
         )
     build.check(U_cur.device, U_cur.dtype, {
         "U_cur": (U_cur, (C, n)),

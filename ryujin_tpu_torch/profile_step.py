@@ -2,6 +2,7 @@
 
     python -m ryujin_tpu_torch.profile_step              # step2d
     BENCH_CASE=q2step2d python -m ryujin_tpu_torch.profile_step
+    BENCH_CASE=box3d python -m ryujin_tpu_torch.profile_step
 
 After the warmup of the bench case (BENCH_WARMUP, BENCH_REFINEMENT as in
 ryujin_tpu_torch.bench) it
@@ -52,7 +53,7 @@ def main():
     case = os.environ.get("BENCH_CASE", "step2d")
     if case not in CASES:
         sys.exit(f"BENCH_CASE={case} is not ported (only {sorted(CASES)})")
-    build_case, refinement_default, warmup_default = CASES[case]
+    build_case, refinement_default, warmup_default, _ = CASES[case]
     refinement = int(os.environ.get("BENCH_REFINEMENT", str(refinement_default)))
     warmup = int(os.environ.get("BENCH_WARMUP", str(warmup_default)))
     n_steps = int(os.environ.get("BENCH_STEPS", "20"))

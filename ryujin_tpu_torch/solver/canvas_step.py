@@ -1,21 +1,29 @@
-"""The substep on the 2D single-block canvas through the CUDA kernels: the
-counterpart of ryujin_tpu/solver/pallas_step.py (PallasStepper.step,
-:2582-3318) for the Mach-3 step.
+"""The substep on the single-block 2D or 3D canvas through the CUDA
+kernels: the counterpart of ryujin_tpu/solver/pallas_step.py
+(PallasStepper.step, :2582-3318, and its 3D z-slab form _step_slab,
+:2072-2579).
 
-One substep launches, in order: PK1 (half-slot wavespeeds + alpha), the
+One substep launches, in order: PK1 (wavespeeds + alpha), the
 boundary-pair fixup, the d rebuild and tau reduction in torch, PK2
 (U_low, F, bounds), PK3 (P, first limiter pass, okp), and pk_up twice
-(PK4 re-limits, PK5 is the last update).  A reach-1 canvas (cG Q1, K = 8)
-runs pk1 / pk2 / pk3 on the raw lambda; a canvas of a larger reach (cG Q2:
-reach 2, K = 24) runs the slot-streaming pk1_stream / pk2_stream /
-pk3_stream on the pre-scaled e = lambda * cmax (`CanvasStepper.stream`).
-Every kernel wrapper runs its plain-torch reference for CPU tensors, so
-the same orchestration is testable on the CPU.
+(PK4 re-limits, PK5 is the last update).  A 2D reach-1 canvas (cG Q1,
+K = 8) runs pk1 / pk2 / pk3 on the raw lambda; a 2D canvas of a larger
+reach (cG Q2: reach 2, K = 24) and a 3D canvas (cG Q1: K = 26) run the
+slot-streaming pk1_stream / pk2_stream / pk3_stream (`CanvasStepper.
+stream`), as the JAX package does (pallas_step.py:2626).  The stream
+kernels take one of two routes, chosen once by the hyperbolic module
+(`half`): the half-slot pre-scaled e = lambda * cmax with the
+boundary-pair fixup, or, when the boundary-pair set is too large for that
+fixup (a 3D box's whole surface), the two-direction e = |c_ij| lambda on
+every slot with d = max(e, e_T) and no fixup.  Every kernel wrapper runs
+its plain-torch reference for CPU tensors, so the same orchestration is
+testable on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Tuple
 
 import numpy as np
@@ -30,25 +38,27 @@ from ..kernels.pk2_stream import pk2_stream
 from ..kernels.pk3 import pk3
 from ..kernels.pk3_stream import pk3_stream
 from ..kernels.pk_up import pk_up
-from .hyperbolic import d_from_lambda, tau_max_from_d
+from .hyperbolic import d_from_e, d_from_lambda, tau_max_from_d
 from .stencil import StructuredStencil, check_single_block
 
 
 @dataclasses.dataclass(frozen=True)
 class CanvasArrays:
     """Static canvases on the device (the torch form of PallasArrays,
-    pallas_step.py:1049): planes first, [planes, H, W] contiguous."""
+    pallas_step.py:1049): planes first, [planes, H, W] in 2D and
+    [planes, D, H, W] in 3D, contiguous.  (The TPU's z-major
+    [D, planes, H, W] 3D layout is a DMA choice and is not carried over.)"""
 
-    shape: Tuple[int, int]
-    offsets: Tuple[Tuple[int, int], ...]
+    shape: Tuple[int, ...]
+    offsets: Tuple[Tuple[int, ...], ...]
     measure_inv: float
-    g_cij: torch.Tensor  # [dim * K, H, W], plane d * K + k
-    g_mask: torch.Tensor  # [K, H, W]
-    g_cmax: torch.Tensor  # [K, H, W]: max(|c_ij|, |c_ji|)
-    g_mij: torch.Tensor  # [K, H, W]
-    g_cii: torch.Tensor  # [dim, H, W]
-    g_node: torch.Tensor  # [5, H, W]: m_i, 1/m_i, n_nbrs, node_mask, value_mask
-    g_lam: torch.Tensor  # [1, H, W]: 1/n_nbrs
+    g_cij: torch.Tensor  # [dim * K, *shape], plane d * K + k
+    g_mask: torch.Tensor  # [K, *shape]
+    g_cmax: torch.Tensor  # [K, *shape]: max(|c_ij|, |c_ji|)
+    g_mij: torch.Tensor  # [K, *shape]
+    g_cii: torch.Tensor  # [dim, *shape]
+    g_node: torch.Tensor  # [5, *shape]: m_i, 1/m_i, n_nbrs, node_mask, value_mask
+    g_lam: torch.Tensor  # [1, *shape]: 1/n_nbrs
 
     @property
     def K(self) -> int:
@@ -56,7 +66,7 @@ class CanvasArrays:
 
     @property
     def n(self) -> int:
-        return self.shape[0] * self.shape[1]
+        return int(np.prod(self.shape))
 
     @property
     def stencil(self) -> StructuredStencil:
@@ -133,31 +143,39 @@ class CanvasArrays:
 
 
 class CanvasStepper:
-    """Runs HyperbolicModule.step through the kernels.  Takes the 2D Euler
-    equations on a single-block lattice canvas of reach 1 or more
-    (symmetric half-slot Riemann, no initial precomputed values, no
-    sideband, multi-block, slab or dG incidence) and rejects any other
-    configuration."""
+    """Runs HyperbolicModule.step through the kernels.  Takes the Euler
+    equations on a single-block lattice canvas, 2D of reach 1 or more or
+    3D of reach 1 (no initial precomputed values, no sideband,
+    multi-block, slab or dG incidence), and rejects any other
+    configuration.  `half` is the hyperbolic module's choice of Riemann
+    route: the half-slot evaluation with `lambda_fixup`, or the
+    two-direction evaluation on every slot (3D canvases only)."""
 
     def __init__(self, eq, params, sd: StructuredData, dtype, device,
-                 lambda_fixup: Callable):
-        if getattr(eq, "name", None) != "euler" or sd.dim != 2:
-            raise ValueError("the canvas kernels take the 2D Euler equations")
+                 lambda_fixup: Callable, half: bool):
+        if getattr(eq, "name", None) != "euler" or sd.dim not in (2, 3):
+            raise ValueError("the canvas kernels take the 2D or 3D Euler "
+                             "equations")
         offsets = tuple(map(tuple, sd.offsets))
         reach = max(abs(o) for off in offsets for o in off)
-        if offsets != lattice_offsets(2, reach):
+        if offsets != lattice_offsets(sd.dim, reach) or (
+            sd.dim == 3 and reach != 1
+        ):
             raise ValueError(
                 "the canvas kernels take the full lattice stencil of the "
-                f"canvas's reach ({reach}), K = {(2 * reach + 1) ** 2 - 1}"
+                f"canvas's reach ({reach}) in 2D, and of reach 1 (K = 26) in "
+                f"3D, not K = {len(offsets)} in {sd.dim}D"
             )
         self.eq = eq
         self.params = params
         self.lambda_fixup = lambda_fixup
-        # The one place that chooses the kernel form: a canvas of reach > 1
-        # runs the slot-streaming PK1-PK3 on pre-scaled wavespeeds, reach 1
-        # the stacked K = 8 kernels (PallasStepper decides the same at
-        # pallas_step.py:2734-2745, 2982-2985 and 3040-3042).
-        self.stream = reach > 1
+        # The one place that chooses the kernel form: a 2D canvas of
+        # reach > 1 and every 3D canvas run the slot-streaming PK1-PK3, a
+        # 2D reach-1 canvas the stacked K = 8 kernels (PallasStepper
+        # decides the same at pallas_step.py:2734-2745, 2982-2985,
+        # 3040-3042 and, for 3D, :1226-1234 and :2626).
+        self.stream = reach > 1 or sd.dim == 3
+        self.half = half
         self.arrays = CanvasArrays.from_structured(sd, dtype, device)
         self.stencil = self.arrays.stencil
 
@@ -166,11 +184,17 @@ class CanvasStepper:
         """Same contract as HyperbolicModule.step."""
         eq, p, ca, st = self.eq, self.params, self.arrays, self.stencil
         if self.stream:
-            # e = lambda * cmax: the glue and PK2/PK3 never read cmax
-            lam, alpha = pk1_stream(eq, p, ca, U, prec)
-            lam = self.lambda_fixup(lam, U, prescaled=True)
-            d = d_from_lambda(st, lam)
-            run_pk2, run_pk3 = pk2_stream, pk3_stream
+            half = self.half
+            lam, alpha = pk1_stream(eq, p, ca, U, prec, half)
+            if half:
+                # e = lambda * cmax: the glue and PK2/PK3 never read cmax
+                lam = self.lambda_fixup(lam, U, prescaled=True)
+                d = d_from_lambda(st, lam)
+            else:
+                # e = |c_ij| lambda on every slot, d = max(e, e_T)
+                d = d_from_e(st.mask, lam, st.transpose_edge(lam))
+            run_pk2 = functools.partial(pk2_stream, half=half)
+            run_pk3 = functools.partial(pk3_stream, half=half)
         else:
             lam, alpha = pk1(eq, p, ca, U, prec)
             lam = self.lambda_fixup(lam, U)

@@ -1,10 +1,14 @@
 """The hyperbolic module in PyTorch: graph-viscosity IDP substep with
 convex limiting (ryujin_tpu/solver/hyperbolic.py).
 
-Scope: the Euler equations on a 2D single-block structured canvas of any
-lattice reach (the Mach-3 step of bench cases step2d, cG Q1 with K = 8,
-and q2step2d, cG Q2 with K = 24), with the symmetric half-slot Riemann
-evaluation and the scatter route for boundary conditions.  The phase
+Scope: the Euler equations on a single-block structured canvas, 2D of
+any lattice reach (the Mach-3 step of bench cases step2d, cG Q1 with
+K = 8, and q2step2d, cG Q2 with K = 24) or 3D of reach 1 (the Mach-3 box
+of bench case box3d, cG Q1 with K = 26), with the scatter route for
+boundary conditions.  The Riemann wavespeeds take the symmetric
+half-slot evaluation with the coupling-boundary-pair fixup, or, above
+the JAX package's cut-off on the size of that pair set, the
+two-direction evaluation on every slot.  The phase
 functions are plain tensor code on full canvases; `HyperbolicModule.step`
 runs them for CPU tensors and the hand-written CUDA kernels
 (solver/canvas_step.py) for CUDA tensors.
@@ -344,21 +348,25 @@ class HyperbolicModule:
                                              device=self.device),
                 ))
 
-        # symmetric Riemann evaluation: the coupling boundary pairs get the
-        # two-direction fixup; the JAX package falls back to evaluating
-        # every slot both ways above ~n/16 pairs, which is not ported
+        # The Riemann route, decided once (hyperbolic.py:1297-1320): the
+        # symmetric half-slot evaluation, where the coupling boundary pairs
+        # get the two-direction fixup; above max(1024, n_pad / 16) pairs
+        # (a 3D box's whole surface) every slot is evaluated both ways
+        # instead, with no fixup.  Both the kernels and plain_step follow
+        # `half`.
         self._bp = _boundary_pair_data(sd, dtype, self.device)
-        if self._bp is not None and len(self._bp["k"]) > max(1024, sd.n_pad // 16):
-            raise NotImplementedError(
-                "coupling-boundary-pair set too large for the half-slot "
-                "path; the two-direction path is not ported"
-            )
+        self.half = self._bp is None or (
+            len(self._bp["k"]) <= max(1024, sd.n_pad // 16)
+        )
+        if not self.half:
+            self._bp = None
 
         from .canvas_step import CanvasStepper
 
         # one set of statics: the plain path reads the kernels' canvases
         self.canvas = CanvasStepper(
-            equation, params, sd, dtype, self.device, self._lambda_fixup
+            equation, params, sd, dtype, self.device, self._lambda_fixup,
+            self.half,
         )
         self.stencil = self.canvas.stencil
         self.cmax = self.canvas.arrays.g_cmax.reshape(self.stencil.K, -1)
@@ -433,9 +441,15 @@ class HyperbolicModule:
         prec_j = st.nbr(prec_old)
         stage_U_j = [st.nbr(stage_U[s]) for s in range(len(stage_weights))]
 
-        lam, alpha = phase_e_alpha(eq, p, st, U_old, prec_old, U_j, prec_j)
-        lam = self._lambda_fixup(lam, U_old)
-        d = d_from_lambda(st, lam, self.cmax)
+        if self.half:
+            lam, alpha = phase_e_alpha(eq, p, st, U_old, prec_old, U_j, prec_j)
+            lam = self._lambda_fixup(lam, U_old)
+            d = d_from_lambda(st, lam, self.cmax)
+        else:
+            e, alpha = phase_e_alpha(
+                eq, p, st, U_old, prec_old, U_j, prec_j, half=False
+            )
+            d = d_from_e(st.mask, e, st.transpose_edge(e))
         tau_max = tau_max_from_d(st, d, cfl, tau_cap)
         if compute_tau:
             tau = tau_max

@@ -7,29 +7,35 @@ tests/conftest.py is skipped):
     python -m pytest --noconftest tests/test_torch_gpu.py -q -m gpu
 
 builds the kernels (nvcc, sm_90a) and holds three ERK33 steps through
-them at refinement 0 in float64 against the plain path on the CPU, for
-both slices: step2d (cG Q1, K = 8: pk1, pk2, pk3, pk_up) and q2step2d
-(cG Q2, K = 24: pk1_stream, pk2_stream, pk3_stream, pk_up; bang-bang).
+them in float64 against the plain path on the CPU, for the three slices:
+step2d (cG Q1, K = 8: pk1, pk2, pk3, pk_up) and q2step2d (cG Q2, K = 24:
+pk1_stream, pk2_stream, pk3_stream, pk_up; bang-bang) at refinement 0,
+and box3d (3D cG Q1, K = 26: the 3D instances of the stream kernels and
+pk_up; bang-bang) on two small boxes at refinement 1, one for each
+Riemann route.
 """
+
+import functools
+
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 
-def _three_steps_card_vs_cpu(build_case, fns, per_step):
+def _three_steps_card_vs_cpu(build_case, fns, per_step, refinement=0):
     """Three ERK33 steps from a bumped inflow state: the kernels on the
     card against the plain path on the CPU, with the launch counts."""
-    _, sd, _, ti_g, _ = build_case(0, torch.float64, "cuda")
-    _, _, _, ti_c, U0 = build_case(0, torch.float64, "cpu")
+    _, sd, _, ti_g, _ = build_case(refinement, torch.float64, "cuda")
+    _, _, _, ti_c, U0 = build_case(refinement, torch.float64, "cpu")
     pos = torch.as_tensor(sd.positions.T)
+    centre = torch.tensor([1.0, 0.5, 0.5][: pos.shape[0]], dtype=torch.float64)
     bump = 1.0 + 0.25 * torch.exp(
-        -8.0 * torch.sum((pos - torch.tensor([[1.0], [0.5]],
-                                             dtype=torch.float64)) ** 2, 0)
+        -8.0 * torch.sum((pos - centre[:, None]) ** 2, 0)
     )
     U0 = U0.clone()
     U0[0] *= bump
-    U0[3] *= bump
+    U0[-1] *= bump
     counts = [f.launches for f in fns]
     out_g = ti_g.advance(U0.cuda(), 0.0, 3)
     torch.cuda.synchronize()
@@ -69,4 +75,26 @@ def test_q2_stream_kernels_on_card_match_plain_cpu():
         (pk1_stream.pk1_stream, pk2_stream.pk2_stream, pk3_stream.pk3_stream,
          pk_up.pk_up),
         [3, 3, 3, 6],
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("subdiv,half", [((3, 2, 2), True), ((7, 4, 4), False)])
+def test_box3d_kernels_on_card_match_plain_cpu(subdiv, half):
+    """Both Riemann routes of the 3D kernels: the half-slot route on the
+    3 x 2 x 2 box, the two-direction route on the 7 x 4 x 4 box."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ryujin_tpu_torch.bench import build_box3d
+    from ryujin_tpu_torch.kernels import (
+        pk1_stream, pk2_stream, pk3_stream, pk_up,
+    )
+
+    build_case = functools.partial(build_box3d, subdiv=subdiv)
+    assert build_case(1, torch.float64, "cpu")[2].half == half
+    _three_steps_card_vs_cpu(
+        build_case,
+        (pk1_stream.pk1_stream, pk2_stream.pk2_stream, pk3_stream.pk3_stream,
+         pk_up.pk_up),
+        [3, 3, 3, 6], refinement=1,
     )
