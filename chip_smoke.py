@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
-It drives the port's three paths, all in f32 with ERK33: step2d and
+It drives the port's four paths, all in f32 with ERK33: step2d and
 q2step2d on the Mach-3 forward-facing step (cG Q1, reach 1, K = 8: pk1,
 pk2, pk3, pk_up; cG Q2, reach 2, K = 24: pk1_stream, pk2_stream,
-pk3_stream, pk_up) and box3d, 3D Euler on the Mach-3 box (cG Q1, K = 26:
+pk3_stream, pk_up), box3d, 3D Euler on the Mach-3 box (cG Q1, K = 26:
 the 3D instances of pk1_stream, pk2_stream, pk3_stream and pk_up, on the
-two-direction Riemann route).  Phases (each prints its own lines; any
-failure exits non-zero):
+two-direction Riemann route), and dg1box3d, the same box with dG Q1
+(K = 26: the dG instances of pk2_stream and pk3_stream, which raise the
+high-order viscosity factor to the incidence beta_ij).  Phases (each
+prints its own lines; any failure exits non-zero):
 
 1. the card (nvidia-smi name and power limit) and the kernel build from
    ryujin_tpu_torch/csrc with nvcc (one process per source, seconds taken);
@@ -45,7 +47,19 @@ failure exits non-zero):
    ERK33 steps with bang-bang recovery, kernels vs the plain path on the
    card, on both small boxes in f64, with the launch counts;
 7. the box3d slice (CFL 0.9 / 0.45, bang-bang recovery), with the gates of
-   phase 5.
+   phase 5;
+8. dg1box3d, refinement 1 (507,904 dofs on the (72, 72, 128) canvas,
+   K = 26, two-direction route; its route and boundary-pair slot count
+   printed): the four kernels of the path against their plain-torch
+   references on a state developed through the kernels from a blast, in
+   f32 with times and bounds and in f64; 8b: small dG boxes on both
+   routes (refinement 1); 8c: the 2D dG instances (dG Q1, K = 8, stacked;
+   dG Q2, K = 24, stream) on the step at refinement 0; both in f32 and
+   f64; 8d: three ERK33 steps with bang-bang recovery, kernels vs the
+   plain path on the card in f64, on each of those four small canvases,
+   with the launch counts;
+9. the dg1box3d slice (CFL 0.9 / 0.45, bang-bang recovery), with the gates
+   of phase 5.
 
 The lines before the last are the kernels' JSON record and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -101,6 +115,12 @@ BOX_STEPS = 50
 BOX_PLAIN_TIMED_STEPS = 2
 SMALL_BOXES = (((3, 2, 2), True), ((7, 4, 4), False))  # (subdiv, half-slot)
 SMALL_BOX_STEPS = 5
+# dg1box3d (box3d with dG Q1): refinement; the small dG boxes of phase 8b
+# and 8d (subdivisions at refinement 1) with their Riemann routes; the 2D
+# dG ansatze of phase 8c, on the step at refinement 0
+DG_BOX_REFINEMENT = 1
+SMALL_DG_BOXES = (((3, 2, 2), True), ((6, 3, 3), False))
+DG_STEP_ANSATZE = ("dG Q1", "dG Q2")
 # launches per kernel timing
 REPS = 20
 
@@ -143,20 +163,31 @@ EDGE_FLOPS = {
         "pk_up": (11 + 5 + 154, 0),
     },
 }
+# (dim, kernel, on a dG canvas) -> the TPU kernel it replaces
 TPU_SOURCE = {
-    (2, "pk1"): "ryujin_tpu/solver/pallas_step.py:2676",
-    (2, "pk2"): "ryujin_tpu/solver/pallas_step.py:2841",
-    (2, "pk3"): "ryujin_tpu/solver/pallas_step.py:3044",
-    (2, "pk_up"): "ryujin_tpu/solver/pallas_step.py:3265",
-    (2, "pk1_stream"): "ryujin_tpu/solver/pallas_step.py:1904",
-    (2, "pk2_stream"): "ryujin_tpu/solver/pallas_step.py:2879",
-    (2, "pk3_stream"): "ryujin_tpu/solver/pallas_step.py:3093",
+    (2, "pk1", False): "ryujin_tpu/solver/pallas_step.py:2676",
+    (2, "pk2", False): "ryujin_tpu/solver/pallas_step.py:2841",
+    (2, "pk3", False): "ryujin_tpu/solver/pallas_step.py:3044",
+    (2, "pk_up", False): "ryujin_tpu/solver/pallas_step.py:3265",
+    (2, "pk1_stream", False): "ryujin_tpu/solver/pallas_step.py:1904",
+    (2, "pk2_stream", False): "ryujin_tpu/solver/pallas_step.py:2879",
+    (2, "pk3_stream", False): "ryujin_tpu/solver/pallas_step.py:3093",
     # the 3D z-slab path, _step_slab on _tiled_call_3d_slab (:821)
-    (3, "pk1_stream"): "ryujin_tpu/solver/pallas_step.py:1904",
-    (3, "pk2_stream"): "ryujin_tpu/solver/pallas_step.py:2317",
-    (3, "pk3_stream"): "ryujin_tpu/solver/pallas_step.py:2409",
-    (3, "pk_up"): "ryujin_tpu/solver/pallas_step.py:2528",
+    (3, "pk1_stream", False): "ryujin_tpu/solver/pallas_step.py:1904",
+    (3, "pk2_stream", False): "ryujin_tpu/solver/pallas_step.py:2317",
+    (3, "pk3_stream", False): "ryujin_tpu/solver/pallas_step.py:2409",
+    (3, "pk_up", False): "ryujin_tpu/solver/pallas_step.py:2528",
 }
+# dG canvases: in 2D the same kernels, PK2 and PK3 with the incidence
+# windows (g_inc); in 3D the stacked launcher _tiled_call_3d (:597, its
+# pallas_call :801), which runs the _pk1_stream, pk2, pk3 and pk_up
+# closures there
+TPU_SOURCE.update({(2, k, True): v for (d, k, _), v in TPU_SOURCE.items()
+                   if d == 2})
+TPU_SOURCE.update({
+    (3, k, True): "ryujin_tpu/solver/pallas_step.py:597"
+    for k in ("pk1_stream", "pk2_stream", "pk3_stream", "pk_up")
+})
 
 
 class PlainSteps:
@@ -189,7 +220,7 @@ def time_ms(fn, reps):
 
 
 def bound_ms(name, dim, half, inputs, outputs, mask, live_edges, n_stages,
-             dtype):
+             dtype, inc=None):
     """(least ms, "bytes" or "operations", least ms with the mask as
     stored) for one launch: every plane the function needs read once and
     every output written once over the memory rate, against the operations
@@ -197,7 +228,10 @@ def bound_ms(name, dim, half, inputs, outputs, mask, live_edges, n_stages,
     planes the kernel dereferences.  The edge mask is one bit a slot, so
     the function needs ceil(K / 32) 4-byte planes of it; the kernels read
     it as K planes of the state's type, and the third value is the bound
-    with the mask counted so."""
+    with the mask counted so.  `inc`, the K dG incidence planes PK2 and
+    PK3 read on a dG canvas, counts the same way where it holds only 0
+    and 1 (dG Q1: K bits a cell), else as stored; and one max per live
+    edge."""
     nbytes = sum(t.numel() * t.element_size() for t in inputs + outputs)
     K, n = mask.shape[0], mask[0].numel()
     mask_bits = 4 * n * -(-K // 32)
@@ -205,6 +239,12 @@ def bound_ms(name, dim, half, inputs, outputs, mask, live_edges, n_stages,
     per_edge, per_stage = EDGE_FLOPS[dim][name]
     if dim == 3 and name == "pk1_stream" and not half:
         per_edge += 99 / 2 + 0.5  # lambda and its scaling on every slot
+    if inc is not None:
+        stored = inc.numel() * inc.element_size()
+        binary = bool(((inc == 0) | (inc == 1)).all())
+        mask_bits += mask_bits if binary else stored
+        mask_stored += stored
+        per_edge += 1
     flops = live_edges * (per_edge + n_stages * per_stage)
     by_ops = flops / PEAK_FLOPS[dtype] * 1e3
     by_bytes = (nbytes + mask_bits) / PEAK_BYTES_PER_S * 1e3
@@ -215,7 +255,7 @@ def bound_ms(name, dim, half, inputs, outputs, mask, live_edges, n_stages,
 
 
 def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
-                    tag=""):
+                    tag="", up_tag=""):
     """Each kernel of the substep against its reference on identical
     inputs.  U_a is the state entering the substep, U_b a second prepared
     state; the stage inputs are those of the third ERK33 substep (weights
@@ -223,8 +263,10 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     stepper of `hm` does); the Riemann route is the module's (`hm.half`).
     With `records`, also times every kernel and its reference and fills
     records[name + tag] = {max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    bound_ms_mask_as_stored, source, replaces}.  Returns False if any
-    output is off its tolerance."""
+    bound_ms_mask_as_stored, source, replaces} (pk_up's name takes
+    `up_tag`).  On a dG canvas PK2 and PK3 take their dG instances, which
+    read the incidence planes.  Returns False if any output is off its
+    tolerance."""
     from ryujin_tpu_torch.kernels import (
         pk1, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
     )
@@ -281,7 +323,7 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
 
     sfx = "_stream" if stream else ""
     n1, n2, n3 = ("pk1" + sfx + tag, "pk2" + sfx + tag, "pk3" + sfx + tag)
-    nu = f"pk_up[K={K}]"
+    nu = f"pk_up[K={K}{up_tag}]"
     kw = {"half": half} if stream else {}
     mods = {"pk1": pk1, "pk2": pk2, "pk3": pk3, "pk_up": pk_up,
             "pk1_stream": pk1_stream, "pk2_stream": pk2_stream,
@@ -369,14 +411,16 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
         ms = time_ms(lambda: fk(*a), reps)
         plain = time_ms(lambda: fr(*a), max(reps // 4, 2))
         base = name.split("[")[0]
+        pk23 = base[:3] in ("pk2", "pk3")
         least, by, stored = bound_ms(
             base, dim, half, *traffic[name], ca.g_mask, live_edges,
-            len(weights) if base[:3] in ("pk2", "pk3") else 0, dt)
+            len(weights) if pk23 else 0, dt, ca.g_inc if pk23 else None)
         records[name] = {"max_abs_err": errs[name], "ms": ms,
                          "plain_ms": plain, "bound_ms": least, "bound_by": by,
                          "bound_ms_mask_as_stored": stored,
                          "source": f"ryujin_tpu_torch/csrc/{base}.cu",
-                         "replaces": TPU_SOURCE[(dim, base)]}
+                         "replaces": TPU_SOURCE[
+                             (dim, base, ca.g_inc is not None)]}
         print(f"  {name:12s} kernel {ms:.4f} ms   plain {plain:.4f} ms   "
               f"bound {least:.4f} ms ({by}; {stored:.4f} ms with the mask "
               f"as stored)   {100 * least / ms:.1f} % of bound", flush=True)
@@ -496,6 +540,143 @@ def run_slice(name, eq, sd, ti, ti_plain, U0, warmup, steps, plain_steps,
     return launches
 
 
+def check_dg(dev, card, streamed, stacked):
+    """Phases 8 and 9, the dG path: the dG instances of PK2 and PK3 (the
+    incidence beta_ij in the high-order viscosity factor) against their
+    plain versions, and the dg1box3d slice.  Returns the kernels' records;
+    fails the run on any error."""
+    from ryujin_tpu_torch.bench import build_dg1box3d, build_q2step2d
+    from ryujin_tpu_torch.solver.hyperbolic import (
+        HyperbolicModule, _boundary_pair_data,
+    )
+    from ryujin_tpu_torch.solver.integrator import TimeIntegrator
+
+    def bang_bang(steps_of):
+        return TimeIntegrator(steps_of, "erk 33", cfl_min=0.45, cfl_max=0.9,
+                              cfl_recovery_strategy="bang bang control")
+
+    def in_f64(hm, sd):
+        return HyperbolicModule(hm.eq, sd, hm.initial_state_fn,
+                                dtype=torch.float64, device=dev)
+
+    # ---- phase 8: dg1box3d kernels against their references -----------------
+    print(f"phase 8: dg1box3d (dG Q1), refinement {DG_BOX_REFINEMENT}, f32, "
+          f"{BOX_DEVELOP_STEPS} ERK33 steps through the kernels from a blast "
+          "contrast", flush=True)
+    t0 = time.perf_counter()
+    eq, sd, hm, ti, U0 = build_dg1box3d(DG_BOX_REFINEMENT, torch.float32, dev)
+    setup = time.perf_counter() - t0
+    slots = len(_boundary_pair_data(sd, torch.float32, "cpu")["k"])
+    print(f"  setup {setup:.1f} s: canvas {sd.shape}, {sd.n_nodes} real "
+          f"nodes, K = {sd.max_degree}, route "
+          f"{'half-slot' if hm.half else 'two-direction'} ({slots} "
+          f"boundary-pair slots against the cut-off "
+          f"{max(1024, sd.n_pad // 16)})", flush=True)
+    if hm.half or not hm.canvas.stream or hm.canvas.arrays.g_inc is None:
+        fail("dg1box3d did not choose the dG stream kernels on the "
+             "two-direction route")
+    U_a, _, t_a, _, restarts, warns = ti.advance(bumped(sd, U0, blast=True),
+                                                 0.0, BOX_DEVELOP_STEPS)
+    U_b, _, _, _, _, _ = ti.advance(U_a, t_a, 1)
+    torch.cuda.synchronize()
+    real = torch.as_tensor(sd.node_mask > 0, device=dev)
+    print(f"  t = {t_a.item():.4e}, restarts {int(restarts)}, warnings "
+          f"{int(warns)}", flush=True)
+    if not bool(eq.is_admissible(U_a[:, real]).all()):
+        fail("dg1box3d: the developed state is not admissible")
+    records = {}
+    ok = compare_kernels(hm, U_a, U_b, TOL_F32, REPS, records,
+                         tag="[3D dG two-direction]", up_tag=" dG")
+    print("phase 8a: dg1box3d kernels in f64", flush=True)
+    hm64 = in_f64(hm, sd)
+    ok &= compare_kernels(hm64, U_a.double(), U_b.double(), TOL_F64, REPS)
+    del hm64, U_a, U_b
+    torch.cuda.empty_cache()
+
+    print(f"phase 8b: both 3D routes on small dG boxes (refinement 1), f32 "
+          f"and f64, after {SMALL_BOX_STEPS} ERK33 steps through the kernels "
+          "from a bumped inflow", flush=True)
+    cases = []
+    for subdiv, half in SMALL_DG_BOXES:
+        route = "half-slot" if half else "two-direction"
+        _, sd_s, hm_s, ti_s, U0_s = build_dg1box3d(1, torch.float32, dev,
+                                                   subdiv=subdiv)
+        print(f"  box {subdiv}: canvas {sd_s.shape}, {sd_s.n_nodes} real "
+              f"nodes, route {route}", flush=True)
+        if hm_s.half != half:
+            fail(f"dG box {subdiv} did not choose the {route} route")
+        cases.append((f"dG box {subdiv}", sd_s, hm_s, ti_s, U0_s,
+                      SMALL_BOX_STEPS, f"[3D dG {route}]", streamed,
+                      half))
+
+    print(f"phase 8c: the 2D dG instances on the step at refinement 0, f32 "
+          f"and f64, after {Q2_DEVELOP_STEPS} ERK33 steps through the "
+          "kernels", flush=True)
+    for ansatz in DG_STEP_ANSATZE:
+        t0 = time.perf_counter()
+        _, sd_s, hm_s, ti_s, U0_s = build_q2step2d(0, torch.float32, dev,
+                                                   ansatz=ansatz)
+        print(f"  {ansatz} step: setup {time.perf_counter() - t0:.1f} s, "
+              f"canvas {sd_s.shape}, {sd_s.n_nodes} real nodes, K = "
+              f"{sd_s.max_degree}, {len(hm_s._bp['k'])} boundary-pair "
+              f"slots, {'stream' if hm_s.canvas.stream else 'stacked'} "
+              "kernels", flush=True)
+        if hm_s.canvas.stream != (sd_s.max_degree > 8):
+            fail(f"the {ansatz} step took the wrong kernel form")
+        cases.append((f"{ansatz} step", sd_s, hm_s, ti_s, U0_s,
+                      Q2_DEVELOP_STEPS, "[2D dG]",
+                      streamed if hm_s.canvas.stream else stacked, True))
+
+    small = []
+    for name, sd_s, hm_s, ti_s, U0_s, steps, tag, fns, timed in cases:
+        Ua_s, _, t_s, _, _, _ = ti_s.advance(bumped(sd_s, U0_s), 0.0, steps)
+        Ub_s = ti_s.advance(Ua_s, t_s, 1)[0]
+        print(f"  {name}, f32", flush=True)
+        got = {} if timed else None
+        ok &= compare_kernels(hm_s, Ua_s, Ub_s, TOL_F32, REPS, got, tag=tag)
+        # the dG instances (PK2, PK3) are timed here; PK1 and pk_up are the
+        # cG instances, timed in phases 2-8
+        dg_names = [k for k in got or {} if k.startswith(("pk2", "pk3"))]
+        hm64 = in_f64(hm_s, sd_s)
+        print(f"  {name}, f64", flush=True)
+        ok &= compare_kernels(hm64, Ua_s.double(), Ub_s.double(), TOL_F64,
+                              REPS)
+        small.append((name, sd_s, hm64, U0_s.double(), fns, dg_names, got))
+    del cases, hm_s, ti_s
+    torch.cuda.empty_cache()
+
+    print("phase 8d: 3 ERK33 steps with bang-bang recovery, kernels vs the "
+          "plain path on the card, f64, on each small dG canvas", flush=True)
+    for name, sd_s, hm64, U0_s, fns, dg_names, got in small:
+        print(f"  {name}", flush=True)
+        ok &= card_vs_plain_f64(bang_bang(hm64), bang_bang(PlainSteps(hm64)),
+                                sd_s, U0_s, dev,
+                                counted=(fns, per_substep(fns)))
+        for k in dg_names:
+            rec = got[k]
+            rec["launches"] = fns[k.split("[")[0]].launches
+            records[k] = rec
+    del small
+    if not ok:
+        fail("a dG kernel disagrees with its plain-torch reference")
+
+    # ---- phase 9: the dg1box3d slice ------------------------------------------
+    launches = run_slice(
+        "phase 9, dg1box3d", eq, sd, ti, bang_bang(PlainSteps(hm)), U0, BOX_WARMUP, BOX_STEPS, BOX_PLAIN_TIMED_STEPS, streamed,
+        per_substep(streamed), card, allow_restarts=True,
+    )
+    for name in ("pk1_stream", "pk2_stream", "pk3_stream"):
+        records[name + "[3D dG two-direction]"]["launches"] = launches[name]
+    records["pk_up[K=26 dG]"]["launches"] = launches["pk_up"]
+    return records
+
+
+def per_substep(fns):
+    """Launches per substep of each wrapper in `fns`: PK1-PK3 once,
+    pk_up twice."""
+    return {k: 2 if k == "pk_up" else 1 for k in fns}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -510,6 +691,7 @@ def main():
     from ryujin_tpu_torch.solver.hyperbolic import HyperbolicModule
     from ryujin_tpu_torch.solver.integrator import TimeIntegrator
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -736,6 +918,12 @@ def main():
         records_3d[name + "[3D two-direction]"]["launches"] = launches[name]
     records_3d["pk_up[K=26]"]["launches"] = launches["pk_up"]
     records.update(records_3d)
+    del hm, ti, U0
+    torch.cuda.empty_cache()
+
+    records.update(check_dg(dev, card, streamed, stacked))
+    print(f"chip_smoke: every phase passed, {time.perf_counter() - t_start:.1f}"
+          " s in all", flush=True)
 
     print(json.dumps({"kernels": [
         {

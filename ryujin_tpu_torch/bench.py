@@ -3,9 +3,10 @@
     python -m ryujin_tpu_torch.bench
     BENCH_CASE=q2step2d python -m ryujin_tpu_torch.bench
     BENCH_CASE=box3d python -m ryujin_tpu_torch.bench
+    BENCH_CASE=dg1box3d python -m ryujin_tpu_torch.bench
 
-Runs three of bench.py's cases on a CUDA device, in f32 with ERK33
-through the CUDA kernels:
+Runs three of bench.py's cases and a dG form of the third on a CUDA
+device, in f32 with ERK33 through the CUDA kernels:
 
   step2d    (default) cG Q1, refinement 3, CFL 0.9, cfl_recovery_strategy
             "none", 1500-step warmup; metric euler2d_mach3_step_throughput
@@ -18,13 +19,19 @@ through the CUDA kernels:
             kernels on the two-direction Riemann route, CFL 0.9 / 0.45
             with "bang bang control", 1000-step warmup; metric
             euler3d_mach3_box_throughput
+  dg1box3d  box3d with the ansatz switched to dG Q1 at refinement 1
+            (507,904 dofs on the same (72, 72, 128) canvas, K = 26, the
+            incidence beta_ij in PK2 / PK3, the two-direction route);
+            1000-step warmup; metric euler3d_mach3_box_dgq1_throughput.
+            Its host assembly takes a minute or more (numpy).
 
-Prints one JSON line {"metric", "value", "unit", "vs_baseline"} (+ "reps"
-with BENCH_REPS > 1), where value is MQ/s = real nodes x substeps / wall
-seconds / 1e6.  The same BENCH_* variables as bench.py set the sizes:
-BENCH_REFINEMENT, BENCH_WARMUP (steps, so the bow shock spans the domain
-and the limiter works everywhere), BENCH_STEPS (20 timed steps),
-and BENCH_REPS (1).
+Prints one JSON line {"metric", "value", "unit", "vs_baseline"} (+
+"reps" with BENCH_REPS > 1), where value is MQ/s = real nodes x substeps
+/ wall seconds / 1e6, and, on standard error, a "setup" line with the
+seconds of mesh, assembly, packing and statics.  The same BENCH_*
+variables as bench.py set the sizes: BENCH_REFINEMENT, BENCH_WARMUP
+(steps, so the bow shock spans the domain and the limiter works
+everywhere), BENCH_STEPS (20 timed steps), and BENCH_REPS (1).
 """
 
 from __future__ import annotations
@@ -74,12 +81,13 @@ def build_q2step2d(refinement: int, dtype, device, ansatz: str = "cG Q2"):
     return _build_step(refinement, dtype, device, ansatz, "bang bang control")
 
 
-def build_box3d(refinement: int, dtype, device, subdiv=(31, 16, 16)):
+def build_box3d(refinement: int, dtype, device, subdiv=(31, 16, 16),
+                ansatz: str = "cG Q1"):
     """(eq, sd, hm, ti, U0) of the box3d case (bench.py:60-82): 3D Euler,
     uniform Mach-3 inflow on [0, 3] x [0, 1] x [0, 1] with `subdiv` cells
-    before `refinement`, cG Q1 packed with z and y margins of 2, bang-bang
-    recovery.  (The JAX bench packs with the TPU kernels' margin gate,
-    which is not carried over.)"""
+    before `refinement`, `ansatz` (cG Q1, or dG Q1 for dg1box3d) packed
+    with z and y margins of 2, bang-bang recovery.  (The JAX bench packs
+    with the TPU kernels' margin gate, which is not carried over.)"""
     eq = Euler(dim=3)
     mesh = geometry.rectangular_domain(
         [0.0, 0.0, 0.0], [3.0, 1.0, 1.0], list(subdiv),
@@ -91,7 +99,7 @@ def build_box3d(refinement: int, dtype, device, subdiv=(31, 16, 16)):
         dim=3,
     )
     sd = structured.pack_structured(
-        assembly.assemble(mesh), mesh, margin=(2, 2)
+        assembly.assemble(mesh, ansatz=ansatz), mesh, margin=(2, 2)
     )
     init = make_initial_state(eq, "uniform", primitive_state=(1.4, 3.0, 1.0))
     hm = HyperbolicModule(eq, sd, init, dtype=dtype, device=device)
@@ -101,11 +109,19 @@ def build_box3d(refinement: int, dtype, device, subdiv=(31, 16, 16)):
     return eq, sd, hm, ti, U0
 
 
+def build_dg1box3d(refinement: int, dtype, device, subdiv=(31, 16, 16)):
+    """(eq, sd, hm, ti, U0) of the dg1box3d case: box3d's flow, domain,
+    boundary conditions, packing and recovery with the dG Q1 ansatz."""
+    return build_box3d(refinement, dtype, device, subdiv, ansatz="dG Q1")
+
+
 # case -> (build_case, default refinement, default warmup steps, metric)
 CASES = {
     "step2d": (build_step2d, 3, 1500, "euler2d_mach3_step_throughput"),
     "q2step2d": (build_q2step2d, 2, 1000, "euler2d_mach3_step_cgq2"),
     "box3d": (build_box3d, 2, 1000, "euler3d_mach3_box_throughput"),
+    "dg1box3d": (build_dg1box3d, 1, 1000,
+                 "euler3d_mach3_box_dgq1_throughput"),
 }
 
 
@@ -144,7 +160,11 @@ def main():
     warmup = int(os.environ.get("BENCH_WARMUP", str(warmup_default)))
     reps = int(os.environ.get("BENCH_REPS", "1"))
 
+    t0 = time.perf_counter()
     _, sd, _, ti, U0 = build_case(refinement, torch.float32, "cuda")
+    print(f"setup {time.perf_counter() - t0:.1f} s: {case}, canvas "
+          f"{sd.shape}, {sd.n_nodes} real nodes, K = {sd.max_degree}",
+          file=sys.stderr, flush=True)
     U, _, t, _, _, _ = ti.advance(U0, 0.0, max(warmup, 2))
     torch.cuda.synchronize()
 

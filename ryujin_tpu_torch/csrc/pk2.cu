@@ -19,13 +19,20 @@
 // edge).  tau is read from device memory (no host sync); the stage
 // weights are static and come by value.  Masked slots are skipped, which
 // equals the reference's multiplication by a zero mask on finite data.
+//
+// dG (DG = true; the TPU kernel takes it through phase_low_order,
+// hyperbolic.py:924-928): the factor of d_H is max(1/2 (alpha_i +
+// alpha_j), beta_ij), beta read from the K incidence planes `inc`.  The
+// flag is a template parameter, so the cG instance reads no incidence
+// plane and compiles as before.
 #include "euler.cuh"
 
 namespace ryujin {
 
-template <typename T>
+template <typename T, bool DG>
 __global__ void __launch_bounds__(128)
-pk2_kernel(const T* __restrict__ cij, const T* __restrict__ mask, const T* __restrict__ cmax,
+pk2_kernel(const T* __restrict__ cij, const T* __restrict__ mask, const T* __restrict__ inc,
+           const T* __restrict__ cmax,
            const T* __restrict__ cii, const T* __restrict__ node, const T* __restrict__ U,
            const T* __restrict__ prec, const T* __restrict__ lam, const T* __restrict__ alpha,
            const T* __restrict__ sU, const T* __restrict__ tau_ptr, T* __restrict__ U_low,
@@ -76,7 +83,9 @@ pk2_kernel(const T* __restrict__ cij, const T* __restrict__ mask, const T* __res
     load_state(U, j, n, uj);
     T fj[C][2];
     flux(e, uj, fj);
-    const T d_H = d * (T(0.5) * (alpha_i + alpha[j]));
+    T factor = T(0.5) * (alpha_i + alpha[j]);
+    if constexpr (DG) factor = mx(factor, inc[k * n + i]);
+    const T d_H = d * factor;
 #pragma unroll
     for (int q = 0; q < C; ++q) {
       const T flux_ij = flux_div(fi, fj, q, c0, c1);
@@ -146,26 +155,31 @@ pk2_kernel(const T* __restrict__ cij, const T* __restrict__ mask, const T* __res
 }
 
 template <typename T>
-int launch_pk2(const T* cij, const T* mask, const T* cmax, const T* cii, const T* node,
-               const T* U, const T* prec, const T* lam, const T* alpha, const T* sU,
-               const T* tau, T* U_low, T* F, T* bounds, const Consts* consts,
+int launch_pk2(const T* cij, const T* mask, const T* inc, const T* cmax, const T* cii,
+               const T* node, const T* U, const T* prec, const T* lam, const T* alpha,
+               const T* sU, const T* tau, T* U_low, T* F, T* bounds, const Consts* consts,
                cudaStream_t stream) {
   const EqConsts<T> e = EqConsts<T>::make(*consts);
-  pk2_kernel<T><<<canvas_grid(e.H, e.W), canvas_block(), 0, stream>>>(
-      cij, mask, cmax, cii, node, U, prec, lam, alpha, sU, tau, U_low, F, bounds, e);
+  const dim3 grid = canvas_grid(e.H, e.W), block = canvas_block();
+  if (inc)
+    pk2_kernel<T, true><<<grid, block, 0, stream>>>(
+        cij, mask, inc, cmax, cii, node, U, prec, lam, alpha, sU, tau, U_low, F, bounds, e);
+  else
+    pk2_kernel<T, false><<<grid, block, 0, stream>>>(
+        cij, mask, inc, cmax, cii, node, U, prec, lam, alpha, sU, tau, U_low, F, bounds, e);
   return int(cudaGetLastError());
 }
 
 }  // namespace ryujin
 
 #define RYUJIN_PK2(SUFFIX, T)                                                                  \
-  extern "C" int ryujin_pk2_##SUFFIX(const void* cij, const void* mask, const void* cmax,      \
-                                     const void* cii, const void* node, const void* U,          \
-                                     const void* prec, const void* lam, const void* alpha,      \
-                                     const void* sU, const void* tau, void* U_low, void* F,     \
-                                     void* bounds, const ryujin::Consts* consts,                \
-                                     void* stream) {                                           \
-    return ryujin::launch_pk2<T>((const T*)cij, (const T*)mask, (const T*)cmax,                 \
+  extern "C" int ryujin_pk2_##SUFFIX(const void* cij, const void* mask, const void* inc,       \
+                                     const void* cmax, const void* cii, const void* node,       \
+                                     const void* U, const void* prec, const void* lam,          \
+                                     const void* alpha, const void* sU, const void* tau,        \
+                                     void* U_low, void* F, void* bounds,                        \
+                                     const ryujin::Consts* consts, void* stream) {             \
+    return ryujin::launch_pk2<T>((const T*)cij, (const T*)mask, (const T*)inc, (const T*)cmax,  \
                                  (const T*)cii, (const T*)node, (const T*)U, (const T*)prec,    \
                                  (const T*)lam, (const T*)alpha, (const T*)sU, (const T*)tau,   \
                                  (T*)U_low, (T*)F, (T*)bounds, consts, (cudaStream_t)stream);   \

@@ -28,14 +28,21 @@
 // runs over k = 0 .. K-1 in order and adds the diagonal last, as
 // pk2_stream_reference does.  The bounds relax by r_i = (h^d_i)^(3/4) in
 // 2D and (h^d_i)^(1/2) in 3D (euler/limiter.h:330-363).
+//
+// dG (DG = true; the TPU kernels take it at pallas_step.py:2942-2944 in
+// `pk2_stream` and, in 3D, through the stacked launcher _tiled_call_3d,
+// :597): the factor of d_H is max(1/2 (alpha_i + alpha_j), beta_ij), beta
+// read from the K incidence planes `inc`.  The flag is a template
+// parameter, so the cG instances read no incidence plane and compile as
+// before.
 #include "euler.cuh"
 
 namespace ryujin {
 
-template <typename T, int DIM, bool HALF>
+template <typename T, int DIM, bool HALF, bool DG>
 __global__ void __launch_bounds__(128)
 pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
-                  const T* __restrict__ cii, const T* __restrict__ node,
+                  const T* __restrict__ inc, const T* __restrict__ cii, const T* __restrict__ node,
                   const T* __restrict__ U, const T* __restrict__ prec, const T* __restrict__ ed,
                   const T* __restrict__ alpha, const T* __restrict__ sU,
                   const T* __restrict__ tau_ptr, T* __restrict__ U_low, T* __restrict__ F_out,
@@ -88,7 +95,9 @@ pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
     load_state(U, j, n, uj);
     T fj[NC][DIM];
     flux(e, uj, fj);
-    const T d_H = d * (T(0.5) * (alpha_i + alpha[j]));
+    T factor = T(0.5) * (alpha_i + alpha[j]);
+    if constexpr (DG) factor = mx(factor, inc[k * n + i]);
+    const T d_H = d * factor;
 #pragma unroll
     for (int q = 0; q < NC; ++q) {
       const T flux_ij = flux_div(fi, fj, q, cv);
@@ -151,38 +160,52 @@ pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
   bounds[2 * n + i] = s_min;
 }
 
-template <typename T>
-int launch_pk2_stream(const T* cij, const T* mask, const T* cii, const T* node, const T* U,
-                      const T* prec, const T* ed, const T* alpha, const T* sU, const T* tau,
-                      T* U_low, T* F, T* bounds, const Consts* consts, cudaStream_t stream) {
-  if (consts->K < 2 || consts->K > MAX_K || consts->K % 2) return int(cudaErrorInvalidValue);
-  const EqConsts<T> e = EqConsts<T>::make(*consts);
+template <typename T, bool DG>
+int launch_pk2_stream_route(const T* cij, const T* mask, const T* inc, const T* cii, const T* node,
+                      const T* U, const T* prec, const T* ed, const T* alpha, const T* sU,
+                      const T* tau, T* U_low, T* F, T* bounds, const EqConsts<T>& e,
+                      const Consts* consts, cudaStream_t stream) {
   const dim3 grid = canvas_grid(e.D, e.H, e.W), block = canvas_block();
   if (consts->dim == 2 && consts->half)
-    pk2_stream_kernel<T, 2, true><<<grid, block, 0, stream>>>(
-        cij, mask, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
+    pk2_stream_kernel<T, 2, true, DG><<<grid, block, 0, stream>>>(
+        cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
   else if (consts->dim == 3 && consts->half)
-    pk2_stream_kernel<T, 3, true><<<grid, block, 0, stream>>>(
-        cij, mask, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
+    pk2_stream_kernel<T, 3, true, DG><<<grid, block, 0, stream>>>(
+        cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
   else if (consts->dim == 3)
-    pk2_stream_kernel<T, 3, false><<<grid, block, 0, stream>>>(
-        cij, mask, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
+    pk2_stream_kernel<T, 3, false, DG><<<grid, block, 0, stream>>>(
+        cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_pk2_stream(const T* cij, const T* mask, const T* inc, const T* cii, const T* node,
+                      const T* U, const T* prec, const T* ed, const T* alpha, const T* sU,
+                      const T* tau, T* U_low, T* F, T* bounds, const Consts* consts,
+                      cudaStream_t stream) {
+  if (consts->K < 2 || consts->K > MAX_K || consts->K % 2) return int(cudaErrorInvalidValue);
+  const EqConsts<T> e = EqConsts<T>::make(*consts);
+  if (inc)
+    return launch_pk2_stream_route<T, true>(cij, mask, inc, cii, node, U, prec, ed, alpha, sU,
+                                            tau, U_low, F, bounds, e, consts, stream);
+  return launch_pk2_stream_route<T, false>(cij, mask, inc, cii, node, U, prec, ed, alpha, sU,
+                                           tau, U_low, F, bounds, e, consts, stream);
 }
 
 }  // namespace ryujin
 
 #define RYUJIN_PK2_STREAM(SUFFIX, T)                                                           \
   extern "C" int ryujin_pk2_stream_##SUFFIX(                                                   \
-      const void* cij, const void* mask, const void* cii, const void* node, const void* U,     \
-      const void* prec, const void* ed, const void* alpha, const void* sU, const void* tau,    \
-      void* U_low, void* F, void* bounds, const ryujin::Consts* consts, void* stream) {        \
+      const void* cij, const void* mask, const void* inc, const void* cii, const void* node,   \
+      const void* U, const void* prec, const void* ed, const void* alpha, const void* sU,      \
+      const void* tau, void* U_low, void* F, void* bounds, const ryujin::Consts* consts,       \
+      void* stream) {                                                                          \
     return ryujin::launch_pk2_stream<T>(                                                       \
-        (const T*)cij, (const T*)mask, (const T*)cii, (const T*)node, (const T*)U,             \
-        (const T*)prec, (const T*)ed, (const T*)alpha, (const T*)sU, (const T*)tau,            \
-        (T*)U_low, (T*)F, (T*)bounds, consts, (cudaStream_t)stream);                           \
+        (const T*)cij, (const T*)mask, (const T*)inc, (const T*)cii, (const T*)node,           \
+        (const T*)U, (const T*)prec, (const T*)ed, (const T*)alpha, (const T*)sU,              \
+        (const T*)tau, (T*)U_low, (T*)F, (T*)bounds, consts, (cudaStream_t)stream);            \
   }
 
 RYUJIN_PK2_STREAM(f32, float)

@@ -16,14 +16,21 @@
 // which is exact per lane (euler.py:755-762) and takes the place of the
 // TPU kernel's all-lanes lax.cond.  Masked slots write P = 0 and l = 0,
 // so every output is finite everywhere (no NaN * 0 hazard downstream).
+//
+// dG (DG = true; the TPU kernel takes it through phase_p_l1,
+// hyperbolic.py:1006-1010): the factor of d_H is max(1/2 (alpha_i +
+// alpha_j), beta_ij), beta read from the K incidence planes `inc`.  The
+// flag is a template parameter, so the cG instance reads no incidence
+// plane and compiles as before.
 #include "euler.cuh"
 
 namespace ryujin {
 
-template <typename T>
+template <typename T, bool DG>
 __global__ void __launch_bounds__(128)
 pk3_kernel(const T* __restrict__ cij, const T* __restrict__ cmax, const T* __restrict__ mij,
-           const T* __restrict__ mask, const T* __restrict__ node, const T* __restrict__ U,
+           const T* __restrict__ mask, const T* __restrict__ inc, const T* __restrict__ node,
+           const T* __restrict__ U,
            const T* __restrict__ lam, const T* __restrict__ alpha, const T* __restrict__ Fin,
            const T* __restrict__ U_low, const T* __restrict__ bounds, const T* __restrict__ sU,
            const T* __restrict__ tau_ptr, T* __restrict__ P_out, T* __restrict__ l_out,
@@ -69,7 +76,9 @@ pk3_kernel(const T* __restrict__ cij, const T* __restrict__ cmax, const T* __res
     const int64_t j = nbr(c, k, e.H, e.W);
     const T lam_k = k < K2 ? lam[k * n + i] : lam[(K - 1 - k) * n + j];
     const T d = lam_k * cmax[k * n + i];
-    const T d_H = d * (T(0.5) * (alpha_i + alpha[j]));
+    T factor = T(0.5) * (alpha_i + alpha[j]);
+    if constexpr (DG) factor = mx(factor, inc[k * n + i]);
+    const T d_H = d * factor;
     const T c0 = cij[k * n + i], c1 = cij[(K + k) * n + i];
     T uj[C], fj[C][2];
     load_state(U, j, n, uj);
@@ -112,13 +121,18 @@ pk3_kernel(const T* __restrict__ cij, const T* __restrict__ cmax, const T* __res
 }
 
 template <typename T>
-int launch_pk3(const T* cij, const T* cmax, const T* mij, const T* mask, const T* node,
-               const T* U, const T* lam, const T* alpha, const T* F, const T* U_low,
-               const T* bounds, const T* sU, const T* tau, T* P, T* l, T* okp,
+int launch_pk3(const T* cij, const T* cmax, const T* mij, const T* mask, const T* inc,
+               const T* node, const T* U, const T* lam, const T* alpha, const T* F,
+               const T* U_low, const T* bounds, const T* sU, const T* tau, T* P, T* l, T* okp,
                const Consts* consts, cudaStream_t stream) {
   const EqConsts<T> e = EqConsts<T>::make(*consts);
-  pk3_kernel<T><<<canvas_grid(e.H, e.W), canvas_block(), 0, stream>>>(
-      cij, cmax, mij, mask, node, U, lam, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+  const dim3 grid = canvas_grid(e.H, e.W), block = canvas_block();
+  if (inc)
+    pk3_kernel<T, true><<<grid, block, 0, stream>>>(
+        cij, cmax, mij, mask, inc, node, U, lam, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+  else
+    pk3_kernel<T, false><<<grid, block, 0, stream>>>(
+        cij, cmax, mij, mask, inc, node, U, lam, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
   return int(cudaGetLastError());
 }
 
@@ -126,16 +140,17 @@ int launch_pk3(const T* cij, const T* cmax, const T* mij, const T* mask, const T
 
 #define RYUJIN_PK3(SUFFIX, T)                                                                  \
   extern "C" int ryujin_pk3_##SUFFIX(const void* cij, const void* cmax, const void* mij,       \
-                                     const void* mask, const void* node, const void* U,         \
-                                     const void* lam, const void* alpha, const void* F,         \
-                                     const void* U_low, const void* bounds, const void* sU,     \
-                                     const void* tau, void* P, void* l, void* okp,              \
-                                     const ryujin::Consts* consts, void* stream) {             \
+                                     const void* mask, const void* inc, const void* node,       \
+                                     const void* U, const void* lam, const void* alpha,         \
+                                     const void* F, const void* U_low, const void* bounds,      \
+                                     const void* sU, const void* tau, void* P, void* l,         \
+                                     void* okp, const ryujin::Consts* consts, void* stream) {   \
     return ryujin::launch_pk3<T>((const T*)cij, (const T*)cmax, (const T*)mij,                  \
-                                 (const T*)mask, (const T*)node, (const T*)U, (const T*)lam,    \
-                                 (const T*)alpha, (const T*)F, (const T*)U_low,                 \
-                                 (const T*)bounds, (const T*)sU, (const T*)tau, (T*)P, (T*)l,   \
-                                 (T*)okp, consts, (cudaStream_t)stream);                       \
+                                 (const T*)mask, (const T*)inc, (const T*)node, (const T*)U,    \
+                                 (const T*)lam, (const T*)alpha, (const T*)F,                   \
+                                 (const T*)U_low, (const T*)bounds, (const T*)sU,               \
+                                 (const T*)tau, (T*)P, (T*)l, (T*)okp, consts,                  \
+                                 (cudaStream_t)stream);                                         \
   }
 
 RYUJIN_PK3(f32, float)

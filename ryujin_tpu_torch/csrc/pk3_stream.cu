@@ -23,14 +23,22 @@
 // transposed read of l.  The limiter returns per lane where psi(t_r) > 0
 // (exact, see limiter_limit).  The graph viscosity of slot k is read by
 // route (HALF) as in pk2_stream.cu; cmax is not read.
+//
+// dG (DG = true; the TPU kernels take it at pallas_step.py:3167-3171 in
+// `pk3_stream` and, in 3D, through the stacked launcher _tiled_call_3d,
+// :597): the factor of d_H is max(1/2 (alpha_i + alpha_j), beta_ij), beta
+// read from the K incidence planes `inc`.  The flag is a template
+// parameter, so the cG instances read no incidence plane and compile as
+// before.
 #include "euler.cuh"
 
 namespace ryujin {
 
-template <typename T, int DIM, bool HALF>
+template <typename T, int DIM, bool HALF, bool DG>
 __global__ void __launch_bounds__(128)
 pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
-                  const T* __restrict__ mask, const T* __restrict__ node,
+                  const T* __restrict__ mask, const T* __restrict__ inc,
+                  const T* __restrict__ node,
                   const T* __restrict__ U, const T* __restrict__ ed, const T* __restrict__ alpha,
                   const T* __restrict__ Fin, const T* __restrict__ U_low,
                   const T* __restrict__ bounds, const T* __restrict__ sU,
@@ -79,7 +87,9 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
     const int64_t j = nbr_k<DIM>(c, e, k);
     const T d = HALF ? (k < K2 ? ed[k * n + i] : ed[(K - 1 - k) * n + j])
                      : mx(ed[k * n + i], ed[(K - 1 - k) * n + j]);
-    const T d_H = d * (T(0.5) * (alpha_i + alpha[j]));
+    T factor = T(0.5) * (alpha_i + alpha[j]);
+    if constexpr (DG) factor = mx(factor, inc[k * n + i]);
+    const T d_H = d * factor;
     T cv[DIM];
 #pragma unroll
     for (int dd = 0; dd < DIM; ++dd) cv[dd] = cij[(dd * K + k) * n + i];
@@ -113,40 +123,54 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
   okp[i] = ok;
 }
 
-template <typename T>
-int launch_pk3_stream(const T* cij, const T* mij, const T* mask, const T* node, const T* U,
-                      const T* ed, const T* alpha, const T* F, const T* U_low, const T* bounds,
-                      const T* sU, const T* tau, T* P, T* l, T* okp, const Consts* consts,
-                      cudaStream_t stream) {
-  if (consts->K < 2 || consts->K > MAX_K || consts->K % 2) return int(cudaErrorInvalidValue);
-  const EqConsts<T> e = EqConsts<T>::make(*consts);
+template <typename T, bool DG>
+int launch_pk3_stream_route(const T* cij, const T* mij, const T* mask, const T* inc,
+                            const T* node, const T* U, const T* ed, const T* alpha, const T* F,
+                            const T* U_low, const T* bounds, const T* sU, const T* tau, T* P,
+                            T* l, T* okp, const EqConsts<T>& e, const Consts* consts,
+                            cudaStream_t stream) {
   const dim3 grid = canvas_grid(e.D, e.H, e.W), block = canvas_block();
   if (consts->dim == 2 && consts->half)
-    pk3_stream_kernel<T, 2, true><<<grid, block, 0, stream>>>(
-        cij, mij, mask, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+    pk3_stream_kernel<T, 2, true, DG><<<grid, block, 0, stream>>>(
+        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
   else if (consts->dim == 3 && consts->half)
-    pk3_stream_kernel<T, 3, true><<<grid, block, 0, stream>>>(
-        cij, mij, mask, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+    pk3_stream_kernel<T, 3, true, DG><<<grid, block, 0, stream>>>(
+        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
   else if (consts->dim == 3)
-    pk3_stream_kernel<T, 3, false><<<grid, block, 0, stream>>>(
-        cij, mij, mask, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+    pk3_stream_kernel<T, 3, false, DG><<<grid, block, 0, stream>>>(
+        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_pk3_stream(const T* cij, const T* mij, const T* mask, const T* inc, const T* node,
+                      const T* U, const T* ed, const T* alpha, const T* F, const T* U_low,
+                      const T* bounds, const T* sU, const T* tau, T* P, T* l, T* okp,
+                      const Consts* consts, cudaStream_t stream) {
+  if (consts->K < 2 || consts->K > MAX_K || consts->K % 2) return int(cudaErrorInvalidValue);
+  const EqConsts<T> e = EqConsts<T>::make(*consts);
+  if (inc)
+    return launch_pk3_stream_route<T, true>(cij, mij, mask, inc, node, U, ed, alpha, F, U_low,
+                                            bounds, sU, tau, P, l, okp, e, consts, stream);
+  return launch_pk3_stream_route<T, false>(cij, mij, mask, inc, node, U, ed, alpha, F, U_low,
+                                           bounds, sU, tau, P, l, okp, e, consts, stream);
 }
 
 }  // namespace ryujin
 
 #define RYUJIN_PK3_STREAM(SUFFIX, T)                                                           \
   extern "C" int ryujin_pk3_stream_##SUFFIX(                                                   \
-      const void* cij, const void* mij, const void* mask, const void* node, const void* U,     \
-      const void* ed, const void* alpha, const void* F, const void* U_low,                     \
+      const void* cij, const void* mij, const void* mask, const void* inc, const void* node,   \
+      const void* U, const void* ed, const void* alpha, const void* F, const void* U_low,      \
       const void* bounds, const void* sU, const void* tau, void* P, void* l, void* okp,        \
       const ryujin::Consts* consts, void* stream) {                                            \
     return ryujin::launch_pk3_stream<T>(                                                       \
-        (const T*)cij, (const T*)mij, (const T*)mask, (const T*)node, (const T*)U,             \
-        (const T*)ed, (const T*)alpha, (const T*)F, (const T*)U_low, (const T*)bounds,         \
-        (const T*)sU, (const T*)tau, (T*)P, (T*)l, (T*)okp, consts, (cudaStream_t)stream);     \
+        (const T*)cij, (const T*)mij, (const T*)mask, (const T*)inc, (const T*)node,           \
+        (const T*)U, (const T*)ed, (const T*)alpha, (const T*)F, (const T*)U_low,              \
+        (const T*)bounds, (const T*)sU, (const T*)tau, (T*)P, (T*)l, (T*)okp, consts,          \
+        (cudaStream_t)stream);                                                                 \
   }
 
 RYUJIN_PK3_STREAM(f32, float)

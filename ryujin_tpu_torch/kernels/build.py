@@ -31,8 +31,8 @@ GENCODE = "arch=compute_90a,code=sm_90a"
 # entry point -> number of device-pointer arguments (before the Consts
 # pointer and the stream)
 ENTRY_POINTS = {
-    "pk1": 7, "pk2": 14, "pk3": 16, "pk_up": 8,
-    "pk1_stream": 8, "pk2_stream": 13, "pk3_stream": 15,
+    "pk1": 7, "pk2": 15, "pk3": 17, "pk_up": 8,
+    "pk1_stream": 8, "pk2_stream": 14, "pk3_stream": 16,
 }
 MAX_K = 48  # lattice offsets a launch can carry (cG Q3: reach 3, K = 48)
 
@@ -297,5 +297,9 @@ def check_reach1(ca) -> None:
 
 
 def statics(ca, names) -> Dict[str, tuple]:
-    """check() entries for the named CanvasArrays planes."""
-    return {name: (getattr(ca, name), getattr(ca, name).shape) for name in names}
+    """check() entries for the named CanvasArrays planes that are present
+    (g_inc is None on a cG canvas)."""
+    return {
+        name: (getattr(ca, name), getattr(ca, name).shape)
+        for name in names if getattr(ca, name) is not None
+    }

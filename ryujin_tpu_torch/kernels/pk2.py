@@ -1,5 +1,6 @@
 """PK2: low-order update U_low, high-order right-hand side F and the
-limiter bounds (CUDA kernel csrc/pk2.cu; TPU kernel pallas_step.py:2841)."""
+limiter bounds (CUDA kernel csrc/pk2.cu; TPU kernel pallas_step.py:2841).
+On a dG canvas the kernel also reads the incidence planes g_inc."""
 
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ def stage_tensor(stage_U, stage_weights, C, n):
 
 
 def pk2_reference(eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau):
-    """Plain torch: the d rebuild + hyperbolic.phase_low_order on the canvas."""
+    """Plain torch: the d rebuild + hyperbolic.phase_low_order on the
+    canvas (with the dG factor where the canvas has incidence)."""
     st = ca.stencil
     d = d_from_lambda(st, lam, ca.g_cmax.reshape(ca.K, -1))
     stage_U_j = [st.nbr(stage_U[s]) for s in range(len(stage_weights))]
@@ -47,7 +49,9 @@ def pk2(eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau):
         "lam": (lam, (K // 2, n)),
         "alpha": (alpha, (n,)),
         "tau": (tau, ()),
-        **build.statics(ca, ("g_cij", "g_mask", "g_cmax", "g_cii", "g_node")),
+        **build.statics(
+            ca, ("g_cij", "g_mask", "g_inc", "g_cmax", "g_cii", "g_node")
+        ),
     }
     if sU is not None:
         tensors["stage_U"] = (sU, sU.shape)
@@ -56,8 +60,8 @@ def pk2(eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau):
     U_low = torch.empty((C, n), **kw)
     F = torch.empty((C, n), **kw)
     bounds = torch.empty((eq.n_bounds, n), **kw)
-    ptrs = [ca.g_cij, ca.g_mask, ca.g_cmax, ca.g_cii, ca.g_node, U, prec, lam,
-            alpha, sU, tau, U_low, F, bounds]
+    ptrs = [ca.g_cij, ca.g_mask, ca.g_inc, ca.g_cmax, ca.g_cii, ca.g_node, U,
+            prec, lam, alpha, sU, tau, U_low, F, bounds]
     build.launch(
         "pk2", U.dtype, [build.ptr(t) for t in ptrs],
         build.consts(eq, p, ca, stage_weights),

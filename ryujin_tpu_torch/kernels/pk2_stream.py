@@ -2,7 +2,9 @@
 side F and the limiter bounds for a 2D or 3D canvas of any lattice reach,
 from the wavespeeds e of PK1 on either route (CUDA kernel
 csrc/pk2_stream.cu; TPU kernels `pk2_stream` with prescale,
-pallas_step.py:2879, and `_step_slab`'s pk2, :2317)."""
+pallas_step.py:2879, and `_step_slab`'s pk2, :2317).  On a dG canvas the
+high-order viscosity factor of each slot is at least the incidence
+beta_ij (`slot_factor`; pallas_step.py:2942-2944)."""
 
 from __future__ import annotations
 
@@ -23,6 +25,16 @@ def slot_d(st, e, k, half=True):
     else:
         d_k = torch.maximum(e[k], st.shift(e[K - 1 - k], st.offsets[k]))
     return torch.where(st.mask[k] > 0, d_k, torch.zeros_like(d_k))
+
+
+def slot_factor(st, alpha, k):
+    """The high-order viscosity factor of slot k [n]: 1/2 (alpha_i +
+    alpha_j), and on a dG canvas at least the incidence beta_ij (the
+    per-slot form of hyperbolic.viscosity_factor)."""
+    factor = 0.5 * (alpha + st.shift(alpha, st.offsets[k]))
+    if st.incidence is not None:
+        factor = torch.maximum(factor, st.incidence[k])
+    return factor
 
 
 def pk2_stream_reference(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights,
@@ -47,7 +59,7 @@ def pk2_stream_reference(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights,
         d_k = slot_d(st, e, k, half)
         flux_ij_k = eq.flux_divergence(f, st.shift(f, off), c_k)
         dU_k = U_jk - U
-        dH_k = d_k * (0.5 * (alpha + st.shift(alpha, off)))
+        dH_k = d_k * slot_factor(st, alpha, k)
         low_acc = low_acc + (flux_ij_k + d_k[None] * dU_k) * mask_k[None]
         F_acc = F_acc + (dH_k[None] * dU_k + weight * flux_ij_k) * mask_k[None]
         for s, w_s in enumerate(ws):
@@ -87,7 +99,7 @@ def pk2_stream(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau,
         "e": (e, (K // 2 if half else K, n)),
         "alpha": (alpha, (n,)),
         "tau": (tau, ()),
-        **build.statics(ca, ("g_cij", "g_mask", "g_cii", "g_node")),
+        **build.statics(ca, ("g_cij", "g_mask", "g_inc", "g_cii", "g_node")),
     }
     if sU is not None:
         tensors["stage_U"] = (sU, sU.shape)
@@ -96,8 +108,8 @@ def pk2_stream(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau,
     U_low = torch.empty((C, n), **kw)
     F = torch.empty((C, n), **kw)
     bounds = torch.empty((eq.n_bounds, n), **kw)
-    ptrs = [ca.g_cij, ca.g_mask, ca.g_cii, ca.g_node, U, prec, e, alpha, sU,
-            tau, U_low, F, bounds]
+    ptrs = [ca.g_cij, ca.g_mask, ca.g_inc, ca.g_cii, ca.g_node, U, prec, e,
+            alpha, sU, tau, U_low, F, bounds]
     build.launch("pk2_stream", U.dtype, [build.ptr(t) for t in ptrs], c)
     pk2_stream.launches += 1
     return U_low, F, bounds

@@ -1,5 +1,6 @@
 """PK3: antidiffusive fluxes P, the first limiter pass l and the per-node
-success flag okp (CUDA kernel csrc/pk3.cu; TPU kernel pallas_step.py:3044)."""
+success flag okp (CUDA kernel csrc/pk3.cu; TPU kernel pallas_step.py:3044).
+On a dG canvas the kernel also reads the incidence planes g_inc."""
 
 from __future__ import annotations
 
@@ -12,8 +13,9 @@ from .pk2 import stage_tensor
 
 def pk3_reference(eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U,
                   stage_weights, tau):
-    """Plain torch: the d rebuild + hyperbolic.phase_p_l1 on the canvas,
-    okp = min of success over the live edges of each node."""
+    """Plain torch: the d rebuild + hyperbolic.phase_p_l1 on the canvas
+    (with the dG factor where the canvas has incidence), okp = min of
+    success over the live edges of each node."""
     st = ca.stencil
     d = d_from_lambda(st, lam, ca.g_cmax.reshape(ca.K, -1))
     stage_U_j = [st.nbr(stage_U[s]) for s in range(len(stage_weights))]
@@ -48,7 +50,7 @@ def pk3(eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U, stage_weights,
         "bounds": (bounds, (eq.n_bounds, n)),
         "tau": (tau, ()),
         **build.statics(
-            ca, ("g_cij", "g_cmax", "g_mij", "g_mask", "g_node")
+            ca, ("g_cij", "g_cmax", "g_mij", "g_mask", "g_inc", "g_node")
         ),
     }
     if sU is not None:
@@ -58,8 +60,8 @@ def pk3(eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U, stage_weights,
     P = torch.empty((C, K, n), **kw)
     l = torch.empty((K, n), **kw)
     okp = torch.empty((n,), **kw)
-    ptrs = [ca.g_cij, ca.g_cmax, ca.g_mij, ca.g_mask, ca.g_node, U, lam, alpha,
-            F, U_low, bounds, sU, tau, P, l, okp]
+    ptrs = [ca.g_cij, ca.g_cmax, ca.g_mij, ca.g_mask, ca.g_inc, ca.g_node, U,
+            lam, alpha, F, U_low, bounds, sU, tau, P, l, okp]
     build.launch(
         "pk3", U.dtype, [build.ptr(t) for t in ptrs],
         build.consts(eq, p, ca, stage_weights),

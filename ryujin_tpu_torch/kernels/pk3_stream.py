@@ -2,7 +2,9 @@
 folded in, the first limiter pass l and the per-node success flag okp for
 a 2D or 3D canvas of any lattice reach, from the wavespeeds e of PK1 on
 either route (CUDA kernel csrc/pk3_stream.cu; TPU kernels `pk3_stream`
-with prescale, pallas_step.py:3093, and `_step_slab`'s pk3, :2409)."""
+with prescale, pallas_step.py:3093, and `_step_slab`'s pk3, :2409).  On a
+dG canvas the high-order viscosity factor of each slot is at least the
+incidence beta_ij (pallas_step.py:3167-3171)."""
 
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ import torch
 
 from . import build
 from .pk2 import stage_tensor
-from .pk2_stream import slot_d
+from .pk2_stream import slot_d, slot_factor
 
 
 def pk3_stream_reference(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
@@ -34,7 +36,7 @@ def pk3_stream_reference(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
         on = st.mask[k] > 0
         d_k = slot_d(st, e, k, half)
         flux_ij_k = eq.flux_divergence(f, st.shift(f, off), c_k)
-        dH_k = d_k * (0.5 * (alpha + st.shift(alpha, off)))
+        dH_k = d_k * slot_factor(st, alpha, k)
         P_k = (weight - 1.0) * flux_ij_k + (dH_k - d_k)[None] * (
             st.shift(U, off) - U
         )
@@ -79,7 +81,7 @@ def pk3_stream(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
         "U_low": (U_low, (C, n)),
         "bounds": (bounds, (eq.n_bounds, n)),
         "tau": (tau, ()),
-        **build.statics(ca, ("g_cij", "g_mij", "g_mask", "g_node")),
+        **build.statics(ca, ("g_cij", "g_mij", "g_mask", "g_inc", "g_node")),
     }
     if sU is not None:
         tensors["stage_U"] = (sU, sU.shape)
@@ -88,8 +90,8 @@ def pk3_stream(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
     P = torch.empty((C, K, n), **kw)
     l = torch.empty((K, n), **kw)
     okp = torch.empty((n,), **kw)
-    ptrs = [ca.g_cij, ca.g_mij, ca.g_mask, ca.g_node, U, e, alpha, F, U_low,
-            bounds, sU, tau, P, l, okp]
+    ptrs = [ca.g_cij, ca.g_mij, ca.g_mask, ca.g_inc, ca.g_node, U, e, alpha,
+            F, U_low, bounds, sU, tau, P, l, okp]
     build.launch("pk3_stream", U.dtype, [build.ptr(t) for t in ptrs], c)
     pk3_stream.launches += 1
     return P, l, okp

@@ -3,6 +3,7 @@
     python -m ryujin_tpu_torch.profile_step              # step2d
     BENCH_CASE=q2step2d python -m ryujin_tpu_torch.profile_step
     BENCH_CASE=box3d python -m ryujin_tpu_torch.profile_step
+    BENCH_CASE=dg1box3d python -m ryujin_tpu_torch.profile_step
 
 After the warmup of the bench case (BENCH_WARMUP, BENCH_REFINEMENT as in
 ryujin_tpu_torch.bench) it
@@ -63,7 +64,10 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
+    t0 = time.perf_counter()
     _, sd, hm, ti, U0 = build_case(refinement, torch.float32, "cuda")
+    print(f"setup {time.perf_counter() - t0:.1f} s (mesh, assembly, packing,"
+          f" statics) on {card}", flush=True)
     integrators = {
         rec: TimeIntegrator(hm, ti.scheme, cfl_min=ti.cfl_min,
                             cfl_max=ti.cfl_max, cfl_recovery_strategy=rec)

@@ -1,0 +1,87 @@
+"""Compare the SASS of the kernel instances two kernel libraries share.
+
+    python -m ryujin_tpu_torch.sass_diff OLD.so NEW.so
+
+OLD.so and NEW.so are libraries that `kernels/build.py` built from two
+checkouts (ryujin_tpu_torch/_build/libryujin_kernels_*.so).  Each kernel
+instance of OLD is matched with the instance of NEW that has the same
+kernel and template arguments; an instance of NEW whose trailing boolean
+template argument is the dG flag matches OLD's instance without it when
+the flag is false, and is left out when it is true.  Constant-bank
+addresses of the form c[0x0][0x...] (the launch's parameters) are masked
+before the comparison.  Prints, for each pair, the instruction counts and
+the instructions that still differ.  Needs cuobjdump (the CUDA toolkit's,
+under $CUDA_HOME/bin).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+# kernels whose last template argument is the dG flag, and how many
+# boolean template arguments they have with it
+DG_FLAGGED = {"pk2_kernel": 1, "pk3_kernel": 1, "pk2_stream_kernel": 2,
+              "pk3_stream_kernel": 2}
+
+
+def functions(lib: str):
+    """{mangled name: [instruction text with direct parameter offsets
+    masked]} of every kernel in `lib`."""
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    out = subprocess.run([str(home / "bin" / "cuobjdump"), "-sass", lib],
+                         capture_output=True, text=True, check=True).stdout
+    res, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            res[cur] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if cur and m:
+            res[cur].append(
+                re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][P]", m.group(1)))
+    return res
+
+
+def key(name: str):
+    """(kernel, template arguments) of a mangled kernel name, with a false
+    dG flag dropped; None for a dG instance or a name of another form."""
+    m = re.match(r"_ZN6ryujin\d+(\w+?_kernel)I(.*?)EEvPK", name)
+    if not m:
+        return None
+    kernel, args = m.groups()
+    if args.count("Lb") == DG_FLAGGED.get(kernel):
+        if args.endswith("Lb1E"):
+            return None
+        args = args[: -len("Lb0E")]
+    return kernel, args
+
+
+def main():
+    if len(sys.argv) != 3:
+        sys.exit(__doc__)
+    old = {key(n): v for n, v in functions(sys.argv[1]).items() if key(n)}
+    new = {key(n): v for n, v in functions(sys.argv[2]).items() if key(n)}
+    same = 0
+    for k in sorted(old):
+        a, b = old[k], new.get(k)
+        if b is None:
+            print(f"{k[0]} {k[1]}: not in {sys.argv[2]}")
+            continue
+        differing = [(i, x, y) for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        n_diff = len(differing) + abs(len(a) - len(b))
+        same += n_diff == 0
+        print(f"{k[0]:18s} {k[1]:14s} instructions {len(a):6d} / {len(b):6d},"
+              f" differing {n_diff}")
+        for i, x, y in differing:
+            print(f"    {i:5d}: {x}  |  {y}")
+    print(f"{same} of {len(old)} instances identical up to parameter offsets")
+
+
+if __name__ == "__main__":
+    main()

@@ -6,25 +6,27 @@ kernels: the counterpart of ryujin_tpu/solver/pallas_step.py
 One substep launches, in order: PK1 (wavespeeds + alpha), the
 boundary-pair fixup, the d rebuild and tau reduction in torch, PK2
 (U_low, F, bounds), PK3 (P, first limiter pass, okp), and pk_up twice
-(PK4 re-limits, PK5 is the last update).  A 2D reach-1 canvas (cG Q1,
-K = 8) runs pk1 / pk2 / pk3 on the raw lambda; a 2D canvas of a larger
-reach (cG Q2: reach 2, K = 24) and a 3D canvas (cG Q1: K = 26) run the
-slot-streaming pk1_stream / pk2_stream / pk3_stream (`CanvasStepper.
-stream`), as the JAX package does (pallas_step.py:2626).  The stream
-kernels take one of two routes, chosen once by the hyperbolic module
-(`half`): the half-slot pre-scaled e = lambda * cmax with the
-boundary-pair fixup, or, when the boundary-pair set is too large for that
-fixup (a 3D box's whole surface), the two-direction e = |c_ij| lambda on
-every slot with d = max(e, e_T) and no fixup.  Every kernel wrapper runs
-its plain-torch reference for CPU tensors, so the same orchestration is
-testable on the CPU.
+(PK4 re-limits, PK5 is the last update).  On a dG canvas PK2 and PK3
+read the incidence planes (g_inc) as well.  A 2D reach-1 canvas (cG or
+dG Q1, K = 8) runs pk1 / pk2 / pk3 on the raw lambda; a 2D canvas of a
+larger reach (cG or dG Q2: reach 2, K = 24) and a 3D canvas (cG or dG
+Q1: K = 26) run the slot-streaming pk1_stream / pk2_stream / pk3_stream
+(`CanvasStepper.stream`), as the JAX package does (pallas_step.py:2626;
+its 3D dG canvas takes the stacked 3D launcher instead, :1226-1234).
+The stream kernels take one of two routes, chosen once by the hyperbolic
+module (`half`): the half-slot pre-scaled e = lambda * cmax with the
+boundary-pair fixup, or, when the boundary-pair set is too large for
+that fixup (a 3D box's whole surface), the two-direction e = |c_ij|
+lambda on every slot with d = max(e, e_T) and no fixup.  Every kernel
+wrapper runs its plain-torch reference for CPU tensors, so the same
+orchestration is testable on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +61,8 @@ class CanvasArrays:
     g_cii: torch.Tensor  # [dim, *shape]
     g_node: torch.Tensor  # [5, *shape]: m_i, 1/m_i, n_nbrs, node_mask, value_mask
     g_lam: torch.Tensor  # [1, *shape]: 1/n_nbrs
+    # dG incidence beta_ij [K, *shape]; None for a continuous ansatz
+    g_inc: Optional[torch.Tensor] = None
 
     @property
     def K(self) -> int:
@@ -86,6 +90,7 @@ class CanvasArrays:
             n_nbrs=self.g_node[2].reshape(n),
             node_mask=self.g_node[3].reshape(n),
             measure_inv=self.measure_inv,
+            incidence=None if self.g_inc is None else self.g_inc.reshape(K, n),
         )
 
     @staticmethod
@@ -139,17 +144,26 @@ class CanvasArrays:
                 np.where(sd.n_nbrs > 0, 1.0 / np.maximum(sd.n_nbrs, 1), 1.0),
                 1,
             ),
+            g_inc=(
+                None if sd.incidence is None
+                else canv(np.moveaxis(sd.incidence, -1, 0), K)
+            ),
         )
 
 
 class CanvasStepper:
     """Runs HyperbolicModule.step through the kernels.  Takes the Euler
     equations on a single-block lattice canvas, 2D of reach 1 or more or
-    3D of reach 1 (no initial precomputed values, no sideband,
-    multi-block, slab or dG incidence), and rejects any other
-    configuration.  `half` is the hyperbolic module's choice of Riemann
-    route: the half-slot evaluation with `lambda_fixup`, or the
-    two-direction evaluation on every slot (3D canvases only)."""
+    3D of reach 1, of a continuous or a discontinuous ansatz (no initial
+    precomputed values, no sideband, multi-block or slab), and rejects any
+    other configuration.  A dG canvas (cG's lattice with the incidence
+    beta_ij, `CanvasArrays.g_inc`) takes the kernel form of its reach and
+    dimension, as a cG one does: dG Q1 in 2D the stacked pk1 / pk2 / pk3,
+    dG Q2 in 2D and dG Q1 in 3D the stream forms; PK2 and PK3 then raise
+    the high-order viscosity factor to beta_ij.  `half` is the hyperbolic
+    module's choice of Riemann route: the half-slot evaluation with
+    `lambda_fixup`, or the two-direction evaluation on every slot (3D
+    canvases only)."""
 
     def __init__(self, eq, params, sd: StructuredData, dtype, device,
                  lambda_fixup: Callable, half: bool):
@@ -173,7 +187,10 @@ class CanvasStepper:
         # reach > 1 and every 3D canvas run the slot-streaming PK1-PK3, a
         # 2D reach-1 canvas the stacked K = 8 kernels (PallasStepper
         # decides the same at pallas_step.py:2734-2745, 2982-2985,
-        # 3040-3042 and, for 3D, :1226-1234 and :2626).
+        # 3040-3042 and, for 3D, :1226-1234 and :2626).  The ansatz does
+        # not enter: a 3D dG canvas, which the JAX package sends to the
+        # stacked 3D launcher (_tiled_call_3d, :597), runs the 3D stream
+        # forms here, as a cG one does.
         self.stream = reach > 1 or sd.dim == 3
         self.half = half
         self.arrays = CanvasArrays.from_structured(sd, dtype, device)

@@ -2,16 +2,18 @@
 convex limiting (ryujin_tpu/solver/hyperbolic.py).
 
 Scope: the Euler equations on a single-block structured canvas, 2D of
-any lattice reach (the Mach-3 step of bench cases step2d, cG Q1 with
-K = 8, and q2step2d, cG Q2 with K = 24) or 3D of reach 1 (the Mach-3 box
-of bench case box3d, cG Q1 with K = 26), with the scatter route for
-boundary conditions.  The Riemann wavespeeds take the symmetric
+any lattice reach (the Mach-3 step of bench cases step2d, cG Q1 with K =
+8, and q2step2d, cG Q2 with K = 24) or 3D of reach 1 (the Mach-3 box of
+bench cases box3d, cG Q1 with K = 26, and dg1box3d, dG Q1 with K = 26),
+continuous or discontinuous (the dG incidence raises the high-order
+viscosity factor to beta_ij, `viscosity_factor`), with the scatter route
+for boundary conditions.  The Riemann wavespeeds take the symmetric
 half-slot evaluation with the coupling-boundary-pair fixup, or, above
 the JAX package's cut-off on the size of that pair set, the
-two-direction evaluation on every slot.  The phase
-functions are plain tensor code on full canvases; `HyperbolicModule.step`
-runs them for CPU tensors and the hand-written CUDA kernels
-(solver/canvas_step.py) for CUDA tensors.
+two-direction evaluation on every slot.  The phase functions are plain
+tensor code on full canvases; `HyperbolicModule.step` runs them for CPU
+tensors and the hand-written CUDA kernels (solver/canvas_step.py) for
+CUDA tensors.
 
 Differences from the JAX signatures: stage weights are static Python
 floats (the JAX lax.cond on a zero weight becomes a Python `if`), and the
@@ -153,6 +155,18 @@ def tau_max_from_d(sa, d, cfl, tau_cap):
     return torch.minimum(tau_max, tau_cap)
 
 
+def viscosity_factor(sa, alpha, alpha_j):
+    """The high-order graph viscosity factor of d_H = d * factor [K, n]:
+    1/2 (alpha_i + alpha_j), and on a dG canvas at least the incidence
+    beta_ij, which forces low-order dissipation across element interfaces
+    (hyperbolic.py:924-928, 1006-1010; hyperbolic_module.template.h:
+    733-737)."""
+    factor = 0.5 * (alpha[None] + alpha_j)
+    if sa.incidence is not None:
+        factor = torch.maximum(factor, sa.incidence)
+    return factor
+
+
 def _flux_divergences(eq, sa, U, U_j):
     """Edge and diagonal flux divergences (flux_ij [C, K, n], flux_ii [C, n])."""
     flux_i = eq.f(U)
@@ -185,7 +199,7 @@ def phase_low_order(eq, p, sa, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
     """Step 4: low-order update, high-order RHS F_i, limiter bounds.
     Returns (U_low [C, n], F [C, n], bounds [3, n])."""
     weight = 1.0 - sum(stage_weights)
-    d_H = d * (0.5 * (alpha[None] + alpha_j))
+    d_H = d * viscosity_factor(sa, alpha, alpha_j)
     regularization = 100.0 * torch.finfo(U.dtype).tiny
     scaled_c_ij = sa.cij / torch.clamp_min(d, regularization)[None]
 
@@ -217,7 +231,7 @@ def phase_p_l1(eq, p, sa, U, U_j, d, alpha, alpha_j, tau, F, F_j, m_j,
     """Step 5: P_ij with the mass-matrix correction and the first limiter
     pass.  Returns (P [C, K, n], l [K, n], success [K, n])."""
     weight = 1.0 - sum(stage_weights)
-    d_H = d * (0.5 * (alpha[None] + alpha_j))
+    d_H = d * viscosity_factor(sa, alpha, alpha_j)
     flux_ij, _ = _flux_divergences(eq, sa, U, U_j)
 
     P = -flux_ij + weight * flux_ij + (d_H - d)[None] * (U_j - U[:, None])

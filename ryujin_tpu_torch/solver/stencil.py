@@ -1,6 +1,7 @@
 """Lattice-canvas stencil in PyTorch (ryujin_tpu/solver/hyperbolic.py
 StructuredStencil, :144-398), for a single-block canvas without ghosts,
-of any lattice reach (K = (2 reach + 1)^dim - 1 offsets).
+of any lattice reach (K = (2 reach + 1)^dim - 1 offsets), continuous or
+discontinuous (dG, with the incidence beta_ij on the slots).
 
 Neighbour access is a static shift of the canvas: `nbr` gives
 out[..., k, i] = X[..., i + offsets[k]] with the same wrap as jnp.roll /
@@ -12,7 +13,7 @@ the transposed slot of offset k is K-1-k for every reach.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,8 +39,6 @@ def check_single_block(sd: StructuredData) -> None:
             _unsupported("multi-block")
     if getattr(sd, "minor_wrap", None) is not None:
         _unsupported("padded periodic-minor (minor_wrap)")
-    if getattr(sd, "incidence", None) is not None:
-        _unsupported("dG (incidence)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +58,8 @@ class StructuredStencil:
     n_nbrs: torch.Tensor  # [n]
     node_mask: torch.Tensor  # [n]
     measure_inv: float
+    # dG incidence beta_ij [K, n]; None for a continuous ansatz
+    incidence: Optional[torch.Tensor] = None
 
     @property
     def K(self) -> int:

@@ -197,9 +197,8 @@ def test_euler_3d_stream_forms_and_limiter():
     x = dict(Ui=Ui, Uj=Uj, c=rng.normal(size=(3, K, M)),
              mask=(rng.uniform(size=(K, M)) < 0.8).astype(float),
              hd=rng.uniform(1e-6, 1e-2, M), d=rng.uniform(0.1, 2.0, (K, M)))
-    out = []
-    for eq, X in ((JEQ, {k: jnp.asarray(v) for k, v in x.items()}),
-                  (EQ, {k: torch.tensor(v) for k, v in x.items()})):
+
+    def forms(eq, X):
         prec_i = (eq.precompute(X["Ui"], None) if eq is JEQ
                   else eq.precompute(X["Ui"]))
         prec_j = (eq.precompute(X["Uj"], None) if eq is JEQ
@@ -222,7 +221,15 @@ def test_euler_3d_stream_forms_and_limiter():
         P = 3.0 * (X["Uj"] - X["Ui"][:, None])
         b, u = bounds[:, None], X["Ui"][:, None]
         l, s = eq.limiter_limit(b, u, P, psi0=eq.limiter_psi0(b, u))
-        out.append((left, right, alpha, bounds, l, s))
+        return left, right, alpha, bounds, l, s
+
+    # the JAX side traced and compiled as one program (op by op it compiles
+    # each of the 26 slots' slices anew)
+    out = [
+        jax.jit(lambda X: forms(JEQ, X))(
+            {k: jnp.asarray(v) for k, v in x.items()}),
+        forms(EQ, {k: torch.tensor(v) for k, v in x.items()}),
+    ]
     for name, got, ref in zip(("left", "right", "alpha", "bounds", "l"),
                               out[1], out[0]):
         assert_close(got, ref, name)

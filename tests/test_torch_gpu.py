@@ -12,7 +12,10 @@ step2d (cG Q1, K = 8: pk1, pk2, pk3, pk_up) and q2step2d (cG Q2, K = 24:
 pk1_stream, pk2_stream, pk3_stream, pk_up; bang-bang) at refinement 0,
 and box3d (3D cG Q1, K = 26: the 3D instances of the stream kernels and
 pk_up; bang-bang) on two small boxes at refinement 1, one for each
-Riemann route.
+Riemann route; and the dG instances of PK2 and PK3 (the incidence beta_ij
+in the high-order viscosity factor): dG Q1 and dG Q2 in 2D on a small
+rectangle with the step's boundary conditions, and dG Q1 in 3D on a box
+for each Riemann route, as dg1box3d at small size.
 """
 
 import functools
@@ -98,3 +101,62 @@ def test_box3d_kernels_on_card_match_plain_cpu(subdiv, half):
          pk_up.pk_up),
         [3, 3, 3, 6], refinement=1,
     )
+
+
+def _dg_rectangle(ansatz):
+    """A build_case of a dG ansatz on [0, 3] x [0, 1] (3 x 1 cells before
+    `refinement`) with the step's boundary conditions, bang-bang."""
+    from ryujin_tpu_torch import bench
+    from ryujin_tpu_torch.offline.mesh import Boundary
+
+    def build(refinement, dtype, device):
+        mesh = bench.geometry.rectangular_domain(
+            [0.0, 0.0], [3.0, 1.0], [3, 1], refinement,
+            boundary_conditions=[Boundary.dirichlet, Boundary.do_nothing,
+                                 Boundary.slip, Boundary.slip],
+        )
+        sd = bench.structured.pack_structured(
+            bench.assembly.assemble(mesh, ansatz=ansatz), mesh
+        )
+        eq = bench.Euler(dim=2)
+        init = bench.make_initial_state(eq, "uniform",
+                                        primitive_state=(1.4, 3.0, 1.0))
+        hm = bench.HyperbolicModule(eq, sd, init, dtype=dtype, device=device)
+        ti = bench.TimeIntegrator(hm, "erk 33", cfl_min=0.45, cfl_max=0.9,
+                                  cfl_recovery_strategy="bang bang control")
+        U0 = bench.interpolate_nodal(init, sd, eq, 0.0, dtype, device)
+        return eq, sd, hm, ti, U0
+
+    return build
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dG Q1", "dG Q2", "box half-slot",
+                                  "box two-direction"])
+def test_dg_kernels_on_card_match_plain_cpu(case):
+    """The dG instances: dG Q1 (K = 8, pk1 / pk2 / pk3) and dG Q2 (K = 24,
+    the stream forms) in 2D at refinement 3, and dG Q1 in 3D (K = 26) on
+    a 3 x 2 x 2 box (half-slot route) and a 6 x 3 x 3 box (two-direction)
+    at refinement 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ryujin_tpu_torch.bench import build_dg1box3d
+    from ryujin_tpu_torch.kernels import (
+        pk1, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
+    )
+
+    if case.startswith("box"):
+        half = case == "box half-slot"
+        build_case = functools.partial(
+            build_dg1box3d, subdiv=(3, 2, 2) if half else (6, 3, 3))
+        refinement = 1
+        assert build_case(1, torch.float64, "cpu")[2].half == half
+    else:
+        build_case, refinement = _dg_rectangle(case), 3
+    stream = case != "dG Q1"
+    fns = ((pk1_stream.pk1_stream, pk2_stream.pk2_stream,
+            pk3_stream.pk3_stream) if stream else (pk1.pk1, pk2.pk2, pk3.pk3))
+    hm = build_case(refinement, torch.float64, "cpu")[2]
+    assert hm.canvas.stream == stream and hm.canvas.arrays.g_inc is not None
+    _three_steps_card_vs_cpu(build_case, fns + (pk_up.pk_up,), [3, 3, 3, 6],
+                             refinement=refinement)

@@ -108,4 +108,4 @@ def test_entry_points_mean_the_card_unless_the_cpu_is_named():
     fn, args = bench.entry(device="cpu")
     U, tau, ok = fn(*args)
     assert U.device.type == "cpu" and bool(ok) and float(tau) > 0.0
-    assert set(bench.CASES) == {"step2d", "q2step2d", "box3d"}
+    assert set(bench.CASES) == {"step2d", "q2step2d", "box3d", "dg1box3d"}

@@ -1,7 +1,9 @@
 """The q2step2d slice of the PyTorch port against the JAX package at
 reach 2 (cG Q2, K = 24), float64, on the small rectangular mesh of
 tests/test_ansatz_canvas.py (8 x 4 cells, 17 x 9 nodes, Dirichlet all
-round; the Mach-3 step at K = 24 costs minutes in interpret mode):
+round; the Mach-3 step at K = 24 costs minutes in interpret mode), packed
+32 lanes wide onto a 32 x 32 canvas (the TPU's 128 lanes would make it
+32 x 128, and the interpret-mode substep 15 % dearer):
 
 - one substep with two active stages against the JAX package with
   backend="pallas_interpret", which runs its _pk1_stream, pk2_stream,
@@ -76,13 +78,13 @@ def case(primitive=(1.4, 3.0, 1.0)):
         *box, boundary_conditions=[Boundary.dirichlet] * 4
     )
     sd = structured.pack_structured(
-        assembly.assemble(mesh, ansatz=ANSATZ), mesh
+        assembly.assemble(mesh, ansatz=ANSATZ), mesh, pad_minor=32
     )
     t_msh = t_geometry.rectangular_domain(
         *box, boundary_conditions=[t_mesh.Boundary.dirichlet] * 4
     )
     t_sd = t_structured.pack_structured(
-        t_assembly.assemble(t_msh, ansatz=ANSATZ), t_msh
+        t_assembly.assemble(t_msh, ansatz=ANSATZ), t_msh, pad_minor=32
     )
     assert t_sd.reach == 2 and t_sd.max_degree == 24
     jeq = JEuler(dim=2)
