@@ -3,15 +3,20 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
-It drives the port's four paths, all in f32 with ERK33: step2d and
+It drives the port's five paths, all in f32 with ERK33: step2d and
 q2step2d on the Mach-3 forward-facing step (cG Q1, reach 1, K = 8: pk1,
 pk2, pk3, pk_up; cG Q2, reach 2, K = 24: pk1_stream, pk2_stream,
 pk3_stream, pk_up), box3d, 3D Euler on the Mach-3 box (cG Q1, K = 26:
 the 3D instances of pk1_stream, pk2_stream, pk3_stream and pk_up, on the
 two-direction Riemann route), and dg1box3d, the same box with dG Q1
 (K = 26: the dG instances of pk2_stream and pk3_stream, which raise the
-high-order viscosity factor to the incidence beta_ij).  Phases (each
-prints its own lines; any failure exits non-zero):
+high-order viscosity factor to the incidence beta_ij), and cylinder3d,
+3D Euler around the Mach-3 cylinder (the o-grid extruded along z, cG Q1,
+K = 26, two-direction route) in two modes: with the full static canvases
+and with separable statics, where the four 3D kernels take their SEP
+instances, which synthesize c_ij, m_ij, the mask, c_ii and cmax per
+offset from z-profiles and 2D fields.  Phases (each prints its own lines;
+any failure exits non-zero):
 
 1. the card (nvidia-smi name and power limit) and the kernel build from
    ryujin_tpu_torch/csrc with nvcc (one process per source, seconds taken);
@@ -45,7 +50,10 @@ prints its own lines; any failure exits non-zero):
    3D routes (the half-slot route on a 3 x 2 x 2 box, the two-direction
    route on a 7 x 4 x 4 box, refinement 1) in f32 and f64; 6c: three
    ERK33 steps with bang-bang recovery, kernels vs the plain path on the
-   card, on both small boxes in f64, with the launch counts;
+   card, on both small boxes in f64, with the launch counts; 6d: the SEP
+   instances at box3d size on the same state as their full-statics twins
+   (times side by side), the synthesized mask's live edges against
+   sd.mask's, and the device memory each mode's module holds;
 7. the box3d slice (CFL 0.9 / 0.45, bang-bang recovery), with the gates of
    phase 5;
 8. dg1box3d, refinement 1 (507,904 dofs on the (72, 72, 128) canvas,
@@ -59,7 +67,23 @@ prints its own lines; any failure exits non-zero):
    plain path on the card in f64, on each of those four small canvases,
    with the launch counts;
 9. the dg1box3d slice (CFL 0.9 / 0.45, bang-bang recovery), with the gates
-   of phase 5.
+   of phase 5;
+10. cylinder3d, refinement 3 (the (72, 40, 128) canvas, its periodic
+   angle exactly the minor axis, two-direction route; setup, route and the
+   device memory of each mode printed): the four kernels with the full
+   statics against their plain-torch references on the state after a few
+   hundred steps through them (a developed bow shock), f32, with times and
+   bounds; 10b: the SEP instances against their plain versions at that
+   size in f32 (timed) and f64, and on the half-slot route on the
+   3 x 2 x 2 box and on the cylinder at refinement 1, with the live-edge
+   count of each synthesized mask; 10c: three ERK33 steps with bang-bang
+   recovery through the SEP instances against the plain path on the card,
+   f64, on those two small canvases, with the SEP instances' launch counts,
+   and two steps at cfl_max 3.5 from a blast contrast that bang-bang
+   recovery redoes at cfl_min (the same restarts as the plain path);
+11. the cylinder3d slice with the full statics and (11b) with separable
+   statics, with the gates of phase 5; in 11b every launch must be a SEP
+   instance's, in 11 none.
 
 The lines before the last are the kernels' JSON record and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -68,6 +92,8 @@ Without a CUDA device the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
+import gc
 import json
 import subprocess
 import sys
@@ -121,6 +147,16 @@ SMALL_BOX_STEPS = 5
 DG_BOX_REFINEMENT = 1
 SMALL_DG_BOXES = (((3, 2, 2), True), ((6, 3, 3), False))
 DG_STEP_ANSATZE = ("dG Q1", "dG Q2")
+# cylinder3d: refinement, steps through the kernels before the
+# comparisons (a developed bow shock), warmup and timed steps of the
+# slice in each mode, plain-torch timed steps; the small cylinder of
+# phase 10c (refinement 1, its 32-cell periodic angle packed exactly)
+CYL_REFINEMENT = 3
+CYL_DEVELOP_STEPS = 300
+CYL_WARMUP = 150
+CYL_STEPS = 50
+CYL_PLAIN_TIMED_STEPS = 2
+SMALL_CYL_PAD = 32
 # launches per kernel timing
 REPS = 20
 
@@ -149,6 +185,21 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # bounds accumulation 40, one limiter call with both Newton iterations
 # 150.  3D: a flux tensor 24, a flux divergence 5 x 8, lambda_max 99, the
 # indicator sums 30, the bounds 46, the limiter 154.
+# The separable statics add, per live edge, one multiply for each plane
+# they synthesize (PK1: c_ij 3 and the mask; PK2: the same; PK3: + m_ij;
+# pk_up: the mask in each of its two loops) and, for cmax on the half-slot
+# route, the transposed slot's 3 products, 6 squares, 4 adds, 2 square
+# roots and a max on the half slots.
+SEP_EDGE_FLOPS = {"pk1_stream": 4, "pk2_stream": 4, "pk3_stream": 5,
+                  "pk_up": 2}
+SEP_CMAX_FLOPS = 19
+# the separable factors each kernel reads, by kind: (2D field planes of
+# g_sep2, z-profile rows of f_sepz); solver/stencil.py has the order
+SEP_ROWS = {"cij": ((0, 27), (0, 78)), "mij": ((27, 36), (78, 104)),
+            "mask": ((36, 45), (104, 130)), "cii": ((45, 48), (130, 133))}
+SEP_READS = {"pk1_stream": ("cij", "mask"),
+             "pk2_stream": ("cij", "mask", "cii"),
+             "pk3_stream": ("cij", "mij", "mask"), "pk_up": ("mask",)}
 EDGE_FLOPS = {
     2: {
         "pk1": (14 + 22 + 95 / 2, 0), "pk1_stream": (14 + 22 + 95 / 2 + 0.5, 0),
@@ -188,6 +239,9 @@ TPU_SOURCE.update({
     (3, k, True): "ryujin_tpu/solver/pallas_step.py:597"
     for k in ("pk1_stream", "pk2_stream", "pk3_stream", "pk_up")
 })
+# the SEP instances replace _SepTile, the per-offset synthesis inside the
+# z-slab closures (_pk1_stream, _step_slab's pk2 / pk3)
+SEP_SOURCE = "ryujin_tpu/solver/pallas_step.py:1092"
 
 
 class PlainSteps:
@@ -231,12 +285,19 @@ def bound_ms(name, dim, half, inputs, outputs, mask, live_edges, n_stages,
     with the mask counted so.  `inc`, the K dG incidence planes PK2 and
     PK3 read on a dG canvas, counts the same way where it holds only 0
     and 1 (dG Q1: K bits a cell), else as stored; and one max per live
-    edge."""
+    edge.  mask=None means separable statics: the mask is among the
+    factors in `inputs`, and the synthesis adds its operations."""
     nbytes = sum(t.numel() * t.element_size() for t in inputs + outputs)
-    K, n = mask.shape[0], mask[0].numel()
-    mask_bits = 4 * n * -(-K // 32)
-    mask_stored = mask.numel() * mask.element_size()
     per_edge, per_stage = EDGE_FLOPS[dim][name]
+    if mask is None:
+        mask_bits = mask_stored = 0
+        per_edge += SEP_EDGE_FLOPS[name]
+        if name == "pk1_stream" and half:
+            per_edge += SEP_CMAX_FLOPS / 2
+    else:
+        K, n = mask.shape[0], mask[0].numel()
+        mask_bits = 4 * n * -(-K // 32)
+        mask_stored = mask.numel() * mask.element_size()
     if dim == 3 and name == "pk1_stream" and not half:
         per_edge += 99 / 2 + 0.5  # lambda and its scaling on every slot
     if inc is not None:
@@ -265,8 +326,9 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     records[name + tag] = {max_abs_err, ms, plain_ms, bound_ms, bound_by,
     bound_ms_mask_as_stored, source, replaces} (pk_up's name takes
     `up_tag`).  On a dG canvas PK2 and PK3 take their dG instances, which
-    read the incidence planes.  Returns False if any output is off its
-    tolerance."""
+    read the incidence planes; with separable statics every kernel takes
+    its SEP instance, held against the plain version that synthesizes the
+    same planes.  Returns False if any output is off its tolerance."""
     from ryujin_tpu_torch.kernels import (
         pk1, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
     )
@@ -286,7 +348,7 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     stage_U = torch.stack([U_a, U])
     weights = [0.75, -2.0]
     real = st.node_mask > 0
-    live = st.mask > 0
+    live = torch.stack([st.live_k(k) for k in range(K)])
     live_edges = int(live.sum())
     ok = True
 
@@ -350,11 +412,13 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
         err(f"{n1} {'e' if stream else 'lambda'}", lam_k, lam, e_live, "rel"),
         err(f"{n1} alpha", alpha_k, alpha, real, "rel"),
     )
+    full = st.full()  # the glue's d on stacks (synthesized if separable)
     if stream and not half:
-        d = d_from_e(st.mask, lam, st.transpose_edge(lam))
+        d = d_from_e(full.mask, lam, full.transpose_edge(lam))
     else:
         lam = hm._lambda_fixup(lam, U, prescaled=stream)
-        d = d_from_lambda(st, lam, None if stream else ca.g_cmax.reshape(K, -1))
+        d = d_from_lambda(full, lam, None if stream else full.cmax)
+    del full
     cap = torch.full((), float("inf"), dtype=dt, device=U.device)
     tau = tau_max_from_d(st, d, 0.9, cap)
 
@@ -393,17 +457,30 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     # 1/m_i, PK3 the first four; of prec = (s, eta) PK1 reads eta, PK2 s.
     # The stream forms read cmax only in PK1, only on the half slots and
     # only on the half-slot route.
+    # With separable statics the static planes give way to the factor rows
+    # each kernel reads (SEP_READS), the mask among them.
     node = ca.g_node
+
+    def statics(base, *names):
+        if not ca.separable:
+            return [getattr(ca, name) for name in names]
+        return [t for kind in SEP_READS[base]
+                for t in (ca.g_sep2[slice(*SEP_ROWS[kind][0])],
+                          ca.f_sepz[slice(*SEP_ROWS[kind][1])])]
+
     traffic = {
-        n1: ([ca.g_cij, node[[0, 3]], U, prec[1:]]
-             + ([ca.g_cmax[: K // 2]] if stream and half else []),
-             [lam_k, alpha_k]),
-        n2: ([ca.g_cij, ca.g_cii, node[:2], U, prec[:1], lam, alpha, stage_U,
-              tau] + ([] if stream else [ca.g_cmax]), [Ul_k, F_k, b_k]),
-        n3: ([ca.g_cij, ca.g_mij, node[:4], U, lam, alpha, F, U_low, bounds,
-              stage_U, tau] + ([] if stream else [ca.g_cmax]),
-             [P_k, l_k, okp_k]),
-        nu: ([ca.g_lam, U_low, bounds, P, l], [U4_k, l4_k]),
+        n1: (statics("pk1_stream", "g_cij")
+             + ([ca.g_cmax[: K // 2]]
+                if stream and half and not ca.separable else [])
+             + [node[[0, 3]], U, prec[1:]], [lam_k, alpha_k]),
+        n2: (statics("pk2_stream", "g_cij", "g_cii")
+             + [node[:2], U, prec[:1], lam, alpha, stage_U, tau]
+             + ([] if stream else [ca.g_cmax]), [Ul_k, F_k, b_k]),
+        n3: (statics("pk3_stream", "g_cij", "g_mij")
+             + [node[:4], U, lam, alpha, F, U_low, bounds, stage_U, tau]
+             + ([] if stream else [ca.g_cmax]), [P_k, l_k, okp_k]),
+        nu: (statics("pk_up") + [ca.g_lam, U_low, bounds, P, l],
+             [U4_k, l4_k]),
     }
     calls = {n1: args1, n2: args2, n3: args3, nu: args4}
     for name, a in calls.items():
@@ -419,8 +496,8 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
                          "plain_ms": plain, "bound_ms": least, "bound_by": by,
                          "bound_ms_mask_as_stored": stored,
                          "source": f"ryujin_tpu_torch/csrc/{base}.cu",
-                         "replaces": TPU_SOURCE[
-                             (dim, base, ca.g_inc is not None)]}
+                         "replaces": SEP_SOURCE if ca.separable else
+                         TPU_SOURCE[(dim, base, ca.g_inc is not None)]}
         print(f"  {name:12s} kernel {ms:.4f} ms   plain {plain:.4f} ms   "
               f"bound {least:.4f} ms ({by}; {stored:.4f} ms with the mask "
               f"as stored)   {100 * least / ms:.1f} % of bound", flush=True)
@@ -449,7 +526,7 @@ def bumped(sd, U0, blast=False):
 
 
 def card_vs_plain_f64(ti_kernels, ti_plain, sd, U0, plain_device, steps=3,
-                      blast=False, counted=None):
+                      blast=False, counted=None, counter="launches"):
     """`steps` ERK33 steps in f64, the kernels on the card against the
     plain path, from the inflow state times a smooth bump or, with
     `blast`, with an 8:1 density and 1000:1 energy contrast in a disc
@@ -457,13 +534,16 @@ def card_vs_plain_f64(ti_kernels, ti_plain, sd, U0, plain_device, steps=3,
     bang-bang recovery redoes it at cfl_min).  Returns True if U and tau
     agree to 1e-10 and the restart and warning counts are equal; with
     `blast` also only if a step was redone.  `counted` = (wrappers, want)
-    also holds the launch counts to want x 3 x (steps + restarts)."""
+    also holds the launch counts, read from each wrapper's `counter`
+    ("sep_launches" for the SEP instances), to want x 3 x (steps +
+    restarts)."""
     U0 = bumped(sd, U0.cpu(), blast)
     if counted:
         for fn in counted[0].values():
-            fn.launches = 0
+            setattr(fn, counter, 0)
     out_k = ti_kernels.advance(U0.cuda(), 0.0, steps)
-    launches = {k: fn.launches for k, fn in counted[0].items()} if counted else {}
+    launches = ({k: getattr(fn, counter) for k, fn in counted[0].items()}
+                if counted else {})
     out_p = ti_plain.advance(U0.to(plain_device), 0.0, steps)
     real = torch.as_tensor(sd.node_mask > 0)
     Uk, Up = out_k[0].cpu()[:, real], out_p[0].cpu()[:, real]
@@ -487,22 +567,26 @@ def card_vs_plain_f64(ti_kernels, ti_plain, sd, U0, plain_device, steps=3,
 
 
 def run_slice(name, eq, sd, ti, ti_plain, U0, warmup, steps, plain_steps,
-              kernels, want, card, allow_restarts):
+              kernels, want, card, allow_restarts, sep=False):
     """Warmup, then `steps` timed ERK33 steps through the kernels with the
     launch counters set to 0 just before and read just after; the gates;
-    then the plain-torch substep timed on the card.  Returns the launch
-    counts."""
+    then the plain-torch substep timed on the card.  With `sep` the
+    counts are the SEP instances' own and must make up every launch;
+    without, no SEP instance may launch.  Returns the launch counts."""
     print(f"{name}: slice, {warmup} warmup + {steps} timed ERK33 steps "
           "through the kernels", flush=True)
     U, _, t, _, r0, _ = ti.advance(U0, 0.0, warmup)
     torch.cuda.synchronize()
     for fn in kernels.values():
-        fn.launches = 0
+        fn.launches = fn.sep_launches = 0
     t0 = time.perf_counter()
     U, _, t, tau, restarts, warns = ti.advance(U, t, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = {k: fn.sep_launches if sep else fn.launches
+                for k, fn in kernels.items()}
+    other = {k: fn.launches - fn.sep_launches if sep else fn.sep_launches
+             for k, fn in kernels.items()}
     mqs = sd.n_nodes * steps * 3 / wall / 1e6
 
     real = torch.as_tensor(sd.node_mask > 0, device=U.device)
@@ -512,9 +596,13 @@ def run_slice(name, eq, sd, ti, ti_plain, U0, warmup, steps, plain_steps,
     tau_v, warns_v, restarts_v = tau.item(), int(warns), int(restarts)
     substeps = 3 * (steps + restarts_v)
     counts_ok = all(launches[k] == want[k] * substeps for k in want)
+    counts_ok &= not any(other.values())
     print(f"  t = {t.item():.4e}, tau = {tau_v:.4e}, warnings {warns_v}, "
           f"restarts {restarts_v} (warmup {int(r0)}), finite {finite}, "
-          f"admissible {admissible}, launches {launches}", flush=True)
+          f"admissible {admissible}, launches "
+          f"{'of the SEP instances ' if sep else ''}{launches}"
+          f"{', others ' + str(other) if any(other.values()) else ''}",
+          flush=True)
     print(f"  kernels: {mqs:.3f} MQ/s ({wall:.3f} s for {steps} steps) "
           f"on {card}", flush=True)
 
@@ -671,6 +759,191 @@ def check_dg(dev, card, streamed, stacked):
     return records
 
 
+def module_bytes(make):
+    """(make(), device bytes its construction left allocated)."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    made = make()
+    torch.cuda.synchronize()
+    return made, torch.cuda.memory_allocated() - before
+
+
+def statics_bytes(ca):
+    """Bytes of the static stencil arrays a canvas holds: the five stacks
+    (c_ij, the mask, cmax, m_ij, c_ii) or the separable factors."""
+    return sum(t.numel() * t.element_size()
+               for t in (ca.g_cij, ca.g_mask, ca.g_cmax, ca.g_mij, ca.g_cii,
+                         ca.g_sep2, ca.f_sepz) if t is not None)
+
+
+def live_edges_agree(label, hm, sd):
+    """True if the live edges of the module's mask (synthesized with
+    separable statics) are sd.mask's, edge for edge; prints the count."""
+    st = hm.stencil
+    mask = torch.as_tensor(sd.mask.T > 0, device=st.node_mask.device)
+    same = all(bool(torch.equal(st.live_k(k), mask[k]))
+               for k in range(st.K))
+    count = sum(int(st.live_k(k).sum()) for k in range(st.K))
+    print(f"  {label}: {count} live edges in the "
+          f"{'synthesized' if hm.canvas.arrays.separable else 'stored'} "
+          f"mask, sd.mask {int(mask.sum())}, edge for edge "
+          f"{'equal' if same else 'DIFFERENT'}", flush=True)
+    return same and count == int(mask.sum())
+
+
+def check_cylinder(dev, card, streamed):
+    """Phases 10 and 11, cylinder3d: the 3D kernels with the full statics at
+    size, their SEP instances against their plain versions on both routes
+    and three f64 steps through them, and the slice in both modes.
+    Returns the kernels' records; fails the run on any error."""
+    from ryujin_tpu_torch.bench import build_box3d, build_cylinder3d
+    from ryujin_tpu_torch.solver.hyperbolic import (
+        HyperbolicModule, _boundary_pair_data,
+    )
+    from ryujin_tpu_torch.solver.integrator import TimeIntegrator
+
+    def bang_bang(steps_of, cfl_max=0.9):
+        return TimeIntegrator(steps_of, "erk 33", cfl_min=0.45,
+                              cfl_max=cfl_max,
+                              cfl_recovery_strategy="bang bang control")
+
+    want = per_substep(streamed)
+    records = {}
+
+    # ---- phase 10: cylinder3d with the full statics ------------------------
+    print(f"phase 10: cylinder3d, refinement {CYL_REFINEMENT}, f32, full "
+          f"statics, {CYL_DEVELOP_STEPS} ERK33 steps through the kernels from "
+          "the uniform inflow", flush=True)
+    t0 = time.perf_counter()
+    eq, sd, hm, ti, U0 = build_cylinder3d(CYL_REFINEMENT, torch.float32, dev)
+    setup = time.perf_counter() - t0
+    slots = len(_boundary_pair_data(sd, torch.float32, "cpu")["k"])
+    print(f"  setup {setup:.1f} s (assembly, packing, statics): canvas "
+          f"{sd.shape}, {sd.n_nodes} real nodes, K = {sd.max_degree}, "
+          f"{int((sd.mask > 0).sum())} live edges, minor_wrap "
+          f"{sd.minor_wrap}, route "
+          f"{'half-slot' if hm.half else 'two-direction'} ({slots} "
+          f"boundary-pair slots against the cut-off "
+          f"{max(1024, sd.n_pad // 16)})", flush=True)
+    if hm.half or sd.minor_wrap is not None:
+        fail("cylinder3d did not pack its periodic angle exactly onto the "
+             "minor axis on the two-direction route")
+
+    def module(dtype, separable):
+        return HyperbolicModule(eq, sd, hm.initial_state_fn, dtype=dtype,
+                                device=dev, separable=separable)
+
+    held = {}
+    for separable in (False, True):
+        made, nbytes = module_bytes(lambda: module(torch.float32, separable))
+        held[separable] = (nbytes, statics_bytes(made.canvas.arrays))
+        if separable:
+            hm_sep = made
+        del made
+    print(f"  device memory held by a HyperbolicModule (memory_allocated "
+          f"delta), f32: full statics {held[False][0]} bytes "
+          f"({held[False][1]} in the five static canvases), separable "
+          f"{held[True][0]} bytes ({held[True][1]} in the factors); "
+          f"separate_z {hm_sep.canvas.arrays.factor_seconds:.1f} s",
+          flush=True)
+    ok = live_edges_agree("cylinder3d", hm_sep, sd)
+    U_a, _, t_a, _, restarts, warns = ti.advance(U0, 0.0, CYL_DEVELOP_STEPS)
+    U_b, _, _, _, _, _ = ti.advance(U_a, t_a, 1)
+    torch.cuda.synchronize()
+    real = torch.as_tensor(sd.node_mask > 0, device=dev)
+    print(f"  t = {t_a.item():.4e}, restarts {int(restarts)}, warnings "
+          f"{int(warns)}, rho in [{U_a[0, real].min().item():.4f}, "
+          f"{U_a[0, real].max().item():.4f}]", flush=True)
+    if not bool(eq.is_admissible(U_a[:, real]).all()):
+        fail("cylinder3d: the developed state is not admissible")
+    ok &= compare_kernels(hm, U_a, U_b, TOL_F32, REPS, records,
+                          tag="[3D two-direction, cylinder3d]",
+                          up_tag=" cylinder3d")
+
+    # ---- phase 10b: the SEP instances against their plain versions --------
+    print("phase 10b: the SEP instances (separable statics) against their "
+          "plain versions at cylinder3d size, f32 and f64", flush=True)
+    ok &= compare_kernels(hm_sep, U_a, U_b, TOL_F32, REPS, records,
+                          tag="[3D two-direction SEP]", up_tag=" SEP")
+    hm64 = module(torch.float64, True)
+    ok &= compare_kernels(hm64, U_a.double(), U_b.double(), TOL_F64, REPS)
+    del hm64
+    torch.cuda.empty_cache()
+    print(f"  small canvases, separable statics, f32 and f64, after "
+          f"{SMALL_BOX_STEPS} ERK33 steps through the kernels from a bumped "
+          "inflow", flush=True)
+    small = []
+    for label, build_small in (
+        ("box (3, 2, 2)", functools.partial(build_box3d, subdiv=(3, 2, 2))),
+        ("cylinder, refinement 1", functools.partial(
+            build_cylinder3d, pad_minor=SMALL_CYL_PAD)),
+    ):
+        for dt, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+            _, sd_s, hm_s, ti_s, U0_s = build_small(1, dt, dev, separable=True)
+            route = "half-slot" if hm_s.half else "two-direction"
+            print(f"  {label}: canvas {sd_s.shape}, {sd_s.n_nodes} real "
+                  f"nodes, route {route}, {dt}", flush=True)
+            ok &= live_edges_agree(label, hm_s, sd_s)
+            Ua_s, _, t_s, _, _, _ = ti_s.advance(bumped(sd_s, U0_s), 0.0,
+                                                 SMALL_BOX_STEPS)
+            Ub_s = ti_s.advance(Ua_s, t_s, 1)[0]
+            timed = {} if hm_s.half and dt == torch.float32 else None
+            ok &= compare_kernels(hm_s, Ua_s, Ub_s, tol, REPS, timed,
+                                  tag=f"[3D {route} SEP]")
+            if timed:
+                records.update(
+                    (k, v) for k, v in timed.items() if "half-slot" in k)
+            if dt == torch.float64:
+                small.append((label, sd_s, hm_s, U0_s))
+
+    # ---- phase 10c: three f64 steps through the SEP instances --------------
+    print("phase 10c: 3 ERK33 steps with bang-bang recovery, the SEP "
+          "instances vs the plain path on the card, separable statics, f64, "
+          "both routes; then 2 steps at cfl_max 3.5 from a blast contrast, "
+          "each redone at cfl_min 0.45 (3D restarts)", flush=True)
+    for label, sd_s, hm_s, U0_s in small:
+        print(f"  {label}, route "
+              f"{'half-slot' if hm_s.half else 'two-direction'}", flush=True)
+        ok &= card_vs_plain_f64(bang_bang(hm_s), bang_bang(PlainSteps(hm_s)),
+                                sd_s, U0_s, dev, counted=(streamed, want),
+                                counter="sep_launches")
+        if hm_s.half:
+            for name in ("pk1_stream", "pk2_stream", "pk3_stream"):
+                records[name + "[3D half-slot SEP]"]["launches"] = (
+                    streamed[name].sep_launches
+                )
+        ok &= card_vs_plain_f64(
+            bang_bang(hm_s, 3.5), bang_bang(PlainSteps(hm_s), 3.5), sd_s,
+            U0_s, dev, steps=2, blast=True, counted=(streamed, want),
+            counter="sep_launches")
+    del small
+    if not ok:
+        fail("a cylinder3d or SEP kernel disagrees with its plain-torch "
+             "reference")
+
+    # ---- phase 11: the cylinder3d slice in both modes ------------------------
+    launches = run_slice(
+        "phase 11, cylinder3d, full statics", eq, sd, ti,
+        bang_bang(PlainSteps(hm)), U0, CYL_WARMUP, CYL_STEPS,
+        CYL_PLAIN_TIMED_STEPS, streamed, want, card, allow_restarts=True,
+    )
+    for name in ("pk1_stream", "pk2_stream", "pk3_stream"):
+        records[name + "[3D two-direction, cylinder3d]"]["launches"] = (
+            launches[name])
+    records["pk_up[K=26 cylinder3d]"]["launches"] = launches["pk_up"]
+    del hm, ti, U_a, U_b
+    torch.cuda.empty_cache()
+    launches = run_slice(
+        "phase 11b, cylinder3d, separable statics", eq, sd, bang_bang(hm_sep),
+        bang_bang(PlainSteps(hm_sep)), U0, CYL_WARMUP, CYL_STEPS,
+        CYL_PLAIN_TIMED_STEPS, streamed, want, card, allow_restarts=True,
+        sep=True,
+    )
+    return records, launches
+
+
 def per_substep(fns):
     """Launches per substep of each wrapper in `fns`: PK1-PK3 once,
     pk_up twice."""
@@ -712,7 +985,9 @@ def main():
     for line in so.with_suffix(".so.log").read_text().splitlines():
         if "Compiling entry function" in line:
             # the mangled name carries the kernel, its type and K
-            print(f"  ptxas: {line.split(chr(39))[1][:44]}", flush=True)
+            name = line.split(chr(39))[1]
+            sep = " (SEP)" if "SepStatics" in name else ""
+            print(f"  ptxas: {name[:44]}{sep}", flush=True)
         elif "registers" in line or "spill" in line.lower():
             print(f"  ptxas:   {line.replace('ptxas info    :', '').strip()}",
                   flush=True)
@@ -857,7 +1132,26 @@ def main():
     records_3d = {}
     ok = compare_kernels(hm, U_a, U_b, TOL_F32, REPS, records_3d,
                          tag="[3D two-direction]")
-    del U_a, U_b
+
+    print("phase 6d: the SEP instances at box3d size (separable statics) "
+          "against their plain versions, on the same state as their "
+          "full-statics twins above", flush=True)
+    hm_sep, sep_bytes = module_bytes(lambda: HyperbolicModule(
+        eq, sd, hm.initial_state_fn, dtype=torch.float32, device=dev,
+        separable=True))
+    full_bytes = module_bytes(lambda: HyperbolicModule(
+        eq, sd, hm.initial_state_fn, dtype=torch.float32, device=dev))[1]
+    print(f"  device memory held by a HyperbolicModule, f32: full statics "
+          f"{full_bytes} bytes ({statics_bytes(hm.canvas.arrays)} in the five "
+          f"static canvases), separable {sep_bytes} bytes "
+          f"({statics_bytes(hm_sep.canvas.arrays)} in the factors); "
+          f"separate_z {hm_sep.canvas.arrays.factor_seconds:.1f} s",
+          flush=True)
+    ok &= live_edges_agree("box3d", hm_sep, sd)
+    ok &= compare_kernels(hm_sep, U_a, U_b, TOL_F32, REPS, records_3d,
+                          tag="[3D two-direction SEP, box3d]",
+                          up_tag=" SEP box3d")
+    del U_a, U_b, hm_sep
     torch.cuda.empty_cache()
 
     print(f"phase 6b: both 3D routes on small boxes (refinement 1), f32 and "
@@ -922,6 +1216,13 @@ def main():
     torch.cuda.empty_cache()
 
     records.update(check_dg(dev, card, streamed, stacked))
+    cyl_records, launches = check_cylinder(dev, card, streamed)
+    records.update(cyl_records)
+    # the SEP instances' launches on the main path: the separable
+    # cylinder3d slice (the box3d-size records are the same instances)
+    for name, rec in records.items():
+        if "two-direction SEP" in name or name.startswith("pk_up[K=26 SEP"):
+            rec["launches"] = launches[name.split("[")[0]]
     print(f"chip_smoke: every phase passed, {time.perf_counter() - t_start:.1f}"
           " s in all", flush=True)
 

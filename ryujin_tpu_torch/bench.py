@@ -4,8 +4,9 @@
     BENCH_CASE=q2step2d python -m ryujin_tpu_torch.bench
     BENCH_CASE=box3d python -m ryujin_tpu_torch.bench
     BENCH_CASE=dg1box3d python -m ryujin_tpu_torch.bench
+    BENCH_CASE=cylinder3d RYUJIN_SEP=1 python -m ryujin_tpu_torch.bench
 
-Runs three of bench.py's cases and a dG form of the third on a CUDA
+Runs four of bench.py's cases and a dG form of the third on a CUDA
 device, in f32 with ERK33 through the CUDA kernels:
 
   step2d    (default) cG Q1, refinement 3, CFL 0.9, cfl_recovery_strategy
@@ -24,14 +25,29 @@ device, in f32 with ERK33 through the CUDA kernels:
             incidence beta_ij in PK2 / PK3, the two-direction route);
             1000-step warmup; metric euler3d_mach3_box_dgq1_throughput.
             Its host assembly takes a minute or more (numpy).
+  cylinder3d  3D, cG Q1 on bench.py's cylinder (bench.py:86-103): the
+            o-grid around a cylinder extruded along z, refinement 3,
+            packed with z and y margins of 2 onto a (72, 40, 128) canvas
+            (274,560 real nodes, K = 26) whose minor axis is the periodic
+            angle, exactly 128 wide; uniform Mach-3 inflow along x,
+            Galilei-shifted to x = 1; the two-direction route, CFL
+            0.9 / 0.45 with "bang bang control", 1000-step warmup; metric
+            euler3d_mach3_cylinder_throughput.
 
-Prints one JSON line {"metric", "value", "unit", "vs_baseline"} (+
-"reps" with BENCH_REPS > 1), where value is MQ/s = real nodes x substeps
-/ wall seconds / 1e6, and, on standard error, a "setup" line with the
-seconds of mesh, assembly, packing and statics.  The same BENCH_*
-variables as bench.py set the sizes: BENCH_REFINEMENT, BENCH_WARMUP
-(steps, so the bow shock spans the domain and the limiter works
-everywhere), BENCH_STEPS (20 timed steps), and BENCH_REPS (1).
+RYUJIN_SEP=1 runs a 3D cG case with separable statics (the kernels'
+SEP instances; the full static canvases are not allocated), "0" (the
+default) with the full canvases; any other value is refused, and so is
+"1" on a case whose canvas does not factor (2D, dG).
+
+Prints one JSON line {"metric", "value", "unit", "vs_baseline",
+"statics"} (+ "reps" with BENCH_REPS > 1), where value is MQ/s = real
+nodes x substeps / wall seconds / 1e6, and, on standard error, a "setup"
+line with the seconds of mesh, assembly, packing and statics (the
+factoring of the separable statics among them, also printed on its
+own).  The same BENCH_* variables as bench.py set the sizes:
+BENCH_REFINEMENT, BENCH_WARMUP (steps, so the bow shock spans the domain
+and the limiter works everywhere), BENCH_STEPS (20 timed steps), and
+BENCH_REPS (1).
 """
 
 from __future__ import annotations
@@ -55,7 +71,28 @@ from .solver.integrator import TimeIntegrator
 BASELINE_MQS = 100.0  # bench.py's north-star constant, not a measurement
 
 
-def _build_step(refinement: int, dtype, device, ansatz: str, recovery: str):
+def separable_from_env(environ=os.environ) -> bool:
+    """RYUJIN_SEP: "1" for separable statics, "0" or unset for the full
+    canvases; any other value raises ValueError."""
+    value = environ.get("RYUJIN_SEP", "0")
+    if value not in ("0", "1"):
+        raise ValueError(f"RYUJIN_SEP={value!r}: expected '0' or '1'")
+    return value == "1"
+
+
+def _modules(eq, sd, init, dtype, device, recovery, separable):
+    """(hm, ti, U0) of a case: the hyperbolic module, ERK33 at CFL
+    0.9 / 0.45 with `recovery`, and the interpolated initial state."""
+    hm = HyperbolicModule(eq, sd, init, dtype=dtype, device=device,
+                          separable=separable)
+    ti = TimeIntegrator(hm, "erk 33", cfl_min=0.45, cfl_max=0.9,
+                        cfl_recovery_strategy=recovery)
+    U0 = interpolate_nodal(init, sd, eq, 0.0, dtype, device)
+    return hm, ti, U0
+
+
+def _build_step(refinement: int, dtype, device, ansatz: str, recovery: str,
+                separable: bool):
     """(eq, sd, hm, ti, U0) on the Mach-3 step: uniform inflow."""
     eq = Euler(dim=2)
     mesh = geometry.step(refinement=refinement)
@@ -63,26 +100,25 @@ def _build_step(refinement: int, dtype, device, ansatz: str, recovery: str):
         assembly.assemble(mesh, ansatz=ansatz), mesh
     )
     init = make_initial_state(eq, "uniform", primitive_state=(1.4, 3.0, 1.0))
-    hm = HyperbolicModule(eq, sd, init, dtype=dtype, device=device)
-    ti = TimeIntegrator(hm, "erk 33", cfl_min=0.45, cfl_max=0.9,
-                        cfl_recovery_strategy=recovery)
-    U0 = interpolate_nodal(init, sd, eq, 0.0, dtype, device)
-    return eq, sd, hm, ti, U0
+    return (eq, sd) + _modules(eq, sd, init, dtype, device, recovery,
+                               separable)
 
 
-def build_step2d(refinement: int, dtype, device):
+def build_step2d(refinement: int, dtype, device, separable: bool = False):
     """(eq, sd, hm, ti, U0) of the step2d case: cG Q1, no CFL recovery."""
-    return _build_step(refinement, dtype, device, "cG Q1", "none")
+    return _build_step(refinement, dtype, device, "cG Q1", "none", separable)
 
 
-def build_q2step2d(refinement: int, dtype, device, ansatz: str = "cG Q2"):
+def build_q2step2d(refinement: int, dtype, device, ansatz: str = "cG Q2",
+                   separable: bool = False):
     """(eq, sd, hm, ti, U0) of the q2step2d case: a higher-order ansatz on
     the node lattice (cG Q2: reach 2, K = 24) with bang-bang recovery."""
-    return _build_step(refinement, dtype, device, ansatz, "bang bang control")
+    return _build_step(refinement, dtype, device, ansatz, "bang bang control",
+                       separable)
 
 
 def build_box3d(refinement: int, dtype, device, subdiv=(31, 16, 16),
-                ansatz: str = "cG Q1"):
+                ansatz: str = "cG Q1", separable: bool = False):
     """(eq, sd, hm, ti, U0) of the box3d case (bench.py:60-82): 3D Euler,
     uniform Mach-3 inflow on [0, 3] x [0, 1] x [0, 1] with `subdiv` cells
     before `refinement`, `ansatz` (cG Q1, or dG Q1 for dg1box3d) packed
@@ -102,17 +138,39 @@ def build_box3d(refinement: int, dtype, device, subdiv=(31, 16, 16),
         assembly.assemble(mesh, ansatz=ansatz), mesh, margin=(2, 2)
     )
     init = make_initial_state(eq, "uniform", primitive_state=(1.4, 3.0, 1.0))
-    hm = HyperbolicModule(eq, sd, init, dtype=dtype, device=device)
-    ti = TimeIntegrator(hm, "erk 33", cfl_min=0.45, cfl_max=0.9,
-                        cfl_recovery_strategy="bang bang control")
-    U0 = interpolate_nodal(init, sd, eq, 0.0, dtype, device)
-    return eq, sd, hm, ti, U0
+    return (eq, sd) + _modules(eq, sd, init, dtype, device,
+                               "bang bang control", separable)
 
 
-def build_dg1box3d(refinement: int, dtype, device, subdiv=(31, 16, 16)):
+def build_dg1box3d(refinement: int, dtype, device, subdiv=(31, 16, 16),
+                   separable: bool = False):
     """(eq, sd, hm, ti, U0) of the dg1box3d case: box3d's flow, domain,
     boundary conditions, packing and recovery with the dG Q1 ansatz."""
-    return build_box3d(refinement, dtype, device, subdiv, ansatz="dG Q1")
+    return build_box3d(refinement, dtype, device, subdiv, ansatz="dG Q1",
+                       separable=separable)
+
+
+def build_cylinder3d(refinement: int, dtype, device, pad_minor: int = 128,
+                     separable: bool = False):
+    """(eq, sd, hm, ti, U0) of the cylinder3d case (bench.py:86-103): 3D
+    Euler, uniform Mach-3 inflow along x Galilei-shifted to x = 1, on the
+    cylinder o-grid extruded along z at `refinement`, cG Q1 packed with z
+    and y margins of 2, bang-bang recovery.  The minor canvas axis is the
+    periodic angle: 128 cells at refinement 3, so pad_minor = 128 keeps it
+    exact and the canvas's roll is the periodic wrap; at refinement 1 the
+    angle has 32 cells and takes pad_minor = 32 (a wider pad would leave a
+    padded periodic axis, which the canvas kernels refuse)."""
+    eq = Euler(dim=3)
+    mesh = geometry.cylinder(refinement=refinement, dim=3)
+    sd = structured.pack_structured(
+        assembly.assemble(mesh), mesh, pad_minor=pad_minor, margin=(2, 2)
+    )
+    init = make_initial_state(
+        eq, "uniform", direction=[1, 0, 0], position=[1, 0, 0],
+        primitive_state=(1.4, 3.0, 1.0),
+    )
+    return (eq, sd) + _modules(eq, sd, init, dtype, device,
+                               "bang bang control", separable)
 
 
 # case -> (build_case, default refinement, default warmup steps, metric)
@@ -122,6 +180,8 @@ CASES = {
     "box3d": (build_box3d, 2, 1000, "euler3d_mach3_box_throughput"),
     "dg1box3d": (build_dg1box3d, 1, 1000,
                  "euler3d_mach3_box_dgq1_throughput"),
+    "cylinder3d": (build_cylinder3d, 3, 1000,
+                   "euler3d_mach3_cylinder_throughput"),
 }
 
 
@@ -159,11 +219,15 @@ def main():
     n_steps = int(os.environ.get("BENCH_STEPS", "20"))
     warmup = int(os.environ.get("BENCH_WARMUP", str(warmup_default)))
     reps = int(os.environ.get("BENCH_REPS", "1"))
+    separable = separable_from_env()
 
     t0 = time.perf_counter()
-    _, sd, _, ti, U0 = build_case(refinement, torch.float32, "cuda")
+    _, sd, hm, ti, U0 = build_case(refinement, torch.float32, "cuda",
+                                   separable=separable)
     print(f"setup {time.perf_counter() - t0:.1f} s: {case}, canvas "
-          f"{sd.shape}, {sd.n_nodes} real nodes, K = {sd.max_degree}",
+          f"{sd.shape}, {sd.n_nodes} real nodes, K = {sd.max_degree}, "
+          f"{'separable' if separable else 'full'} statics (factoring "
+          f"{hm.canvas.arrays.factor_seconds:.1f} s)",
           file=sys.stderr, flush=True)
     U, _, t, _, _, _ = ti.advance(U0, 0.0, max(warmup, 2))
     torch.cuda.synchronize()
@@ -181,6 +245,7 @@ def main():
         "value": round(mqs, 3),
         "unit": "MQ/s/chip",
         "vs_baseline": round(mqs / BASELINE_MQS, 4),
+        "statics": "separable" if separable else "full",
     }
     if reps > 1:
         rec["reps"] = [round(v, 2) for v in mqs_reps]

@@ -28,19 +28,31 @@
 // write e = 0 and add nothing; alpha is 0 where the node is not real.
 // The exact edge mask is read, not the TPU kernel's derived one.  The
 // sums run over k = 0 .. K-1 in order, as pk1_stream_reference does.
-#include "euler.cuh"
+//
+// Statics (ST, statics.cuh): FullStatics reads the stored planes;
+// SepStatics (3D only) synthesizes c_ij, the mask and cmax from the
+// separable factors g2 / fz, as `_SepTile` does in `_pk1_stream`
+// (:1915-1917, 1974, 2003).  On the two-direction route that replaces the
+// 104 planes of c_ij and the mask (and on the half-slot route the 13 of
+// cmax) by the L2-resident factors, at 4 multiplies a slot (19 more for
+// cmax); the factor pointers come after the constants, so the
+// full-statics instances keep their parameter offsets.
+#include "statics.cuh"
 
 namespace ryujin {
 
-template <typename T, int DIM, bool HALF>
+template <typename T, int DIM, bool HALF, class ST>
 __global__ void __launch_bounds__(128)
 pk1_stream_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
                   const T* __restrict__ mask, const T* __restrict__ node,
                   const T* __restrict__ U, const T* __restrict__ prec, T* __restrict__ e_out,
-                  T* __restrict__ alpha, const __grid_constant__ EqConsts<T> e) {
+                  T* __restrict__ alpha, const __grid_constant__ EqConsts<T> e,
+                  const T* __restrict__ g2, const T* __restrict__ fz) {
+  static_assert(!ST::kSeparable || DIM == 3, "separable statics are 3D");
   constexpr int NC = DIM + 2;
   Cell c;
   if (!this_cell<DIM>(e, c)) return;
+  const ST st(e, cij, cmax, mask, nullptr, nullptr, g2, fz);
   const int64_t i = c.i, n = c.n;
   const int K = e.K, K_e = HALF ? K / 2 : K;
 
@@ -70,13 +82,13 @@ pk1_stream_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
 #pragma unroll 1
   for (int k = 0; k < K; ++k) {
     T e_k = T(0);
-    if (mask[k * n + i] > T(0)) {
+    if (st.mask(c, e, k) > T(0)) {
       const int64_t j = nbr_k<DIM>(c, e, k);
       T uj[NC];
       load_state(U, j, n, uj);
       T cv[DIM];
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) cv[d] = cij[(d * K + k) * n + i];
+      for (int d = 0; d < DIM; ++d) cv[d] = st.cij(c, e, d, k);
 
       if (k < K_e) {
         const T norm = sqrt(vdot(cv, cv));
@@ -87,7 +99,7 @@ pk1_stream_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
         T pa_j[5];
         riemann_precompute(e, uj, pa_j);
         const T lam = lambda_max(e, ui, pa_i, uj, pa_j, nv);
-        e_k = HALF ? lam * cmax[k * n + i] : norm * lam;
+        e_k = HALF ? lam * st.cmax(c, e, k) : norm * lam;
       }
 
       // indicator_accum
@@ -122,25 +134,45 @@ pk1_stream_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
   alpha[i] = a;
 }
 
-template <typename T>
-int launch_pk1_stream(const T* cij, const T* cmax, const T* mask, const T* node, const T* U,
-                      const T* prec, T* e_out, T* alpha, const Consts* consts,
-                      cudaStream_t stream) {
-  if (consts->K < 2 || consts->K > MAX_K || consts->K % 2) return int(cudaErrorInvalidValue);
-  const EqConsts<T> e = EqConsts<T>::make(*consts);
+template <typename T, class ST>
+int launch_pk1_stream_st(const T* cij, const T* cmax, const T* mask, const T* node,
+                         const T* U, const T* prec, T* e_out, T* alpha, const T* g2,
+                         const T* fz, const EqConsts<T>& e, const Consts* consts,
+                         cudaStream_t stream) {
   const dim3 grid = canvas_grid(e.D, e.H, e.W), block = canvas_block();
-  if (consts->dim == 2 && consts->half)
-    pk1_stream_kernel<T, 2, true><<<grid, block, 0, stream>>>(cij, cmax, mask, node, U, prec,
-                                                              e_out, alpha, e);
-  else if (consts->dim == 3 && consts->half)
-    pk1_stream_kernel<T, 3, true><<<grid, block, 0, stream>>>(cij, cmax, mask, node, U, prec,
-                                                              e_out, alpha, e);
+  if constexpr (!ST::kSeparable) {
+    if (consts->dim == 2 && consts->half) {
+      pk1_stream_kernel<T, 2, true, ST><<<grid, block, 0, stream>>>(
+          cij, cmax, mask, node, U, prec, e_out, alpha, e, g2, fz);
+      return int(cudaGetLastError());
+    }
+  }
+  if (consts->dim == 3 && consts->half)
+    pk1_stream_kernel<T, 3, true, ST><<<grid, block, 0, stream>>>(
+        cij, cmax, mask, node, U, prec, e_out, alpha, e, g2, fz);
   else if (consts->dim == 3)
-    pk1_stream_kernel<T, 3, false><<<grid, block, 0, stream>>>(cij, cmax, mask, node, U, prec,
-                                                               e_out, alpha, e);
+    pk1_stream_kernel<T, 3, false, ST><<<grid, block, 0, stream>>>(
+        cij, cmax, mask, node, U, prec, e_out, alpha, e, g2, fz);
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
+}
+
+// g2 and fz given: the SEP instances (3D, K = 26); both null: the full
+// statics.
+template <typename T>
+int launch_pk1_stream(const T* cij, const T* cmax, const T* mask, const T* node, const T* U,
+                      const T* prec, T* e_out, T* alpha, const T* g2, const T* fz,
+                      const Consts* consts, cudaStream_t stream) {
+  if (consts->K < 2 || consts->K > MAX_K || consts->K % 2) return int(cudaErrorInvalidValue);
+  const EqConsts<T> e = EqConsts<T>::make(*consts);
+  if (g2 || fz) {
+    if (!g2 || !fz || consts->dim != 3 || consts->K != 26) return int(cudaErrorInvalidValue);
+    return launch_pk1_stream_st<T, SepStatics<T>>(cij, cmax, mask, node, U, prec, e_out,
+                                                  alpha, g2, fz, e, consts, stream);
+  }
+  return launch_pk1_stream_st<T, FullStatics<T>>(cij, cmax, mask, node, U, prec, e_out,
+                                                 alpha, g2, fz, e, consts, stream);
 }
 
 }  // namespace ryujin
@@ -148,11 +180,12 @@ int launch_pk1_stream(const T* cij, const T* cmax, const T* mask, const T* node,
 #define RYUJIN_PK1_STREAM(SUFFIX, T)                                                          \
   extern "C" int ryujin_pk1_stream_##SUFFIX(                                                  \
       const void* cij, const void* cmax, const void* mask, const void* node, const void* U,   \
-      const void* prec, void* e_out, void* alpha, const ryujin::Consts* consts,               \
-      void* stream) {                                                                         \
+      const void* prec, void* e_out, void* alpha, const void* g2, const void* fz,             \
+      const ryujin::Consts* consts, void* stream) {                                           \
     return ryujin::launch_pk1_stream<T>((const T*)cij, (const T*)cmax, (const T*)mask,        \
                                         (const T*)node, (const T*)U, (const T*)prec,          \
-                                        (T*)e_out, (T*)alpha, consts, (cudaStream_t)stream);  \
+                                        (T*)e_out, (T*)alpha, (const T*)g2, (const T*)fz,     \
+                                        consts, (cudaStream_t)stream);                        \
   }
 
 RYUJIN_PK1_STREAM(f32, float)

@@ -35,21 +35,32 @@
 // read from the K incidence planes `inc`.  The flag is a template
 // parameter, so the cG instances read no incidence plane and compile as
 // before.
-#include "euler.cuh"
+//
+// Statics (ST, statics.cuh): FullStatics reads the stored planes;
+// SepStatics (3D cG only) synthesizes c_ij, the mask and c_ii from the
+// separable factors g2 / fz, as `_SepTile` does in `_step_slab`'s pk2
+// (:2276-2277, 2340): the 107 planes of c_ij, the mask and c_ii give way
+// to the L2-resident factors, at 4 multiplies a slot and 3 a cell.  The
+// factor pointers come after the constants, so the full-statics
+// instances keep their parameter offsets.
+#include "statics.cuh"
 
 namespace ryujin {
 
-template <typename T, int DIM, bool HALF, bool DG>
+template <typename T, int DIM, bool HALF, bool DG, class ST>
 __global__ void __launch_bounds__(128)
 pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
                   const T* __restrict__ inc, const T* __restrict__ cii, const T* __restrict__ node,
                   const T* __restrict__ U, const T* __restrict__ prec, const T* __restrict__ ed,
                   const T* __restrict__ alpha, const T* __restrict__ sU,
                   const T* __restrict__ tau_ptr, T* __restrict__ U_low, T* __restrict__ F_out,
-                  T* __restrict__ bounds, const __grid_constant__ EqConsts<T> e) {
+                  T* __restrict__ bounds, const __grid_constant__ EqConsts<T> e,
+                  const T* __restrict__ g2, const T* __restrict__ fz) {
+  static_assert(!ST::kSeparable || (DIM == 3 && !DG), "separable statics are 3D cG");
   constexpr int NC = DIM + 2;
   Cell c;
   if (!this_cell<DIM>(e, c)) return;
+  const ST st(e, cij, nullptr, mask, nullptr, cii, g2, fz);
   const int64_t i = c.i, n = c.n;
   const int K = e.K, K2 = K / 2;
   const int S = e.n_stages;
@@ -65,7 +76,7 @@ pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
   flux(e, ui, fi);
   T cvi[DIM];
 #pragma unroll
-  for (int d = 0; d < DIM; ++d) cvi[d] = cii[d * n + i];
+  for (int d = 0; d < DIM; ++d) cvi[d] = st.cii(c, e, d);
 
   T fs_i[2][NC][DIM];
   for (int s = 0; s < S; ++s) {
@@ -83,14 +94,14 @@ pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
 
 #pragma unroll 1
   for (int k = 0; k < K; ++k) {
-    const T mk = mask[k * n + i];
+    const T mk = st.mask(c, e, k);
     if (!(mk > T(0))) continue;
     const int64_t j = nbr_k<DIM>(c, e, k);
     const T d = HALF ? (k < K2 ? ed[k * n + i] : ed[(K - 1 - k) * n + j])
                      : mx(ed[k * n + i], ed[(K - 1 - k) * n + j]);
     T cv[DIM];
 #pragma unroll
-    for (int dd = 0; dd < DIM; ++dd) cv[dd] = cij[(dd * K + k) * n + i];
+    for (int dd = 0; dd < DIM; ++dd) cv[dd] = st.cij(c, e, dd, k);
     T uj[NC];
     load_state(U, j, n, uj);
     T fj[NC][DIM];
@@ -160,38 +171,53 @@ pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
   bounds[2 * n + i] = s_min;
 }
 
-template <typename T, bool DG>
+template <typename T, bool DG, class ST>
 int launch_pk2_stream_route(const T* cij, const T* mask, const T* inc, const T* cii, const T* node,
                       const T* U, const T* prec, const T* ed, const T* alpha, const T* sU,
-                      const T* tau, T* U_low, T* F, T* bounds, const EqConsts<T>& e,
-                      const Consts* consts, cudaStream_t stream) {
+                      const T* tau, T* U_low, T* F, T* bounds, const T* g2, const T* fz,
+                      const EqConsts<T>& e, const Consts* consts, cudaStream_t stream) {
   const dim3 grid = canvas_grid(e.D, e.H, e.W), block = canvas_block();
-  if (consts->dim == 2 && consts->half)
-    pk2_stream_kernel<T, 2, true, DG><<<grid, block, 0, stream>>>(
-        cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
-  else if (consts->dim == 3 && consts->half)
-    pk2_stream_kernel<T, 3, true, DG><<<grid, block, 0, stream>>>(
-        cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
+  if constexpr (!ST::kSeparable) {
+    if (consts->dim == 2 && consts->half) {
+      pk2_stream_kernel<T, 2, true, DG, ST><<<grid, block, 0, stream>>>(
+          cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e, g2, fz);
+      return int(cudaGetLastError());
+    }
+  }
+  if (consts->dim == 3 && consts->half)
+    pk2_stream_kernel<T, 3, true, DG, ST><<<grid, block, 0, stream>>>(
+        cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e, g2, fz);
   else if (consts->dim == 3)
-    pk2_stream_kernel<T, 3, false, DG><<<grid, block, 0, stream>>>(
-        cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e);
+    pk2_stream_kernel<T, 3, false, DG, ST><<<grid, block, 0, stream>>>(
+        cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e, g2, fz);
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
 }
 
+// g2 and fz given: the SEP instances (3D cG, K = 26); both null: the full
+// statics, cG or dG by `inc`.
 template <typename T>
 int launch_pk2_stream(const T* cij, const T* mask, const T* inc, const T* cii, const T* node,
                       const T* U, const T* prec, const T* ed, const T* alpha, const T* sU,
-                      const T* tau, T* U_low, T* F, T* bounds, const Consts* consts,
-                      cudaStream_t stream) {
+                      const T* tau, T* U_low, T* F, T* bounds, const T* g2, const T* fz,
+                      const Consts* consts, cudaStream_t stream) {
   if (consts->K < 2 || consts->K > MAX_K || consts->K % 2) return int(cudaErrorInvalidValue);
   const EqConsts<T> e = EqConsts<T>::make(*consts);
+  if (g2 || fz) {
+    if (!g2 || !fz || inc || consts->dim != 3 || consts->K != 26)
+      return int(cudaErrorInvalidValue);
+    return launch_pk2_stream_route<T, false, SepStatics<T>>(
+        cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, g2, fz, e,
+        consts, stream);
+  }
   if (inc)
-    return launch_pk2_stream_route<T, true>(cij, mask, inc, cii, node, U, prec, ed, alpha, sU,
-                                            tau, U_low, F, bounds, e, consts, stream);
-  return launch_pk2_stream_route<T, false>(cij, mask, inc, cii, node, U, prec, ed, alpha, sU,
-                                           tau, U_low, F, bounds, e, consts, stream);
+    return launch_pk2_stream_route<T, true, FullStatics<T>>(
+        cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, g2, fz, e,
+        consts, stream);
+  return launch_pk2_stream_route<T, false, FullStatics<T>>(
+      cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, g2, fz, e,
+      consts, stream);
 }
 
 }  // namespace ryujin
@@ -200,12 +226,13 @@ int launch_pk2_stream(const T* cij, const T* mask, const T* inc, const T* cii, c
   extern "C" int ryujin_pk2_stream_##SUFFIX(                                                   \
       const void* cij, const void* mask, const void* inc, const void* cii, const void* node,   \
       const void* U, const void* prec, const void* ed, const void* alpha, const void* sU,      \
-      const void* tau, void* U_low, void* F, void* bounds, const ryujin::Consts* consts,       \
-      void* stream) {                                                                          \
+      const void* tau, void* U_low, void* F, void* bounds, const void* g2, const void* fz,     \
+      const ryujin::Consts* consts, void* stream) {                                            \
     return ryujin::launch_pk2_stream<T>(                                                       \
         (const T*)cij, (const T*)mask, (const T*)inc, (const T*)cii, (const T*)node,           \
         (const T*)U, (const T*)prec, (const T*)ed, (const T*)alpha, (const T*)sU,              \
-        (const T*)tau, (T*)U_low, (T*)F, (T*)bounds, consts, (cudaStream_t)stream);            \
+        (const T*)tau, (T*)U_low, (T*)F, (T*)bounds, (const T*)g2, (const T*)fz, consts,       \
+        (cudaStream_t)stream);                                                                 \
   }
 
 RYUJIN_PK2_STREAM(f32, float)

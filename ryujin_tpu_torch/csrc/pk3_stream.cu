@@ -30,11 +30,20 @@
 // read from the K incidence planes `inc`.  The flag is a template
 // parameter, so the cG instances read no incidence plane and compile as
 // before.
-#include "euler.cuh"
+//
+// Statics (ST, statics.cuh): FullStatics reads the stored planes;
+// SepStatics (3D cG only) synthesizes c_ij, m_ij and the mask from the
+// separable factors g2 / fz, as `_SepTile` does in `_step_slab`'s pk3
+// (:2276-2277, 2471): the 130 planes of c_ij, m_ij and the mask give way
+// to the L2-resident factors, at 5 multiplies a slot.  That is a quarter
+// of what this kernel reads; P, which it writes, stays the larger stream.
+// The factor pointers come after the constants, so the full-statics
+// instances keep their parameter offsets.
+#include "statics.cuh"
 
 namespace ryujin {
 
-template <typename T, int DIM, bool HALF, bool DG>
+template <typename T, int DIM, bool HALF, bool DG, class ST>
 __global__ void __launch_bounds__(128)
 pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
                   const T* __restrict__ mask, const T* __restrict__ inc,
@@ -43,10 +52,13 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
                   const T* __restrict__ Fin, const T* __restrict__ U_low,
                   const T* __restrict__ bounds, const T* __restrict__ sU,
                   const T* __restrict__ tau_ptr, T* __restrict__ P_out, T* __restrict__ l_out,
-                  T* __restrict__ okp, const __grid_constant__ EqConsts<T> e) {
+                  T* __restrict__ okp, const __grid_constant__ EqConsts<T> e,
+                  const T* __restrict__ g2, const T* __restrict__ fz) {
+  static_assert(!ST::kSeparable || (DIM == 3 && !DG), "separable statics are 3D cG");
   constexpr int NC = DIM + 2;
   Cell c;
   if (!this_cell<DIM>(e, c)) return;
+  const ST st(e, cij, nullptr, mask, mij, nullptr, g2, fz);
   const int64_t i = c.i, n = c.n;
   const int K = e.K, K2 = K / 2;
   const int S = e.n_stages;
@@ -77,7 +89,7 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
   T ok = T(1);
 #pragma unroll 1
   for (int k = 0; k < K; ++k) {
-    const T mk = mask[k * n + i];
+    const T mk = st.mask(c, e, k);
     if (!(mk > T(0))) {
 #pragma unroll
       for (int q = 0; q < NC; ++q) P_out[(q * K + k) * n + i] = T(0);
@@ -92,7 +104,7 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
     const T d_H = d * factor;
     T cv[DIM];
 #pragma unroll
-    for (int dd = 0; dd < DIM; ++dd) cv[dd] = cij[(dd * K + k) * n + i];
+    for (int dd = 0; dd < DIM; ++dd) cv[dd] = st.cij(c, e, dd, k);
     T uj[NC], fj[NC][DIM];
     load_state(U, j, n, uj);
     flux(e, uj, fj);
@@ -108,7 +120,7 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
 #pragma unroll
       for (int q = 0; q < NC; ++q) P[q] = P[q] + w_s[s] * flux_div(fs_i[s], fsj, q, cv);
     }
-    const T m_ij = mij[k * n + i];
+    const T m_ij = st.mij(c, e, k);
     const T b_ij = -m_ij / node[j];
     const T b_ji = -m_ij * m_inv;
 #pragma unroll
@@ -123,39 +135,57 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
   okp[i] = ok;
 }
 
-template <typename T, bool DG>
+template <typename T, bool DG, class ST>
 int launch_pk3_stream_route(const T* cij, const T* mij, const T* mask, const T* inc,
                             const T* node, const T* U, const T* ed, const T* alpha, const T* F,
                             const T* U_low, const T* bounds, const T* sU, const T* tau, T* P,
-                            T* l, T* okp, const EqConsts<T>& e, const Consts* consts,
-                            cudaStream_t stream) {
+                            T* l, T* okp, const T* g2, const T* fz, const EqConsts<T>& e,
+                            const Consts* consts, cudaStream_t stream) {
   const dim3 grid = canvas_grid(e.D, e.H, e.W), block = canvas_block();
-  if (consts->dim == 2 && consts->half)
-    pk3_stream_kernel<T, 2, true, DG><<<grid, block, 0, stream>>>(
-        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
-  else if (consts->dim == 3 && consts->half)
-    pk3_stream_kernel<T, 3, true, DG><<<grid, block, 0, stream>>>(
-        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+  if constexpr (!ST::kSeparable) {
+    if (consts->dim == 2 && consts->half) {
+      pk3_stream_kernel<T, 2, true, DG, ST><<<grid, block, 0, stream>>>(
+          cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e, g2,
+          fz);
+      return int(cudaGetLastError());
+    }
+  }
+  if (consts->dim == 3 && consts->half)
+    pk3_stream_kernel<T, 3, true, DG, ST><<<grid, block, 0, stream>>>(
+        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e, g2,
+        fz);
   else if (consts->dim == 3)
-    pk3_stream_kernel<T, 3, false, DG><<<grid, block, 0, stream>>>(
-        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+    pk3_stream_kernel<T, 3, false, DG, ST><<<grid, block, 0, stream>>>(
+        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, e, g2,
+        fz);
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
 }
 
+// g2 and fz given: the SEP instances (3D cG, K = 26); both null: the full
+// statics, cG or dG by `inc`.
 template <typename T>
 int launch_pk3_stream(const T* cij, const T* mij, const T* mask, const T* inc, const T* node,
                       const T* U, const T* ed, const T* alpha, const T* F, const T* U_low,
                       const T* bounds, const T* sU, const T* tau, T* P, T* l, T* okp,
-                      const Consts* consts, cudaStream_t stream) {
+                      const T* g2, const T* fz, const Consts* consts, cudaStream_t stream) {
   if (consts->K < 2 || consts->K > MAX_K || consts->K % 2) return int(cudaErrorInvalidValue);
   const EqConsts<T> e = EqConsts<T>::make(*consts);
+  if (g2 || fz) {
+    if (!g2 || !fz || inc || consts->dim != 3 || consts->K != 26)
+      return int(cudaErrorInvalidValue);
+    return launch_pk3_stream_route<T, false, SepStatics<T>>(
+        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, g2, fz,
+        e, consts, stream);
+  }
   if (inc)
-    return launch_pk3_stream_route<T, true>(cij, mij, mask, inc, node, U, ed, alpha, F, U_low,
-                                            bounds, sU, tau, P, l, okp, e, consts, stream);
-  return launch_pk3_stream_route<T, false>(cij, mij, mask, inc, node, U, ed, alpha, F, U_low,
-                                           bounds, sU, tau, P, l, okp, e, consts, stream);
+    return launch_pk3_stream_route<T, true, FullStatics<T>>(
+        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, g2, fz,
+        e, consts, stream);
+  return launch_pk3_stream_route<T, false, FullStatics<T>>(
+      cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, g2, fz, e,
+      consts, stream);
 }
 
 }  // namespace ryujin
@@ -165,12 +195,12 @@ int launch_pk3_stream(const T* cij, const T* mij, const T* mask, const T* inc, c
       const void* cij, const void* mij, const void* mask, const void* inc, const void* node,   \
       const void* U, const void* ed, const void* alpha, const void* F, const void* U_low,      \
       const void* bounds, const void* sU, const void* tau, void* P, void* l, void* okp,        \
-      const ryujin::Consts* consts, void* stream) {                                            \
+      const void* g2, const void* fz, const ryujin::Consts* consts, void* stream) {            \
     return ryujin::launch_pk3_stream<T>(                                                       \
         (const T*)cij, (const T*)mij, (const T*)mask, (const T*)inc, (const T*)node,           \
         (const T*)U, (const T*)ed, (const T*)alpha, (const T*)F, (const T*)U_low,              \
-        (const T*)bounds, (const T*)sU, (const T*)tau, (T*)P, (T*)l, (T*)okp, consts,          \
-        (cudaStream_t)stream);                                                                 \
+        (const T*)bounds, (const T*)sU, (const T*)tau, (T*)P, (T*)l, (T*)okp, (const T*)g2,    \
+        (const T*)fz, consts, (cudaStream_t)stream);                                           \
   }
 
 RYUJIN_PK3_STREAM(f32, float)

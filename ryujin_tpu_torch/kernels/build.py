@@ -29,10 +29,11 @@ BUILD_DIR = PACKAGE / "_build"
 GENCODE = "arch=compute_90a,code=sm_90a"
 
 # entry point -> number of device-pointer arguments (before the Consts
-# pointer and the stream)
+# pointer and the stream); the stream kernels and pk_up end theirs with the
+# separable factors g_sep2 and f_sepz, null for the full statics
 ENTRY_POINTS = {
-    "pk1": 7, "pk2": 15, "pk3": 17, "pk_up": 8,
-    "pk1_stream": 8, "pk2_stream": 14, "pk3_stream": 16,
+    "pk1": 7, "pk2": 15, "pk3": 17, "pk_up": 10,
+    "pk1_stream": 10, "pk2_stream": 16, "pk3_stream": 18,
 }
 MAX_K = 48  # lattice offsets a launch can carry (cG Q3: reach 3, K = 48)
 

@@ -5,7 +5,10 @@ csrc/pk1_stream.cu; TPU kernel `_pk1_stream`, pallas_step.py:1904).
 Two routes (`half`): the half-slot route writes the pre-scaled e = lambda
 * cmax [K/2, n] (prescale), the two-direction route e = |c_ij| lambda
 [K, n] on every slot (3D canvases whose coupling-boundary-pair set is too
-large for the half-slot fixup; `sym` False in _step_slab)."""
+large for the half-slot fixup; `sym` False in _step_slab).  With
+separable statics (a 3D cG canvas) it launches the SEP instance, which
+synthesizes c_ij, the mask and cmax per offset (_SepTile, pallas_step.py:
+1092-1164, in _pk1_stream :1915-1917, 1974, 2003)."""
 
 from __future__ import annotations
 
@@ -20,7 +23,6 @@ def pk1_stream_reference(eq, p, ca, U, prec, half=True):
     st = ca.stencil
     K = st.K
     K_e = K // 2 if half else K
-    cmax = ca.g_cmax.reshape(K, -1)
     tiny = torch.finfo(U.dtype).tiny
     f = eq.f(U)
     pa_i = eq.riemann_precompute(U)
@@ -29,8 +31,8 @@ def pk1_stream_reference(eq, p, ca, U, prec, half=True):
     e = []
     for k, off in enumerate(st.offsets):
         U_jk = st.shift(U, off)
-        c_k = st.cij[:, k]
-        mask_k = st.mask[k]
+        c_k = st.cij_k(k)
+        mask_k = st.mask_k(k)
         if k < K_e:
             norm_k = torch.sqrt(torch.sum(c_k * c_k, 0))
             n_k = c_k / torch.clamp_min(norm_k, tiny)[None]
@@ -38,7 +40,7 @@ def pk1_stream_reference(eq, p, ca, U, prec, half=True):
                 U, U_jk, n_k, pa_i=pa_i,
                 pa_j=tuple(st.shift(x, off) for x in pa_i),
             )
-            e_k = lam_k * cmax[k] if half else norm_k * lam_k
+            e_k = lam_k * st.cmax_k(k) if half else norm_k * lam_k
             e.append(torch.where(mask_k > 0, e_k, torch.zeros_like(e_k)))
         li, ri = eq.indicator_accum(
             ind, U_jk, st.shift(prec, off), st.shift(f, off), c_k, mask_k
@@ -63,15 +65,18 @@ def pk1_stream(eq, p, ca, U, prec, half=True):
     build.check(U.device, U.dtype, {
         "U": (U, (eq.n_comp, n)),
         "prec": (prec, (eq.n_precomputed, n)),
-        **build.statics(ca, ("g_cij", "g_cmax", "g_mask", "g_node")),
+        **build.statics(ca, ("g_cij", "g_cmax", "g_mask", "g_node",
+                             "g_sep2", "f_sepz")),
     })
     e = torch.empty((K // 2 if half else K, n), dtype=U.dtype, device=U.device)
     alpha = torch.empty((n,), dtype=U.dtype, device=U.device)
     ptrs = [ca.g_cij, ca.g_cmax if half else None, ca.g_mask, ca.g_node, U,
-            prec, e, alpha]
+            prec, e, alpha, ca.g_sep2, ca.f_sepz]
     build.launch("pk1_stream", U.dtype, [build.ptr(t) for t in ptrs], c)
     pk1_stream.launches += 1
+    # the SEP instance's own count
+    pk1_stream.sep_launches += int(ca.separable)
     return e, alpha
 
 
-pk1_stream.launches = 0
+pk1_stream.launches = pk1_stream.sep_launches = 0

@@ -4,7 +4,9 @@ from the wavespeeds e of PK1 on either route (CUDA kernel
 csrc/pk2_stream.cu; TPU kernels `pk2_stream` with prescale,
 pallas_step.py:2879, and `_step_slab`'s pk2, :2317).  On a dG canvas the
 high-order viscosity factor of each slot is at least the incidence
-beta_ij (`slot_factor`; pallas_step.py:2942-2944)."""
+beta_ij (`slot_factor`; pallas_step.py:2942-2944).  With separable
+statics (a 3D cG canvas) it launches the SEP instance, which synthesizes
+c_ij, the mask and c_ii (_SepTile in _step_slab, :2276-2277, 2340)."""
 
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ def slot_d(st, e, k, half=True):
         d_k = e[k] if k < K // 2 else st.shift(e[K - 1 - k], st.offsets[k])
     else:
         d_k = torch.maximum(e[k], st.shift(e[K - 1 - k], st.offsets[k]))
-    return torch.where(st.mask[k] > 0, d_k, torch.zeros_like(d_k))
+    return torch.where(st.live_k(k), d_k, 0.0)
 
 
 def slot_factor(st, alpha, k):
@@ -47,15 +49,16 @@ def pk2_stream_reference(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights,
     weight = 1.0 - sum(ws)
     regularization = 100.0 * torch.finfo(U.dtype).tiny
     f = eq.f(U)
-    flux_ii = eq.flux_divergence(f, f, st.cii)
+    cii = st.c_ii()
+    flux_ii = eq.flux_divergence(f, f, cii)
     f_s = [eq.f(stage_U[s]) for s in range(len(ws))]
     low_acc = torch.zeros_like(U)
     F_acc = torch.zeros_like(U)
     bst = eq.limiter_bounds_init(U, prec)
     for k, off in enumerate(st.offsets):
         U_jk = st.shift(U, off)
-        c_k = st.cij[:, k]
-        mask_k = st.mask[k]
+        c_k = st.cij_k(k)
+        mask_k = st.mask_k(k)
         d_k = slot_d(st, e, k, half)
         flux_ij_k = eq.flux_divergence(f, st.shift(f, off), c_k)
         dU_k = U_jk - U
@@ -73,7 +76,7 @@ def pk2_stream_reference(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights,
     U_low = U + (tau * st.m_lumped_inv)[None] * (low_acc + flux_ii)
     F = F_acc + weight * flux_ii
     for s, w_s in enumerate(ws):
-        F = F + w_s * eq.flux_divergence(f_s[s], f_s[s], st.cii)
+        F = F + w_s * eq.flux_divergence(f_s[s], f_s[s], cii)
     hd_i = st.m_lumped * st.measure_inv
     bounds = eq.limiter_bounds_finalize(bst, hd_i, p.limiter_relaxation_factor)
     return U_low, F, bounds
@@ -99,7 +102,8 @@ def pk2_stream(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau,
         "e": (e, (K // 2 if half else K, n)),
         "alpha": (alpha, (n,)),
         "tau": (tau, ()),
-        **build.statics(ca, ("g_cij", "g_mask", "g_inc", "g_cii", "g_node")),
+        **build.statics(ca, ("g_cij", "g_mask", "g_inc", "g_cii", "g_node",
+                             "g_sep2", "f_sepz")),
     }
     if sU is not None:
         tensors["stage_U"] = (sU, sU.shape)
@@ -109,10 +113,12 @@ def pk2_stream(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau,
     F = torch.empty((C, n), **kw)
     bounds = torch.empty((eq.n_bounds, n), **kw)
     ptrs = [ca.g_cij, ca.g_mask, ca.g_inc, ca.g_cii, ca.g_node, U, prec, e,
-            alpha, sU, tau, U_low, F, bounds]
+            alpha, sU, tau, U_low, F, bounds, ca.g_sep2, ca.f_sepz]
     build.launch("pk2_stream", U.dtype, [build.ptr(t) for t in ptrs], c)
     pk2_stream.launches += 1
+    # the SEP instance's own count
+    pk2_stream.sep_launches += int(ca.separable)
     return U_low, F, bounds
 
 
-pk2_stream.launches = 0
+pk2_stream.launches = pk2_stream.sep_launches = 0

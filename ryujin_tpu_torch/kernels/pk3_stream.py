@@ -4,7 +4,9 @@ a 2D or 3D canvas of any lattice reach, from the wavespeeds e of PK1 on
 either route (CUDA kernel csrc/pk3_stream.cu; TPU kernels `pk3_stream`
 with prescale, pallas_step.py:3093, and `_step_slab`'s pk3, :2409).  On a
 dG canvas the high-order viscosity factor of each slot is at least the
-incidence beta_ij (pallas_step.py:3167-3171)."""
+incidence beta_ij (pallas_step.py:3167-3171).  With separable statics (a
+3D cG canvas) it launches the SEP instance, which synthesizes c_ij, m_ij
+and the mask (_SepTile in _step_slab, :2276-2277, 2471)."""
 
 from __future__ import annotations
 
@@ -32,8 +34,8 @@ def pk3_stream_reference(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
     l = torch.empty((st.K, U.shape[-1]), dtype=U.dtype, device=U.device)
     okp = torch.ones_like(alpha)
     for k, off in enumerate(st.offsets):
-        c_k = st.cij[:, k]
-        on = st.mask[k] > 0
+        c_k = st.cij_k(k)
+        on = st.live_k(k)
         d_k = slot_d(st, e, k, half)
         flux_ij_k = eq.flux_divergence(f, st.shift(f, off), c_k)
         dH_k = d_k * slot_factor(st, alpha, k)
@@ -44,8 +46,9 @@ def pk3_stream_reference(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
             P_k = P_k + w_s * eq.flux_divergence(
                 f_s[s], st.shift(f_s[s], off), c_k
             )
-        b_ij_k = -st.mij[k] / st.shift(st.m_lumped, off)
-        b_ji_k = -st.mij[k] * st.m_lumped_inv
+        m_k = st.mij_k(k)
+        b_ij_k = -m_k / st.shift(st.m_lumped, off)
+        b_ji_k = -m_k * st.m_lumped_inv
         P_k = P_k + b_ij_k[None] * st.shift(F, off) - b_ji_k[None] * F
         P_k = P_k * pfac[None]
         l_k, succ_k = eq.limiter_limit(
@@ -81,7 +84,8 @@ def pk3_stream(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
         "U_low": (U_low, (C, n)),
         "bounds": (bounds, (eq.n_bounds, n)),
         "tau": (tau, ()),
-        **build.statics(ca, ("g_cij", "g_mij", "g_mask", "g_inc", "g_node")),
+        **build.statics(ca, ("g_cij", "g_mij", "g_mask", "g_inc", "g_node",
+                             "g_sep2", "f_sepz")),
     }
     if sU is not None:
         tensors["stage_U"] = (sU, sU.shape)
@@ -91,10 +95,12 @@ def pk3_stream(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
     l = torch.empty((K, n), **kw)
     okp = torch.empty((n,), **kw)
     ptrs = [ca.g_cij, ca.g_mij, ca.g_mask, ca.g_inc, ca.g_node, U, e, alpha,
-            F, U_low, bounds, sU, tau, P, l, okp]
+            F, U_low, bounds, sU, tau, P, l, okp, ca.g_sep2, ca.f_sepz]
     build.launch("pk3_stream", U.dtype, [build.ptr(t) for t in ptrs], c)
     pk3_stream.launches += 1
+    # the SEP instance's own count
+    pk3_stream.sep_launches += int(ca.separable)
     return P, l, okp
 
 
-pk3_stream.launches = 0
+pk3_stream.launches = pk3_stream.sep_launches = 0

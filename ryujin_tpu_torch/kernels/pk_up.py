@@ -1,7 +1,10 @@
 """pk_up: the symmetrized limited update, PK4 (re-limits) and PK5 (last),
 on the 2D K = 8 (reach 1) and K = 24 (reach 2) canvases and the 3D K = 26
 (reach 1) canvas (CUDA kernel csrc/pk_up.cu; TPU kernels
-pallas_step.py:3265 and `_step_slab`'s pk_up, :2528)."""
+pallas_step.py:3265 and `_step_slab`'s pk_up, :2528).  With separable
+statics (a 3D cG canvas) it launches the SEP instance, which synthesizes
+the mask per offset (_SepTile.mask_k, :1139): the port's pk_up reads the
+mask, where the TPU's relies on P carrying it."""
 
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ def pk_up_reference(eq, p, ca, U_cur, bounds, P, l, last):
     `last` the re-limited l'_k = (1 - l_sym_k) l2_k, 0 on masked slots."""
     st = ca.stencil
     K = st.K
-    on = st.mask > 0
+    on = [st.live_k(k) for k in range(K)]
     zero = torch.zeros_like(l[0])
     l_sym = [
         torch.where(on[k], torch.minimum(l[k], st.shift(l[K - 1 - k], off)),
@@ -62,18 +65,21 @@ def pk_up(eq, p, ca, U_cur, bounds, P, l, last: bool):
         "bounds": (bounds, (eq.n_bounds, n)),
         "P": (P, (C, K, n)),
         "l": (l, (K, n)),
-        **build.statics(ca, ("g_lam", "g_mask")),
+        **build.statics(ca, ("g_lam", "g_mask", "g_sep2", "f_sepz")),
     })
     kw = dict(dtype=U_cur.dtype, device=U_cur.device)
     U_next = torch.empty((C, n), **kw)
     l_new = None if last else torch.empty((K, n), **kw)
-    ptrs = [ca.g_lam, ca.g_mask, U_cur, bounds, P, l, U_next, l_new]
+    ptrs = [ca.g_lam, ca.g_mask, U_cur, bounds, P, l, U_next, l_new,
+            ca.g_sep2, ca.f_sepz]
     build.launch(
         "pk_up", U_cur.dtype, [build.ptr(t) for t in ptrs],
         build.consts(eq, p, ca),
     )
     pk_up.launches += 1
+    # the SEP instance's own count
+    pk_up.sep_launches += int(ca.separable)
     return U_next, l_new
 
 
-pk_up.launches = 0
+pk_up.launches = pk_up.sep_launches = 0

@@ -4,9 +4,10 @@
     BENCH_CASE=q2step2d python -m ryujin_tpu_torch.profile_step
     BENCH_CASE=box3d python -m ryujin_tpu_torch.profile_step
     BENCH_CASE=dg1box3d python -m ryujin_tpu_torch.profile_step
+    BENCH_CASE=cylinder3d RYUJIN_SEP=1 python -m ryujin_tpu_torch.profile_step
 
-After the warmup of the bench case (BENCH_WARMUP, BENCH_REFINEMENT as in
-ryujin_tpu_torch.bench) it
+After the warmup of the bench case (BENCH_WARMUP, BENCH_REFINEMENT and
+RYUJIN_SEP as in ryujin_tpu_torch.bench) it
 
 1. traces PROFILE_STEPS (5) steps with torch.profiler and prints the device
    time of the hand-written kernels by name, of everything else (the torch
@@ -31,7 +32,7 @@ import time
 
 import torch
 
-from .bench import CASES
+from .bench import CASES, separable_from_env
 from .solver.integrator import TimeIntegrator
 
 OUR_KERNELS = ("pk1_kernel", "pk2_kernel", "pk3_kernel", "pk_up_kernel",
@@ -39,10 +40,11 @@ OUR_KERNELS = ("pk1_kernel", "pk2_kernel", "pk3_kernel", "pk_up_kernel",
 
 
 def _kernel_name(key: str):
-    """The hand-written kernel a profiler key names, or None."""
+    """The hand-written kernel a profiler key names (its SEP instance
+    marked), or None."""
     for name in sorted(OUR_KERNELS, key=len, reverse=True):
         if name in key:
-            return name
+            return name + (" SEP" if "SepStatics" in key else "")
     return None
 
 
@@ -59,15 +61,19 @@ def main():
     warmup = int(os.environ.get("BENCH_WARMUP", str(warmup_default)))
     n_steps = int(os.environ.get("BENCH_STEPS", "20"))
     n_profiled = int(os.environ.get("PROFILE_STEPS", "5"))
+    separable = separable_from_env()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
     t0 = time.perf_counter()
-    _, sd, hm, ti, U0 = build_case(refinement, torch.float32, "cuda")
+    _, sd, hm, ti, U0 = build_case(refinement, torch.float32, "cuda",
+                                   separable=separable)
     print(f"setup {time.perf_counter() - t0:.1f} s (mesh, assembly, packing,"
-          f" statics) on {card}", flush=True)
+          f" statics; {'separable' if separable else 'full'} statics, "
+          f"factoring {hm.canvas.arrays.factor_seconds:.1f} s) on {card}",
+          flush=True)
     integrators = {
         rec: TimeIntegrator(hm, ti.scheme, cfl_min=ti.cfl_min,
                             cfl_max=ti.cfl_max, cfl_recovery_strategy=rec)

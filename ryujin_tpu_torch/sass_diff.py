@@ -7,7 +7,9 @@ checkouts (ryujin_tpu_torch/_build/libryujin_kernels_*.so).  Each kernel
 instance of OLD is matched with the instance of NEW that has the same
 kernel and template arguments; an instance of NEW whose trailing boolean
 template argument is the dG flag matches OLD's instance without it when
-the flag is false, and is left out when it is true.  Constant-bank
+the flag is false, and is left out when it is true; likewise a trailing
+statics accessor argument: FullStatics is dropped, an instance with
+SepStatics (the separable statics) is left out.  Constant-bank
 addresses of the form c[0x0][0x...] (the launch's parameters) are masked
 before the comparison.  Prints, for each pair, the instruction counts and
 the instructions that still differ.  Needs cuobjdump (the CUDA toolkit's,
@@ -48,13 +50,24 @@ def functions(lib: str):
     return res
 
 
+# the mangled statics accessor argument, ryujin::FullStatics<T> or
+# ryujin::SepStatics<T>, last among the template arguments
+_STATICS = re.compile(r"N(?:S_|6ryujin)\d+(Full|Sep)StaticsI[fd]EE$")
+
+
 def key(name: str):
     """(kernel, template arguments) of a mangled kernel name, with a false
-    dG flag dropped; None for a dG instance or a name of another form."""
+    dG flag and a FullStatics accessor dropped; None for a dG or a SepStatics
+    instance or a name of another form."""
     m = re.match(r"_ZN6ryujin\d+(\w+?_kernel)I(.*?)EEvPK", name)
     if not m:
         return None
     kernel, args = m.groups()
+    st = _STATICS.search(args)
+    if st:
+        if st.group(1) == "Sep":
+            return None
+        args = args[: st.start()]
     if args.count("Lb") == DG_FLAGGED.get(kernel):
         if args.endswith("Lb1E"):
             return None

@@ -17,30 +17,39 @@ The stream kernels take one of two routes, chosen once by the hyperbolic
 module (`half`): the half-slot pre-scaled e = lambda * cmax with the
 boundary-pair fixup, or, when the boundary-pair set is too large for
 that fixup (a 3D box's whole surface), the two-direction e = |c_ij|
-lambda on every slot with d = max(e, e_T) and no fixup.  Every kernel
-wrapper runs its plain-torch reference for CPU tensors, so the same
-orchestration is testable on the CPU.
+lambda on every slot with d = max(e, e_T) and no fixup.  With separable
+statics (a 3D cG canvas that is an extrusion along z,
+`CanvasArrays.from_structured(separable=True)`) the kernels take their
+SEP instances, which synthesize c_ij, m_ij, the mask, c_ii and cmax from
+z-profiles and 2D fields, and the d / tau glue rebuilds d offset by
+offset from the synthesized mask (pallas_step.py:2198-2212).  Every
+kernel wrapper runs its plain-torch reference for CPU tensors, so the
+same orchestration is testable on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..offline.separable import separate_z
 from ..offline.structured import StructuredData, lattice_offsets
 
 from ..kernels.pk1 import pk1
 from ..kernels.pk1_stream import pk1_stream
 from ..kernels.pk2 import pk2
-from ..kernels.pk2_stream import pk2_stream
+from ..kernels.pk2_stream import pk2_stream, slot_d
 from ..kernels.pk3 import pk3
 from ..kernels.pk3_stream import pk3_stream
 from ..kernels.pk_up import pk_up
-from .hyperbolic import d_from_e, d_from_lambda, tau_max_from_d
+from .hyperbolic import (
+    d_from_e, d_from_lambda, tau_max_from_d, tau_max_from_row_sum,
+)
 from .stencil import StructuredStencil, check_single_block
 
 
@@ -49,20 +58,31 @@ class CanvasArrays:
     """Static canvases on the device (the torch form of PallasArrays,
     pallas_step.py:1049): planes first, [planes, H, W] in 2D and
     [planes, D, H, W] in 3D, contiguous.  (The TPU's z-major
-    [D, planes, H, W] 3D layout is a DMA choice and is not carried over.)"""
+    [D, planes, H, W] 3D layout is a DMA choice and is not carried over.)
+    With separable statics the five stacks g_cij, g_mask, g_cmax, g_mij
+    and g_cii are not allocated (None), as canv_or_empty leaves them empty
+    (:1319-1326), and g_sep2 [48, H, W] / f_sepz [133, D] hold the factors
+    (:1383-1395; the TPU's [D, PF, 1, 128] lane broadcast of f_sepz is a
+    layout choice and is not carried over)."""
 
     shape: Tuple[int, ...]
     offsets: Tuple[Tuple[int, ...], ...]
     measure_inv: float
-    g_cij: torch.Tensor  # [dim * K, *shape], plane d * K + k
-    g_mask: torch.Tensor  # [K, *shape]
-    g_cmax: torch.Tensor  # [K, *shape]: max(|c_ij|, |c_ji|)
-    g_mij: torch.Tensor  # [K, *shape]
-    g_cii: torch.Tensor  # [dim, *shape]
+    g_cij: Optional[torch.Tensor]  # [dim * K, *shape], plane d * K + k
+    g_mask: Optional[torch.Tensor]  # [K, *shape]
+    g_cmax: Optional[torch.Tensor]  # [K, *shape]: max(|c_ij|, |c_ji|)
+    g_mij: Optional[torch.Tensor]  # [K, *shape]
+    g_cii: Optional[torch.Tensor]  # [dim, *shape]
     g_node: torch.Tensor  # [5, *shape]: m_i, 1/m_i, n_nbrs, node_mask, value_mask
     g_lam: torch.Tensor  # [1, *shape]: 1/n_nbrs
     # dG incidence beta_ij [K, *shape]; None for a continuous ansatz
     g_inc: Optional[torch.Tensor] = None
+    # separable statics (solver/stencil.py has the plane order); None
+    # with the full canvases
+    g_sep2: Optional[torch.Tensor] = None  # [48, H, W]
+    f_sepz: Optional[torch.Tensor] = None  # [133, D]
+    # host seconds that separate_z took (0 with the full canvases)
+    factor_seconds: float = 0.0
 
     @property
     def K(self) -> int:
@@ -73,29 +93,48 @@ class CanvasArrays:
         return int(np.prod(self.shape))
 
     @property
+    def separable(self) -> bool:
+        return self.g_sep2 is not None
+
+    @property
     def stencil(self) -> StructuredStencil:
         """The same arrays as a StructuredStencil (views, no copies), for
         the plain-torch kernel references."""
         K, n = self.K, self.n
-        dim = self.g_cii.shape[0]
+        dim = len(self.shape)
+
+        def view(t, planes):
+            return None if t is None else t.reshape(planes + (n,))
+
         return StructuredStencil(
             shape=self.shape,
             offsets=self.offsets,
-            cij=self.g_cij.reshape(dim, K, n),
-            mij=self.g_mij.reshape(K, n),
-            mask=self.g_mask.reshape(K, n),
-            cii=self.g_cii.reshape(dim, n),
+            cij=view(self.g_cij, (dim, K)),
+            mij=view(self.g_mij, (K,)),
+            mask=view(self.g_mask, (K,)),
+            cii=view(self.g_cii, (dim,)),
             m_lumped=self.g_node[0].reshape(n),
             m_lumped_inv=self.g_node[1].reshape(n),
             n_nbrs=self.g_node[2].reshape(n),
             node_mask=self.g_node[3].reshape(n),
             measure_inv=self.measure_inv,
-            incidence=None if self.g_inc is None else self.g_inc.reshape(K, n),
+            incidence=view(self.g_inc, (K,)),
+            cmax=view(self.g_cmax, (K,)),
+            g_sep2=self.g_sep2,
+            f_sepz=self.f_sepz,
         )
 
     @staticmethod
-    def from_structured(sd: StructuredData, dtype, device) -> "CanvasArrays":
-        """Built as pallas_step.py:1328-1381 builds PallasArrays."""
+    def from_structured(sd: StructuredData, dtype, device,
+                        separable: bool = False) -> "CanvasArrays":
+        """Built as pallas_step.py:1328-1395 builds PallasArrays.
+
+        separable=True factors the statics (offline/separable.py) and
+        keeps only the factors; it raises ValueError on a canvas that the
+        JAX package would not factor: a 2D or dG canvas (not on its z-slab
+        path, :1226-1234) or one that separate_z rejects (not an extrusion
+        along z).  There is no fallback to the full canvases: the caller
+        asked for the mode by name."""
         check_single_block(sd)
         canvas = tuple(sd.shape)
         caxes = tuple(range(len(canvas)))
@@ -106,27 +145,65 @@ class CanvasArrays:
             a = np.ascontiguousarray(x).reshape((planes,) + canvas)
             return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
 
-        cij = np.moveaxis(
-            sd.cij.reshape(canvas + (K, dim)), (-1, -2), (0, 1)
-        )  # [dim, K, *canvas]
-        norm_c = np.linalg.norm(cij, axis=0)  # [K, *canvas]
-        cmax = norm_c.copy()
-        for k, off in enumerate(offsets):
-            rolled = np.roll(
-                norm_c[K - 1 - k], tuple(-o for o in off), axis=caxes
+        sep, factor_seconds = None, 0.0
+        if separable:
+            if dim != 3 or sd.incidence is not None:
+                raise ValueError(
+                    "separable statics take a 3D cG canvas (the z-slab "
+                    f"path), not a {dim}D "
+                    f"{'dG' if sd.incidence is not None else 'cG'} canvas"
+                )
+            t0 = time.perf_counter()
+            sep = separate_z(sd)
+            factor_seconds = time.perf_counter() - t0
+            if sep is None:
+                raise ValueError(
+                    "the statics of this canvas do not factor into "
+                    "z-profiles x 2D fields (not an extrusion along z)"
+                )
+        statics = dict(g_cij=None, g_mask=None, g_cmax=None, g_mij=None,
+                       g_cii=None)
+        if sep is None:
+            cij = np.moveaxis(
+                sd.cij.reshape(canvas + (K, dim)), (-1, -2), (0, 1)
+            )  # [dim, K, *canvas]
+            norm_c = np.linalg.norm(cij, axis=0)  # [K, *canvas]
+            cmax = norm_c.copy()
+            for k, off in enumerate(offsets):
+                rolled = np.roll(
+                    norm_c[K - 1 - k], tuple(-o for o in off), axis=caxes
+                )
+                cmax[k] = np.maximum(cmax[k], rolled)
+            statics = dict(
+                g_cij=canv(cij, dim * K),
+                g_mask=canv(np.moveaxis(sd.mask, -1, 0), K),
+                g_cmax=canv(cmax, K),
+                g_mij=canv(np.moveaxis(sd.mij, -1, 0), K),
+                g_cii=canv(np.moveaxis(sd.cii, -1, 0), dim),
             )
-            cmax[k] = np.maximum(cmax[k], rolled)
+        else:
+            D, H, W = canvas
+            g2 = np.concatenate([
+                sep.g_cij.reshape(9 * dim, H, W), sep.g_mij, sep.g_mask,
+                sep.g_cii,
+            ])
+            fz = np.concatenate([
+                sep.f_cij.reshape(K * dim, D), sep.f_mij, sep.f_mask,
+                sep.f_cii,
+            ])
+            statics = dict(
+                statics,
+                g_sep2=torch.as_tensor(g2, dtype=dtype, device=device),
+                f_sepz=torch.as_tensor(fz, dtype=dtype, device=device),
+            )
         lumped = sd.lumped_mass.reshape((1,) + canvas)
         value_mask = sd.node_mask if sd.value_mask is None else sd.value_mask
         return CanvasArrays(
             shape=canvas,
             offsets=offsets,
             measure_inv=float(1.0 / sd.measure_of_omega),
-            g_cij=canv(cij, dim * K),
-            g_mask=canv(np.moveaxis(sd.mask, -1, 0), K),
-            g_cmax=canv(cmax, K),
-            g_mij=canv(np.moveaxis(sd.mij, -1, 0), K),
-            g_cii=canv(np.moveaxis(sd.cii, -1, 0), dim),
+            factor_seconds=factor_seconds,
+            **statics,
             g_node=canv(
                 np.concatenate(
                     [
@@ -163,10 +240,11 @@ class CanvasStepper:
     the high-order viscosity factor to beta_ij.  `half` is the hyperbolic
     module's choice of Riemann route: the half-slot evaluation with
     `lambda_fixup`, or the two-direction evaluation on every slot (3D
-    canvases only)."""
+    canvases only).  `separable` keeps the statics as factors (3D cG
+    canvases only; see CanvasArrays.from_structured)."""
 
     def __init__(self, eq, params, sd: StructuredData, dtype, device,
-                 lambda_fixup: Callable, half: bool):
+                 lambda_fixup: Callable, half: bool, separable: bool = False):
         if getattr(eq, "name", None) != "euler" or sd.dim not in (2, 3):
             raise ValueError("the canvas kernels take the 2D or 3D Euler "
                              "equations")
@@ -193,7 +271,8 @@ class CanvasStepper:
         # forms here, as a cG one does.
         self.stream = reach > 1 or sd.dim == 3
         self.half = half
-        self.arrays = CanvasArrays.from_structured(sd, dtype, device)
+        self.arrays = CanvasArrays.from_structured(sd, dtype, device,
+                                                   separable)
         self.stencil = self.arrays.stencil
 
     def step(self, U, prec, stage_U, stage_weights, tau, cfl, tau_cap,
@@ -206,18 +285,28 @@ class CanvasStepper:
             if half:
                 # e = lambda * cmax: the glue and PK2/PK3 never read cmax
                 lam = self.lambda_fixup(lam, U, prescaled=True)
-                d = d_from_lambda(st, lam)
+            if st.separable:
+                # the row sums of d offset by offset from the synthesized
+                # mask: no K-plane static mask lives in the glue
+                d_sum = torch.zeros_like(alpha)
+                for k in range(st.K):
+                    d_sum += slot_d(st, lam, k, half)
+                tau_max = tau_max_from_row_sum(st, d_sum, cfl, tau_cap)
+            elif half:
+                tau_max = tau_max_from_d(st, d_from_lambda(st, lam), cfl,
+                                         tau_cap)
             else:
                 # e = |c_ij| lambda on every slot, d = max(e, e_T)
                 d = d_from_e(st.mask, lam, st.transpose_edge(lam))
+                tau_max = tau_max_from_d(st, d, cfl, tau_cap)
             run_pk2 = functools.partial(pk2_stream, half=half)
             run_pk3 = functools.partial(pk3_stream, half=half)
         else:
             lam, alpha = pk1(eq, p, ca, U, prec)
             lam = self.lambda_fixup(lam, U)
             d = d_from_lambda(st, lam, ca.g_cmax.reshape(ca.K, -1))
+            tau_max = tau_max_from_d(st, d, cfl, tau_cap)
             run_pk2, run_pk3 = pk2, pk3
-        tau_max = tau_max_from_d(st, d, cfl, tau_cap)
         if compute_tau:
             tau = tau_max
         U_low, F, bounds = run_pk2(

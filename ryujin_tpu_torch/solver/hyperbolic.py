@@ -7,7 +7,9 @@ any lattice reach (the Mach-3 step of bench cases step2d, cG Q1 with K =
 bench cases box3d, cG Q1 with K = 26, and dg1box3d, dG Q1 with K = 26),
 continuous or discontinuous (the dG incidence raises the high-order
 viscosity factor to beta_ij, `viscosity_factor`), with the scatter route
-for boundary conditions.  The Riemann wavespeeds take the symmetric
+for boundary conditions; a 3D cG canvas that is an extrusion along z (the
+Mach-3 box, the cylinder o-grid of bench case cylinder3d) may keep its
+statics as separable factors.  The Riemann wavespeeds take the symmetric
 half-slot evaluation with the coupling-boundary-pair fixup, or, above
 the JAX package's cut-off on the size of that pair set, the
 two-direction evaluation on every slot.  The phase functions are plain
@@ -146,8 +148,13 @@ def d_from_e(mask, e, e_T):
 
 def tau_max_from_d(sa, d, cfl, tau_cap):
     """Step 3: tau_max = min_i cfl m_i / (-2 d_ii), capped; a 0-d tensor."""
-    finfo = torch.finfo(d.dtype)
-    d_sum = torch.clamp_max(-torch.sum(d, 0), -1.0e6 * finfo.tiny)
+    return tau_max_from_row_sum(sa, torch.sum(d, 0), cfl, tau_cap)
+
+
+def tau_max_from_row_sum(sa, d_row_sum, cfl, tau_cap):
+    """tau_max_from_d from the row sums sum_j d_ij [n]."""
+    finfo = torch.finfo(d_row_sum.dtype)
+    d_sum = torch.clamp_max(-d_row_sum, -1.0e6 * finfo.tiny)
     tau_i = cfl * sa.m_lumped / (-2.0 * d_sum)
     tau_max = torch.amin(
         torch.where(sa.node_mask > 0, tau_i, torch.full_like(tau_i, finfo.max))
@@ -315,7 +322,11 @@ class HyperbolicModule:
 
     `initial_state_fn(positions [dim, k], t) -> states [C, k]` supplies
     the Dirichlet data.  All arrays are allocated on `device`: the card
-    unless the caller names another (the CPU tests pass "cpu")."""
+    unless the caller names another (the CPU tests pass "cpu").
+    `separable=True` keeps the statics of a 3D cG canvas that is an
+    extrusion along z as z-profiles x 2D fields, never allocating the
+    full static canvases (the JAX package's RYUJIN_SEP=1); it raises on
+    any other canvas."""
 
     def __init__(
         self,
@@ -325,6 +336,7 @@ class HyperbolicModule:
         params: HyperbolicModuleParams = HyperbolicModuleParams(),
         dtype=torch.float64,
         device="cuda",
+        separable: bool = False,
     ):
         if params.riemann_newton_max_iterations != 0:
             raise NotImplementedError(
@@ -380,10 +392,14 @@ class HyperbolicModule:
         # one set of statics: the plain path reads the kernels' canvases
         self.canvas = CanvasStepper(
             equation, params, sd, dtype, self.device, self._lambda_fixup,
-            self.half,
+            self.half, separable,
         )
         self.stencil = self.canvas.stencil
-        self.cmax = self.canvas.arrays.g_cmax.reshape(self.stencil.K, -1)
+
+    @property
+    def cmax(self):
+        """max(|c_ij|, |c_ji|) [K, n] (synthesized with separable statics)."""
+        return self.stencil.full().cmax
 
     def _lambda_fixup(self, lam, Up, prescaled=False):
         """Correct the half-slot lambda at coupling boundary pairs:
@@ -449,8 +465,9 @@ class HyperbolicModule:
     def plain_step(self, U_old, prec_old, stage_U, stage_weights, tau, cfl,
                    tau_cap, compute_tau):
         """The substep as plain tensor code (the phase functions on full
-        canvases), on whatever device the tensors are on."""
-        eq, p, st = self.eq, self.params, self.stencil
+        canvases), on whatever device the tensors are on; with separable
+        statics on the stacks synthesized for this call."""
+        eq, p, st = self.eq, self.params, self.stencil.full()
         U_j = st.nbr(U_old)
         prec_j = st.nbr(prec_old)
         stage_U_j = [st.nbr(stage_U[s]) for s in range(len(stage_weights))]
@@ -458,7 +475,7 @@ class HyperbolicModule:
         if self.half:
             lam, alpha = phase_e_alpha(eq, p, st, U_old, prec_old, U_j, prec_j)
             lam = self._lambda_fixup(lam, U_old)
-            d = d_from_lambda(st, lam, self.cmax)
+            d = d_from_lambda(st, lam, st.cmax)
         else:
             e, alpha = phase_e_alpha(
                 eq, p, st, U_old, prec_old, U_j, prec_j, half=False

@@ -262,7 +262,12 @@ def jax_substep(route):
     numpy: the third ERK33 substep, whose stages are the prepared bumped
     state and a second state with another bump."""
     sd, _, _, U0, _ = box_case(route)
-    jhm = jax_module(route)
+    return jax_phases(sd, jax_module(route), U0, route)
+
+
+def jax_phases(sd, jhm, U0, route):
+    """jax_substep on any 3D canvas: the JAX module `jhm` on `sd`, from the
+    state U0 [5, n_pad], on the Riemann route `route`."""
     st, p = jhm.stencil, jhm.params
     Ua, preca = jhm.prepare_state_vector(jnp.asarray(U0), 0.0)
     shifted = U0.copy()

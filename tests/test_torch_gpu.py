@@ -12,10 +12,14 @@ step2d (cG Q1, K = 8: pk1, pk2, pk3, pk_up) and q2step2d (cG Q2, K = 24:
 pk1_stream, pk2_stream, pk3_stream, pk_up; bang-bang) at refinement 0,
 and box3d (3D cG Q1, K = 26: the 3D instances of the stream kernels and
 pk_up; bang-bang) on two small boxes at refinement 1, one for each
-Riemann route; and the dG instances of PK2 and PK3 (the incidence beta_ij
+Riemann route; the dG instances of PK2 and PK3 (the incidence beta_ij
 in the high-order viscosity factor): dG Q1 and dG Q2 in 2D on a small
 rectangle with the step's boundary conditions, and dG Q1 in 3D on a box
-for each Riemann route, as dg1box3d at small size.
+for each Riemann route, as dg1box3d at small size; and the SEP instances
+of the four 3D kernels (separable statics, synthesized per offset) on the
+cylinder o-grid of cylinder3d at refinement 1 (two-direction route) and
+the 3 x 2 x 2 box (half-slot route), the plain path on the CPU in the same
+separable mode.
 """
 
 import functools
@@ -26,9 +30,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 
-def _three_steps_card_vs_cpu(build_case, fns, per_step, refinement=0):
+def _three_steps_card_vs_cpu(build_case, fns, per_step, refinement=0,
+                             counter="launches"):
     """Three ERK33 steps from a bumped inflow state: the kernels on the
-    card against the plain path on the CPU, with the launch counts."""
+    card against the plain path on the CPU, with the launch counts read
+    from each wrapper's `counter`."""
     _, sd, _, ti_g, _ = build_case(refinement, torch.float64, "cuda")
     _, _, _, ti_c, U0 = build_case(refinement, torch.float64, "cpu")
     pos = torch.as_tensor(sd.positions.T)
@@ -39,11 +45,11 @@ def _three_steps_card_vs_cpu(build_case, fns, per_step, refinement=0):
     U0 = U0.clone()
     U0[0] *= bump
     U0[-1] *= bump
-    counts = [f.launches for f in fns]
+    counts = [getattr(f, counter) for f in fns]
     out_g = ti_g.advance(U0.cuda(), 0.0, 3)
     torch.cuda.synchronize()
     out_c = ti_c.advance(U0, 0.0, 3)
-    new = [f.launches for f in fns]
+    new = [getattr(f, counter) for f in fns]
     assert int(out_g[4]) == int(out_c[4]) == 0
     assert [b - a for a, b in zip(counts, new)] == [3 * n for n in per_step]
     real = torch.as_tensor(sd.node_mask > 0)
@@ -160,3 +166,34 @@ def test_dg_kernels_on_card_match_plain_cpu(case):
     assert hm.canvas.stream == stream and hm.canvas.arrays.g_inc is not None
     _three_steps_card_vs_cpu(build_case, fns + (pk_up.pk_up,), [3, 3, 3, 6],
                              refinement=refinement)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cylinder two-direction", "box half-slot"])
+def test_sep_kernels_on_card_match_plain_cpu(case):
+    """The SEP instances of pk1_stream, pk2_stream, pk3_stream and pk_up
+    (3D, K = 26, separable statics) on both Riemann routes: the small
+    cylinder (refinement 1, its 32-cell periodic angle packed exactly) and
+    the 3 x 2 x 2 box, counted on the SEP instances' own counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ryujin_tpu_torch.bench import build_box3d, build_cylinder3d
+    from ryujin_tpu_torch.kernels import (
+        pk1_stream, pk2_stream, pk3_stream, pk_up,
+    )
+
+    if case.startswith("cylinder"):
+        build_case = functools.partial(build_cylinder3d, pad_minor=32,
+                                       separable=True)
+    else:
+        build_case = functools.partial(build_box3d, subdiv=(3, 2, 2),
+                                       separable=True)
+    hm = build_case(1, torch.float64, "cpu")[2]
+    assert hm.half == case.endswith("half-slot")
+    assert hm.canvas.arrays.separable and hm.canvas.arrays.g_cij is None
+    _three_steps_card_vs_cpu(
+        build_case,
+        (pk1_stream.pk1_stream, pk2_stream.pk2_stream, pk3_stream.pk3_stream,
+         pk_up.pk_up),
+        [3, 3, 3, 6], refinement=1, counter="sep_launches",
+    )

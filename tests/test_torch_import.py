@@ -108,4 +108,45 @@ def test_entry_points_mean_the_card_unless_the_cpu_is_named():
     fn, args = bench.entry(device="cpu")
     U, tau, ok = fn(*args)
     assert U.device.type == "cpu" and bool(ok) and float(tau) > 0.0
-    assert set(bench.CASES) == {"step2d", "q2step2d", "box3d", "dg1box3d"}
+    assert set(bench.CASES) == {"step2d", "q2step2d", "box3d", "dg1box3d",
+                                "cylinder3d"}
+
+
+def test_bench_reads_separable_mode_from_two_values_only():
+    """The bench and profile_step take RYUJIN_SEP "0" (or unset) and "1"
+    and refuse any other value; the library reads no RYUJIN_ variable."""
+    from ryujin_tpu_torch import bench
+
+    assert bench.separable_from_env({}) is False
+    assert bench.separable_from_env({"RYUJIN_SEP": "0"}) is False
+    assert bench.separable_from_env({"RYUJIN_SEP": "1"}) is True
+    for value in ("2", "", "true", " 1"):
+        with pytest.raises(ValueError, match="RYUJIN_SEP"):
+            bench.separable_from_env({"RYUJIN_SEP": value})
+    reads = re.compile(r"(environ|getenv)\W[^\n]*RYUJIN_")
+    readers = sorted(
+        str(f.relative_to(REPO))
+        for f in (REPO / "ryujin_tpu_torch").rglob("*.py")
+        if reads.search(f.read_text())
+    )
+    assert readers == ["ryujin_tpu_torch/bench.py"], readers
+    assert reads.search('os.environ.get("RYUJIN_SEP", "0")')
+
+
+def test_sass_diff_matches_instances_across_the_statics_argument():
+    """sass_diff pairs a full-statics instance with the same instance of a
+    library built before the accessor argument, and leaves the dG and SEP
+    instances out."""
+    from ryujin_tpu_torch.sass_diff import key
+
+    old = "_ZN6ryujin17pk2_stream_kernelIfLi3ELb0EEEvPKfS2_"
+    full = ("_ZN6ryujin17pk2_stream_kernelIfLi3ELb0ELb0ENS_11FullStatics"
+            "IfEEEEvPKT_S5_")
+    sep = ("_ZN6ryujin17pk2_stream_kernelIfLi3ELb0ELb0ENS_10SepStatics"
+           "IfEEEEvPKT_S5_")
+    dg = ("_ZN6ryujin17pk2_stream_kernelIfLi3ELb0ELb1ENS_11FullStatics"
+          "IfEEEEvPKT_S5_")
+    assert key(old) == key(full) == ("pk2_stream_kernel", "fLi3ELb0E")
+    assert key(sep) is None and key(dg) is None
+    assert key("_ZN6ryujin12pk_up_kernelIdLi3ELi26ENS_11FullStaticsIdEEEEvPKT_"
+               ) == key("_ZN6ryujin12pk_up_kernelIdLi3ELi26EEEvPKd")
