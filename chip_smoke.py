@@ -83,7 +83,22 @@ any failure exits non-zero):
    recovery redoes at cfl_min (the same restarts as the plain path);
 11. the cylinder3d slice with the full statics and (11b) with separable
    statics, with the gates of phase 5; in 11b every launch must be a SEP
-   instance's, in 11 none.
+   instance's, in 11 none;
+12. the measurement probes, rows 11-14 (the counterparts of
+   scripts/bench_pow.py, bench_pow_tpu.py, probe_gather.py and
+   probe_dma3d.py): each probe's main (python -m
+   ryujin_tpu_torch.probes.pow, .gather, .layout3d --MOV both) in-process
+   at the scripts' sizes, with the launch counters reset just before and
+   read just after; each holds every probe kernel against its plain
+   version on the card (gathers, layout sums, the checksums of what
+   pk1_shape and moveaxis stage, the fast, Newton and x b pows
+   bit-equal; powf, exp2 log2 and sqrt against torch's pow, exp2, log2
+   and sqrt within 4 ulp pointwise and 1e-6 relative on the sums)
+   and times it with CUDA events (a warm launch, then 20, or the script's
+   count, each after an L2 flush where its bytes fit in the 50 MB L2),
+   with its plain version, its PyTorch call where one exists, and its
+   bound (for the pows, the fewest FMA-pipe and MUFU instructions that any
+   evaluation executes, from the SASS).
 
 The lines before the last are the kernels' JSON record and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -261,16 +276,11 @@ class PlainSteps:
 
 
 def time_ms(fn, reps):
+    """Mean ms of `reps` back-to-back calls of fn after one warm call."""
+    from ryujin_tpu_torch import probes
+
     fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    return probes.time_ms(fn, reps, flush=False)
 
 
 def bound_ms(name, dim, half, inputs, outputs, mask, live_edges, n_stages,
@@ -944,6 +954,35 @@ def check_cylinder(dev, card, streamed):
     return records, launches
 
 
+def check_probes():
+    """Phase 12: the probes' mains with the counters reset just before and
+    read just after; the records of every probe kernel, with its launches
+    in that run."""
+    from ryujin_tpu_torch.kernels import build
+    from ryujin_tpu_torch.probes import gather, layout3d
+    from ryujin_tpu_torch.probes import pow as ppow
+
+    t0 = time.perf_counter()
+    build.PROBE_LAUNCHES.clear()
+    recs = []
+    for name, probe, argv in (("pow", ppow, []), ("gather", gather, []),
+                              ("layout3d", layout3d, ["--MOV", "both"])):
+        print(f"phase 12: python -m ryujin_tpu_torch.probes.{name} "
+              f"{' '.join(argv)}".rstrip(), flush=True)
+        if probe.main(argv, recs) != 0:
+            fail(f"the {name} probe: a kernel missed its bar against its "
+                 "plain version")
+    records = {}
+    for rec in recs:
+        rec["launches"] = build.PROBE_LAUNCHES[rec.pop("instance")]
+        if rec["launches"] < 1:
+            fail(f"{rec['name']} was not launched by its probe")
+        records[rec["name"]] = rec
+    print(f"phase 12: {len(records)} probe kernels held and timed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return records
+
+
 def per_substep(fns):
     """Launches per substep of each wrapper in `fns`: PK1-PK3 once,
     pk_up twice."""
@@ -1223,9 +1262,14 @@ def main():
     for name, rec in records.items():
         if "two-direction SEP" in name or name.startswith("pk_up[K=26 SEP"):
             rec["launches"] = launches[name.split("[")[0]]
+
+    # ---- phase 12: the measurement probes (rows 11-14) ------------------------
+    records.update(check_probes())
     print(f"chip_smoke: every phase passed, {time.perf_counter() - t_start:.1f}"
           " s in all", flush=True)
 
+    # no single PyTorch call computes any of the stencil phases: their
+    # library_ms is null; each probe record carries its own
     print(json.dumps({"kernels": [
         {
             "name": name,
@@ -1238,9 +1282,9 @@ def main():
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
-            "bound_ms_mask_as_stored": rec["bound_ms_mask_as_stored"],
-            # no single PyTorch call computes any of these stencil phases
-            "library_ms": None,
+            "library_ms": rec.get("library_ms"),
+            **{k: rec[k] for k in ("bound_ms_mask_as_stored", "bar")
+               if k in rec},
         }
         for name, rec in records.items()
     ]}), flush=True)

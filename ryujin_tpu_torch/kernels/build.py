@@ -6,11 +6,14 @@ C interface, loaded with ctypes.  The library lands in
 ryujin_tpu_torch/_build/, keyed by a hash of the sources and the command
 lines, and is built at first use.  Every entry point takes device
 pointers and the CUDA stream as `void *`, launches on that stream without
-synchronising, and returns cudaGetLastError().
+synchronising, and returns cudaGetLastError().  The solver kernels take
+(pointers..., Consts *, stream); the measurement probes (csrc/probe_*.cu)
+take pointers, ints and floats of their own (PROBE_ENTRY_POINTS).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -36,6 +39,26 @@ ENTRY_POINTS = {
     "pk1_stream": 10, "pk2_stream": 16, "pk3_stream": 18,
 }
 MAX_K = 48  # lattice offsets a launch can carry (cG Q3: reach 3, K = 48)
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# the probes' entry points -> argtypes (every pointer and the stream void *)
+PROBE_ENTRY_POINTS = {
+    # form, one, x, carry, shifts, R, b, out, n, stream
+    "ryujin_probe_pow": [_I, _I, _P, _P, _P, _I, _F, _P, _L, _P],
+    # x, idx, out, P, W (S, L), stream
+    "ryujin_probe_lane_gather": [_P, _P, _P, _I, _I, _P],
+    "ryujin_probe_sublane_gather": [_P, _P, _P, _I, _I, _P],
+    # X, cols, out, C, K, n, stream
+    "ryujin_probe_ell_gather_sum": [_P, _P, _P, _I, _I, _L, _P],
+    # mode, src, out, check, P, D, H * W, TD, stream
+    "ryujin_probe_window": [_I, _P, _P, _P, _I, _I, _L, _I, _P],
+    # centre, h0, h1, h2, out, check, nwin, p0, p1, p2, cen_pl, out_pl, D,
+    # H * W, TD, stream
+    "ryujin_probe_pk1_shape": [_P] * 6 + [_I] * 7 + [_L, _I, _P],
+}
+# launches of each probe kernel instance, by probe_key; launch_probe adds
+# one for each launch it makes
+PROBE_LAUNCHES = collections.Counter()
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -71,8 +94,13 @@ class Consts(ctypes.Structure):
     ]
 
 
+def cuda_tool(name: str) -> Path:
+    """A program of the CUDA toolkit ($CUDA_HOME/bin, /usr/local/cuda)."""
+    return Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
+
+
 def nvcc() -> str:
-    return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
+    return str(cuda_tool("nvcc"))
 
 
 def sources() -> List[Path]:
@@ -183,6 +211,10 @@ def library() -> ctypes.CDLL:
                         [ctypes.c_void_p] * n_ptr
                         + [ctypes.POINTER(Consts), ctypes.c_void_p]
                     )
+            for name, argtypes in PROBE_ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             lib.ryujin_error_string.restype = ctypes.c_char_p
             lib.ryujin_error_string.argtypes = [ctypes.c_int]
             _LIB = lib
@@ -271,6 +303,41 @@ def launch(name: str, dtype, pointers, c: Consts) -> None:
         raise RuntimeError(
             f"CUDA error in {name}: {lib.ryujin_error_string(rc).decode()}"
         )
+
+
+def check_probe(device, tensors: Dict[str, tuple]) -> None:
+    """Raise ValueError unless every tensor (name -> (tensor, shape)) lies
+    on `device`, is contiguous with the given shape and is float32, or
+    int32 where its name starts with "idx" or "cols"."""
+    for name, (t, shape) in tensors.items():
+        want = torch.int32 if name.startswith(("idx", "cols")) else torch.float32
+        if t.dtype != want:
+            raise ValueError(f"{name} is {t.dtype}, expected {want}")
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, expected {device}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def probe_key(kernel: str, *dims) -> str:
+    """The PROBE_LAUNCHES key of one probe kernel instance: the kernel and
+    what tells its instances apart."""
+    return f"{kernel}[{', '.join(map(str, dims))}]"
+
+
+def launch_probe(key: str, name: str, *args) -> None:
+    """Launch the probe entry point `name` with `args` and the current
+    stream, and count it under `key` (a probe_key); raise on a CUDA error
+    reported by the launch."""
+    lib = library()
+    rc = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"CUDA error in {name}: {lib.ryujin_error_string(rc).decode()}"
+        )
+    PROBE_LAUNCHES[key] += 1
 
 
 def ptr(t: Optional[torch.Tensor]):

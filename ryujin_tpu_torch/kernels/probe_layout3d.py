@@ -1,0 +1,173 @@
+"""3D layout probe: a (TD + 2)-deep z window of planes over a (D, H, W)
+canvas, staged in shared memory and reduced (CUDA kernels
+csrc/probe_layout3d.cu; row 14 of the kernel table, the TPU kernels of
+scripts/probe_dma3d.py: main's three layouts :83, :117, :168, pk1_shape
+:290 and moveaxis_cost :373).
+
+Of the z tiles TD rows deep, gz = D // TD - 2 are interior: tile t reads
+rows [t TD, t TD + TD + 2) and writes rows [t TD, t TD + TD).  Output rows
+z >= gz TD are 0.  moveaxis and pk1_shape read one plane of what they
+stage, so they also return a checksum of everything staged
+(staged_checksum_reference)."""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+# the kernel's WindowMode codes of the three layouts
+LAYOUTS = {"plane-major": 0, "z-major": 1, "z-major-slide": 2}
+# moveaxis_cost, with (MOV = 1) and without the relayout
+MOVEAXIS = {1: 3, 0: 4}
+
+
+def interior_rows(D: int, TD: int) -> int:
+    """gz TD, the rows the interior z tiles write; raises unless gz >= 1."""
+    gz = D // TD - 2
+    if TD < 1 or gz < 1:
+        raise ValueError(f"D = {D} holds no interior z tile of depth TD = {TD}")
+    return gz * TD
+
+
+def _check(tensors, HW, TD):
+    if HW % 4 or not 1 <= TD <= 16:
+        raise ValueError(
+            f"the layout kernels take H * W a multiple of 4 and TD <= 16, "
+            f"not H * W = {HW}, TD = {TD}")
+    first = next(iter(tensors.values()))[0]
+    build.check_probe(first.device, tensors)
+
+
+def window_sum_reference(h, layout: str, TD: int):
+    """Plain torch: out[z] = sum_p h[p, z + 1] (plane-major h [P, D, H, W];
+    the z-major layouts take h [D, P, H, W]), summed from 0 in p order."""
+    pm = layout == "plane-major"
+    P, D = (h.shape[0], h.shape[1]) if pm else (h.shape[1], h.shape[0])
+    rows = interior_rows(D, TD)
+    acc = torch.zeros((rows,) + tuple(h.shape[2:]), dtype=h.dtype,
+                      device=h.device)
+    for p in range(P):
+        acc = acc + (h[p, 1 : rows + 1] if pm else h[1 : rows + 1, p])
+    out = torch.zeros((D,) + tuple(h.shape[2:]), dtype=h.dtype, device=h.device)
+    out[:rows] = acc
+    return out
+
+
+def window_sum(h, layout: str, TD: int):
+    """out [D, H, W] of window_sum_reference through the layout's kernel.
+    Counted under build.probe_key("window_sum", layout)."""
+    if not build.on_card(h):
+        return window_sum_reference(h, layout, TD)
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; one of {tuple(LAYOUTS)}")
+    pm = layout == "plane-major"
+    P, D, H, W = h.shape if pm else (h.shape[1], h.shape[0]) + h.shape[2:]
+    interior_rows(D, TD)
+    _check({"h": (h, h.shape)}, H * W, TD)
+    out = torch.empty((D, H, W), dtype=h.dtype, device=h.device)
+    build.launch_probe(build.probe_key("window_sum", layout),
+                       "ryujin_probe_window", LAYOUTS[layout], h.data_ptr(),
+                       out.data_ptr(), None, P, D, H * W, TD)
+    return out
+
+
+def staged_checksum_reference(parts, TD: int):
+    """Plain torch: check [D, H, W], int32, of the z-major f32 stacks
+    parts = [(h [D, p, H, W], depth), ...] that a z tile stages depth rows
+    deep: for z = t TD + zo < gz TD, the XOR of the bit patterns of
+    h[t TD + zl, p] over the parts, every plane p, rows zl = zo, zo + TD,
+    ... < depth; 0 for z >= gz TD."""
+    first = parts[0][0]
+    D = first.shape[0]
+    rows = interior_rows(D, TD)
+    check = torch.zeros((D,) + tuple(first.shape[2:]), dtype=torch.int32,
+                        device=first.device)
+    for zo in range(TD):
+        acc = torch.zeros_like(check[zo:rows:TD])
+        for h, depth in parts:
+            for p in range(h.shape[1]):
+                for zl in range(zo, depth, TD):
+                    acc ^= h[zl : zl + rows : TD, p].view(torch.int32)
+        check[zo:rows:TD] = acc
+    return check
+
+
+def moveaxis_reference(h, TD: int, mov: int):
+    """Plain torch: (out, check) of a z-major h [D, P, H, W]: out[z] =
+    0 + h[z + 1, 0] (with mov = 1 read through h moved to plane-major
+    [P, D, H, W]), check the checksum (staged_checksum_reference) of every
+    tile's TD + 2 staged rows of all P planes."""
+    D = h.shape[0]
+    rows = interior_rows(D, TD)
+    src = h.movedim(0, 1)[0] if mov else h[:, 0]
+    out = torch.zeros((D,) + tuple(h.shape[2:]), dtype=h.dtype, device=h.device)
+    out[:rows] = out[:rows] + src[1 : rows + 1]
+    return out, staged_checksum_reference([(h, TD + 2)], TD)
+
+
+def moveaxis(h, TD: int, mov: int):
+    """(out [D, H, W], check [D, H, W] int32) of moveaxis_reference; the
+    kernel stages all P planes of each window and, with mov = 1,
+    transposes it to plane-major in shared memory, where both outputs read
+    it.  Counted under build.probe_key("moveaxis", f"MOV={mov}")."""
+    if not build.on_card(h):
+        return moveaxis_reference(h, TD, mov)
+    D, P, H, W = h.shape
+    interior_rows(D, TD)
+    _check({"h": (h, h.shape)}, H * W, TD)
+    out = torch.empty((D, H, W), dtype=h.dtype, device=h.device)
+    check = torch.empty((D, H, W), dtype=torch.int32, device=h.device)
+    build.launch_probe(build.probe_key("moveaxis", f"MOV={int(mov)}"),
+                       "ryujin_probe_window", MOVEAXIS[int(mov)], h.data_ptr(),
+                       out.data_ptr(), check.data_ptr(), P, D, H * W, TD)
+    return out, check
+
+
+def pk1_shape_reference(cen, wins, TD: int, out_pl: int):
+    """Plain torch: (out, check).  out[z, o] = sum_i wins[i][z + 1, 0]
+    (+ cen[z, 0]) for o < out_pl, summed from 0, windows first; cen
+    [D, CENPL, H, W] or None, wins [D, p_i, H, W].  check [D, H, W] is the
+    checksum (staged_checksum_reference) of every tile's TD + 2 staged rows
+    of each window and TD rows of the centre, all planes."""
+    first = cen if cen is not None else wins[0]
+    D, _, H, W = first.shape
+    rows = interior_rows(D, TD)
+    acc = torch.zeros((rows, H, W), dtype=first.dtype, device=first.device)
+    for h in wins:
+        acc = acc + h[1 : rows + 1, 0]
+    if cen is not None:
+        acc = acc + cen[:rows, 0]
+    out = torch.zeros((D, out_pl, H, W), dtype=first.dtype, device=first.device)
+    out[:rows] = acc[:, None]
+    parts = [(h, TD + 2) for h in wins]
+    if cen is not None:
+        parts.append((cen, TD))
+    return out, staged_checksum_reference(parts, TD)
+
+
+def pk1_shape(cen, wins, TD: int, out_pl: int):
+    """(out [D, out_pl, H, W], check [D, H, W] int32) of
+    pk1_shape_reference; the kernel stages the centre's TD rows and each
+    window's TD + 2 rows, every plane, and both outputs read them from
+    there.  Counted under build.probe_key("pk1_shape")."""
+    first = cen if cen is not None else wins[0]
+    if not build.on_card(first):
+        return pk1_shape_reference(cen, wins, TD, out_pl)
+    if len(wins) > 3 or (cen is None and not wins):
+        raise ValueError("pk1_shape takes a centre or 1 to 3 windows, at most 3 windows")
+    D, _, H, W = first.shape
+    interior_rows(D, TD)
+    tensors = {f"h{i}": (h, (D, h.shape[1], H, W)) for i, h in enumerate(wins)}
+    if cen is not None:
+        tensors["cen"] = (cen, (D, cen.shape[1], H, W))
+    _check(tensors, H * W, TD)
+    out = torch.empty((D, out_pl, H, W), dtype=first.dtype, device=first.device)
+    check = torch.empty((D, H, W), dtype=torch.int32, device=first.device)
+    ptrs = [h.data_ptr() for h in wins] + [None] * (3 - len(wins))
+    planes = [h.shape[1] for h in wins] + [0] * (3 - len(wins))
+    build.launch_probe(
+        build.probe_key("pk1_shape"), "ryujin_probe_pk1_shape", build.ptr(cen),
+        *ptrs, out.data_ptr(), check.data_ptr(), len(wins), *planes,
+        0 if cen is None else cen.shape[1], out_pl, D, H * W, TD)
+    return out, check

@@ -18,11 +18,11 @@ under $CUDA_HOME/bin).
 
 from __future__ import annotations
 
-import os
 import re
 import subprocess
 import sys
-from pathlib import Path
+
+from .kernels.build import cuda_tool
 
 # kernels whose last template argument is the dG flag, and how many
 # boolean template arguments they have with it
@@ -30,11 +30,10 @@ DG_FLAGGED = {"pk2_kernel": 1, "pk3_kernel": 1, "pk2_stream_kernel": 2,
               "pk3_stream_kernel": 2}
 
 
-def functions(lib: str):
-    """{mangled name: [instruction text with direct parameter offsets
-    masked]} of every kernel in `lib`."""
-    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    out = subprocess.run([str(home / "bin" / "cuobjdump"), "-sass", lib],
+def listing(lib: str):
+    """{mangled name: [(address, instruction text)]} of every kernel in
+    `lib`, from cuobjdump -sass."""
+    out = subprocess.run([str(cuda_tool("cuobjdump")), "-sass", str(lib)],
                          capture_output=True, text=True, check=True).stdout
     res, cur = {}, None
     for line in out.splitlines():
@@ -43,11 +42,20 @@ def functions(lib: str):
             cur = m.group(1)
             res[cur] = []
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
         if cur and m:
-            res[cur].append(
-                re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][P]", m.group(1)))
+            res[cur].append((int(m.group(1), 16), m.group(2)))
     return res
+
+
+def functions(lib: str):
+    """{mangled name: [instruction text with direct parameter offsets
+    masked]} of every kernel in `lib`."""
+    return {
+        name: [re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][P]", text)
+               for _, text in code]
+        for name, code in listing(lib).items()
+    }
 
 
 # the mangled statics accessor argument, ryujin::FullStatics<T> or

@@ -52,7 +52,7 @@ class TimeIntegrator:
     scheme: str = "erk 33"
     cfl_min: float = 0.45
     cfl_max: float = 0.90
-    cfl_recovery_strategy: str = "none"
+    cfl_recovery_strategy: str = "bang bang control"  # or "none"
 
     def __post_init__(self):
         if self.scheme not in TABLEAUX:

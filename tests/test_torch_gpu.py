@@ -19,7 +19,8 @@ for each Riemann route, as dg1box3d at small size; and the SEP instances
 of the four 3D kernels (separable statics, synthesized per offset) on the
 cylinder o-grid of cylinder3d at refinement 1 (two-direction route) and
 the 3 x 2 x 2 box (half-slot route), the plain path on the CPU in the same
-separable mode.
+separable mode; and the measurement probes' kernels (csrc/probe_*.cu) on
+small shapes against their plain versions on the card, each at its bar.
 """
 
 import functools
@@ -197,3 +198,32 @@ def test_sep_kernels_on_card_match_plain_cpu(case):
          pk_up.pk_up),
         [3, 3, 3, 6], refinement=1, counter="sep_launches",
     )
+
+
+@pytest.mark.gpu
+def test_probe_kernels_on_card_match_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ryujin_tpu_torch.kernels import build
+    from ryujin_tpu_torch.probes import gather, held, layout3d
+    from ryujin_tpu_torch.probes import pow as ppow
+
+    pw = ppow.parser().parse_args(
+        ["--H", "64", "--W", "96", "--REPS", "5", "--N", "8", "256",
+         "--reps", "4", "--loop", "3"])
+    row11, row12, _ = ppow.cases(pw, None, 1980)
+    ga = gather.parser().parse_args(
+        ["--W", "640", "--S", "300", "--L", "70", "--n", "20000"])
+    la = layout3d.parser().parse_args(
+        ["--P", "5", "--D", "13", "--H", "4", "--W", "40", "--CENPL", "7",
+         "--MOV", "both"])
+    cases = row11 + row12 + gather.cases(ga) + [
+        c for part in layout3d.PARTS for c in layout3d.cases(la, part)]
+    for case in cases:
+        before = build.PROBE_LAUNCHES[case.instance]
+        out = case.kernel()
+        torch.cuda.synchronize()
+        assert (build.PROBE_LAUNCHES[case.instance]
+                == before + case.launches_per_call), case.name
+        _, err, ok = held(case.bar, out, case.plain())
+        assert ok, (case.name, err)

@@ -2,6 +2,7 @@
 nor anything of the JAX package ryujin_tpu, its CUDA wrappers run their
 plain versions on CPU tensors, and its nvcc commands target sm_90a."""
 
+import ctypes
 import re
 import subprocess
 import sys
@@ -27,15 +28,17 @@ for name in names:
     importlib.import_module(name)
 assert len(names) >= 25, names
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "triton", "ryujin_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "triton", "ryujin_tpu",
+                                    "scripts", "bench_pow", "bench_pow_tpu",
+                                    "probe_gather", "probe_dma3d"))
 print(len(names), bad)
 sys.exit(1 if bad else 0)
 """
 
 
 def test_import_leaves_out_jax_and_triton():
-    """Importing every submodule of the port leaves jax, jaxlib, triton and
-    the JAX package ryujin_tpu out of sys.modules."""
+    """Importing every submodule of the port leaves jax, jaxlib, triton,
+    the JAX package ryujin_tpu and the TPU scripts out of sys.modules."""
     res = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
         text=True, timeout=300,
@@ -78,7 +81,8 @@ def test_nvcc_command_targets_sm90a():
     srcs = build.sources()
     assert {s.name for s in srcs} == {
         "pk1.cu", "pk2.cu", "pk3.cu", "pk_up.cu", "pk1_stream.cu",
-        "pk2_stream.cu", "pk3_stream.cu",
+        "pk2_stream.cu", "pk3_stream.cu", "probe_pow.cu", "probe_gather.cu",
+        "probe_layout3d.cu",
     }
     for src in srcs:
         cmd = build.compile_command(src, Path("out.o"))
@@ -88,7 +92,15 @@ def test_nvcc_command_targets_sm90a():
     link = build.link_command([Path("a.o"), Path("b.o")], Path("out.so"))
     assert link[link.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     assert "-shared" in link and link[-2:] == ["a.o", "b.o"]
-    assert set(build.ENTRY_POINTS) == {s.stem for s in srcs}
+    solver = {s.stem for s in srcs if not s.stem.startswith("probe_")}
+    assert set(build.ENTRY_POINTS) == solver
+    for src in srcs:
+        if src.stem.startswith("probe_"):
+            names = re.findall(r'extern "C" int (ryujin_probe_\w+)\(',
+                               src.read_text())
+            assert names and set(names) <= set(build.PROBE_ENTRY_POINTS)
+    for argtypes in build.PROBE_ENTRY_POINTS.values():
+        assert argtypes[-1] is ctypes.c_void_p  # the stream
 
 
 def test_entry_points_mean_the_card_unless_the_cpu_is_named():
@@ -150,3 +162,24 @@ def test_sass_diff_matches_instances_across_the_statics_argument():
     assert key(sep) is None and key(dg) is None
     assert key("_ZN6ryujin12pk_up_kernelIdLi3ELi26ENS_11FullStaticsIdEEEEvPKT_"
                ) == key("_ZN6ryujin12pk_up_kernelIdLi3ELi26EEEvPKd")
+
+
+def test_probes_read_no_environment_and_import_no_script():
+    """The probes (probes/, kernels/probe_*.py) take options, not
+    environment variables, and neither import nor path-load the TPU
+    scripts they replace."""
+    files = sorted((REPO / "ryujin_tpu_torch" / "probes").glob("*.py"))
+    files += sorted((REPO / "ryujin_tpu_torch" / "kernels").glob("probe_*.py"))
+    assert len(files) == 7
+    env = re.compile(r"os\.environ|getenv\(")
+    script = re.compile(
+        r"^\s*(from|import)\s+"
+        r"(scripts|bench_pow|bench_pow_tpu|probe_gather|probe_dma3d)\b"
+        r"|sys\.path|spec_from_file_location", re.M)
+    for f in files:
+        text = f.read_text()
+        assert not env.search(text), f.name
+        assert not script.search(text), f.name
+    assert script.search("import bench_pow_tpu")
+    assert env.search('os.environ.get("P", "24")')
+    assert script.search("from scripts import probe_gather")

@@ -59,7 +59,8 @@ def test_f32_one_step_matches_pallas_interpret():
     ref = jti.advance(jnp.asarray(U0, jnp.float32), 0.0, 1)
     hm = HyperbolicModule(eq, sd, init, params=params, dtype=torch.float32,
                           device="cpu")
-    ti = TimeIntegrator(hm, "erk 33", cfl_min=0.9, cfl_max=0.9)
+    ti = TimeIntegrator(hm, "erk 33", cfl_min=0.9, cfl_max=0.9,
+                        cfl_recovery_strategy="none")
     U, _, _, tau, _, warns = ti.advance(
         convert.state_from_reference(U0, "cpu", torch.float32), 0.0, 1
     )
@@ -102,7 +103,8 @@ def test_step_returns_device_scalars_and_routes_cpu_to_plain():
     read, and HyperbolicModule.step runs the plain path for CPU tensors."""
     _, _, _, U0, _, _, _ = step_case()
     _, hm = modules()
-    ti = TimeIntegrator(hm, "erk 33", cfl_min=0.9, cfl_max=0.9)
+    ti = TimeIntegrator(hm, "erk 33", cfl_min=0.9, cfl_max=0.9,
+                        cfl_recovery_strategy="none")
     U, tau, ok = ti.step(to_torch(U0), 0.0)
     assert torch.is_tensor(tau) and torch.is_tensor(ok)
     assert bool(ok) and float(tau) > 0.0
@@ -111,3 +113,19 @@ def test_step_returns_device_scalars_and_routes_cpu_to_plain():
         TimeIntegrator(hm, "ssprk 33")
     with pytest.raises(NotImplementedError):
         TimeIntegrator(hm, "erk 33", cfl_recovery_strategy="adaptive")
+
+
+def test_recovery_default_matches_jax():
+    """TimeIntegrator's field defaults (scheme, CFL bounds, recovery) equal
+    the JAX package's: a step whose limiter fails at cfl_max is redone at
+    cfl_min by default in both."""
+    import dataclasses
+
+    def defaults(cls):
+        return {f.name: f.default for f in dataclasses.fields(cls)
+                if f.default is not dataclasses.MISSING}
+
+    ours, theirs = defaults(TimeIntegrator), defaults(JTimeIntegrator)
+    assert ours["cfl_recovery_strategy"] == "bang bang control"
+    for name, value in ours.items():
+        assert theirs[name] == value, name
