@@ -3,27 +3,95 @@
     python -m ryujin_tpu_torch.kernel_times [CASE ...]   # from a checkout's root
 
 Builds this checkout's kernels, develops the states of chip_smoke.py
-phases 2, 4 and 6 and times every kernel there with
+phases 2, 4, 6, 8 and 10 and times every kernel there with
 chip_smoke.compare_kernels (CUDA events, mean of 20 launches).  CASE is
 step2d (refinement 3 after 40 plain ERK33 steps; the stream kernels also
 on its K = 8 canvas, as phase 2a does), q2step2d (refinement 2 after 150
-ERK33 steps through the kernels) or box3d (refinement 2, 150 steps
-through the kernels from a blast); without one, step2d and q2step2d.
-Prints one JSON line {"card", "ms": {kernel: ms}}.
+ERK33 steps through the kernels), box3d (refinement 2, 150 steps through
+the kernels from a blast), dg1box3d (box3d's flow with dG Q1 at
+refinement 1, 150 steps from a blast) or cylinder3d (refinement 3, 300
+steps from the inflow; the kernels with the full statics, then the SEP
+instances on the same state); without one, step2d and q2step2d.  Prints
+one JSON line {"card", "ms": {kernel: ms}, "resources": {instance:
+{regs, stack, threads, smem, warps}}}: the registers and stack bytes of
+every pk3_stream and pk_up instance from nvcc's -Xptxas -v report of the
+build, the block and the shared bytes of its launch at two stages, and
+the warps an SM holds at once by the occupancy rules of the H100 (65,536
+registers in 256-register steps a warp, 228 KB of shared memory less 1 KB
+a block, 64 warps, 32 blocks).
 
 To compare two trees, run it from the root of each in turns (A, B, B, A)
 on one card.  It uses only chip_smoke.compare_kernels,
-chip_smoke.PlainSteps, the bench builders and TimeIntegrator, so an older
-checkout that has them (the cG Q2 slice onward) runs it once this file is
-copied into its ryujin_tpu_torch/.
+chip_smoke.PlainSteps, the bench builders, HyperbolicModule and
+TimeIntegrator, so an older checkout that has them (the cylinder3d slice
+onward) runs it once this file is copied into its ryujin_tpu_torch/; a
+tree without the tiled launch (no tile() in kernels/pk3_stream.py and
+kernels/pk_up.py) is taken to launch 128 threads a block without shared
+memory.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import sys
 
 import torch
+
+# one pk3_stream or pk_up instance in nvcc's mangled name
+_INSTANCE = re.compile(
+    r"_ZN6ryujin\d+(pk3_stream|pk_up|pk_up_tile|pk_up_last)_kernel"
+    r"I([fd])Li(\d)E(?:Lb(\d)ELb(\d)E|Li(\d+)E)NS_\d+(Full|Sep)Statics"
+)
+
+
+def resources(log: str, tiles):
+    """{instance: {regs, stack, threads, smem, warps}} of every pk3_stream
+    and pk_up instance (pk_up, pk_up_tile, pk_up_last) in a -Xptxas -v
+    report; tiles(kernel, dim, dtype) gives the instance's (threads a
+    block, shared bytes)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            stack = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if not (m and name):
+            continue
+        inst = _INSTANCE.match(name)
+        name, regs = None, int(m.group(1))
+        if not inst:
+            continue
+        kern, t, dim, half, dg, k, st = inst.groups()
+        dtype = torch.float32 if t == "f" else torch.float64
+        if kern == "pk3_stream":
+            label = (f"pk3_stream<{'f32' if t == 'f' else 'f64'}, {dim}D, "
+                     f"{'half-slot' if half == '1' else 'two-direction'}, "
+                     f"{'dG' if dg == '1' else 'cG'}, {st}>")
+        else:
+            label = (f"{kern}<{'f32' if t == 'f' else 'f64'}, {dim}D, K={k}, "
+                     f"{st}>")
+        threads, smem = tiles(kern, int(dim), dtype)
+        out[label] = {"regs": regs, "stack": stack, "threads": threads,
+                      "smem": smem, "warps": resident_warps(regs, threads,
+                                                            smem)}
+    return out
+
+
+def resident_warps(regs: int, threads: int, smem: int) -> int:
+    """Warps an H100 SM holds at once for blocks of `threads` with `regs`
+    registers a thread and `smem` shared bytes a block."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(65536 // (per_warp * warps), 64 // warps, 32)
+    if smem:
+        blocks = min(blocks, (228 * 1024) // (smem + 1024))
+    return blocks * warps
 
 
 def main():
@@ -33,12 +101,27 @@ def main():
 
     from .bench import build_q2step2d, build_step2d
     from .kernels import build
+    from .kernels import pk3_stream as k3
+    from .kernels import pk_up as ku
+    from .solver.hyperbolic import HyperbolicModule
     from .solver.integrator import TimeIntegrator
 
-    build.build()
+    so = build.build()
     build.library()
     dev = torch.device("cuda")
     ms = {}
+
+    def tiles(kern, dim, dtype):
+        # the main path's launch at two stages: K = 24 in 2D, 26 in 3D
+        K = 24 if dim == 2 else 26
+        shape = (64, 64) if dim == 2 else (8, 64, 64)
+        if kern == "pk3_stream" and hasattr(k3, "tile"):
+            t = k3.tile(shape, K, dtype, 2)
+        elif kern == "pk_up_tile":
+            t = ku.tile(shape, K, dtype)
+        else:  # one thread a cell: the older trees, pk_up and pk_up_last
+            return 128, 0
+        return t.block[0] * t.block[1] * t.block[2], t.smem
 
     def timed(hm, U_a, U_b, prefix="", stream=None):
         records = {}
@@ -64,15 +147,38 @@ def main():
         U_b = ti.advance(U_a, t_a, 1)[0]
         timed(hm, U_a, U_b)
         del hm, ti, U_a, U_b, U0
-    if "box3d" in cases:
-        from .bench import build_box3d
+    for case, prefix in (("box3d", "3D "), ("dg1box3d", "dG ")):
+        if case not in cases:
+            continue
+        from . import bench
 
-        _, sd, hm, ti, U0 = build_box3d(cs.BOX_REFINEMENT, torch.float32, dev)
+        refinement = (cs.BOX_REFINEMENT if case == "box3d"
+                      else cs.DG_BOX_REFINEMENT)
+        _, sd, hm, ti, U0 = getattr(bench, "build_" + case)(
+            refinement, torch.float32, dev)
         U_a, _, t_a, _, _, _ = ti.advance(cs.bumped(sd, U0, blast=True), 0.0,
                                           cs.BOX_DEVELOP_STEPS)
         U_b = ti.advance(U_a, t_a, 1)[0]
-        timed(hm, U_a, U_b, "3D ")
-    print(json.dumps({"card": cs.smi_line(), "ms": ms}), flush=True)
+        timed(hm, U_a, U_b, prefix)
+        del hm, ti, U_a, U_b, U0
+        torch.cuda.empty_cache()
+    if "cylinder3d" in cases:
+        from .bench import build_cylinder3d
+
+        eq, sd, hm, ti, U0 = build_cylinder3d(cs.CYL_REFINEMENT,
+                                              torch.float32, dev)
+        U_a, _, t_a, _, _, _ = ti.advance(U0, 0.0, cs.CYL_DEVELOP_STEPS)
+        U_b = ti.advance(U_a, t_a, 1)[0]
+        timed(hm, U_a, U_b, "cyl ")
+        hm_sep = HyperbolicModule(eq, sd, hm.initial_state_fn,
+                                  dtype=torch.float32, device=dev,
+                                  separable=True)
+        timed(hm_sep, U_a, U_b, "cyl SEP ")
+        del hm, hm_sep, ti, U_a, U_b, U0
+    log = so.with_suffix(".so.log")
+    res = resources(log.read_text(), tiles) if log.exists() else {}
+    print(json.dumps({"card": cs.smi_line(), "ms": ms, "resources": res}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -91,6 +91,10 @@ class Consts(ctypes.Structure):
         ("dz", ctypes.c_int * MAX_K),
         ("dy", ctypes.c_int * MAX_K),
         ("dx", ctypes.c_int * MAX_K),
+        ("block", ctypes.c_int * 3),
+        ("grid", ctypes.c_int * 3),
+        ("smem", ctypes.c_int),
+        ("halo", ctypes.c_int),
     ]
 
 
@@ -240,7 +244,7 @@ def consts(eq, params, ca, stage_weights=(), half=True) -> Consts:
             "the two-direction route of the stream kernels is built for 3D "
             "canvases only"
         )
-    D, H, W = (1,) * (3 - dim) + tuple(ca.shape)
+    D, H, W = canvas_dims(ca.shape)
     offsets = [(0,) * (3 - dim) + tuple(o) for o in ca.offsets]
     g = eq.params.gamma
     e = 2.0 * g / (g - 1.0)
@@ -272,6 +276,44 @@ def consts(eq, params, ca, stage_weights=(), half=True) -> Consts:
         dy=(ctypes.c_int * MAX_K)(*(o[1] for o in offsets)),
         dx=(ctypes.c_int * MAX_K)(*(o[2] for o in offsets)),
     )
+
+
+class Tile(NamedTuple):
+    """Launch shape of a tiled kernel (pk3_stream, pk_up): threads of a
+    block (x, y, z), the halo of staged cells around the tile, the shared
+    bytes a block takes (dynamic in pk3_stream, static in pk_up) and the
+    grid (x, y, z)."""
+
+    block: Tuple[int, int, int]
+    halo: int
+    smem: int
+    grid: Tuple[int, int, int]
+
+
+SMEM_MAX = 232448  # shared bytes a block can use on an H100 (227 KB)
+
+
+def canvas_dims(shape) -> Tuple[int, int, int]:
+    """(D, H, W) of a 2D [H, W] (D = 1) or 3D [D, H, W] canvas."""
+    return (1,) * (3 - len(shape)) + tuple(int(v) for v in shape)
+
+
+def reach_of(dim: int, K: int) -> int:
+    """The lattice reach r of K = (2 r + 1)^dim - 1 offsets."""
+    for r in range(1, 4):
+        if (2 * r + 1) ** dim - 1 == K:
+            return r
+    raise ValueError(f"no lattice of reach 1-3 has K = {K} offsets in {dim}D")
+
+
+def with_tile(c: Consts, tile: Tile) -> Consts:
+    """c with the launch shape of `tile` (the tiled kernels read it and
+    refuse one that does not fit their layout)."""
+    c.block = (ctypes.c_int * 3)(*tile.block)
+    c.grid = (ctypes.c_int * 3)(*tile.grid)
+    c.smem = tile.smem
+    c.halo = tile.halo
+    return c
 
 
 def check(device, dtype, tensors: Dict[str, tuple]) -> None:

@@ -64,6 +64,31 @@ def pk3_stream_reference(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
     return P, l, okp
 
 
+TX = 32  # cells of a tile row (csrc/pk3_stream.cu PK3_TX)
+
+
+def tile(shape, K: int, dtype, n_stages: int) -> build.Tile:
+    """The launch shape of pk3_stream on a 2D [H, W] or 3D [D, H, W]
+    canvas with K lattice offsets at `n_stages` stages: a block owns TY rows
+    of TX cells (in 3D at one z), G threads a cell; it stages the tile
+    and its halo of the lattice reach, pk3_vals values a staged cell (U and
+    the parts of f(U), per stage the parts of f(sU_s), F, m_j, alpha_j)
+    and one flag a tile cell.  (TY, G): (4, 2) in 3D (2, 2 in f64:
+    108 KB at two stages, 162 at (4, 2)), (4, 1) in 2D, the fastest of the
+    tiles timed on the bench cells (PERF.md §6)."""
+    dim = len(shape)
+    D, H, W = build.canvas_dims(shape)
+    h = build.reach_of(dim, K)
+    item = torch.empty((), dtype=dtype).element_size()
+    ty = 4 if dim == 2 or item == 4 else 2
+    groups = 2 if dim == 3 else 1
+    staged = (TX + 2 * h) * (ty + 2 * h) * (1 + 2 * h if dim == 3 else 1)
+    vals = (2 * dim + 4) + n_stages * (2 * dim + 2) + dim + 4
+    smem = vals * staged * item + ty * TX * 4
+    grid = (-(-W // TX), -(-H // ty), D if dim == 3 else 1)
+    return build.Tile((TX, ty, groups), h, smem, grid)
+
+
 def pk3_stream(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
                stage_weights, tau, half=True):
     """(P [C, K, n], l [K, n], okp [n]) from PK1's e on the route `half`
@@ -74,7 +99,10 @@ def pk3_stream(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
             tau, half,
         )
     n, K, C = ca.n, ca.K, eq.n_comp
-    c = build.consts(eq, p, ca, stage_weights, half)
+    c = build.with_tile(
+        build.consts(eq, p, ca, stage_weights, half),
+        tile(ca.shape, K, U.dtype, len(stage_weights)),
+    )
     sU = stage_tensor(stage_U, stage_weights, C, n)
     tensors = {
         "U": (U, (C, n)),

@@ -16,6 +16,26 @@ from . import build
 INSTANCES = ((2, 8), (2, 24), (3, 26))
 
 
+TX = 32  # cells a block owns (csrc/pk_up.cu UP_TX)
+
+
+def tile(shape, K: int, dtype, last: bool = False) -> build.Tile:
+    """The launch shape of pk_up on a 2D [H, W] or 3D [D, H, W] canvas with
+    K lattice offsets.  PK4 at K = 24 and 26: a block owns TX cells of one
+    x row, one warp per component; its static shared arrays hold the row's
+    C K planes of P, l_sym, the live flags and U'.  PK5 (`last`) and PK4 at
+    K = 8: one thread a cell, 128 along x, no shared memory.  No halo: the
+    transposed l is read from device memory."""
+    dim = len(shape)
+    D, H, W = build.canvas_dims(shape)
+    if last or K == 8:
+        return build.Tile((128, 1, 1), 0, 0, (-(-W // 128), H, D))
+    C = dim + 2
+    item = torch.empty((), dtype=dtype).element_size()
+    smem = (C * K + K + C) * TX * item + K * TX
+    return build.Tile((TX, C, 1), 0, smem, (-(-W // TX), H, D))
+
+
 def pk_up_reference(eq, p, ca, U_cur, bounds, P, l, last):
     """Plain torch: hyperbolic.phase_update as a loop over the offsets in
     the kernel's order, k = 0 .. K-1: l_sym_k = min(l_k, plane K-1-k of
@@ -74,12 +94,14 @@ def pk_up(eq, p, ca, U_cur, bounds, P, l, last: bool):
             ca.g_sep2, ca.f_sepz]
     build.launch(
         "pk_up", U_cur.dtype, [build.ptr(t) for t in ptrs],
-        build.consts(eq, p, ca),
+        build.with_tile(build.consts(eq, p, ca),
+                        tile(ca.shape, K, U_cur.dtype, last)),
     )
     pk_up.launches += 1
+    pk_up.last_launches += int(last)
     # the SEP instance's own count
     pk_up.sep_launches += int(ca.separable)
     return U_next, l_new
 
 
-pk_up.launches = pk_up.sep_launches = 0
+pk_up.launches = pk_up.sep_launches = pk_up.last_launches = 0

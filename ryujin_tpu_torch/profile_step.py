@@ -36,7 +36,8 @@ from .bench import CASES, separable_from_env
 from .solver.integrator import TimeIntegrator
 
 OUR_KERNELS = ("pk1_kernel", "pk2_kernel", "pk3_kernel", "pk_up_kernel",
-               "pk1_stream_kernel", "pk2_stream_kernel", "pk3_stream_kernel")
+               "pk_up_tile_kernel", "pk_up_last_kernel", "pk1_stream_kernel",
+               "pk2_stream_kernel", "pk3_stream_kernel")
 
 
 def _kernel_name(key: str):

@@ -9,7 +9,9 @@ kernel and template arguments; an instance of NEW whose trailing boolean
 template argument is the dG flag matches OLD's instance without it when
 the flag is false, and is left out when it is true; likewise a trailing
 statics accessor argument: FullStatics is dropped, an instance with
-SepStatics (the separable statics) is left out.  Constant-bank
+SepStatics (the separable statics) is left out of that pairing.  The
+instances it leaves out (dG, SEP) are then paired by their mangled names
+where both libraries have them.  Constant-bank
 addresses of the form c[0x0][0x...] (the launch's parameters) are masked
 before the comparison.  Prints, for each pair, the instruction counts and
 the instructions that still differ.  Needs cuobjdump (the CUDA toolkit's,
@@ -86,8 +88,13 @@ def key(name: str):
 def main():
     if len(sys.argv) != 3:
         sys.exit(__doc__)
-    old = {key(n): v for n, v in functions(sys.argv[1]).items() if key(n)}
-    new = {key(n): v for n, v in functions(sys.argv[2]).items() if key(n)}
+    f_old, f_new = functions(sys.argv[1]), functions(sys.argv[2])
+    old = {key(n): v for n, v in f_old.items() if key(n)}
+    new = {key(n): v for n, v in f_new.items() if key(n)}
+    # the instances key() leaves out, by mangled name, where both have them
+    for n in sorted(f_old):
+        if not key(n) and n in f_new:
+            old[("=", n)], new[("=", n)] = f_old[n], f_new[n]
     same = 0
     for k in sorted(old):
         a, b = old[k], new.get(k)

@@ -227,3 +227,119 @@ def test_probe_kernels_on_card_match_plain():
                 == before + case.launches_per_call), case.name
         _, err, ok = held(case.bar, out, case.plain())
         assert ok, (case.name, err)
+
+
+def ragged_case(dim):
+    """A build_case whose canvas leaves partial tiles of the tiled kernels
+    (32 cells along x, 4 rows along y in f32) on x and y, packed 16 cells
+    wide with no padding of the leading axes: in 3D the 3 x 2 x 2 box
+    (cG Q1, K = 26) on a (7, 7, 16) canvas at refinement 1, in 2D the step
+    with cG Q2 (K = 24, reach 2) on a (165, 496) canvas at refinement 0."""
+    from ryujin_tpu_torch import bench
+    from ryujin_tpu_torch.offline.mesh import Boundary
+
+    def build(refinement, dtype, device):
+        if dim == 3:
+            mesh = bench.geometry.rectangular_domain(
+                [0.0, 0.0, 0.0], [3.0, 1.0, 1.0], [3, 2, 2], refinement,
+                boundary_conditions=[Boundary.dirichlet, Boundary.do_nothing]
+                + [Boundary.slip] * 4, dim=3,
+            )
+            ansatz, margin = "cG Q1", (1, 1)
+        else:
+            mesh = bench.geometry.step(refinement=refinement)
+            ansatz, margin = "cG Q2", 2
+        sd = bench.structured.pack_structured(
+            bench.assembly.assemble(mesh, ansatz=ansatz), mesh, pad_minor=16,
+            pad_major=1, margin=margin,
+        )
+        eq = bench.Euler(dim=dim)
+        init = bench.make_initial_state(eq, "uniform",
+                                        primitive_state=(1.4, 3.0, 1.0))
+        hm = bench.HyperbolicModule(eq, sd, init, dtype=dtype, device=device)
+        ti = bench.TimeIntegrator(hm, "erk 33", cfl_min=0.45, cfl_max=0.9,
+                                  cfl_recovery_strategy="bang bang control")
+        U0 = bench.interpolate_nodal(init, sd, eq, 0.0, dtype, device)
+        return eq, sd, hm, ti, U0
+
+    return build
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["ragged box", "ragged step", "cylinder"])
+def test_tiled_kernels_bit_equal_on_card(case, dtype):
+    """pk3_stream (P, l, okp at 2, 1 and 0 stages) and pk_up (U and l' of
+    PK4, U of PK5) bit for bit against their plain twins on the card, on
+    the same inputs: on canvases with partial tiles on x and y (the ragged
+    box, two-direction or half-slot as its module decides, and the ragged
+    cG Q2 step) and on the cylinder at refinement 1, whose minor axis is
+    its periodic angle, 32 cells, packed exactly.  The state: three ERK33
+    steps through the kernels from the inflow with an 8:1 density and
+    1000:1 energy contrast in a ball (the cylinder: a smooth bump), so the
+    limiter works."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ryujin_tpu_torch.bench import build_cylinder3d
+    from ryujin_tpu_torch.kernels import (
+        pk1_stream, pk2_stream, pk3_stream, pk_up,
+    )
+    from ryujin_tpu_torch.solver.hyperbolic import (
+        d_from_e, d_from_lambda, tau_max_from_d,
+    )
+
+    dt = getattr(torch, dtype)
+    if case == "cylinder":
+        _, sd, hm, ti, U0 = build_cylinder3d(1, dt, "cuda", pad_minor=32)
+        assert sd.shape[-1] == 32
+    else:
+        _, sd, hm, ti, U0 = ragged_case(3 if case == "ragged box" else 2)(
+            1 if case == "ragged box" else 0, dt, "cuda")
+        assert sd.shape[-1] % 32 and sd.shape[-2] % 4
+    eq, p, ca = hm.eq, hm.params, hm.canvas.arrays
+    st, half = ca.stencil, hm.half
+    pos = torch.as_tensor(sd.positions.T, dtype=dt, device="cuda")
+    centre = torch.tensor([1.0, 0.5, 0.5][: pos.shape[0]], dtype=dt,
+                          device="cuda")[:, None]
+    dist2 = torch.sum((pos - centre) ** 2, 0)
+    U0 = U0.clone()
+    if case == "cylinder":
+        U0[0] *= 1.0 + 0.25 * torch.exp(-8.0 * dist2)
+    else:
+        ball = (dist2 < 0.2 ** 2) & torch.as_tensor(sd.node_mask > 0,
+                                                    device="cuda")
+        U0[0, ball] *= 8.0
+        U0[-1, ball] *= 1000.0
+    U_a, _, t_a, _, _, _ = ti.advance(U0, 0.0, 3)
+    U_b = ti.advance(U_a, t_a, 1)[0]
+    U, prec = hm.prepare_state_vector(U_b, 0.0)
+    lam, alpha = pk1_stream.pk1_stream_reference(eq, p, ca, U, prec,
+                                                 half=half)
+    full = st.full()
+    if half:
+        lam = hm._lambda_fixup(lam, U, prescaled=True)
+        d = d_from_lambda(full, lam, None)
+    else:
+        d = d_from_e(full.mask, lam, full.transpose_edge(lam))
+    tau = tau_max_from_d(st, d, 0.9,
+                         torch.full((), float("inf"), dtype=dt, device="cuda"))
+    stage_U = torch.stack([U_a, U])
+    limited = 0
+    for w in ([0.75, -2.0], [0.25], []):
+        sU = stage_U[: len(w)]
+        U_low, F, bounds = pk2_stream.pk2_stream_reference(
+            eq, p, ca, U, prec, lam, alpha, sU, w, tau, half=half)
+        args = (eq, p, ca, U, lam, alpha, F, U_low, bounds, sU, w, tau)
+        got = pk3_stream.pk3_stream(*args, half=half)
+        want = pk3_stream.pk3_stream_reference(*args, half=half)
+        for name, a, b in zip(("P", "l", "okp"), got, want):
+            assert torch.equal(a, b), (name, len(w), (a - b).abs().max())
+        limited += int((want[1] < 1).sum())
+    assert limited > 0
+    P, l = want[:2]
+    args4 = (eq, p, ca, U_low, bounds, P, l, False)
+    (U4, l4), (U4_r, l4_r) = pk_up.pk_up(*args4), pk_up.pk_up_reference(*args4)
+    assert torch.equal(U4, U4_r) and torch.equal(l4, l4_r)
+    args5 = (eq, p, ca, U4_r, bounds, P, l4_r, True)
+    assert torch.equal(pk_up.pk_up(*args5)[0],
+                       pk_up.pk_up_reference(*args5)[0])
