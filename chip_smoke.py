@@ -101,8 +101,9 @@ any failure exits non-zero):
    evaluation executes, from the SASS).
 
 pk_up's two launches a substep, PK4 and PK5 (`last`), are timed, bounded
-and counted apart.  The stream PK3's P, l and okp and pk_up's U and l'
-must be bit-equal to their plain twins (l and l' in f64 where torch's
+and counted apart.  The stream PK2's U_low, F and bounds, the stream
+PK3's P, l and okp and pk_up's U and l' must be bit-equal to their plain
+twins (l and l' in f64 where torch's
 limiter rounds as the kernels do), beside the tolerances above.
 
 The lines before the last are the kernels' JSON record and the card's
@@ -343,9 +344,10 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     records[name + tag] = {max_abs_err, ms, plain_ms, bound_ms, bound_by,
     bound_ms_mask_as_stored, source, replaces} (pk_up's name takes
     `up_tag`; its last launch, PK5, has a record of its own, the name
-    followed by " last").  The stream PK3's P and okp and pk_up's U must be
-    bit-equal to their plain twins, and so must PK3's l and PK4's l' in f32
-    and, unless `exact_l64` is False, in f64 (torch's f64 limiter differs
+    followed by " last").  The stream PK2's U_low, F and bounds, the stream
+    PK3's P and okp and pk_up's U must be bit-equal to their plain twins,
+    and so must PK3's l and PK4's l' in f32 and, unless `exact_l64` is
+    False, in f64 (torch's f64 limiter differs
     from the kernels' by up to 2.5e-13 on some large states, whose calls
     pass False).  On a dG canvas PK2 and PK3 take their dG instances, which
     read the incidence planes; with separable statics every kernel takes
@@ -453,9 +455,9 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     args2 = (eq, p, ca, U, prec, lam, alpha, stage_U, weights, tau)
     (Ul_k, F_k, b_k), (U_low, F, bounds) = run(n2, *args2)
     errs[n2] = max(
-        err(f"{n2} U_low", Ul_k, U_low, real, "rel"),
-        err(f"{n2} F", F_k, F, real, "rel"),
-        err(f"{n2} bounds", b_k, bounds, real, "rel"),
+        err(f"{n2} U_low", Ul_k, U_low, real, "rel", exact=stream),
+        err(f"{n2} F", F_k, F, real, "rel", exact=stream),
+        err(f"{n2} bounds", b_k, bounds, real, "rel", exact=stream),
     )
     args3 = (eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U, weights, tau)
     (P_k, l_k, okp_k), (P, l, okp) = run(n3, *args3)

@@ -21,8 +21,9 @@
 // and f(sU_s) of each stage (1/rho times m, p and E + p, the operands
 // `flux` forms every entry from, so f_j is rebuilt bit for bit with 12
 // multiplies and no division), F, m_j and alpha_j, one shared array per
-// value, cells along x.  Each flux is so formed once per staged cell, not
-// once per slot: with the 3D tile (4, 2), 3 x 4.8 flux parts (a division
+// value, cells along x (staged.cuh, which pk2_stream and the stacked pk3
+// share).  Each flux is so formed once per staged cell, not once per
+// slot: with the 3D tile (4, 2), 3 x 4.8 flux parts (a division
 // each) a cell at two stages, where the one-thread-per-cell form made 81
 // flux evaluations and gathered ~600 values.  The slot loop reads its
 // neighbour and its own cell from shared memory, and from device memory
@@ -61,69 +62,9 @@
 // (:2276-2277, 2471): the 130 planes of c_ij, m_ij and the mask give way
 // to the L2-resident factors, at 5 multiplies a slot.  The factor pointers
 // come after the constants.
-#include "statics.cuh"
+#include "staged.cuh"
 
 namespace ryujin {
-
-constexpr int PK3_TX = 32;  // cells of a tile row; mirrored by kernels/pk3_stream.py tile()
-
-// Staged values a cell holds, by offset into its shared arrays: U (rho,
-// m_1 .. m_dim, E) and the parts of f(U) (v, p, E + p); per stage the
-// parts of f(sU_s) (m, v, p, E + p); F; m_j; alpha_j.
-__host__ __device__ constexpr int pk3_u_vals(int dim) { return 2 * dim + 4; }
-__host__ __device__ constexpr int pk3_stage_vals(int dim) { return 2 * dim + 2; }
-__host__ __device__ constexpr int pk3_vals(int dim, int stages) {
-  return pk3_u_vals(dim) + stages * pk3_stage_vals(dim) + dim + 4;
-}
-
-// The parts of the flux of u as flux() forms them: v = m (1/rho), p and
-// E + p.
-template <typename T, int NC>
-__device__ __forceinline__ void flux_parts(const EqConsts<T>& e, const T (&u)[NC], T (&v)[NC - 2],
-                                           T& p, T& Ep) {
-  const T rho_inv = T(1) / u[0];
-  p = e.gm1 * internal_energy(u);
-#pragma unroll
-  for (int d = 0; d < NC - 2; ++d) v[d] = u[1 + d] * rho_inv;
-  Ep = u[NC - 1] + p;
-}
-
-// The flux tensor from its parts, entry by entry as flux() forms it.
-template <typename T, int DIM>
-__device__ __forceinline__ void flux_from_parts(const T (&m)[DIM], const T (&v)[DIM], T p, T Ep,
-                                                T (&f)[DIM + 2][DIM]) {
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) f[0][d] = m[d];
-#pragma unroll
-  for (int a = 0; a < DIM; ++a) {
-#pragma unroll
-    for (int b = 0; b < DIM; ++b) f[1 + a][b] = a == b ? m[a] * v[b] + p : m[a] * v[b];
-  }
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) f[DIM + 1][d] = v[d] * Ep;
-}
-
-// The flux of the state whose parts begin at value `at` of staged cell s
-// (m first, as a stage's parts lie), or, with m given, of U's parts.
-template <typename T, int DIM>
-__device__ __forceinline__ void staged_flux(const T* sm, int ns, int at, int s,
-                                            const T (&m)[DIM], T (&f)[DIM + 2][DIM]) {
-  T v[DIM];
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) v[d] = sm[(at + d) * ns + s];
-  flux_from_parts(m, v, sm[(at + DIM) * ns + s], sm[(at + DIM + 1) * ns + s], f);
-}
-
-template <typename T, int DIM>
-__device__ __forceinline__ void staged_stage_flux(const T* sm, int ns, int at, int s,
-                                                  T (&f)[DIM + 2][DIM]) {
-  T m[DIM];
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) m[d] = sm[(at + d) * ns + s];
-  staged_flux(sm, ns, at + DIM, s, m, f);
-}
-
-__device__ __forceinline__ int wrap_any(int v, int N) { return ((v % N) + N) % N; }
 
 // At most 256 threads a block; the 2D f32 instances are held to 85
 // registers (three such blocks an SM): 0.6636 against 0.7303 ms on
@@ -142,23 +83,23 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
                   const T* __restrict__ g2, const T* __restrict__ fz, const int h) {
   static_assert(!ST::kSeparable || (DIM == 3 && !DG), "separable statics are 3D cG");
   constexpr int NC = DIM + 2;
-  constexpr int UV = pk3_u_vals(DIM), SV = pk3_stage_vals(DIM);
+  constexpr int UV = u_vals(DIM), SV = stage_vals(DIM);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
 
   const int S = e.n_stages, K = e.K, K2 = K / 2;
   const int TY = blockDim.y, G = blockDim.z;
-  const int SX = PK3_TX + 2 * h, SY = TY + 2 * h, SZ = DIM == 3 ? 1 + 2 * h : 1;
+  const int SX = TILE_TX + 2 * h, SY = TY + 2 * h, SZ = DIM == 3 ? 1 + 2 * h : 1;
   const int ns = SX * SY * SZ;
   const int FB = UV + S * SV;  // F, then m_j, then alpha_j
   int* const okc = reinterpret_cast<int*>(sm + (FB + NC + 2) * ns);
   const int lane = threadIdx.x, ty = threadIdx.y, g = threadIdx.z;
-  const int tid = lane + PK3_TX * (ty + TY * g);
-  const int x0 = blockIdx.x * PK3_TX, y0 = blockIdx.y * TY, z0 = DIM == 3 ? blockIdx.z : 0;
+  const int tid = lane + TILE_TX * (ty + TY * g);
+  const int x0 = blockIdx.x * TILE_TX, y0 = blockIdx.y * TY, z0 = DIM == 3 ? blockIdx.z : 0;
   const int64_t n = int64_t(e.D) * e.H * e.W;
 
   // ---- stage the tile and its halo -----------------------------------------
-  for (int s = tid; s < ns; s += PK3_TX * TY * G) {  // s: a staged cell
+  for (int s = tid; s < ns; s += TILE_TX * TY * G) {  // s: a staged cell
     const int sx = s % SX, sy = (s / SX) % SY, sz = s / (SX * SY);
     const int xg = wrap_any(x0 - h + sx, e.W), yg = wrap_any(y0 - h + sy, e.H);
     const int zg = DIM == 3 ? wrap_any(z0 - h + sz, e.D) : 0;
@@ -189,7 +130,7 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
     sm[(FB + NC) * ns + s] = node[gi];
     sm[(FB + NC + 1) * ns + s] = alpha[gi];
   }
-  if (g == 0) okc[ty * PK3_TX + lane] = 1;
+  if (g == 0) okc[ty * TILE_TX + lane] = 1;
   __syncthreads();
 
   // ---- the slots of this thread's cell -------------------------------------
@@ -290,18 +231,18 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
       }
       if (k + G < K) cur = nxt;
     }
-    if (!ok) okc[ty * PK3_TX + lane] = 0;
+    if (!ok) okc[ty * TILE_TX + lane] = 0;
   }
   __syncthreads();
-  if (g == 0 && c.x < e.W && c.y < e.H) okp[c.i] = okc[ty * PK3_TX + lane] ? T(1) : T(0);
+  if (g == 0 && c.x < e.W && c.y < e.H) okp[c.i] = okc[ty * TILE_TX + lane] ? T(1) : T(0);
 }
 
 // Shared bytes of the tile (ty rows, halo h) at `stages` stages.
 template <typename T>
 int64_t pk3_stream_smem(int dim, int stages, int ty, int h) {
   const int64_t ns =
-      int64_t(PK3_TX + 2 * h) * (ty + 2 * h) * (dim == 3 ? 1 + 2 * h : 1);
-  return pk3_vals(dim, stages) * ns * int64_t(sizeof(T)) + int64_t(ty) * PK3_TX * 4;
+      int64_t(TILE_TX + 2 * h) * (ty + 2 * h) * (dim == 3 ? 1 + 2 * h : 1);
+  return pk3_vals(dim, stages) * ns * int64_t(sizeof(T)) + int64_t(ty) * TILE_TX * 4;
 }
 
 template <typename T, int DIM, bool HALF, bool DG, class ST>
@@ -312,11 +253,8 @@ int launch_pk3_stream_instance(const T* cij, const T* mij, const T* mask, const 
                                const EqConsts<T>& e, const Consts* consts, cudaStream_t stream) {
   auto kernel = pk3_stream_kernel<T, DIM, HALF, DG, ST>;
   const int smem = consts->smem;
-  if (smem > 48 * 1024) {
-    const cudaError_t rc =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return int(rc);
-  }
+  const int rc = allow_smem(kernel, smem);
+  if (rc != int(cudaSuccess)) return rc;
   const dim3 grid(consts->grid[0], consts->grid[1], consts->grid[2]);
   const dim3 block(consts->block[0], consts->block[1], consts->block[2]);
   kernel<<<grid, block, smem, stream>>>(cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds,
@@ -352,14 +290,10 @@ int launch_pk3_stream_route(const T* cij, const T* mij, const T* mask, const T* 
 // the canvas, and the bytes pk3_stream_smem gives.
 template <typename T>
 bool pk3_stream_tile_ok(const Consts* c) {
-  int reach = 0;
-  for (int k = 0; k < c->K; ++k) {
-    const int a[3] = {c->dz[k], c->dy[k], c->dx[k]};
-    for (int v : a) reach = v > reach ? v : (-v > reach ? -v : reach);
-  }
+  const int reach = lattice_reach(c);
   const int ty = c->block[1], G = c->block[2];
-  return c->block[0] == PK3_TX && ty >= 1 && G >= 1 && PK3_TX * ty * G <= 256 &&
-         c->halo >= reach && int64_t(c->grid[0]) * PK3_TX >= c->W &&
+  return c->block[0] == TILE_TX && ty >= 1 && G >= 1 && TILE_TX * ty * G <= 256 &&
+         c->halo >= reach && int64_t(c->grid[0]) * TILE_TX >= c->W &&
          int64_t(c->grid[1]) * ty >= c->H && c->grid[2] == (c->dim == 3 ? c->D : 1) &&
          c->smem == pk3_stream_smem<T>(c->dim, c->n_stages, ty, c->halo);
 }

@@ -13,43 +13,85 @@ refinement 1, 150 steps from a blast) or cylinder3d (refinement 3, 300
 steps from the inflow; the kernels with the full statics, then the SEP
 instances on the same state); without one, step2d and q2step2d.  Prints
 one JSON line {"card", "ms": {kernel: ms}, "resources": {instance:
-{regs, stack, threads, smem, warps}}}: the registers and stack bytes of
-every pk3_stream and pk_up instance from nvcc's -Xptxas -v report of the
-build, the block and the shared bytes of its launch at two stages, and
-the warps an SM holds at once by the occupancy rules of the H100 (65,536
-registers in 256-register steps a warp, 228 KB of shared memory less 1 KB
-a block, 64 warps, 32 blocks).
+{regs, stack, threads, smem, warps}}, "digests": {kernel: {"in", "out"}}}:
+the registers and stack bytes of every pk2_stream (pk2_stream_tile),
+pk3_stream, pk_up and stacked pk3 instance from nvcc's -Xptxas -v report of the build, the
+block and the shared bytes of its launch at two stages, and the warps an
+SM holds at once by the occupancy rules of the H100 (65,536 registers in
+256-register steps a warp, 228 KB of shared memory less 1 KB a block, 64
+warps, 32 blocks); and, for each kernel launch that compare_kernels
+checks, a digest of the bytes of the tensors it was given and of those
+it returned, taken on its first call (the checked one, before the
+timing), keyed "CASE: " and the kernel's prefix in "ms" before the
+wrapper's name ("pk_up last" for PK5).  Two
+trees whose kernels compute the same bits print the same digests.
 
 To compare two trees, run it from the root of each in turns (A, B, B, A)
 on one card.  It uses only chip_smoke.compare_kernels,
-chip_smoke.PlainSteps, the bench builders, HyperbolicModule and
-TimeIntegrator, so an older checkout that has them (the cylinder3d slice
-onward) runs it once this file is copied into its ryujin_tpu_torch/; a
-tree without the tiled launch (no tile() in kernels/pk3_stream.py and
-kernels/pk_up.py) is taken to launch 128 threads a block without shared
-memory.
+chip_smoke.PlainSteps, the bench builders, HyperbolicModule,
+TimeIntegrator and the kernel wrappers of kernels/, so an older checkout
+that has them (the cylinder3d slice onward) runs it once this file is
+copied into its ryujin_tpu_torch/; a kernel without a tile() beside its
+wrapper is taken to launch 128 threads a block without shared memory.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import hashlib
+import importlib
 import json
 import re
 import sys
 
 import torch
 
-# one pk3_stream or pk_up instance in nvcc's mangled name
-_INSTANCE = re.compile(
-    r"_ZN6ryujin\d+(pk3_stream|pk_up|pk_up_tile|pk_up_last)_kernel"
-    r"I([fd])Li(\d)E(?:Lb(\d)ELb(\d)E|Li(\d+)E)NS_\d+(Full|Sep)Statics"
+# one pk2_stream, pk3_stream, pk_up or stacked pk3 instance in nvcc's
+# mangled name
+_STREAM = re.compile(
+    r"_ZN6ryujin\d+(pk2_stream|pk3_stream)_kernelI([fd])Li(\d)ELb(\d)ELb(\d)E"
+    r"NS_\d+(Full|Sep)Statics"
 )
+_UP = re.compile(
+    r"_ZN6ryujin\d+(pk_up|pk_up_tile|pk_up_last)_kernelI([fd])Li(\d)ELi(\d+)E"
+    r"NS_\d+(Full|Sep)Statics"
+)
+_STACKED = re.compile(r"_ZN6ryujin\d+(pk3)_kernelI([fd])Lb(\d)E")
+_TILE = re.compile(
+    r"_ZN6ryujin\d+(pk2_stream_tile)_kernelI([fd])Li(\d)ELb(\d)ELb(\d)EEEv")
+# the kernel wrappers whose calls get digests, each kernels/<name>.py's
+# function <name>
+WRAPPERS = ("pk1", "pk2", "pk3", "pk1_stream", "pk2_stream", "pk3_stream",
+            "pk_up")
+
+
+def _label(name):
+    """(label, kernel, dim, dtype) of an instance's mangled name, or None
+    for a kernel this report leaves out."""
+    m = _STREAM.match(name) or _TILE.match(name)
+    if m:
+        kern, t, dim, half, dg, st = (m.groups() + ("Full",))[:6]
+        label = (f"{kern}<{'f32' if t == 'f' else 'f64'}, {dim}D, "
+                 f"{'half-slot' if half == '1' else 'two-direction'}, "
+                 f"{'dG' if dg == '1' else 'cG'}, {st}>")
+    elif _UP.match(name):
+        kern, t, dim, k, st = _UP.match(name).groups()
+        label = f"{kern}<{'f32' if t == 'f' else 'f64'}, {dim}D, K={k}, {st}>"
+    elif _STACKED.match(name):
+        kern, t, dg = _STACKED.match(name).groups()
+        dim = "2"
+        label = f"pk3<{'f32' if t == 'f' else 'f64'}, {'dG' if dg == '1' else 'cG'}>"
+    else:
+        return None
+    return label, kern, int(dim), torch.float32 if t == "f" else torch.float64
 
 
 def resources(log: str, tiles):
-    """{instance: {regs, stack, threads, smem, warps}} of every pk3_stream
-    and pk_up instance (pk_up, pk_up_tile, pk_up_last) in a -Xptxas -v
-    report; tiles(kernel, dim, dtype) gives the instance's (threads a
-    block, shared bytes)."""
+    """{instance: {regs, stack, threads, smem, warps}} of every pk2_stream
+    (pk2_stream, pk2_stream_tile), pk3_stream, pk_up (pk_up, pk_up_tile,
+    pk_up_last) and stacked pk3 instance in a -Xptxas -v report; tiles(kernel, dim, dtype) gives the
+    instance's (threads a block, shared bytes)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -63,24 +105,68 @@ def resources(log: str, tiles):
         m = re.search(r"Used (\d+) registers", line)
         if not (m and name):
             continue
-        inst = _INSTANCE.match(name)
+        inst = _label(name)
         name, regs = None, int(m.group(1))
         if not inst:
             continue
-        kern, t, dim, half, dg, k, st = inst.groups()
-        dtype = torch.float32 if t == "f" else torch.float64
-        if kern == "pk3_stream":
-            label = (f"pk3_stream<{'f32' if t == 'f' else 'f64'}, {dim}D, "
-                     f"{'half-slot' if half == '1' else 'two-direction'}, "
-                     f"{'dG' if dg == '1' else 'cG'}, {st}>")
-        else:
-            label = (f"{kern}<{'f32' if t == 'f' else 'f64'}, {dim}D, K={k}, "
-                     f"{st}>")
-        threads, smem = tiles(kern, int(dim), dtype)
+        label, kern, dim, dtype = inst
+        threads, smem = tiles(kern, dim, dtype)
         out[label] = {"regs": regs, "stack": stack, "threads": threads,
                       "smem": smem, "warps": resident_warps(regs, threads,
                                                             smem)}
     return out
+
+
+def digest(value) -> str:
+    """A digest of the bytes of every tensor in `value` (nested tuples,
+    lists and dicts; floats, ints, bools and None by their repr; other
+    objects, such as the module's canvas, left out)."""
+    h = hashlib.blake2b(digest_size=8)
+
+    def feed(v):
+        if isinstance(v, torch.Tensor):
+            h.update(f"{v.dtype}{tuple(v.shape)}".encode())
+            h.update(v.detach().contiguous().cpu().numpy().tobytes())
+        elif isinstance(v, (tuple, list)):
+            for x in v:
+                feed(x)
+        elif isinstance(v, dict):
+            for k in sorted(v):
+                h.update(str(k).encode())
+                feed(v[k])
+        elif v is None or isinstance(v, (bool, int, float)):
+            h.update(repr(v).encode())
+
+    feed(value)
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def digests(out, prefix=""):
+    """Within the block every kernel wrapper of WRAPPERS records into
+    `out`, on its first call under a key (prefix + its name, " last" for
+    pk_up's PK5), the digests of its arguments and of its result."""
+    saved = []
+    for name in WRAPPERS:
+        mod = importlib.import_module(f"{__package__}.kernels.{name}")
+        fn = getattr(mod, name)
+
+        def recorded(*args, _fn=fn, _name=name, **kw):
+            res = _fn(*args, **kw)
+            key = prefix + _name + (" last" if _name == "pk_up" and args[-1]
+                                    else "")
+            if key not in out:
+                out[key] = {"in": digest((args, kw)), "out": digest(res)}
+            return res
+
+        # the wrapper counts its launches on the module's name, now this one
+        setattr(mod, name, functools.update_wrapper(recorded, fn))
+        saved.append((mod, name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def resident_warps(regs: int, threads: int, smem: int) -> int:
@@ -101,7 +187,9 @@ def main():
 
     from .bench import build_q2step2d, build_step2d
     from .kernels import build
-    from .kernels import pk3_stream as k3
+    from .kernels import pk2_stream as k2s
+    from .kernels import pk3 as k3
+    from .kernels import pk3_stream as k3s
     from .kernels import pk_up as ku
     from .solver.hyperbolic import HyperbolicModule
     from .solver.integrator import TimeIntegrator
@@ -109,25 +197,28 @@ def main():
     so = build.build()
     build.library()
     dev = torch.device("cuda")
-    ms = {}
+    ms, digested = {}, {}
 
     def tiles(kern, dim, dtype):
-        # the main path's launch at two stages: K = 24 in 2D, 26 in 3D
-        K = 24 if dim == 2 else 26
+        # the main path's launch at two stages: K = 24 in 2D (the stacked
+        # pk3: 8), 26 in 3D
+        K = 8 if kern == "pk3" else (24 if dim == 2 else 26)
         shape = (64, 64) if dim == 2 else (8, 64, 64)
-        if kern == "pk3_stream" and hasattr(k3, "tile"):
-            t = k3.tile(shape, K, dtype, 2)
+        mod = {"pk2_stream_tile": k2s, "pk3": k3, "pk3_stream": k3s}.get(kern)
+        if mod is not None and hasattr(mod, "tile"):
+            t = mod.tile(shape, K, dtype, 2)
         elif kern == "pk_up_tile":
             t = ku.tile(shape, K, dtype)
         else:  # one thread a cell: the older trees, pk_up and pk_up_last
             return 128, 0
         return t.block[0] * t.block[1] * t.block[2], t.smem
 
-    def timed(hm, U_a, U_b, prefix="", stream=None):
+    def timed(case, hm, U_a, U_b, prefix="", stream=None):
         records = {}
-        if not cs.compare_kernels(hm, U_a, U_b, cs.TOL_F32, cs.REPS, records,
-                                  stream=stream):
-            sys.exit("a kernel disagrees with its plain-torch reference")
+        with digests(digested, f"{case}: {prefix}"):
+            if not cs.compare_kernels(hm, U_a, U_b, cs.TOL_F32, cs.REPS,
+                                      records, stream=stream):
+                sys.exit("a kernel disagrees with its plain-torch reference")
         ms.update((prefix + name, rec["ms"]) for name, rec in records.items())
 
     cases = sys.argv[1:] or ["step2d", "q2step2d"]
@@ -137,15 +228,15 @@ def main():
                                cfl_max=0.9, cfl_recovery_strategy="none")
         U_a, _, t_a, _, _, _ = plain.advance(U0, 0.0, cs.PLAIN_STEPS)
         U_b = plain.advance(U_a, t_a, 1)[0]
-        timed(hm, U_a, U_b)
-        timed(hm, U_a, U_b, "K=8 ", stream=True)
+        timed("step2d", hm, U_a, U_b)
+        timed("step2d", hm, U_a, U_b, "K=8 ", stream=True)
         del hm, plain, U_a, U_b, U0
     if "q2step2d" in cases:
         _, _, hm, ti, U0 = build_q2step2d(cs.Q2_REFINEMENT, torch.float32,
                                           dev)
         U_a, _, t_a, _, _, _ = ti.advance(U0, 0.0, cs.Q2_DEVELOP_STEPS)
         U_b = ti.advance(U_a, t_a, 1)[0]
-        timed(hm, U_a, U_b)
+        timed("q2step2d", hm, U_a, U_b)
         del hm, ti, U_a, U_b, U0
     for case, prefix in (("box3d", "3D "), ("dg1box3d", "dG ")):
         if case not in cases:
@@ -159,7 +250,7 @@ def main():
         U_a, _, t_a, _, _, _ = ti.advance(cs.bumped(sd, U0, blast=True), 0.0,
                                           cs.BOX_DEVELOP_STEPS)
         U_b = ti.advance(U_a, t_a, 1)[0]
-        timed(hm, U_a, U_b, prefix)
+        timed(case, hm, U_a, U_b, prefix)
         del hm, ti, U_a, U_b, U0
         torch.cuda.empty_cache()
     if "cylinder3d" in cases:
@@ -169,16 +260,16 @@ def main():
                                               torch.float32, dev)
         U_a, _, t_a, _, _, _ = ti.advance(U0, 0.0, cs.CYL_DEVELOP_STEPS)
         U_b = ti.advance(U_a, t_a, 1)[0]
-        timed(hm, U_a, U_b, "cyl ")
+        timed("cylinder3d", hm, U_a, U_b, "cyl ")
         hm_sep = HyperbolicModule(eq, sd, hm.initial_state_fn,
                                   dtype=torch.float32, device=dev,
                                   separable=True)
-        timed(hm_sep, U_a, U_b, "cyl SEP ")
+        timed("cylinder3d", hm_sep, U_a, U_b, "cyl SEP ")
         del hm, hm_sep, ti, U_a, U_b, U0
     log = so.with_suffix(".so.log")
     res = resources(log.read_text(), tiles) if log.exists() else {}
-    print(json.dumps({"card": cs.smi_line(), "ms": ms, "resources": res}),
-          flush=True)
+    print(json.dumps({"card": cs.smi_line(), "ms": ms, "resources": res,
+                      "digests": digested}), flush=True)
 
 
 if __name__ == "__main__":

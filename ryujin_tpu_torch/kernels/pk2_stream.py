@@ -82,6 +82,29 @@ def pk2_stream_reference(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights,
     return U_low, F, bounds
 
 
+TX = 32  # cells of a tile row (csrc/staged.cuh TILE_TX)
+
+
+def tile(shape, K: int, dtype, n_stages: int) -> build.Tile:
+    """The launch shape of pk2_stream on a 2D [H, W] or 3D [D, H, W] canvas
+    with K lattice offsets at `n_stages` stages: a block owns TY rows of TX
+    cells (in 3D at TZ consecutive z), one thread a cell; it stages the
+    tile and its halo of the lattice reach, pk2_vals values a staged cell
+    (U and the parts of f(U), alpha_j, s_j, per stage the parts of
+    f(sU_s)).  (TY, TZ): (4, 2) in 3D (2, 2 in f64: 122 KB at two stages,
+    183 at (4, 2)), (4, 1) in 2D, the fastest of the tiles timed on the
+    bench cells (PERF.md §6)."""
+    dim = len(shape)
+    D, H, W = build.canvas_dims(shape)
+    h = build.reach_of(dim, K)
+    item = torch.empty((), dtype=dtype).element_size()
+    ty, tz = (4, 1) if dim == 2 else ((4, 2) if item == 4 else (2, 2))
+    staged = (TX + 2 * h) * (ty + 2 * h) * (tz + 2 * h if dim == 3 else 1)
+    vals = (2 * dim + 4) + 2 + n_stages * (2 * dim + 2)
+    grid = (-(-W // TX), -(-H // ty), -(-D // tz) if dim == 3 else 1)
+    return build.Tile((TX, ty, tz), h, vals * staged * item, grid)
+
+
 def pk2_stream(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau,
                half=True):
     """(U_low [C, n], F [C, n], bounds [3, n]).  e is PK1's output on the
@@ -94,7 +117,10 @@ def pk2_stream(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau,
             eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau, half
         )
     n, K, C = ca.n, ca.K, eq.n_comp
-    c = build.consts(eq, p, ca, stage_weights, half)
+    c = build.with_tile(
+        build.consts(eq, p, ca, stage_weights, half),
+        tile(ca.shape, K, U.dtype, len(stage_weights)),
+    )
     sU = stage_tensor(stage_U, stage_weights, C, n)
     tensors = {
         "U": (U, (C, n)),

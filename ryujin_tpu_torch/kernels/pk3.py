@@ -1,6 +1,8 @@
 """PK3: antidiffusive fluxes P, the first limiter pass l and the per-node
-success flag okp (CUDA kernel csrc/pk3.cu; TPU kernel pallas_step.py:3044).
-On a dG canvas the kernel also reads the incidence planes g_inc."""
+success flag okp on the 2D reach-1 (K = 8) canvas (CUDA kernel
+csrc/pk3.cu, a staged tile of launch shape tile(); TPU kernel
+pallas_step.py:3044).  On a dG canvas the kernel also reads the incidence
+planes g_inc."""
 
 from __future__ import annotations
 
@@ -28,6 +30,25 @@ def pk3_reference(eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U,
         torch.where(live, success.to(U.dtype), torch.ones_like(st.mask)), 0
     )
     return P, l, okp
+
+
+TX = 32  # cells of a tile row (csrc/staged.cuh TILE_TX)
+TY = 4  # rows of a tile
+
+
+def tile(shape, K: int, dtype, n_stages: int) -> build.Tile:
+    """The launch shape of pk3 on a 2D [H, W] canvas with the K = 8
+    offsets of reach 1 at `n_stages` stages: a block owns TY rows of TX
+    cells, one thread a cell; it stages the tile and its halo of one cell,
+    pk3_vals values a staged cell (U and the parts of f(U), per stage the
+    parts of f(sU_s), F, m_j, alpha_j), the layout of pk3_stream's tile."""
+    D, H, W = build.canvas_dims(shape)
+    if len(shape) != 2 or build.reach_of(2, K) != 1:
+        raise ValueError(f"pk3 takes the 2D reach-1 lattice, not K = {K} on {shape}")
+    item = torch.empty((), dtype=dtype).element_size()
+    vals = 8 + n_stages * 6 + 6
+    smem = vals * (TX + 2) * (TY + 2) * item
+    return build.Tile((TX, TY, 1), 1, smem, (-(-W // TX), -(-H // TY), 1))
 
 
 def pk3(eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U, stage_weights,
@@ -64,7 +85,8 @@ def pk3(eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U, stage_weights,
             lam, alpha, F, U_low, bounds, sU, tau, P, l, okp]
     build.launch(
         "pk3", U.dtype, [build.ptr(t) for t in ptrs],
-        build.consts(eq, p, ca, stage_weights),
+        build.with_tile(build.consts(eq, p, ca, stage_weights),
+                        tile(ca.shape, K, U.dtype, len(stage_weights))),
     )
     pk3.launches += 1
     return P, l, okp

@@ -64,7 +64,7 @@ def pk3_stream_reference(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
     return P, l, okp
 
 
-TX = 32  # cells of a tile row (csrc/pk3_stream.cu PK3_TX)
+TX = 32  # cells of a tile row (csrc/staged.cuh TILE_TX)
 
 
 def tile(shape, K: int, dtype, n_stages: int) -> build.Tile:

@@ -229,29 +229,43 @@ def test_probe_kernels_on_card_match_plain():
         assert ok, (case.name, err)
 
 
-def ragged_case(dim):
+def ragged_case(dim, ansatz=None):
     """A build_case whose canvas leaves partial tiles of the tiled kernels
-    (32 cells along x, 4 rows along y in f32) on x and y, packed 16 cells
-    wide with no padding of the leading axes: in 3D the 3 x 2 x 2 box
-    (cG Q1, K = 26) on a (7, 7, 16) canvas at refinement 1, in 2D the step
-    with cG Q2 (K = 24, reach 2) on a (165, 496) canvas at refinement 0."""
+    (32 cells along x, 4 rows along y in f32) on x and y, packed with no
+    padding of the leading axes: in 3D the 3 x 2 x 2 box (cG Q1, K = 26)
+    on a (7, 7, 16) canvas at refinement 1, in 2D the step with cG Q2
+    (K = 24, reach 2) on a (165, 496) canvas at refinement 0, both packed
+    16 cells wide; with `ansatz` a 2D K = 8 canvas packed 8 cells wide for
+    the stacked kernels: "cG Q1", the step on an (83, 248) canvas at
+    refinement 0, or "dG Q1", the 3 x 1 rectangle [0, 3] x [0, 1] with the
+    step's boundary conditions on an (18, 48) canvas at refinement 3."""
     from ryujin_tpu_torch import bench
     from ryujin_tpu_torch.offline.mesh import Boundary
 
     def build(refinement, dtype, device):
+        pad_minor, margin = 16, 2
         if dim == 3:
             mesh = bench.geometry.rectangular_domain(
                 [0.0, 0.0, 0.0], [3.0, 1.0, 1.0], [3, 2, 2], refinement,
                 boundary_conditions=[Boundary.dirichlet, Boundary.do_nothing]
                 + [Boundary.slip] * 4, dim=3,
             )
-            ansatz, margin = "cG Q1", (1, 1)
+            ansatz_, margin = "cG Q1", (1, 1)
+        elif ansatz == "dG Q1":
+            mesh = bench.geometry.rectangular_domain(
+                [0.0, 0.0], [3.0, 1.0], [3, 1], refinement,
+                boundary_conditions=[Boundary.dirichlet, Boundary.do_nothing,
+                                     Boundary.slip, Boundary.slip],
+            )
+            ansatz_, pad_minor, margin = ansatz, 8, 1
         else:
             mesh = bench.geometry.step(refinement=refinement)
-            ansatz, margin = "cG Q2", 2
+            ansatz_ = ansatz or "cG Q2"
+            if ansatz:
+                pad_minor, margin = 8, 1
         sd = bench.structured.pack_structured(
-            bench.assembly.assemble(mesh, ansatz=ansatz), mesh, pad_minor=16,
-            pad_major=1, margin=margin,
+            bench.assembly.assemble(mesh, ansatz=ansatz_), mesh,
+            pad_minor=pad_minor, pad_major=1, margin=margin,
         )
         eq = bench.Euler(dim=dim)
         init = bench.make_initial_state(eq, "uniform",
@@ -265,19 +279,43 @@ def ragged_case(dim):
     return build
 
 
+def _limited_state(sd, hm, ti, U0, dt, smooth=False):
+    """(U_a, U, prec): the state after three ERK33 steps through the
+    kernels from the inflow with an 8:1 density and 1000:1 energy contrast
+    in a ball around (1, 0.5[, 0.5]) (`smooth`: a smooth bump), so the
+    limiter works, and U after one more step, prepared."""
+    pos = torch.as_tensor(sd.positions.T, dtype=dt, device="cuda")
+    centre = torch.tensor([1.0, 0.5, 0.5][: pos.shape[0]], dtype=dt,
+                          device="cuda")[:, None]
+    dist2 = torch.sum((pos - centre) ** 2, 0)
+    U0 = U0.clone()
+    if smooth:
+        U0[0] *= 1.0 + 0.25 * torch.exp(-8.0 * dist2)
+    else:
+        ball = (dist2 < 0.2 ** 2) & torch.as_tensor(sd.node_mask > 0,
+                                                    device="cuda")
+        U0[0, ball] *= 8.0
+        U0[-1, ball] *= 1000.0
+    U_a, _, t_a, _, _, _ = ti.advance(U0, 0.0, 3)
+    U_b = ti.advance(U_a, t_a, 1)[0]
+    U, prec = hm.prepare_state_vector(U_b, 0.0)
+    return U_a, U, prec
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("case", ["ragged box", "ragged step", "cylinder"])
 def test_tiled_kernels_bit_equal_on_card(case, dtype):
-    """pk3_stream (P, l, okp at 2, 1 and 0 stages) and pk_up (U and l' of
-    PK4, U of PK5) bit for bit against their plain twins on the card, on
-    the same inputs: on canvases with partial tiles on x and y (the ragged
-    box, two-direction or half-slot as its module decides, and the ragged
-    cG Q2 step) and on the cylinder at refinement 1, whose minor axis is
-    its periodic angle, 32 cells, packed exactly.  The state: three ERK33
-    steps through the kernels from the inflow with an 8:1 density and
-    1000:1 energy contrast in a ball (the cylinder: a smooth bump), so the
-    limiter works."""
+    """pk2_stream (U_low, F, bounds) and pk3_stream (P, l, okp), each at
+    2, 1 and 0 stages, and pk_up (U and l' of PK4, U of PK5) bit for bit
+    against their plain twins on the card, on the same inputs: on
+    canvases with partial tiles on x and y (the ragged box, also on z for
+    pk2_stream, two-direction or half-slot as its module decides, and the
+    ragged cG Q2 step) and on the cylinder at refinement 1, whose minor
+    axis is its periodic angle, 32 cells, packed exactly.  The state:
+    three ERK33 steps through the kernels from the inflow with an 8:1
+    density and 1000:1 energy contrast in a ball (the cylinder: a smooth
+    bump), so the limiter works."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from ryujin_tpu_torch.bench import build_cylinder3d
@@ -298,21 +336,7 @@ def test_tiled_kernels_bit_equal_on_card(case, dtype):
         assert sd.shape[-1] % 32 and sd.shape[-2] % 4
     eq, p, ca = hm.eq, hm.params, hm.canvas.arrays
     st, half = ca.stencil, hm.half
-    pos = torch.as_tensor(sd.positions.T, dtype=dt, device="cuda")
-    centre = torch.tensor([1.0, 0.5, 0.5][: pos.shape[0]], dtype=dt,
-                          device="cuda")[:, None]
-    dist2 = torch.sum((pos - centre) ** 2, 0)
-    U0 = U0.clone()
-    if case == "cylinder":
-        U0[0] *= 1.0 + 0.25 * torch.exp(-8.0 * dist2)
-    else:
-        ball = (dist2 < 0.2 ** 2) & torch.as_tensor(sd.node_mask > 0,
-                                                    device="cuda")
-        U0[0, ball] *= 8.0
-        U0[-1, ball] *= 1000.0
-    U_a, _, t_a, _, _, _ = ti.advance(U0, 0.0, 3)
-    U_b = ti.advance(U_a, t_a, 1)[0]
-    U, prec = hm.prepare_state_vector(U_b, 0.0)
+    U_a, U, prec = _limited_state(sd, hm, ti, U0, dt, case == "cylinder")
     lam, alpha = pk1_stream.pk1_stream_reference(eq, p, ca, U, prec,
                                                  half=half)
     full = st.full()
@@ -327,8 +351,12 @@ def test_tiled_kernels_bit_equal_on_card(case, dtype):
     limited = 0
     for w in ([0.75, -2.0], [0.25], []):
         sU = stage_U[: len(w)]
-        U_low, F, bounds = pk2_stream.pk2_stream_reference(
-            eq, p, ca, U, prec, lam, alpha, sU, w, tau, half=half)
+        args2 = (eq, p, ca, U, prec, lam, alpha, sU, w, tau)
+        U_low, F, bounds = pk2_stream.pk2_stream_reference(*args2, half=half)
+        got2 = pk2_stream.pk2_stream(*args2, half=half)
+        for name, a, b in zip(("U_low", "F", "bounds"), got2,
+                              (U_low, F, bounds)):
+            assert torch.equal(a, b), (name, len(w), (a - b).abs().max())
         args = (eq, p, ca, U, lam, alpha, F, U_low, bounds, sU, w, tau)
         got = pk3_stream.pk3_stream(*args, half=half)
         want = pk3_stream.pk3_stream_reference(*args, half=half)
@@ -343,3 +371,59 @@ def test_tiled_kernels_bit_equal_on_card(case, dtype):
     args5 = (eq, p, ca, U4_r, bounds, P, l4_r, True)
     assert torch.equal(pk_up.pk_up(*args5)[0],
                        pk_up.pk_up_reference(*args5)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ansatz", ["cG Q1", "dG Q1"])
+def test_stacked_pk3_on_ragged_canvas(ansatz, dtype):
+    """The stacked pk3 (P, l, okp at 2, 1 and 0 stages; cG, and dG Q1 with
+    its incidence factor) against its plain twin on the card, on the same
+    inputs, on K = 8 canvases with partial tiles on x and y (the cG Q1
+    step, the dG Q1 rectangle: ragged_case), within PERF.md §2's bars: P
+    relative 1e-5 in f32, 1e-11 in f64; l 1e-4 on all but 0.01 % of the
+    live edges and 5e-3 on every edge in f32, 1e-8 in f64; okp equal on
+    the real nodes.  The state as in test_tiled_kernels_bit_equal_on_card,
+    the limiter at work."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ryujin_tpu_torch.kernels import pk1, pk2, pk3
+    from ryujin_tpu_torch.solver.hyperbolic import (
+        d_from_lambda, tau_max_from_d,
+    )
+
+    dt = getattr(torch, dtype)
+    f32 = dt == torch.float32
+    _, sd, hm, ti, U0 = ragged_case(2, ansatz)(
+        0 if ansatz == "cG Q1" else 3, dt, "cuda")
+    assert sd.shape[-1] % 32 and sd.shape[-2] % 4
+    assert sd.max_degree == 8 and not hm.canvas.stream
+    eq, p, ca = hm.eq, hm.params, hm.canvas.arrays
+    assert (ca.g_inc is not None) == (ansatz == "dG Q1")
+    st = ca.stencil
+    U_a, U, prec = _limited_state(sd, hm, ti, U0, dt)
+    lam, alpha = pk1.pk1_reference(eq, p, ca, U, prec)
+    lam = hm._lambda_fixup(lam, U, prescaled=False)
+    full = st.full()
+    tau = tau_max_from_d(st, d_from_lambda(full, lam, full.cmax), 0.9,
+                         torch.full((), float("inf"), dtype=dt, device="cuda"))
+    stage_U = torch.stack([U_a, U])
+    live = st.mask > 0
+    real = st.node_mask > 0
+    limited = 0
+    for w in ([0.75, -2.0], [0.25], []):
+        sU = stage_U[: len(w)]
+        U_low, F, bounds = pk2.pk2_reference(eq, p, ca, U, prec, lam, alpha,
+                                             sU, w, tau)
+        args = (eq, p, ca, U, lam, alpha, F, U_low, bounds, sU, w, tau)
+        (P_k, l_k, okp_k), (P, l, okp) = pk3.pk3(*args), pk3.pk3_reference(*args)
+        P_rel = ((P_k - P).abs()[:, live].max() / P.abs()[:, live].max()).item()
+        assert P_rel <= (1e-5 if f32 else 1e-11), (len(w), P_rel)
+        l_diff = (l_k - l).abs()[live]
+        assert l_diff.max().item() <= (5e-3 if f32 else 1e-8), len(w)
+        if f32:
+            assert int((l_diff > 1e-4).sum()) <= 1e-4 * l_diff.numel()
+        assert torch.equal(okp_k[real], okp[real]), len(w)
+        assert bool(torch.isfinite(P_k).all() and torch.isfinite(l_k).all())
+        limited += int((l[live] < 1).sum())
+    assert limited > 0

@@ -1,9 +1,9 @@
-"""The launch shapes of the tiled kernels, pk3_stream and pk_up, on the CPU:
-each instance's tile fits the card's shared memory, stages a halo of the
-lattice reach, and its grid covers every cell of the bench canvases and of
-the small test canvases, ragged edges included; the C side of the
-launch (the Consts struct, the entry points, the staged layout) mirrors
-what the wrappers pass."""
+"""The launch shapes of the tiled kernels, pk2_stream, pk3_stream, the
+stacked pk3 and pk_up, on the CPU: each instance's tile fits the card's
+shared memory, stages a halo of the lattice reach, and its grid covers
+every cell of the bench canvases and of the small test canvases, ragged
+edges included; the C side of the launch (the Consts struct, the entry
+points, the staged layouts) mirrors what the wrappers pass."""
 
 import re
 
@@ -11,35 +11,44 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from ryujin_tpu_torch.kernels import build, pk3_stream, pk_up  # noqa: E402
+from ryujin_tpu_torch.kernels import (  # noqa: E402
+    build, pk2_stream, pk3, pk3_stream, pk_up,
+)
 from ryujin_tpu_torch.offline.structured import lattice_offsets  # noqa: E402
 
 CSRC = build.CSRC
 DTYPES = (torch.float32, torch.float64)
-# (dim, K) of every pk3_stream and pk_up instance: 2D reach 1 (the stream
-# kernels on step2d's canvas, dG Q1) and reach 2 (cG / dG Q2), 3D reach 1
+# (dim, K) of every pk2_stream, pk3_stream and pk_up instance: 2D reach 1
+# (the stream kernels on step2d's canvas, dG Q1) and reach 2 (cG / dG Q2),
+# 3D reach 1
 INSTANCES = ((2, 8), (2, 24), (3, 26))
 # canvases the kernels launch on: the bench cells (chip_smoke.py setup
 # lines: step2d and q2step2d, box3d and dg1box3d, cylinder3d) and the small
-# canvases of chip_smoke.py phases 6b, 8b, 8c, 10b and of the gpu tests
-# (the boxes at refinement 1, the dG steps at refinement 0, the cylinder at
-# refinement 1 with pad_minor 32, the ragged box and step of
-# test_torch_gpu.py)
+# canvases of chip_smoke.py phases 2, 6b, 8b, 8c, 10b and of the gpu tests
+# (the K = 8 step at refinement 0, the boxes at refinement 1, the dG steps
+# at refinement 0, the cylinder at refinement 1 with pad_minor 32, the
+# ragged box and steps of test_torch_gpu.py: cG Q2, and the K = 8 cG Q1
+# step and dG Q1 rectangle)
 SHAPES = {
-    2: [(664, 2048), (176, 512), (256, 768), (165, 496)],
+    2: [(664, 2048), (104, 256), (176, 512), (256, 768), (165, 496),
+        (83, 248), (18, 48)],
     3: [(72, 72, 128), (72, 40, 128), (16, 16, 128), (24, 16, 32),
         (7, 7, 16)],
 }
 
 
 def _covers(tile, shape, cells):
-    """The grid covers the canvas, and no block lies wholly past it."""
+    """The grid covers the canvas, and no block lies wholly past it;
+    cells: the (x, y[, z]) extent of the cells a block owns."""
     D, H, W = build.canvas_dims(shape)
     gx, gy, gz = tile.grid
-    ty = cells[1]
+    ty, tz = cells[1], (cells + (1,))[2]
     assert gx * cells[0] >= W and (gx - 1) * cells[0] < W
     assert gy * ty >= H and (gy - 1) * ty < H
-    assert gz == (D if len(shape) == 3 else 1)
+    if len(shape) == 3:
+        assert gz * tz >= D and (gz - 1) * tz < D
+    else:
+        assert gz == 1 and tz == 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -68,6 +77,49 @@ def test_pk3_stream_tile_fits_and_covers(dim, K, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dim,K", INSTANCES)
+def test_pk2_stream_tile_fits_and_covers(dim, K, dtype):
+    reach = build.reach_of(dim, K)
+    item = torch.empty((), dtype=dtype).element_size()
+    for stages in (0, 1, 2):
+        for shape in SHAPES[dim]:
+            t = pk2_stream.tile(shape, K, dtype, stages)
+            bx, ty, tz = t.block
+            assert bx == pk2_stream.TX == 32 and ty >= 1 and tz >= 1
+            assert bx * ty * tz <= 256  # __launch_bounds__(256)
+            assert t.halo == reach
+            assert 0 < t.smem <= build.SMEM_MAX
+            # U and the parts of f(U), alpha_j and s_j, and each stage's
+            # flux parts a staged cell; one z in 2D
+            vals = (dim + 2) + (dim + 2) + 2 + stages * (2 * dim + 2)
+            staged = (bx + 2 * reach) * (ty + 2 * reach) * (
+                tz + 2 * reach if dim == 3 else 1)
+            assert t.smem == vals * staged * item
+            _covers(t, shape, t.block)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pk3_tile_fits_and_covers(dtype):
+    """The stacked pk3 (2D, K = 8): the layout of pk3_stream's tile with
+    one thread a cell and no flags."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for stages in (0, 1, 2):
+        for shape in SHAPES[2]:
+            t = pk3.tile(shape, 8, dtype, stages)
+            bx, ty, groups = t.block
+            assert bx == pk3.TX == 32 and groups == 1 and bx * ty <= 256
+            assert t.halo == 1
+            vals = 4 + 4 + stages * 6 + 4 + 2
+            assert t.smem == vals * (bx + 2) * (ty + 2) * item
+            assert 0 < t.smem <= build.SMEM_MAX
+            _covers(t, shape, (bx, ty))
+    with pytest.raises(ValueError):
+        pk3.tile((165, 496), 24, dtype, 2)
+    with pytest.raises(ValueError):
+        pk3.tile((8, 64, 64), 26, dtype, 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dim,K", INSTANCES)
 def test_pk_up_tile_fits_and_covers(dim, K, dtype):
     item = torch.empty((), dtype=dtype).element_size()
     C = dim + 2
@@ -89,32 +141,57 @@ def test_pk_up_tile_fits_and_covers(dim, K, dtype):
 
 def test_small_test_canvases_are_ragged():
     """The gpu tests' ragged canvases are those of SHAPES and leave partial
-    tiles of pk3_stream on x and y (f32 rows of 4) and of pk_up on x."""
+    tiles of pk2_stream, pk3_stream and pk_up on x and y (and of
+    pk2_stream on z in 3D), and of the stacked pk3 on x and y on the
+    K = 8 step and rectangle."""
     from test_torch_gpu import ragged_case
 
-    for dim, refinement in ((3, 1), (2, 0)):
-        sd = ragged_case(dim)(refinement, torch.float64, "cpu")[1]
+    for dim, refinement, ansatz in ((3, 1, None), (2, 0, None),
+                                    (2, 0, "cG Q1"), (2, 3, "dG Q1")):
+        sd = ragged_case(dim, ansatz)(refinement, torch.float64, "cpu")[1]
         assert tuple(sd.shape) in SHAPES[dim]
         D, H, W = build.canvas_dims(sd.shape)
+        K = sd.max_degree
         assert W % pk3_stream.TX and W % pk_up.TX and H % 4
-        t = pk3_stream.tile(sd.shape, sd.max_degree, torch.float32, 2)
-        assert H % t.block[1]
+        for dtype in DTYPES:
+            t2 = pk2_stream.tile(sd.shape, K, dtype, 2)
+            assert W % t2.block[0] and H % t2.block[1]
+            if dim == 3:
+                assert D % t2.block[2]
+        if ansatz is None:
+            t = pk3_stream.tile(sd.shape, K, torch.float32, 2)
+            assert H % t.block[1]
+        else:
+            assert K == 8
+            t = pk3.tile(sd.shape, K, torch.float32, 2)
+            assert W % t.block[0] and H % t.block[1]
 
 
 def test_launch_struct_mirrors_the_c_side():
     """build.Consts lists the fields of `struct Consts` (csrc/euler.cuh) in
-    their order, the tile's among them; the pk3_stream launcher's shared
-    bytes are the wrapper's formula; the entry points take the pointers
-    ENTRY_POINTS counts."""
+    their order, the tile's among them; the launchers of pk2_stream,
+    pk3_stream and the stacked pk3 take the shared bytes of the wrappers'
+    formulas (staged.cuh holds the layout they share); the entry points
+    take the pointers ENTRY_POINTS counts."""
     src = (CSRC / "euler.cuh").read_text()
     body = re.search(r"struct Consts \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     names = re.findall(r"(\w+)(?:\[\w+\])?\s*[,;]", body)
     assert names == [f[0] for f in build.Consts._fields_]
+    staged = (CSRC / "staged.cuh").read_text()
+    assert "constexpr int TILE_TX = 32;" in staged
+    assert "return u_vals(dim) + stages * stage_vals(dim) + dim + 4;" in staged
+    assert "constexpr int u_vals(int dim) { return 2 * dim + 4; }" in staged
+    assert "constexpr int stage_vals(int dim) { return 2 * dim + 2; }" in staged
     k3 = (CSRC / "pk3_stream.cu").read_text()
-    assert "pk3_vals(dim, stages) * ns * int64_t(sizeof(T)) + int64_t(ty) * PK3_TX * 4" in k3
-    assert "return pk3_u_vals(dim) + stages * pk3_stage_vals(dim) + dim + 4;" in k3
-    assert "constexpr int PK3_TX = 32;" in k3
+    assert "pk3_vals(dim, stages) * ns * int64_t(sizeof(T)) + int64_t(ty) * TILE_TX * 4" in k3
+    k2 = (CSRC / "pk2_stream.cu").read_text()
+    assert "return u_vals(dim) + 2 + stages * stage_vals(dim);" in k2
+    assert "return pk2_vals(dim, stages) * ns * int64_t(sizeof(T));" in k2
+    assert "int64_t(TILE_TX + 2 * h) * (ty + 2 * h) * (dim == 3 ? tz + 2 * h : 1)" in k2
+    stacked = (CSRC / "pk3.cu").read_text()
+    assert ("return pk3_vals(2, stages) * int64_t(TILE_TX + 2) * (ty + 2) * "
+            "int64_t(sizeof(T));") in stacked
     up = (CSRC / "pk_up.cu").read_text()
     assert "constexpr int UP_TX = 32;" in up
     for stem, n_ptr in build.ENTRY_POINTS.items():
@@ -129,3 +206,45 @@ def test_launch_struct_mirrors_the_c_side():
 def test_tile_refuses_an_unknown_lattice():
     with pytest.raises(ValueError):
         pk3_stream.tile((8, 64, 64), 25, torch.float32, 2)
+    with pytest.raises(ValueError):
+        pk2_stream.tile((8, 64, 64), 25, torch.float32, 2)
+
+
+def test_kernel_times_reports_the_staged_instances():
+    """kernel_times reads the registers and stack of every pk2_stream (the
+    staged tile and the one-thread-a-cell SEP form), stacked pk3,
+    pk3_stream and pk_up instance from nvcc's -Xptxas -v report, and its
+    digests tell two outputs apart by a single bit."""
+    from ryujin_tpu_torch import kernel_times
+
+    names = {
+        "_ZN6ryujin17pk2_stream_kernelIfLi3ELb0ELb1ENS_11FullStaticsIfEEEEvPKT_":
+            "pk2_stream<f32, 3D, two-direction, dG, Full>",
+        "_ZN6ryujin22pk2_stream_tile_kernelIdLi2ELb1ELb0EEEvPKT_S3_":
+            "pk2_stream_tile<f64, 2D, half-slot, cG, Full>",
+        "_ZN6ryujin17pk3_stream_kernelIfLi3ELb1ELb0ENS_10SepStaticsIfEEEEvPKT_":
+            "pk3_stream<f32, 3D, half-slot, cG, Sep>",
+        "_ZN6ryujin10pk3_kernelIfLb1EEEvPKT_S3_": "pk3<f32, dG>",
+        "_ZN6ryujin17pk_up_tile_kernelIfLi3ELi26ENS_11FullStaticsIfEEEEvPKT_":
+            "pk_up_tile<f32, 3D, K=26, Full>",
+    }
+    log = "".join(
+        f"ptxas info    : Function properties for {name}\n"
+        f"    {8 * i} bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {100 + i} registers, used 1 barriers\n"
+        for i, name in enumerate(names)
+    ) + ("ptxas info    : Function properties for _ZN6ryujin10pk1_kernelIfEEvPKT_\n"
+         "    0 bytes stack frame\nptxas info    : Used 64 registers\n")
+    seen = []
+    res = kernel_times.resources(
+        log, lambda kern, dim, dtype: seen.append((kern, dim)) or (256, 0))
+    assert list(res) == list(names.values())
+    for i, label in enumerate(names.values()):
+        assert res[label]["regs"] == 100 + i and res[label]["stack"] == 8 * i
+    assert ("pk3", 2) in seen and ("pk2_stream", 3) in seen
+    assert ("pk2_stream_tile", 2) in seen
+    a = torch.arange(12, dtype=torch.float32)
+    b = a.clone()
+    b.view(torch.int32)[5] ^= 1
+    assert kernel_times.digest((a, None, [0.75])) == kernel_times.digest((a.clone(), None, [0.75]))
+    assert kernel_times.digest(a) != kernel_times.digest(b)
