@@ -19,7 +19,9 @@ offset from z-profiles and 2D fields.  Phases (each prints its own lines;
 any failure exits non-zero):
 
 1. the card (nvidia-smi name and power limit) and the kernel build from
-   ryujin_tpu_torch/csrc with nvcc (one process per source, seconds taken);
+   ryujin_tpu_torch/csrc with nvcc (one process per source, seconds taken),
+   with each kernel's registers and stack, and of the tiled kernels the
+   block, shared bytes and resident warps of their main-path launch;
 2. step2d, refinement 3: every kernel against its plain-torch reference
    on the card, on identical inputs (after a few plain ERK33 steps so the
    bow shock has formed), error beside tolerance, each kernel's time
@@ -101,10 +103,10 @@ any failure exits non-zero):
    evaluation executes, from the SASS).
 
 pk_up's two launches a substep, PK4 and PK5 (`last`), are timed, bounded
-and counted apart.  The stream PK2's U_low, F and bounds, the stream
-PK3's P, l and okp and pk_up's U and l' must be bit-equal to their plain
-twins (l and l' in f64 where torch's
-limiter rounds as the kernels do), beside the tolerances above.
+and counted apart.  The stream PK1's e, the stream PK2's U_low, F and
+bounds, the stream PK3's P, l and okp and pk_up's U and l' must be
+bit-equal to their plain twins (l and l' in f64 where torch's limiter
+rounds as the kernels do), beside the tolerances above.
 
 The lines before the last are the kernels' JSON record and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -344,8 +346,9 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     records[name + tag] = {max_abs_err, ms, plain_ms, bound_ms, bound_by,
     bound_ms_mask_as_stored, source, replaces} (pk_up's name takes
     `up_tag`; its last launch, PK5, has a record of its own, the name
-    followed by " last").  The stream PK2's U_low, F and bounds, the stream
-    PK3's P and okp and pk_up's U must be bit-equal to their plain twins,
+    followed by " last").  The stream PK1's e, the stream PK2's U_low, F
+    and bounds, the stream PK3's P and okp and pk_up's U must be bit-equal
+    to their plain twins,
     and so must PK3's l and PK4's l' in f32 and, unless `exact_l64` is
     False, in f64 (torch's f64 limiter differs
     from the kernels' by up to 2.5e-13 on some large states, whose calls
@@ -439,7 +442,8 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     (lam_k, alpha_k), (lam, alpha) = run(n1, *args1)
     e_live = live[: lam.shape[0]]
     errs[n1] = max(
-        err(f"{n1} {'e' if stream else 'lambda'}", lam_k, lam, e_live, "rel"),
+        err(f"{n1} {'e' if stream else 'lambda'}", lam_k, lam, e_live, "rel",
+            exact=stream),
         err(f"{n1} alpha", alpha_k, alpha, real, "rel"),
     )
     full = st.full()  # the glue's d on stacks (synthesized if separable)
@@ -1070,6 +1074,14 @@ def main():
         elif "registers" in line or "spill" in line.lower():
             print(f"  ptxas:   {line.replace('ptxas info    :', '').strip()}",
                   flush=True)
+    from ryujin_tpu_torch import kernel_times
+
+    for label, r in kernel_times.resources(
+            so.with_suffix(".so.log").read_text(),
+            kernel_times.launch_shape).items():
+        print(f"  resources: {label}: {r['regs']} registers, {r['stack']} B "
+              f"stack, {r['threads']} threads, {r['smem']} B shared, "
+              f"{r['warps']} resident warps an SM", flush=True)
 
     # ---- phase 2: step2d kernels against their references ------------------
     print(f"phase 2: step2d, refinement {REFINEMENT}, f32, "

@@ -198,12 +198,6 @@ pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
 
 // ---- a staged tile: the full-statics instances ----------------------------
 
-// Values a staged cell holds: U and the parts of f(U), alpha_j, s_j, then
-// the parts of f(sU_s) of each stage.
-__host__ __device__ constexpr int pk2_vals(int dim, int stages) {
-  return u_vals(dim) + 2 + stages * stage_vals(dim);
-}
-
 template <typename T, int DIM, bool HALF, bool DG>
 __global__ void __launch_bounds__(256)
 pk2_stream_tile_kernel(const T* __restrict__ cij, const T* __restrict__ mask,

@@ -1,5 +1,6 @@
 // Staged tiles, shared by the kernels that read a neighbour's state and
-// flux in every slot (pk2_stream, pk3_stream and the stacked pk3).
+// flux in every slot (pk1_stream, pk2_stream, pk3_stream and the stacked
+// pk2 and pk3).
 //
 // A block owns a tile of cells, TILE_TX along x and a few rows along y (in
 // 3D at one or a few z), and first stages, for the tile and its halo of
@@ -32,6 +33,15 @@ __host__ __device__ constexpr int stage_vals(int dim) { return 2 * dim + 2; }
 __host__ __device__ constexpr int pk3_vals(int dim, int stages) {
   return u_vals(dim) + stages * stage_vals(dim) + dim + 4;
 }
+
+// PK2 (pk2_stream and the stacked pk2): U and the parts of f(U), alpha_j,
+// s_j, then the parts of f(sU_s) of each stage
+__host__ __device__ constexpr int pk2_vals(int dim, int stages) {
+  return u_vals(dim) + 2 + stages * stage_vals(dim);
+}
+// PK1 (pk1_stream): U and the parts of f(U), the rest of the Riemann
+// precompute (a, 1/rho, 1/p, log2 p; its p is the flux's) and eta_j / rho_j
+__host__ __device__ constexpr int pk1_vals(int dim) { return u_vals(dim) + 5; }
 
 // The parts of the flux of u as flux() forms them: v = m (1/rho), p and
 // E + p.

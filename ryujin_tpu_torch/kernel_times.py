@@ -14,9 +14,10 @@ steps from the inflow; the kernels with the full statics, then the SEP
 instances on the same state); without one, step2d and q2step2d.  Prints
 one JSON line {"card", "ms": {kernel: ms}, "resources": {instance:
 {regs, stack, threads, smem, warps}}, "digests": {kernel: {"in", "out"}}}:
-the registers and stack bytes of every pk2_stream (pk2_stream_tile),
-pk3_stream, pk_up and stacked pk3 instance from nvcc's -Xptxas -v report of the build, the
-block and the shared bytes of its launch at two stages, and the warps an
+the registers and stack bytes of every pk1_stream (pk1_stream_tile),
+pk2_stream (pk2_stream_tile), pk3_stream, pk_up and stacked pk2 and pk3
+instance from nvcc's -Xptxas -v report of the build, the block and the
+shared bytes of its launch (at two stages), and the warps an
 SM holds at once by the occupancy rules of the H100 (65,536 registers in
 256-register steps a warp, 228 KB of shared memory less 1 KB a block, 64
 warps, 32 blocks); and, for each kernel launch that compare_kernels
@@ -47,8 +48,8 @@ import sys
 
 import torch
 
-# one pk2_stream, pk3_stream, pk_up or stacked pk3 instance in nvcc's
-# mangled name
+# one pk2_stream, pk3_stream, pk_up, stacked pk2 or pk3 or pk1_stream
+# instance in nvcc's mangled name
 _STREAM = re.compile(
     r"_ZN6ryujin\d+(pk2_stream|pk3_stream)_kernelI([fd])Li(\d)ELb(\d)ELb(\d)E"
     r"NS_\d+(Full|Sep)Statics"
@@ -57,9 +58,14 @@ _UP = re.compile(
     r"_ZN6ryujin\d+(pk_up|pk_up_tile|pk_up_last)_kernelI([fd])Li(\d)ELi(\d+)E"
     r"NS_\d+(Full|Sep)Statics"
 )
-_STACKED = re.compile(r"_ZN6ryujin\d+(pk3)_kernelI([fd])Lb(\d)E")
+_STACKED = re.compile(r"_ZN6ryujin\d+(pk2|pk3)_kernelI([fd])Lb(\d)E")
 _TILE = re.compile(
     r"_ZN6ryujin\d+(pk2_stream_tile)_kernelI([fd])Li(\d)ELb(\d)ELb(\d)EEEv")
+# pk1_stream has no dG flag; its staged tile (full statics only) no
+# statics accessor
+_PK1 = re.compile(
+    r"_ZN6ryujin\d+(pk1_stream|pk1_stream_tile)_kernelI([fd])Li(\d)ELb(\d)E"
+    r"(?:NS_\d+(Full|Sep)Statics)?")
 # the kernel wrappers whose calls get digests, each kernels/<name>.py's
 # function <name>
 WRAPPERS = ("pk1", "pk2", "pk3", "pk1_stream", "pk2_stream", "pk3_stream",
@@ -78,20 +84,27 @@ def _label(name):
     elif _UP.match(name):
         kern, t, dim, k, st = _UP.match(name).groups()
         label = f"{kern}<{'f32' if t == 'f' else 'f64'}, {dim}D, K={k}, {st}>"
+    elif _PK1.match(name):
+        kern, t, dim, half, st = _PK1.match(name).groups()
+        st = st or "Full"
+        label = (f"{kern}<{'f32' if t == 'f' else 'f64'}, {dim}D, "
+                 f"{'half-slot' if half == '1' else 'two-direction'}, {st}>")
     elif _STACKED.match(name):
         kern, t, dg = _STACKED.match(name).groups()
         dim = "2"
-        label = f"pk3<{'f32' if t == 'f' else 'f64'}, {'dG' if dg == '1' else 'cG'}>"
+        label = f"{kern}<{'f32' if t == 'f' else 'f64'}, {'dG' if dg == '1' else 'cG'}>"
     else:
         return None
     return label, kern, int(dim), torch.float32 if t == "f" else torch.float64
 
 
 def resources(log: str, tiles):
-    """{instance: {regs, stack, threads, smem, warps}} of every pk2_stream
-    (pk2_stream, pk2_stream_tile), pk3_stream, pk_up (pk_up, pk_up_tile,
-    pk_up_last) and stacked pk3 instance in a -Xptxas -v report; tiles(kernel, dim, dtype) gives the
-    instance's (threads a block, shared bytes)."""
+    """{instance: {regs, stack, threads, smem, warps}} of every pk1_stream
+    (pk1_stream, pk1_stream_tile), pk2_stream (pk2_stream,
+    pk2_stream_tile), pk3_stream, pk_up (pk_up, pk_up_tile, pk_up_last)
+    and stacked pk2 and pk3 instance in a -Xptxas -v report;
+    tiles(kernel, dim, dtype) gives the instance's (threads a block, shared
+    bytes)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -180,6 +193,32 @@ def resident_warps(regs: int, threads: int, smem: int) -> int:
     return blocks * warps
 
 
+def launch_shape(kern, dim, dtype):
+    """(threads a block, shared bytes) of kernel `kern`'s launch on the
+    main path at two stages: K = 24 in 2D (the stacked pk2 and pk3: 8), 26
+    in 3D; a kernel without a tile() beside its wrapper launches 128
+    threads a block without shared memory."""
+    from .kernels import pk1_stream as k1s
+    from .kernels import pk2 as k2
+    from .kernels import pk2_stream as k2s
+    from .kernels import pk3 as k3
+    from .kernels import pk3_stream as k3s
+    from .kernels import pk_up as ku
+
+    K = 8 if kern in ("pk2", "pk3") else (24 if dim == 2 else 26)
+    shape = (64, 64) if dim == 2 else (8, 64, 64)
+    mod = {"pk2": k2, "pk2_stream_tile": k2s, "pk3": k3,
+           "pk3_stream": k3s}.get(kern)
+    if mod is not None and hasattr(mod, "tile"):
+        t = mod.tile(shape, K, dtype, 2)
+    elif kern in ("pk_up_tile", "pk1_stream_tile"):
+        t = {"pk_up_tile": ku, "pk1_stream_tile": k1s}[kern].tile(
+            shape, K, dtype)
+    else:  # one thread a cell: the older trees, pk_up and pk_up_last
+        return 128, 0
+    return t.block[0] * t.block[1] * t.block[2], t.smem
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("ryujin_tpu_torch.kernel_times needs a CUDA device")
@@ -187,10 +226,6 @@ def main():
 
     from .bench import build_q2step2d, build_step2d
     from .kernels import build
-    from .kernels import pk2_stream as k2s
-    from .kernels import pk3 as k3
-    from .kernels import pk3_stream as k3s
-    from .kernels import pk_up as ku
     from .solver.hyperbolic import HyperbolicModule
     from .solver.integrator import TimeIntegrator
 
@@ -198,20 +233,6 @@ def main():
     build.library()
     dev = torch.device("cuda")
     ms, digested = {}, {}
-
-    def tiles(kern, dim, dtype):
-        # the main path's launch at two stages: K = 24 in 2D (the stacked
-        # pk3: 8), 26 in 3D
-        K = 8 if kern == "pk3" else (24 if dim == 2 else 26)
-        shape = (64, 64) if dim == 2 else (8, 64, 64)
-        mod = {"pk2_stream_tile": k2s, "pk3": k3, "pk3_stream": k3s}.get(kern)
-        if mod is not None and hasattr(mod, "tile"):
-            t = mod.tile(shape, K, dtype, 2)
-        elif kern == "pk_up_tile":
-            t = ku.tile(shape, K, dtype)
-        else:  # one thread a cell: the older trees, pk_up and pk_up_last
-            return 128, 0
-        return t.block[0] * t.block[1] * t.block[2], t.smem
 
     def timed(case, hm, U_a, U_b, prefix="", stream=None):
         records = {}
@@ -267,7 +288,7 @@ def main():
         timed("cylinder3d", hm_sep, U_a, U_b, "cyl SEP ")
         del hm, hm_sep, ti, U_a, U_b, U0
     log = so.with_suffix(".so.log")
-    res = resources(log.read_text(), tiles) if log.exists() else {}
+    res = resources(log.read_text(), launch_shape) if log.exists() else {}
     print(json.dumps({"card": cs.smi_line(), "ms": ms, "resources": res,
                       "digests": digested}), flush=True)
 

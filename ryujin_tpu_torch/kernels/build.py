@@ -279,10 +279,11 @@ def consts(eq, params, ca, stage_weights=(), half=True) -> Consts:
 
 
 class Tile(NamedTuple):
-    """Launch shape of a tiled kernel (pk2_stream, pk3_stream, the stacked
-    pk3, pk_up): threads of a block (x, y, z), the halo of staged cells
-    around the tile, the shared bytes a block takes (dynamic in the staged
-    kernels, static in pk_up) and the grid (x, y, z)."""
+    """Launch shape of a tiled kernel (pk1_stream, pk2_stream, pk3_stream,
+    the stacked pk2 and pk3, pk_up): threads of a block (x, y, z), the
+    halo of staged cells around the tile, the shared bytes a block takes
+    (dynamic in the staged kernels, static in pk_up) and the grid (x, y,
+    z)."""
 
     block: Tuple[int, int, int]
     halo: int

@@ -1,6 +1,7 @@
 """PK1, slot-streaming form: the wavespeeds e and the indicator alpha [n]
 for a 2D or 3D canvas of any lattice reach (CUDA kernel
-csrc/pk1_stream.cu; TPU kernel `_pk1_stream`, pallas_step.py:1904).
+csrc/pk1_stream.cu, a staged tile of launch shape tile(); TPU kernel
+`_pk1_stream`, pallas_step.py:1904).
 
 Two routes (`half`): the half-slot route writes the pre-scaled e = lambda
 * cmax [K/2, n] (prescale), the two-direction route e = |c_ij| lambda
@@ -53,6 +54,29 @@ def pk1_stream_reference(eq, p, ca, U, prec, half=True):
     return torch.stack(e), alpha
 
 
+TX = 32  # cells of a tile row (csrc/staged.cuh TILE_TX)
+
+
+def tile(shape, K: int, dtype) -> build.Tile:
+    """The launch shape of pk1_stream on a 2D [H, W] or 3D [D, H, W] canvas
+    with K lattice offsets: a block owns TY rows of TX cells (in 3D at TZ
+    consecutive z), one thread a cell; it stages the tile and its halo of
+    the lattice reach, pk1_vals values a staged cell (U and the parts of
+    f(U), the Riemann precompute's a, 1/rho, 1/p and log2 p, eta_j /
+    rho_j).  (TY, TZ): (2, 2) in 3D, (4, 1) in 2D, the fastest of the
+    tiles timed on the bench cells, or within 2 % of it (PERF.md §6).  The
+    SEP instances launch one thread a cell and read no tile."""
+    dim = len(shape)
+    D, H, W = build.canvas_dims(shape)
+    h = build.reach_of(dim, K)
+    item = torch.empty((), dtype=dtype).element_size()
+    ty, tz = (4, 1) if dim == 2 else (2, 2)
+    staged = (TX + 2 * h) * (ty + 2 * h) * (tz + 2 * h if dim == 3 else 1)
+    vals = (2 * dim + 4) + 5
+    grid = (-(-W // TX), -(-H // ty), -(-D // tz) if dim == 3 else 1)
+    return build.Tile((TX, ty, tz), h, vals * staged * item, grid)
+
+
 def pk1_stream(eq, p, ca, U, prec, half=True):
     """(e, alpha [n]) of the prepared state U [C, n] and its precomputed
     values prec [2, n] on the canvas `ca` (CanvasArrays): e = lambda * cmax
@@ -61,7 +85,8 @@ def pk1_stream(eq, p, ca, U, prec, half=True):
     if not build.on_card(U):
         return pk1_stream_reference(eq, p, ca, U, prec, half)
     n, K = ca.n, ca.K
-    c = build.consts(eq, p, ca, half=half)
+    c = build.with_tile(build.consts(eq, p, ca, half=half),
+                        tile(ca.shape, K, U.dtype))
     build.check(U.device, U.dtype, {
         "U": (U, (eq.n_comp, n)),
         "prec": (prec, (eq.n_precomputed, n)),

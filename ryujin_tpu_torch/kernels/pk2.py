@@ -1,5 +1,6 @@
 """PK2: low-order update U_low, high-order right-hand side F and the
-limiter bounds (CUDA kernel csrc/pk2.cu; TPU kernel pallas_step.py:2841).
+limiter bounds on the 2D reach-1 (K = 8) canvas (CUDA kernel csrc/pk2.cu,
+a staged tile of launch shape tile(); TPU kernel pallas_step.py:2841).
 On a dG canvas the kernel also reads the incidence planes g_inc."""
 
 from __future__ import annotations
@@ -30,6 +31,26 @@ def pk2_reference(eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau):
         eq, p, st, U, prec, st.nbr(U), st.nbr(prec), d, alpha, st.nbr(alpha),
         tau, stage_U, stage_U_j, stage_weights,
     )
+
+
+TX = 32  # cells of a tile row (csrc/staged.cuh TILE_TX)
+TY = 4  # rows of a tile
+
+
+def tile(shape, K: int, dtype, n_stages: int) -> build.Tile:
+    """The launch shape of pk2 on a 2D [H, W] canvas with the K = 8
+    offsets of reach 1 at `n_stages` stages: a block owns TY rows of TX
+    cells, one thread a cell; it stages the tile and its halo of one cell,
+    pk2_vals + 4 values a staged cell (U and the parts of f(U), alpha_j,
+    s_j, per stage the parts of f(sU_s), the 4 half-slot lambda planes),
+    the layout of pk2_stream's tile with the lambda planes after it."""
+    D, H, W = build.canvas_dims(shape)
+    if len(shape) != 2 or build.reach_of(2, K) != 1:
+        raise ValueError(f"pk2 takes the 2D reach-1 lattice, not K = {K} on {shape}")
+    item = torch.empty((), dtype=dtype).element_size()
+    vals = 8 + 2 + 4 + n_stages * 6
+    smem = vals * (TX + 2) * (TY + 2) * item
+    return build.Tile((TX, TY, 1), 1, smem, (-(-W // TX), -(-H // TY), 1))
 
 
 def pk2(eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau):
@@ -64,7 +85,8 @@ def pk2(eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau):
             prec, lam, alpha, sU, tau, U_low, F, bounds]
     build.launch(
         "pk2", U.dtype, [build.ptr(t) for t in ptrs],
-        build.consts(eq, p, ca, stage_weights),
+        build.with_tile(build.consts(eq, p, ca, stage_weights),
+                        tile(ca.shape, K, U.dtype, len(stage_weights))),
     )
     pk2.launches += 1
     return U_low, F, bounds

@@ -37,8 +37,8 @@ from .solver.integrator import TimeIntegrator
 
 OUR_KERNELS = ("pk1_kernel", "pk2_kernel", "pk3_kernel", "pk_up_kernel",
                "pk_up_tile_kernel", "pk_up_last_kernel", "pk1_stream_kernel",
-               "pk2_stream_kernel", "pk2_stream_tile_kernel",
-               "pk3_stream_kernel")
+               "pk1_stream_tile_kernel", "pk2_stream_kernel",
+               "pk2_stream_tile_kernel", "pk3_stream_kernel")
 
 
 def _kernel_name(key: str):

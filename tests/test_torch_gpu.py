@@ -306,11 +306,14 @@ def _limited_state(sd, hm, ti, U0, dt, smooth=False):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("case", ["ragged box", "ragged step", "cylinder"])
 def test_tiled_kernels_bit_equal_on_card(case, dtype):
-    """pk2_stream (U_low, F, bounds) and pk3_stream (P, l, okp), each at
-    2, 1 and 0 stages, and pk_up (U and l' of PK4, U of PK5) bit for bit
-    against their plain twins on the card, on the same inputs: on
+    """pk1_stream's e, pk2_stream (U_low, F, bounds) and pk3_stream (P, l,
+    okp), each at 2, 1 and 0 stages, and pk_up (U and l' of PK4, U of
+    PK5) bit for bit against their plain twins on the card, and
+    pk1_stream's alpha within PERF.md §2's bar (relative 1e-5 in f32,
+    1e-11 in f64, on the real nodes), on the same inputs: on
     canvases with partial tiles on x and y (the ragged box, also on z for
-    pk2_stream, two-direction or half-slot as its module decides, and the
+    pk1_stream and pk2_stream, two-direction or half-slot as its module
+    decides, and the
     ragged cG Q2 step) and on the cylinder at refinement 1, whose minor
     axis is its periodic angle, 32 cells, packed exactly.  The state:
     three ERK33 steps through the kernels from the inflow with an 8:1
@@ -339,6 +342,12 @@ def test_tiled_kernels_bit_equal_on_card(case, dtype):
     U_a, U, prec = _limited_state(sd, hm, ti, U0, dt, case == "cylinder")
     lam, alpha = pk1_stream.pk1_stream_reference(eq, p, ca, U, prec,
                                                  half=half)
+    e_k, alpha_k = pk1_stream.pk1_stream(eq, p, ca, U, prec, half=half)
+    assert torch.equal(e_k, lam), (e_k - lam).abs().max()
+    real = st.node_mask > 0
+    alpha_rel = ((alpha_k - alpha).abs()[real].max()
+                 / alpha.abs()[real].max()).item()
+    assert alpha_rel <= (1e-5 if dt == torch.float32 else 1e-11), alpha_rel
     full = st.full()
     if half:
         lam = hm._lambda_fixup(lam, U, prescaled=True)
@@ -371,6 +380,49 @@ def test_tiled_kernels_bit_equal_on_card(case, dtype):
     args5 = (eq, p, ca, U4_r, bounds, P, l4_r, True)
     assert torch.equal(pk_up.pk_up(*args5)[0],
                        pk_up.pk_up_reference(*args5)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ansatz", ["cG Q1", "dG Q1"])
+def test_stacked_pk2_on_ragged_canvas(ansatz, dtype):
+    """The stacked pk2 (U_low, F, bounds at 2, 1 and 0 stages; cG, and dG
+    Q1 with its incidence factor) against its plain twin on the card, on
+    the same inputs, on the K = 8 canvases with partial tiles on x and y
+    of test_stacked_pk3_on_ragged_canvas, within PERF.md §2's bar:
+    relative 1e-5 in f32, 1e-11 in f64, on the real nodes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ryujin_tpu_torch.kernels import pk1, pk2
+    from ryujin_tpu_torch.solver.hyperbolic import (
+        d_from_lambda, tau_max_from_d,
+    )
+
+    dt = getattr(torch, dtype)
+    _, sd, hm, ti, U0 = ragged_case(2, ansatz)(
+        0 if ansatz == "cG Q1" else 3, dt, "cuda")
+    assert sd.shape[-1] % 32 and sd.shape[-2] % 4
+    assert sd.max_degree == 8 and not hm.canvas.stream
+    eq, p, ca = hm.eq, hm.params, hm.canvas.arrays
+    assert (ca.g_inc is not None) == (ansatz == "dG Q1")
+    st = ca.stencil
+    U_a, U, prec = _limited_state(sd, hm, ti, U0, dt)
+    lam, alpha = pk1.pk1_reference(eq, p, ca, U, prec)
+    lam = hm._lambda_fixup(lam, U, prescaled=False)
+    full = st.full()
+    tau = tau_max_from_d(st, d_from_lambda(full, lam, full.cmax), 0.9,
+                         torch.full((), float("inf"), dtype=dt, device="cuda"))
+    stage_U = torch.stack([U_a, U])
+    real = st.node_mask > 0
+    for w in ([0.75, -2.0], [0.25], []):
+        args = (eq, p, ca, U, prec, lam, alpha, stage_U[: len(w)], w, tau)
+        for name, a, b in zip(("U_low", "F", "bounds"), pk2.pk2(*args),
+                              pk2.pk2_reference(*args)):
+            rel = ((a - b).abs()[:, real].max()
+                   / b.abs()[:, real].max()).item()
+            assert rel <= (1e-5 if dt == torch.float32 else 1e-11), (
+                name, len(w), rel)
+            assert bool(torch.isfinite(a).all()), (name, len(w))
 
 
 @pytest.mark.gpu

@@ -1,5 +1,5 @@
-"""The launch shapes of the tiled kernels, pk2_stream, pk3_stream, the
-stacked pk3 and pk_up, on the CPU: each instance's tile fits the card's
+"""The launch shapes of the tiled kernels, pk1_stream, pk2_stream,
+pk3_stream, the stacked pk2 and pk3 and pk_up, on the CPU: each instance's tile fits the card's
 shared memory, stages a halo of the lattice reach, and its grid covers
 every cell of the bench canvases and of the small test canvases, ragged
 edges included; the C side of the launch (the Consts struct, the entry
@@ -12,13 +12,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ryujin_tpu_torch.kernels import (  # noqa: E402
-    build, pk2_stream, pk3, pk3_stream, pk_up,
+    build, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
 )
 from ryujin_tpu_torch.offline.structured import lattice_offsets  # noqa: E402
 
 CSRC = build.CSRC
 DTYPES = (torch.float32, torch.float64)
-# (dim, K) of every pk2_stream, pk3_stream and pk_up instance: 2D reach 1
+# (dim, K) of every pk1_stream, pk2_stream, pk3_stream and pk_up instance:
+# 2D reach 1
 # (the stream kernels on step2d's canvas, dG Q1) and reach 2 (cG / dG Q2),
 # 3D reach 1
 INSTANCES = ((2, 8), (2, 24), (3, 26))
@@ -98,6 +99,49 @@ def test_pk2_stream_tile_fits_and_covers(dim, K, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dim,K", INSTANCES)
+def test_pk1_stream_tile_fits_and_covers(dim, K, dtype):
+    reach = build.reach_of(dim, K)
+    item = torch.empty((), dtype=dtype).element_size()
+    for shape in SHAPES[dim]:
+        t = pk1_stream.tile(shape, K, dtype)
+        bx, ty, tz = t.block
+        assert bx == pk1_stream.TX == 32 and ty >= 1 and tz >= 1
+        assert bx * ty * tz <= 256  # __launch_bounds__(256)
+        assert t.halo == reach
+        assert 0 < t.smem <= build.SMEM_MAX
+        # U and the parts of f(U), a, 1/rho, 1/p, log2 p and eta_j / rho_j
+        # a staged cell; one z in 2D
+        vals = (dim + 2) + (dim + 2) + 4 + 1
+        staged = (bx + 2 * reach) * (ty + 2 * reach) * (
+            tz + 2 * reach if dim == 3 else 1)
+        assert t.smem == vals * staged * item
+        _covers(t, shape, t.block)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pk2_tile_fits_and_covers(dtype):
+    """The stacked pk2 (2D, K = 8): the layout of pk2_stream's tile with
+    the 4 half-slot lambda planes, one thread a cell and the halo of one
+    cell."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for stages in (0, 1, 2):
+        for shape in SHAPES[2]:
+            t = pk2.tile(shape, 8, dtype, stages)
+            bx, ty, tz = t.block
+            assert bx == pk2.TX == 32 and tz == 1 and bx * ty <= 256
+            assert t.halo == 1
+            vals = 4 + 4 + 2 + 4 + stages * 6
+            assert t.smem == vals * (bx + 2) * (ty + 2) * item
+            assert 0 < t.smem <= build.SMEM_MAX
+            _covers(t, shape, (bx, ty))
+    with pytest.raises(ValueError):
+        pk2.tile((165, 496), 24, dtype, 2)
+    with pytest.raises(ValueError):
+        pk2.tile((8, 64, 64), 26, dtype, 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_pk3_tile_fits_and_covers(dtype):
     """The stacked pk3 (2D, K = 8): the layout of pk3_stream's tile with
     one thread a cell and no flags."""
@@ -141,9 +185,9 @@ def test_pk_up_tile_fits_and_covers(dim, K, dtype):
 
 def test_small_test_canvases_are_ragged():
     """The gpu tests' ragged canvases are those of SHAPES and leave partial
-    tiles of pk2_stream, pk3_stream and pk_up on x and y (and of
-    pk2_stream on z in 3D), and of the stacked pk3 on x and y on the
-    K = 8 step and rectangle."""
+    tiles of pk1_stream, pk2_stream, pk3_stream and pk_up on x and y (and
+    of pk1_stream and pk2_stream on z in 3D), and of the stacked pk2 and
+    pk3 on x and y on the K = 8 step and rectangle."""
     from test_torch_gpu import ragged_case
 
     for dim, refinement, ansatz in ((3, 1, None), (2, 0, None),
@@ -154,25 +198,27 @@ def test_small_test_canvases_are_ragged():
         K = sd.max_degree
         assert W % pk3_stream.TX and W % pk_up.TX and H % 4
         for dtype in DTYPES:
-            t2 = pk2_stream.tile(sd.shape, K, dtype, 2)
-            assert W % t2.block[0] and H % t2.block[1]
-            if dim == 3:
-                assert D % t2.block[2]
+            for t2 in (pk2_stream.tile(sd.shape, K, dtype, 2),
+                       pk1_stream.tile(sd.shape, K, dtype)):
+                assert W % t2.block[0] and H % t2.block[1]
+                if dim == 3:
+                    assert D % t2.block[2]
         if ansatz is None:
             t = pk3_stream.tile(sd.shape, K, torch.float32, 2)
             assert H % t.block[1]
         else:
             assert K == 8
-            t = pk3.tile(sd.shape, K, torch.float32, 2)
-            assert W % t.block[0] and H % t.block[1]
+            for t in (pk3.tile(sd.shape, K, torch.float32, 2),
+                      pk2.tile(sd.shape, K, torch.float32, 2)):
+                assert W % t.block[0] and H % t.block[1]
 
 
 def test_launch_struct_mirrors_the_c_side():
     """build.Consts lists the fields of `struct Consts` (csrc/euler.cuh) in
-    their order, the tile's among them; the launchers of pk2_stream,
-    pk3_stream and the stacked pk3 take the shared bytes of the wrappers'
-    formulas (staged.cuh holds the layout they share); the entry points
-    take the pointers ENTRY_POINTS counts."""
+    their order, the tile's among them; the launchers of pk1_stream,
+    pk2_stream, pk3_stream and the stacked pk2 and pk3 take the shared
+    bytes of the wrappers' formulas (staged.cuh holds the layouts they
+    share); the entry points take the pointers ENTRY_POINTS counts."""
     src = (CSRC / "euler.cuh").read_text()
     body = re.search(r"struct Consts \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
@@ -183,15 +229,22 @@ def test_launch_struct_mirrors_the_c_side():
     assert "return u_vals(dim) + stages * stage_vals(dim) + dim + 4;" in staged
     assert "constexpr int u_vals(int dim) { return 2 * dim + 4; }" in staged
     assert "constexpr int stage_vals(int dim) { return 2 * dim + 2; }" in staged
+    assert "return u_vals(dim) + 2 + stages * stage_vals(dim);" in staged
+    assert "constexpr int pk1_vals(int dim) { return u_vals(dim) + 5; }" in staged
     k3 = (CSRC / "pk3_stream.cu").read_text()
     assert "pk3_vals(dim, stages) * ns * int64_t(sizeof(T)) + int64_t(ty) * TILE_TX * 4" in k3
     k2 = (CSRC / "pk2_stream.cu").read_text()
-    assert "return u_vals(dim) + 2 + stages * stage_vals(dim);" in k2
     assert "return pk2_vals(dim, stages) * ns * int64_t(sizeof(T));" in k2
     assert "int64_t(TILE_TX + 2 * h) * (ty + 2 * h) * (dim == 3 ? tz + 2 * h : 1)" in k2
     stacked = (CSRC / "pk3.cu").read_text()
     assert ("return pk3_vals(2, stages) * int64_t(TILE_TX + 2) * (ty + 2) * "
             "int64_t(sizeof(T));") in stacked
+    stacked2 = (CSRC / "pk2.cu").read_text()
+    assert ("return (pk2_vals(2, stages) + K2) * int64_t(TILE_TX + 2) * "
+            "(ty + 2) * int64_t(sizeof(T));") in stacked2
+    k1 = (CSRC / "pk1_stream.cu").read_text()
+    assert "return pk1_vals(dim) * ns * int64_t(sizeof(T));" in k1
+    assert "int64_t(TILE_TX + 2 * h) * (ty + 2 * h) * (dim == 3 ? tz + 2 * h : 1)" in k1
     up = (CSRC / "pk_up.cu").read_text()
     assert "constexpr int UP_TX = 32;" in up
     for stem, n_ptr in build.ENTRY_POINTS.items():
@@ -208,11 +261,14 @@ def test_tile_refuses_an_unknown_lattice():
         pk3_stream.tile((8, 64, 64), 25, torch.float32, 2)
     with pytest.raises(ValueError):
         pk2_stream.tile((8, 64, 64), 25, torch.float32, 2)
+    with pytest.raises(ValueError):
+        pk1_stream.tile((8, 64, 64), 25, torch.float32)
 
 
 def test_kernel_times_reports_the_staged_instances():
-    """kernel_times reads the registers and stack of every pk2_stream (the
-    staged tile and the one-thread-a-cell SEP form), stacked pk3,
+    """kernel_times reads the registers and stack of every pk1_stream (the
+    staged tile and the one-thread-a-cell SEP form), pk2_stream (the
+    staged tile and the one-thread-a-cell SEP form), stacked pk2 and pk3,
     pk3_stream and pk_up instance from nvcc's -Xptxas -v report, and its
     digests tell two outputs apart by a single bit."""
     from ryujin_tpu_torch import kernel_times
@@ -227,6 +283,11 @@ def test_kernel_times_reports_the_staged_instances():
         "_ZN6ryujin10pk3_kernelIfLb1EEEvPKT_S3_": "pk3<f32, dG>",
         "_ZN6ryujin17pk_up_tile_kernelIfLi3ELi26ENS_11FullStaticsIfEEEEvPKT_":
             "pk_up_tile<f32, 3D, K=26, Full>",
+        "_ZN6ryujin10pk2_kernelIdLb0EEEvPKT_S3_S3_S3_": "pk2<f64, cG>",
+        "_ZN6ryujin22pk1_stream_tile_kernelIfLi3ELb0EEEvPKT_S3_":
+            "pk1_stream_tile<f32, 3D, two-direction, Full>",
+        "_ZN6ryujin17pk1_stream_kernelIdLi3ELb1ENS_10SepStaticsIdEEEEvPKT_":
+            "pk1_stream<f64, 3D, half-slot, Sep>",
     }
     log = "".join(
         f"ptxas info    : Function properties for {name}\n"
@@ -242,7 +303,8 @@ def test_kernel_times_reports_the_staged_instances():
     for i, label in enumerate(names.values()):
         assert res[label]["regs"] == 100 + i and res[label]["stack"] == 8 * i
     assert ("pk3", 2) in seen and ("pk2_stream", 3) in seen
-    assert ("pk2_stream_tile", 2) in seen
+    assert ("pk2_stream_tile", 2) in seen and ("pk2", 2) in seen
+    assert ("pk1_stream_tile", 3) in seen and ("pk1_stream", 3) in seen
     a = torch.arange(12, dtype=torch.float32)
     b = a.clone()
     b.view(torch.int32)[5] ^= 1
