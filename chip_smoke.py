@@ -26,7 +26,9 @@ any failure exits non-zero):
    on the card, on identical inputs (after a few plain ERK33 steps so the
    bow shock has formed), error beside tolerance, each kernel's time
    beside its reference's and its bound; the stream kernels on the same
-   K = 8 canvas beside pk1-pk3; the same comparison in f64; and three
+   K = 8 canvas beside pk1-pk3, and pk1 bit for bit against pk1_stream
+   there (alpha equal, lambda cmax equal to e); the same comparison in
+   f64; and three
    ERK33 steps through the kernels against the plain path on the CPU at
    refinement 0 in f64;
 3. the step2d slice (1,034,753 real nodes, CFL 0.9, recovery "none")
@@ -98,7 +100,8 @@ any failure exits non-zero):
    and sqrt within 4 ulp pointwise and 1e-6 relative on the sums)
    and times it with CUDA events (a warm launch, then 20, or the script's
    count, each after an L2 flush where its bytes fit in the 50 MB L2),
-   with its plain version, its PyTorch call where one exists, and its
+   with its plain version, its PyTorch call where one exists (then both
+   also chained: 100 calls in one CUDA graph), and its
    bound (for the pows, the fewest FMA-pipe and MUFU instructions that any
    evaluation executes, from the SASS).
 
@@ -106,7 +109,8 @@ pk_up's two launches a substep, PK4 and PK5 (`last`), are timed, bounded
 and counted apart.  The stream PK1's e, the stream PK2's U_low, F and
 bounds, the stream PK3's P, l and okp and pk_up's U and l' must be
 bit-equal to their plain twins (l and l' in f64 where torch's limiter
-rounds as the kernels do), beside the tolerances above.
+rounds as the kernels do), and pk1's alpha and lambda cmax to
+pk1_stream's alpha and e on step2d's canvas, beside the tolerances above.
 
 The lines before the last are the kernels' JSON record and the card's
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -538,6 +542,27 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
         print(f"  {name:12s} kernel {ms:.4f} ms   plain {plain:.4f} ms   "
               f"bound {least:.4f} ms ({by}; {stored:.4f} ms with the mask "
               f"as stored)   {100 * least / ms:.1f} % of bound", flush=True)
+    return ok
+
+
+def pk1_against_stream(hm, U_b):
+    """pk1 against pk1_stream on the K = 8 canvas of `hm`, the prepared
+    state of U_b: alpha bit-equal, and lambda times the half-slot cmax
+    (one IEEE multiply, as pk1_stream forms e) bit-equal to e."""
+    from ryujin_tpu_torch.kernels import pk1, pk1_stream
+
+    eq, p, ca = hm.eq, hm.params, hm.canvas.arrays
+    U, prec = hm.prepare_state_vector(U_b, 0.0)
+    lam, alpha = pk1.pk1(eq, p, ca, U, prec)
+    e, alpha_s = pk1_stream.pk1_stream(eq, p, ca, U, prec, half=hm.half)
+    cmax = ca.g_cmax[: ca.K // 2].reshape(ca.K // 2, -1)
+    ok = True
+    for name, a, b in (("alpha", alpha, alpha_s), ("lambda cmax", lam * cmax, e)):
+        good = torch.equal(a, b)
+        ok &= good
+        print(f"  pk1 {name} == pk1_stream {'alpha' if name == 'alpha' else 'e'}"
+              f" {a.dtype}: max diff {(a - b).abs().max().item():.3e}  "
+              f"{'ok' if good else 'FAIL'}  (bit-equal required)", flush=True)
     return ok
 
 
@@ -1102,6 +1127,7 @@ def main():
     records_k8 = {}
     ok &= compare_kernels(hm, U_a, U_b, TOL_F32, REPS, records_k8,
                           stream=True)
+    ok &= pk1_against_stream(hm, U_b)
 
     print("phase 2b: step2d kernels in f64", flush=True)
     hm64 = HyperbolicModule(eq, sd, hm.initial_state_fn,
@@ -1337,8 +1363,9 @@ def main():
             "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
-            **{k: rec[k] for k in ("bound_ms_mask_as_stored", "bar")
-               if k in rec},
+            **{k: rec[k] for k in ("bound_ms_mask_as_stored", "bar", "chain",
+                                   "chain_ms", "library_chain_ms")
+               if rec.get(k) is not None},
         }
         for name, rec in records.items()
     ]}), flush=True)

@@ -51,8 +51,8 @@ struct Consts {
   int dim, half;  // space dimension; 1: half-slot pre-scaled e, 0: two-direction e
   int K, dz[MAX_K], dy[MAX_K], dx[MAX_K];  // lattice offsets of the canvas
   // launch shape of the tiled kernels (pk1_stream, pk2_stream, pk3_stream,
-  // pk2, pk3, pk_up), from the wrapper's tile(): block, grid, shared bytes,
-  // halo
+  // pk1, pk2, pk3, pk_up), from the wrapper's tile(): block, grid, shared
+  // bytes, halo
   int block[3], grid[3], smem, halo;
 };
 

@@ -5,65 +5,118 @@
 // hyperbolic.phase_e_alpha(half=True) per 8-row tile.
 //
 // Bound on an H100: memory traffic.  Per cell it reads c_ij (16 planes),
-// the mask (8), the node plane, U (4) and prec (2) at the cell and the 8
-// neighbours, and writes lambda (4) and alpha (1); the arithmetic (4
-// Riemann solves, 8 flux tensors, one pow per node) is small next to the
-// ~30 plane reads.  Neighbour reads of U/prec hit L1/L2 because the rows
-// y-1, y, y+1 of a block are read by three neighbouring blocks.
+// the mask (8), the node plane, U (4) and prec (1: eta) and writes lambda
+// (4) and alpha (1); the arithmetic (4 Riemann solves, 8 flux
+// divergences, one pow per node) is small next to the ~30 plane reads.
 //
-// Design: one thread per canvas cell, 128 threads along x, so each plane
-// read is one coalesced row segment.  Slots whose edge is masked are
-// skipped (their lambda is written as 0); alpha is written as 0 where the
-// node is not real.  The derived edge mask of the TPU kernel (a bandwidth
-// trick, pallas_step.py:1543-1558) is not carried over: the exact mask is
-// read.
-#include "euler.cuh"
+// Design: a block (32, TY) owns a tile of TY rows of TILE_TX = 32 cells,
+// one thread a cell, and first stages (staged.cuh, stage_pk1), for the
+// tile and its halo of one cell, what a slot reads at its neighbour j:
+// U and the parts of f(U) (v = m (1/rho), p, E + p), the rest of
+// riemann_precompute(U_j) (a, 1/rho, 1/p, log2 p) and eta_j / rho_j, 13
+// values a cell, pk1_stream's 2D layout, each formed by the operations
+// that formed it in every slot before (the precompute's p and 1/rho are
+// the flux's, eta_j / rho_j stays a division).  So a staged cell costs
+// one flux, one quotient and one precompute, where the one-thread-a-cell
+// form made 8 fluxes, 8 quotients and 4 precomputes a cell and gathered
+// U_j and prec in every slot from device memory.  The slot loop reads
+// its neighbour and its own cell from shared memory, and from device
+// memory only the statics of the slot (c_ij, the mask), all at once and
+// the next slot's while this one computes; lambda is written one plane a
+// half slot, coalesced along x.  What stays per slot is what depends on
+// i: the normalisation c / nn, lambda_max itself and the indicator's
+// products.  Each slot keeps this kernel's own arithmetic and order,
+// which differs from pk1_stream's tile only in lambda: raw on the K / 2
+// = 4 half slots (no cmax), with (c0 / nn, c1 / nn) passed to the 2D
+// lambda_max.  Masked slots write lambda = 0 and add nothing; alpha is 0
+// where the node is not real; left and right sum over k = 0 .. 7 in
+// order, right as (fj0 - fi0) c0 + (fj1 - fi1) c1; so lambda and alpha
+// keep the bits of the one-thread-a-cell form.  The exact mask is read,
+// not the TPU kernel's derived one (a bandwidth trick,
+// pallas_step.py:1543-1558).  The tile, its halo and the shared bytes
+// come from kernels/pk1.py tile(); the launcher refuses a tile whose
+// halo is not the lattice's one cell, whose grid misses the canvas or
+// whose bytes are not this layout's.
+//
+// Forms tried on step2d's canvas (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+// §6, tile_sweep): this one, the slot loop rolled (f32 62 registers, 0 B
+// of stack), 0.1446 ms over two calls; the loop unrolled, all 8 slots'
+// statics issued ahead, 0.1427 but spilling 8 B at 64 registers in f32;
+// unrolled for the indicator with the 4 Riemann solves in a loop of their
+// own, 0.1483; the earlier one-thread-a-cell form, 0.1596-0.1671.  Tiles
+// of TY 1 / 2 / 4 / 8 rows: 0.1729 / 0.1529 / 0.1458 / 0.1493.
+#include "staged.cuh"
 
 namespace ryujin {
 
 template <typename T>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(256)
 pk1_kernel(const T* __restrict__ cij, const T* __restrict__ mask, const T* __restrict__ node,
            const T* __restrict__ U, const T* __restrict__ prec, T* __restrict__ lam,
-           T* __restrict__ alpha, const EqConsts<T> e) {
-  Cell c;
-  if (!this_cell(e.H, e.W, c)) return;
-  const int64_t i = c.i, n = c.n;
+           T* __restrict__ alpha, const __grid_constant__ EqConsts<T> e) {
+  constexpr int DIM = 2, QV = u_vals(DIM) + 4;  // eta_j / rho_j of a staged cell
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
 
-  T ui[C];
-  load_state(U, i, n, ui);
-  T pa_i[5];
-  riemann_precompute(e, ui, pa_i);
+  const int TY = blockDim.y;
+  const int SX = TILE_TX + 2, SY = TY + 2, ns = SX * SY;
+  const int lane = threadIdx.x, ty = threadIdx.y;
+  const int x0 = blockIdx.x * TILE_TX, y0 = blockIdx.y * TY;
+  const int64_t n = int64_t(e.H) * e.W;
 
-  // indicator_alpha, node-local part
-  const T eta_i = prec[n + i];
-  const T rho_i_inv = T(1) / ui[0];
-  T d_eta[C];
-  {
-    const T rho_rho_e = ui[0] * ui[3] - T(0.5) * (ui[1] * ui[1] + ui[2] * ui[2]);
-    const T factor = e.inv_gp1 * pow(rho_rho_e, e.harten_deriv_exp);
-    d_eta[0] = factor * ui[3] - eta_i * rho_i_inv;
-    d_eta[1] = -factor * ui[1];
-    d_eta[2] = -factor * ui[2];
-    d_eta[3] = factor * ui[0];
+  // ---- stage the tile and its halo -----------------------------------------
+  for (int s = lane + TILE_TX * ty; s < ns; s += TILE_TX * TY) {  // s: a staged cell
+    const int64_t gi = staged_cell<DIM>(e, x0, y0, 0, 1, SX, SY, s);
+    stage_pk1<T, DIM>(e, U, prec, gi, n, sm, ns, s);
   }
-  T fi[C][2];
-  flux(e, ui, fi);
+  __syncthreads();
+
+  // ---- the slots of this thread's cell -------------------------------------
+  const int x = x0 + lane, y = y0 + ty;
+  if (x >= e.W || y >= e.H) return;
+  const int64_t i = int64_t(y) * e.W + x;
+  const int si = (1 + ty) * SX + 1 + lane;
+
+  T ui[C], pa_i[5];
+  staged_u(sm, ns, si, ui);
+  staged_pa<DIM>(sm, ns, si, pa_i);
+  const T eta_i = prec[n + i];
+  const T rho_i_inv = pa_i[2];
+  T fi[C][DIM];
+  {
+    const T mi[DIM] = {ui[1], ui[2]};
+    staged_flux(sm, ns, C, si, mi, fi);
+  }
   T left = T(0), right[C] = {T(0), T(0), T(0), T(0)};
 
-#pragma unroll
+  // a slot's reads of device memory, issued together, the next slot's
+  // while this one computes (a masked slot reads them too, unused)
+  struct Slot {
+    T mk, c0, c1;
+  };
+  auto fetch = [&](int k, Slot& sl) {
+    sl.mk = mask[k * n + i];
+    sl.c0 = cij[k * n + i];
+    sl.c1 = cij[(K + k) * n + i];
+  };
+  Slot cur;
+  fetch(0, cur);
+#pragma unroll 1
   for (int k = 0; k < K; ++k) {
+    Slot nxt;
+    if (k + 1 < K) fetch(k + 1, nxt);
+    const T mk = cur.mk, c0 = cur.c0, c1 = cur.c1;
     T lam_k = T(0);
-    if (mask[k * n + i] > T(0)) {
-      const int64_t j = nbr(c, k, e.H, e.W);
+    if (mk > T(0)) {
+      const int sj = si + DY(k) * SX + DX(k);
       T uj[C];
-      load_state(U, j, n, uj);
-      const T c0 = cij[k * n + i], c1 = cij[(K + k) * n + i];
-
-      const T eta_j = prec[n + j];
-      left += (eta_j / uj[0] - eta_i * rho_i_inv) * (uj[1] * c0 + uj[2] * c1);
-      T fj[C][2];
-      flux(e, uj, fj);
+      staged_u(sm, ns, sj, uj);
+      left += (sm[QV * ns + sj] - eta_i * rho_i_inv) * (uj[1] * c0 + uj[2] * c1);
+      T fj[C][DIM];
+      {
+        const T mj[DIM] = {uj[1], uj[2]};
+        staged_flux(sm, ns, C, sj, mj, fj);
+      }
 #pragma unroll
       for (int q = 0; q < C; ++q)
         right[q] += (fj[q][0] - fi[q][0]) * c0 + (fj[q][1] - fi[q][1]) * c1;
@@ -72,34 +125,47 @@ pk1_kernel(const T* __restrict__ cij, const T* __restrict__ mask, const T* __res
         const T norm = sqrt(c0 * c0 + c1 * c1);
         const T nn = mx(norm, e.tiny);
         T pa_j[5];
-        riemann_precompute(e, uj, pa_j);
+        staged_pa<DIM>(sm, ns, sj, pa_j);
         lam_k = lambda_max(e, ui, pa_i, uj, pa_j, c0 / nn, c1 / nn);
       }
     }
     if (k < K2) lam[k * n + i] = lam_k;
+    if (k + 1 < K) cur = nxt;
   }
+  alpha[i] = pk1_alpha(e, node, i, n, ui, eta_i, rho_i_inv, left, right);
+}
 
-  T a = T(0);
-  if (node[3 * n + i] > T(0)) {
-    T dot = T(0), dot_abs = T(0);
-#pragma unroll
-    for (int q = 0; q < C; ++q) {
-      dot += d_eta[q] * right[q];
-      dot_abs += fabs(d_eta[q] * right[q]);
-    }
-    const T hd_i = node[i] * e.measure_inv;
-    const T quotient = fabs(left - dot) / (fabs(left) + dot_abs + hd_i * fabs(eta_i));
-    a = mn(T(1), e.evc_factor * quotient);
-  }
-  alpha[i] = a;
+// Shared bytes of the tile (ty rows, halo 1): pk1_vals values a staged
+// cell.
+template <typename T>
+int64_t pk1_smem(int ty) {
+  return pk1_vals(2) * int64_t(TILE_TX + 2) * (ty + 2) * int64_t(sizeof(T));
+}
+
+// The wrapper's tile (kernels/pk1.py tile()) must fit this layout: 32
+// lanes, one z, at most 256 threads, the halo of the reach-1 lattice, a
+// grid that covers the canvas, and the bytes pk1_smem gives.
+template <typename T>
+bool pk1_tile_ok(const Consts* c) {
+  const int ty = c->block[1];
+  return c->block[0] == TILE_TX && ty >= 1 && c->block[2] == 1 && TILE_TX * ty <= 256 &&
+         c->halo == 1 && int64_t(c->grid[0]) * TILE_TX >= c->W &&
+         int64_t(c->grid[1]) * ty >= c->H && c->grid[2] == 1 && c->smem == pk1_smem<T>(ty);
 }
 
 template <typename T>
 int launch_pk1(const T* cij, const T* mask, const T* node, const T* U, const T* prec, T* lam,
                T* alpha, const Consts* consts, cudaStream_t stream) {
+  if (consts->dim != 2 || consts->K != K || !pk1_tile_ok<T>(consts))
+    return int(cudaErrorInvalidValue);
   const EqConsts<T> e = EqConsts<T>::make(*consts);
-  pk1_kernel<T><<<canvas_grid(e.H, e.W), canvas_block(), 0, stream>>>(cij, mask, node, U, prec,
-                                                                        lam, alpha, e);
+  auto kernel = pk1_kernel<T>;
+  const int smem = consts->smem;
+  const int rc = allow_smem(kernel, smem);
+  if (rc != int(cudaSuccess)) return rc;
+  const dim3 grid(consts->grid[0], consts->grid[1], consts->grid[2]);
+  const dim3 block(consts->block[0], consts->block[1], consts->block[2]);
+  kernel<<<grid, block, smem, stream>>>(cij, mask, node, U, prec, lam, alpha, e);
   return int(cudaGetLastError());
 }
 

@@ -173,9 +173,7 @@ pk1_stream_tile_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
                        T* __restrict__ e_out, T* __restrict__ alpha,
                        const __grid_constant__ EqConsts<T> e, const int h) {
   constexpr int NC = DIM + 2;
-  // values of a staged cell: U, v, p and E + p as stage_state lays them
-  // out (p at PV), then a, 1/rho, 1/p and log2 p (at AV) and eta_j / rho_j
-  constexpr int PV = NC + DIM, AV = u_vals(DIM), QV = AV + 4;
+  constexpr int QV = u_vals(DIM) + 4;  // eta_j / rho_j of a staged cell (stage_pk1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
 
@@ -191,19 +189,7 @@ pk1_stream_tile_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
   // ---- stage the tile and its halo -----------------------------------------
   for (int s = tid; s < ns; s += TILE_TX * TY * TZ) {  // s: a staged cell
     const int64_t gi = staged_cell<DIM>(e, x0, y0, z0, h, SX, SY, s);
-    T u[NC], v[DIM], p, Ep, pa[5];
-    load_state(U, gi, n, u);
-    flux_parts(e, u, v, p, Ep);
-    riemann_precompute(e, u, pa);
-#pragma unroll
-    for (int q = 0; q < NC; ++q) sm[q * ns + s] = u[q];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) sm[(NC + d) * ns + s] = v[d];
-    sm[PV * ns + s] = p;
-    sm[(PV + 1) * ns + s] = Ep;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) sm[(AV + r) * ns + s] = pa[1 + r];
-    sm[QV * ns + s] = prec[n + gi] / u[0];
+    stage_pk1<T, DIM>(e, U, prec, gi, n, sm, ns, s);
   }
   __syncthreads();
 
@@ -219,16 +205,7 @@ pk1_stream_tile_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
   const int64_t i = c.i;
   const int si = ((DIM == 3 ? h + tz : 0) * SY + h + ty) * SX + h + lane;
 
-  // the staged values of cell s: U, the Riemann precompute, the flux
-  auto staged_u = [&](int s, T(&u)[NC]) {
-#pragma unroll
-    for (int q = 0; q < NC; ++q) u[q] = sm[q * ns + s];
-  };
-  auto staged_pa = [&](int s, T(&pa)[5]) {
-    pa[0] = sm[PV * ns + s];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) pa[1 + r] = sm[(AV + r) * ns + s];
-  };
+  // the flux of staged cell s
   auto staged_f = [&](int s, const T(&u)[NC], T(&f)[NC][DIM]) {
     T m[DIM];
 #pragma unroll
@@ -237,8 +214,8 @@ pk1_stream_tile_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
   };
 
   T ui[NC], pa_i[5];
-  staged_u(si, ui);
-  staged_pa(si, pa_i);
+  staged_u(sm, ns, si, ui);
+  staged_pa<DIM>(sm, ns, si, pa_i);
 
   // indicator_init (d_eta after the slots: it holds no register through them)
   const T eta_i = prec[n + i];
@@ -270,7 +247,7 @@ pk1_stream_tile_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
     if (cur.mk > T(0)) {
       const int sj = si + ((DIM == 3 ? e.dz[k] : 0) * SY + e.dy[k]) * SX + e.dx[k];
       T uj[NC];
-      staged_u(sj, uj);
+      staged_u(sm, ns, sj, uj);
 
       if (k < K_e) {
         const T norm = sqrt(vdot(cur.cv, cur.cv));
@@ -279,7 +256,7 @@ pk1_stream_tile_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
 #pragma unroll
         for (int d = 0; d < DIM; ++d) nv[d] = cur.cv[d] / nn;
         T pa_j[5];
-        staged_pa(sj, pa_j);
+        staged_pa<DIM>(sm, ns, sj, pa_j);
         const T lam = lambda_max(e, ui, pa_i, uj, pa_j, nv);
         e_k = HALF ? lam * cur.cmax : norm * lam;
       }
@@ -299,28 +276,7 @@ pk1_stream_tile_kernel(const T* __restrict__ cij, const T* __restrict__ cmax,
     if (k < K_e) e_out[k * n + i] = e_k;
     if (k + 1 < K) cur = nxt;
   }
-
-  // indicator_finalize
-  T a = T(0);
-  if (node[3 * n + i] > T(0)) {
-    T d_eta[NC];
-    const T rho_rho_e = ui[0] * ui[NC - 1] - T(0.5) * mdot(ui, ui);
-    const T factor = e.inv_gp1 * pow(rho_rho_e, e.harten_deriv_exp);
-    d_eta[0] = factor * ui[NC - 1] - eta_i * rho_i_inv;
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) d_eta[1 + d] = -factor * ui[1 + d];
-    d_eta[NC - 1] = factor * ui[0];
-    T dot = T(0), dot_abs = T(0);
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      dot += d_eta[q] * right[q];
-      dot_abs += fabs(d_eta[q] * right[q]);
-    }
-    const T hd_i = node[i] * e.measure_inv;
-    const T quotient = fabs(left - dot) / (fabs(left) + dot_abs + hd_i * fabs(eta_i));
-    a = mn(T(1), e.evc_factor * quotient);
-  }
-  alpha[i] = a;
+  alpha[i] = pk1_alpha(e, node, i, n, ui, eta_i, rho_i_inv, left, right);
 }
 
 // Shared bytes of the tile (ty rows at tz z, halo h).

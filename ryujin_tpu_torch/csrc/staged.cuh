@@ -1,6 +1,6 @@
 // Staged tiles, shared by the kernels that read a neighbour's state and
 // flux in every slot (pk1_stream, pk2_stream, pk3_stream and the stacked
-// pk2 and pk3).
+// pk1, pk2 and pk3).
 //
 // A block owns a tile of cells, TILE_TX along x and a few rows along y (in
 // 3D at one or a few z), and first stages, for the tile and its halo of
@@ -39,8 +39,9 @@ __host__ __device__ constexpr int pk3_vals(int dim, int stages) {
 __host__ __device__ constexpr int pk2_vals(int dim, int stages) {
   return u_vals(dim) + 2 + stages * stage_vals(dim);
 }
-// PK1 (pk1_stream): U and the parts of f(U), the rest of the Riemann
-// precompute (a, 1/rho, 1/p, log2 p; its p is the flux's) and eta_j / rho_j
+// PK1 (pk1_stream and the stacked pk1): U and the parts of f(U), the rest
+// of the Riemann precompute (a, 1/rho, 1/p, log2 p; its p is the flux's)
+// and eta_j / rho_j
 __host__ __device__ constexpr int pk1_vals(int dim) { return u_vals(dim) + 5; }
 
 // The parts of the flux of u as flux() forms them: v = m (1/rho), p and
@@ -136,6 +137,76 @@ __device__ __forceinline__ void stage_stage(const EqConsts<T>& e, const T* __res
   }
   sm[(at + 2 * DIM) * ns + s] = p;
   sm[(at + 2 * DIM + 1) * ns + s] = Ep;
+}
+
+// Stage PK1's values of canvas cell gi as staged cell s: U, v, p and E + p
+// as stage_state lays them out (p at value NC + DIM), then a, 1/rho, 1/p
+// and log2 p at u_vals (the precompute's p and 1/rho are the flux's, the
+// same expressions of the same operands) and eta_j / rho_j, the one IEEE
+// division of the indicator, at u_vals + 4.
+template <typename T, int DIM>
+__device__ __forceinline__ void stage_pk1(const EqConsts<T>& e, const T* __restrict__ U,
+                                          const T* __restrict__ prec, int64_t gi, int64_t n,
+                                          T* sm, int ns, int s) {
+  constexpr int NC = DIM + 2, PV = NC + DIM, AV = u_vals(DIM), QV = AV + 4;
+  T u[NC], v[DIM], p, Ep, pa[5];
+  load_state(U, gi, n, u);
+  flux_parts(e, u, v, p, Ep);
+  riemann_precompute(e, u, pa);
+#pragma unroll
+  for (int q = 0; q < NC; ++q) sm[q * ns + s] = u[q];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) sm[(NC + d) * ns + s] = v[d];
+  sm[PV * ns + s] = p;
+  sm[(PV + 1) * ns + s] = Ep;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) sm[(AV + r) * ns + s] = pa[1 + r];
+  sm[QV * ns + s] = prec[n + gi] / u[0];
+}
+
+// U of staged cell s, and its Riemann precompute (p, a, 1/rho, 1/p,
+// log2 p) as stage_pk1 stages it.
+template <typename T, int NC>
+__device__ __forceinline__ void staged_u(const T* sm, int ns, int s, T (&u)[NC]) {
+#pragma unroll
+  for (int q = 0; q < NC; ++q) u[q] = sm[q * ns + s];
+}
+
+template <int DIM, typename T>
+__device__ __forceinline__ void staged_pa(const T* sm, int ns, int s, T (&pa)[5]) {
+  pa[0] = sm[(2 * DIM + 2) * ns + s];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) pa[1 + r] = sm[(u_vals(DIM) + r) * ns + s];
+}
+
+// The indicator alpha of a cell from its sums over the slots, 0 where the
+// node is not real (indicator_finalize; d_eta formed here, so that it
+// holds no register through the slots).
+template <typename T, int NC>
+__device__ __forceinline__ T pk1_alpha(const EqConsts<T>& e, const T* __restrict__ node,
+                                       int64_t i, int64_t n, const T (&ui)[NC], T eta_i,
+                                       T rho_i_inv, T left, const T (&right)[NC]) {
+  constexpr int DIM = NC - 2;
+  T a = T(0);
+  if (node[3 * n + i] > T(0)) {
+    T d_eta[NC];
+    const T rho_rho_e = ui[0] * ui[NC - 1] - T(0.5) * mdot(ui, ui);
+    const T factor = e.inv_gp1 * pow(rho_rho_e, e.harten_deriv_exp);
+    d_eta[0] = factor * ui[NC - 1] - eta_i * rho_i_inv;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) d_eta[1 + d] = -factor * ui[1 + d];
+    d_eta[NC - 1] = factor * ui[0];
+    T dot = T(0), dot_abs = T(0);
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      dot += d_eta[q] * right[q];
+      dot_abs += fabs(d_eta[q] * right[q]);
+    }
+    const T hd_i = node[i] * e.measure_inv;
+    const T quotient = fabs(left - dot) / (fabs(left) + dot_abs + hd_i * fabs(eta_i));
+    a = mn(T(1), e.evc_factor * quotient);
+  }
+  return a;
 }
 
 // The reach of the launch's lattice: the largest |offset| on any axis.

@@ -15,8 +15,8 @@ instances on the same state); without one, step2d and q2step2d.  Prints
 one JSON line {"card", "ms": {kernel: ms}, "resources": {instance:
 {regs, stack, threads, smem, warps}}, "digests": {kernel: {"in", "out"}}}:
 the registers and stack bytes of every pk1_stream (pk1_stream_tile),
-pk2_stream (pk2_stream_tile), pk3_stream, pk_up and stacked pk2 and pk3
-instance from nvcc's -Xptxas -v report of the build, the block and the
+pk2_stream (pk2_stream_tile), pk3_stream, pk_up and stacked pk1, pk2 and
+pk3 instance from nvcc's -Xptxas -v report of the build, the block and the
 shared bytes of its launch (at two stages), and the warps an
 SM holds at once by the occupancy rules of the H100 (65,536 registers in
 256-register steps a warp, 228 KB of shared memory less 1 KB a block, 64
@@ -58,7 +58,8 @@ _UP = re.compile(
     r"_ZN6ryujin\d+(pk_up|pk_up_tile|pk_up_last)_kernelI([fd])Li(\d)ELi(\d+)E"
     r"NS_\d+(Full|Sep)Statics"
 )
-_STACKED = re.compile(r"_ZN6ryujin\d+(pk2|pk3)_kernelI([fd])Lb(\d)E")
+# the stacked kernels: pk2 and pk3 with their dG flag, pk1 without one
+_STACKED = re.compile(r"_ZN6ryujin\d+(pk1|pk2|pk3)_kernelI([fd])(?:Lb(\d)E)?E")
 _TILE = re.compile(
     r"_ZN6ryujin\d+(pk2_stream_tile)_kernelI([fd])Li(\d)ELb(\d)ELb(\d)EEEv")
 # pk1_stream has no dG flag; its staged tile (full statics only) no
@@ -92,7 +93,8 @@ def _label(name):
     elif _STACKED.match(name):
         kern, t, dg = _STACKED.match(name).groups()
         dim = "2"
-        label = f"{kern}<{'f32' if t == 'f' else 'f64'}, {'dG' if dg == '1' else 'cG'}>"
+        label = (f"{kern}<{'f32' if t == 'f' else 'f64'}"
+                 f"{'' if dg is None else ', dG' if dg == '1' else ', cG'}>")
     else:
         return None
     return label, kern, int(dim), torch.float32 if t == "f" else torch.float64
@@ -102,7 +104,7 @@ def resources(log: str, tiles):
     """{instance: {regs, stack, threads, smem, warps}} of every pk1_stream
     (pk1_stream, pk1_stream_tile), pk2_stream (pk2_stream,
     pk2_stream_tile), pk3_stream, pk_up (pk_up, pk_up_tile, pk_up_last)
-    and stacked pk2 and pk3 instance in a -Xptxas -v report;
+    and stacked pk1, pk2 and pk3 instance in a -Xptxas -v report;
     tiles(kernel, dim, dtype) gives the instance's (threads a block, shared
     bytes)."""
     out, name = {}, None
@@ -195,9 +197,10 @@ def resident_warps(regs: int, threads: int, smem: int) -> int:
 
 def launch_shape(kern, dim, dtype):
     """(threads a block, shared bytes) of kernel `kern`'s launch on the
-    main path at two stages: K = 24 in 2D (the stacked pk2 and pk3: 8), 26
-    in 3D; a kernel without a tile() beside its wrapper launches 128
+    main path at two stages: K = 24 in 2D (the stacked pk1, pk2 and pk3:
+    8), 26 in 3D; a kernel without a tile() beside its wrapper launches 128
     threads a block without shared memory."""
+    from .kernels import pk1 as k1
     from .kernels import pk1_stream as k1s
     from .kernels import pk2 as k2
     from .kernels import pk2_stream as k2s
@@ -205,14 +208,15 @@ def launch_shape(kern, dim, dtype):
     from .kernels import pk3_stream as k3s
     from .kernels import pk_up as ku
 
-    K = 8 if kern in ("pk2", "pk3") else (24 if dim == 2 else 26)
+    K = 8 if kern in ("pk1", "pk2", "pk3") else (24 if dim == 2 else 26)
     shape = (64, 64) if dim == 2 else (8, 64, 64)
     mod = {"pk2": k2, "pk2_stream_tile": k2s, "pk3": k3,
            "pk3_stream": k3s}.get(kern)
     if mod is not None and hasattr(mod, "tile"):
         t = mod.tile(shape, K, dtype, 2)
-    elif kern in ("pk_up_tile", "pk1_stream_tile"):
-        t = {"pk_up_tile": ku, "pk1_stream_tile": k1s}[kern].tile(
+    elif kern in ("pk_up_tile", "pk1_stream_tile") or (
+            kern == "pk1" and hasattr(k1, "tile")):
+        t = {"pk_up_tile": ku, "pk1_stream_tile": k1s, "pk1": k1}[kern].tile(
             shape, K, dtype)
     else:  # one thread a cell: the older trees, pk_up and pk_up_last
         return 128, 0

@@ -45,9 +45,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 PROBE_ENTRY_POINTS = {
     # form, one, x, carry, shifts, R, b, out, n, stream
     "ryujin_probe_pow": [_I, _I, _P, _P, _P, _I, _F, _P, _L, _P],
-    # x, idx, out, P, W (S, L), stream
+    # x, idx, out, P, W, stream
     "ryujin_probe_lane_gather": [_P, _P, _P, _I, _I, _P],
-    "ryujin_probe_sublane_gather": [_P, _P, _P, _I, _I, _P],
+    # x, idx, out, S, L, tiles, groups, rows, threads, smem, stream
+    "ryujin_probe_sublane_gather": [_P, _P, _P] + [_I] * 7 + [_P],
     # X, cols, out, C, K, n, stream
     "ryujin_probe_ell_gather_sum": [_P, _P, _P, _I, _I, _L, _P],
     # mode, src, out, check, P, D, H * W, TD, stream
@@ -280,7 +281,7 @@ def consts(eq, params, ca, stage_weights=(), half=True) -> Consts:
 
 class Tile(NamedTuple):
     """Launch shape of a tiled kernel (pk1_stream, pk2_stream, pk3_stream,
-    the stacked pk2 and pk3, pk_up): threads of a block (x, y, z), the
+    the stacked pk1, pk2 and pk3, pk_up): threads of a block (x, y, z), the
     halo of staged cells around the tile, the shared bytes a block takes
     (dynamic in the staged kernels, static in pk_up) and the grid (x, y,
     z)."""

@@ -11,11 +11,16 @@ figures and each kernel's error against its plain-torch version, and exits
 1 where a kernel misses its bar or there is no CUDA device.  Every kernel
 is timed here by `measure`: one warm launch (whose output is held against
 the plain version), then 20 launches between CUDA events, each after an
-L2 flush where the function's bytes fit in the 50 MB L2.
+L2 flush where the function's bytes fit in the 50 MB L2; and, where one
+PyTorch call computes the same function, the kernel and that call each in
+a chain of CHAIN calls captured in one CUDA graph and replayed between
+one pair of events (`graph_ms`), so that launch costs and the host's gaps
+between calls drop out of their ratio.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import subprocess
 from typing import Callable, Optional
@@ -27,6 +32,7 @@ PEAK_BYTES_PER_S = 3.35e12
 L2_BYTES = 50e6
 SMS = 132
 REPS = 20
+CHAIN = 100  # calls of a chained reading
 
 
 def smi(query: str) -> str:
@@ -77,6 +83,35 @@ def time_ms(fn: Callable[[], object], reps: int, flush: bool) -> float:
         pairs.append(pair)
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def graph_ms(fn: Callable[[], object], calls: int) -> float:
+    """Mean ms of a call of fn in a chain of `calls` calls back to back,
+    captured in one CUDA graph and replayed (once warm, then once between
+    CUDA events), L2 warm.  The probe kernels the capture records are
+    counted as launched at each replay, not at the capture.  The caller
+    has made one warm call."""
+    from ..kernels import build
+
+    torch.cuda.synchronize()
+    before = collections.Counter(build.PROBE_LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    recorded = build.PROBE_LAUNCHES - before
+    build.PROBE_LAUNCHES.subtract(recorded)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    graph.replay()
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    build.PROBE_LAUNCHES.update(recorded)
+    build.PROBE_LAUNCHES.update(recorded)
+    del graph
+    return start.elapsed_time(end) / calls
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -138,9 +173,11 @@ def held(bar: str, k, p):
 def measure(case: Case) -> dict:
     """The record of `case`: its kernel's output (the warm call) held
     against the plain version, the mean ms of a launch, of the plain
-    version and of the library call, and the bound.  Launches only the
-    kernels that the warm call and the timing make.  "instance" is the key
-    of its launch count."""
+    version and of the library call, and the bound; where there is a
+    library call, also "chain_ms" and "library_chain_ms", the mean ms of a
+    launch and of a library call in CUDA graphs of CHAIN calls (graph_ms;
+    "chain": CHAIN).  Launches only the kernels that the warm call and
+    the timing make.  "instance" is the key of its launch count."""
     out = case.kernel()
     ref = case.plain()
     max_abs, err, ok = held(case.bar, out, ref)
@@ -149,10 +186,12 @@ def measure(case: Case) -> dict:
     per, reps = case.launches_per_call, case.reps
     ms = time_ms(case.kernel, reps, flush) / per
     plain_ms = time_ms(case.plain, max(reps // 4, 2), flush) / per
-    library_ms = None
+    library_ms = chain_ms = library_chain_ms = None
     if case.library is not None:
         case.library()
         library_ms = time_ms(case.library, reps, flush)
+        chain_ms = graph_ms(case.kernel, CHAIN) / per
+        library_chain_ms = graph_ms(case.library, CHAIN)
     by_bytes = case.nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = case.ops_ms or 0.0
     return {
@@ -162,6 +201,8 @@ def measure(case: Case) -> dict:
         "library_ms": library_ms, "bound_ms": max(by_bytes, by_ops),
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
         "flushed": flush, "instance": case.instance,
+        "chain": CHAIN if chain_ms is not None else None,
+        "chain_ms": chain_ms, "library_chain_ms": library_chain_ms,
     }
 
 
@@ -169,8 +210,12 @@ def report(rec: dict) -> str:
     """One line: the kernel against its plain version, and its times."""
     lib = ("null" if rec["library_ms"] is None
            else f"{rec['library_ms']:.4f} ms")
+    chained = ("" if rec["chain_ms"] is None else
+               f"; chained ({rec['chain']} calls, one graph) kernel "
+               f"{rec['chain_ms']:.4f} ms, library "
+               f"{rec['library_chain_ms']:.4f} ms")
     return (f"  {rec['name']}: vs plain {rec['err']:.3e} ({rec['bar']}) "
             f"{'ok' if rec['ok'] else 'FAIL'}; kernel {rec['ms']:.4f} ms, "
             f"plain {rec['plain_ms']:.4f} ms, library {lib}, bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
-            f"{', L2 flushed' if rec['flushed'] else ''}")
+            f"{', L2 flushed' if rec['flushed'] else ''}{chained}")

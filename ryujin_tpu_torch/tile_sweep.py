@@ -1,5 +1,6 @@
-"""Time the stacked pk2 and pk1_stream over their tiles, and other
-checkouts' builds of them on the same inputs.
+"""Time the stacked pk1 and pk2 and pk1_stream over their tiles, and
+other checkouts' builds of them on the same inputs; and the sublane
+gather probe over its row groups.
 
     python -m ryujin_tpu_torch.tile_sweep [--tree NAME=ROOT ...] [CASE ...]
 
@@ -7,10 +8,15 @@ From a checkout's root.  Builds this checkout's kernels and, with
 --tree, those of each other checkout ROOT (one build process each, all
 at once), develops the states of chip_smoke.py phases 2, 4, 6 and 10
 through this checkout's kernels and takes the inputs of the third ERK33
-substep as compare_kernels does.  CASE is step2d (the stacked pk2 at 2,
-1 and 0 stages, and pk1_stream on its K = 8 canvas), q2step2d, box3d or
+substep as compare_kernels does.  CASE is step2d (the stacked pk1, the
+stacked pk2 at 2, 1 and 0 stages, and pk1_stream on its K = 8 canvas),
+q2step2d, box3d or
 cylinder3d (pk1_stream with the full statics, and with the separable
-ones on the same state); without one, all four.  For each launch it
+ones on the same state), or gather (the sublane gather of
+probes/gather.py at S = 1024, L = 128 with each group count of GROUPS,
+held exactly against the plain version, beside torch.gather, each in
+a CUDA graph of probes.CHAIN calls: probes.graph_ms; this checkout
+only); without one, all five.  For each launch it
 times, with CUDA events (chip_smoke.time_ms, mean of 20 launches after
 a warm one), this checkout's kernel at the tile its wrapper chooses and
 each other checkout's, in turns (this, the others, this, the others
@@ -39,12 +45,15 @@ import torch
 # candidate tiles (TY, TZ); TZ is 1 in 2D
 TILES = {2: [(1, 1), (2, 1), (4, 1), (8, 1)],
          3: [(2, 2), (4, 2), (2, 4), (8, 1), (4, 1), (1, 8)]}
+# candidate row groups of the sublane gather (its blocks: 4 tiles each)
+GROUPS = (1, 2, 4, 8, 16, 32)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("cases", nargs="*",
-                    default=["step2d", "q2step2d", "box3d", "cylinder3d"])
+                    default=["step2d", "q2step2d", "box3d", "cylinder3d",
+                             "gather"])
     ap.add_argument("--tree", action="append", default=[],
                     metavar="NAME=ROOT")
     args = ap.parse_args(argv)
@@ -81,7 +90,7 @@ def main(argv=None) -> int:
             k: v for k, v in kernel_times.resources(
                 so.with_suffix(".so.log").read_text(),
                 kernel_times.launch_shape).items()
-            if k.startswith(("pk1_stream", "pk2<"))}
+            if k.startswith(("pk1_stream", "pk1<", "pk2<"))}
         build._LIB = None
         build.CSRC = trees[name] / "ryujin_tpu_torch" / "csrc"
         build.BUILD_DIR = trees[name] / "ryujin_tpu_torch" / "_build"
@@ -172,10 +181,38 @@ def main(argv=None) -> int:
                         eq, p, h.canvas.arrays, U, prec, half=h.half),
                     pk1_stream, [] if sep else TILES[dim])
 
+    def gather_groups():
+        """The sublane gather at each group count of GROUPS and
+        torch.gather, in CUDA graphs of probes.CHAIN calls."""
+        from . import probes
+        from .kernels import probe_gather as pg
+        from .probes.gather import sublane_inputs
+
+        def gm(key, fn):
+            fn()
+            res["ms"][key] = probes.graph_ms(fn, probes.CHAIN)
+            print(f"  {key}: {res['ms'][key]:.4f} ms", flush=True)
+
+        x, idx = (torch.from_numpy(a).to(dev) for a in sublane_inputs(1024, 128))
+        want, idx64 = pg.sublane_gather_reference(x, idx), idx.long()
+        default = pg.sublane_shape
+        for groups in GROUPS:
+            pg.sublane_shape = lambda S, L, _g=groups: default(S, L, _g)
+            try:
+                same = torch.equal(pg.sublane_gather(x, idx), want)
+                gm(f"gather sublane groups {groups}{'' if same else ' WRONG'}",
+                   lambda: pg.sublane_gather(x, idx))
+            finally:
+                pg.sublane_shape = default
+        gm("gather torch.gather", lambda: torch.gather(x, 0, idx64))
+
     dev = torch.device("cuda")
     use("this")
     for case in args.cases:
         print(f"{case}:", flush=True)
+        if case == "gather":
+            gather_groups()
+            continue
         if case == "step2d":
             eq, sd, hm, _, U0 = bench.build_step2d(cs.REFINEMENT,
                                                    torch.float32, dev)
@@ -185,6 +222,11 @@ def main(argv=None) -> int:
             U_a, _, t_a, _, _, _ = plain.advance(U0, 0.0, cs.PLAIN_STEPS)
             U_b = plain.advance(U_a, t_a, 1)[0]
             U, prec, lam, alpha, stage_U, tau = inputs(hm, U_a, U_b, False)
+            compare("step2d pk1",
+                    lambda: pk1.pk1(eq, hm.params, hm.canvas.arrays, U, prec),
+                    pk1, TILES[2])
+            res["equal"]["step2d pk1 == pk1_stream"] = cs.pk1_against_stream(
+                hm, U_b)
             for w in ([0.75, -2.0], [0.25], []):
                 sU = stage_U[: len(w)]
                 compare(f"step2d pk2 S={len(w)}",

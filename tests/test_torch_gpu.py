@@ -385,6 +385,70 @@ def test_tiled_kernels_bit_equal_on_card(case, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("ansatz", ["cG Q1", "dG Q1"])
+def test_stacked_pk1_on_ragged_canvas(ansatz, dtype):
+    """The stacked pk1 (lambda on the half slots, alpha) against its plain
+    twin on the card, on the same inputs, on the K = 8 canvases with
+    partial tiles on x and y of test_stacked_pk3_on_ragged_canvas (cG Q1
+    step, dG Q1 rectangle), within PERF.md §2's bar: relative 1e-5 in
+    f32, 1e-11 in f64, lambda on the live half slots, alpha on the real
+    nodes; masked slots hold lambda 0 and padded cells alpha 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ryujin_tpu_torch.kernels import pk1
+
+    dt = getattr(torch, dtype)
+    _, sd, hm, ti, U0 = ragged_case(2, ansatz)(
+        0 if ansatz == "cG Q1" else 3, dt, "cuda")
+    assert sd.shape[-1] % 32 and sd.shape[-2] % 4
+    assert sd.max_degree == 8 and not hm.canvas.stream
+    eq, p, ca = hm.eq, hm.params, hm.canvas.arrays
+    st = ca.stencil
+    _, U, prec = _limited_state(sd, hm, ti, U0, dt)
+    before = pk1.pk1.launches
+    lam_k, alpha_k = pk1.pk1(eq, p, ca, U, prec)
+    assert pk1.pk1.launches == before + 1
+    lam, alpha = pk1.pk1_reference(eq, p, ca, U, prec)
+    live = torch.stack([st.live_k(k) for k in range(4)]).reshape(4, -1)
+    real = (st.node_mask > 0).reshape(-1)
+    bar = 1e-5 if dt == torch.float32 else 1e-11
+    for name, a, b, where in (("lambda", lam_k, lam, live),
+                              ("alpha", alpha_k, alpha, real)):
+        assert bool(torch.isfinite(a).all()), name
+        rel = ((a - b).abs()[where].max() / b.abs()[where].max()).item()
+        assert rel <= bar, (name, rel)
+        assert bool((a[~where] == 0).all()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 8, 1024])
+def test_sublane_gather_exact_on_ragged_width(S):
+    """The sublane gather out[s, l] = x[idx[s, l], l] bit for bit against
+    np.take_along_axis at the probe's L = 128 and at L = 70 and 33 (not
+    multiples of its 32-column tile, nor of the 4 floats of a 16-byte
+    piece), S = 1, 8 and 1024, with an index past each end giving NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from ryujin_tpu_torch.kernels import build, probe_gather
+
+    for L in (128, 70, 33):
+        x = np.arange(S * L, dtype=np.float32).reshape(S, L)
+        idx = np.random.default_rng(0).integers(0, S, size=(S, L)).astype(np.int32)
+        want = np.take_along_axis(x, idx, axis=0)
+        idx[0, 0], idx[-1, -1] = S, -1
+        want[0, 0] = want[-1, -1] = np.nan
+        key = build.probe_key("sublane_gather", S, L)
+        before = build.PROBE_LAUNCHES[key]
+        out = probe_gather.sublane_gather(torch.from_numpy(x).cuda(),
+                                          torch.from_numpy(idx).cuda())
+        assert build.PROBE_LAUNCHES[key] == before + 1
+        assert np.array_equal(out.cpu().numpy(), want, equal_nan=True), (S, L)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ansatz", ["cG Q1", "dG Q1"])
 def test_stacked_pk2_on_ragged_canvas(ansatz, dtype):
     """The stacked pk2 (U_low, F, bounds at 2, 1 and 0 stages; cG, and dG
     Q1 with its incidence factor) against its plain twin on the card, on

@@ -1,9 +1,11 @@
 """The launch shapes of the tiled kernels, pk1_stream, pk2_stream,
-pk3_stream, the stacked pk2 and pk3 and pk_up, on the CPU: each instance's tile fits the card's
-shared memory, stages a halo of the lattice reach, and its grid covers
-every cell of the bench canvases and of the small test canvases, ragged
-edges included; the C side of the launch (the Consts struct, the entry
-points, the staged layouts) mirrors what the wrappers pass."""
+pk3_stream, the stacked pk1, pk2 and pk3 and pk_up, on the CPU: each
+instance's tile fits the card's shared memory, stages a halo of the
+lattice reach, and its grid covers every cell of the bench canvases and
+of the small test canvases, ragged edges included; the C side of the
+launch (the Consts struct, the entry points, the staged layouts) mirrors
+what the wrappers pass; and the sublane gather probe's launch covers its
+output and fits its window in shared memory."""
 
 import re
 
@@ -12,7 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ryujin_tpu_torch.kernels import (  # noqa: E402
-    build, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
+    build, pk1, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
+    probe_gather,
 )
 from ryujin_tpu_torch.offline.structured import lattice_offsets  # noqa: E402
 
@@ -120,6 +123,59 @@ def test_pk1_stream_tile_fits_and_covers(dim, K, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_pk1_tile_fits_and_covers(dtype):
+    """The stacked pk1 (2D, K = 8): pk1_stream's 2D layout, 13 values a
+    staged cell, one thread a cell and the halo of one cell."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for shape in SHAPES[2]:
+        t = pk1.tile(shape, 8, dtype)
+        bx, ty, tz = t.block
+        assert bx == pk1.TX == 32 and tz == 1 and bx * ty <= 256
+        assert t.halo == 1
+        assert t.smem == 13 * (bx + 2) * (ty + 2) * item
+        assert t.smem == pk1_stream.tile(shape, 8, dtype).smem
+        assert 0 < t.smem <= build.SMEM_MAX
+        _covers(t, shape, (bx, ty))
+    with pytest.raises(ValueError):
+        pk1.tile((165, 496), 24, dtype)
+    with pytest.raises(ValueError):
+        pk1.tile((8, 64, 64), 26, dtype)
+
+
+@pytest.mark.parametrize("S", [1, 8, 64, 300, 512, 1024, 1816])
+def test_sublane_gather_shape_covers_and_fits(S):
+    """The sublane gather's launch (column tiles x row groups) covers
+    every (s, l) of x [S, L] once, at the probe's L = 128 and ragged ones,
+    with no block wholly past the array; each block's window (S rows of 32
+    columns) fits the shared memory up to the stated largest S, 1816; at
+    S = 1024, L = 128 it launches more than the L / 32 blocks of one
+    block a tile; a larger S raises."""
+    for L in (128, 70, 33, 1):
+        for groups in (None, 1, 3, 8, 64, 10_000):
+            sh = probe_gather.sublane_shape(S, L, groups)
+            assert sh.threads == probe_gather.SUBLANE_THREADS == 256
+            assert sh.smem == S * 32 * 4 <= build.SMEM_MAX
+            tile = probe_gather.SUBLANE_TILE
+            assert sh.tiles * tile >= L > (sh.tiles - 1) * tile
+            assert sh.groups * sh.rows >= S > (sh.groups - 1) * sh.rows
+            covered = torch.zeros((S, L), dtype=torch.int32)
+            for gx in range(sh.tiles):
+                for gy in range(sh.groups):
+                    covered[gy * sh.rows: (gy + 1) * sh.rows,
+                            gx * tile: (gx + 1) * tile] += 1
+            assert bool((covered == 1).all())
+            if groups is None:
+                assert sh.rows >= min(S, probe_gather.SUBLANE_MIN_ROWS)
+    if S == 1024:
+        assert probe_gather.sublane_shape(S, 128).groups * 4 > 128 // 32
+    largest = build.SMEM_MAX // (32 * 4)
+    assert largest == 1816
+    assert "S up to 1816" in " ".join(probe_gather.sublane_gather.__doc__.split())
+    with pytest.raises(ValueError):
+        probe_gather.sublane_shape(largest + 1, 128)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_pk2_tile_fits_and_covers(dtype):
     """The stacked pk2 (2D, K = 8): the layout of pk2_stream's tile with
     the 4 half-slot lambda planes, one thread a cell and the halo of one
@@ -186,8 +242,8 @@ def test_pk_up_tile_fits_and_covers(dim, K, dtype):
 def test_small_test_canvases_are_ragged():
     """The gpu tests' ragged canvases are those of SHAPES and leave partial
     tiles of pk1_stream, pk2_stream, pk3_stream and pk_up on x and y (and
-    of pk1_stream and pk2_stream on z in 3D), and of the stacked pk2 and
-    pk3 on x and y on the K = 8 step and rectangle."""
+    of pk1_stream and pk2_stream on z in 3D), and of the stacked pk1, pk2
+    and pk3 on x and y on the K = 8 step and rectangle."""
     from test_torch_gpu import ragged_case
 
     for dim, refinement, ansatz in ((3, 1, None), (2, 0, None),
@@ -209,16 +265,18 @@ def test_small_test_canvases_are_ragged():
         else:
             assert K == 8
             for t in (pk3.tile(sd.shape, K, torch.float32, 2),
-                      pk2.tile(sd.shape, K, torch.float32, 2)):
+                      pk2.tile(sd.shape, K, torch.float32, 2),
+                      pk1.tile(sd.shape, K, torch.float32)):
                 assert W % t.block[0] and H % t.block[1]
 
 
 def test_launch_struct_mirrors_the_c_side():
     """build.Consts lists the fields of `struct Consts` (csrc/euler.cuh) in
     their order, the tile's among them; the launchers of pk1_stream,
-    pk2_stream, pk3_stream and the stacked pk2 and pk3 take the shared
+    pk2_stream, pk3_stream and the stacked pk1, pk2 and pk3 take the shared
     bytes of the wrappers' formulas (staged.cuh holds the layouts they
-    share); the entry points take the pointers ENTRY_POINTS counts."""
+    share); the entry points take the pointers ENTRY_POINTS counts; the
+    sublane gather's window is the one sublane_shape() sizes."""
     src = (CSRC / "euler.cuh").read_text()
     body = re.search(r"struct Consts \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
@@ -242,11 +300,20 @@ def test_launch_struct_mirrors_the_c_side():
     stacked2 = (CSRC / "pk2.cu").read_text()
     assert ("return (pk2_vals(2, stages) + K2) * int64_t(TILE_TX + 2) * "
             "(ty + 2) * int64_t(sizeof(T));") in stacked2
+    stacked1 = (CSRC / "pk1.cu").read_text()
+    assert ("return pk1_vals(2) * int64_t(TILE_TX + 2) * (ty + 2) * "
+            "int64_t(sizeof(T));") in stacked1
     k1 = (CSRC / "pk1_stream.cu").read_text()
     assert "return pk1_vals(dim) * ns * int64_t(sizeof(T));" in k1
     assert "int64_t(TILE_TX + 2 * h) * (ty + 2 * h) * (dim == 3 ? tz + 2 * h : 1)" in k1
     up = (CSRC / "pk_up.cu").read_text()
     assert "constexpr int UP_TX = 32;" in up
+    gather = (CSRC / "probe_gather.cu").read_text()
+    assert f"constexpr int SUBLANE_TILE = {probe_gather.SUBLANE_TILE};" in gather
+    assert (f"constexpr int SUBLANE_THREADS = {probe_gather.SUBLANE_THREADS};"
+            in gather)
+    assert ("int64_t(smem) != int64_t(S) * SUBLANE_TILE * "
+            "int64_t(sizeof(float))") in gather
     for stem, n_ptr in build.ENTRY_POINTS.items():
         text = (CSRC / f"{stem}.cu").read_text()
         m = re.search(r'extern "C" int ryujin_' + stem + r"_##SUFFIX\((.*?)\)",
@@ -268,9 +335,9 @@ def test_tile_refuses_an_unknown_lattice():
 def test_kernel_times_reports_the_staged_instances():
     """kernel_times reads the registers and stack of every pk1_stream (the
     staged tile and the one-thread-a-cell SEP form), pk2_stream (the
-    staged tile and the one-thread-a-cell SEP form), stacked pk2 and pk3,
-    pk3_stream and pk_up instance from nvcc's -Xptxas -v report, and its
-    digests tell two outputs apart by a single bit."""
+    staged tile and the one-thread-a-cell SEP form), stacked pk1, pk2 and
+    pk3, pk3_stream and pk_up instance from nvcc's -Xptxas -v report, and
+    its digests tell two outputs apart by a single bit."""
     from ryujin_tpu_torch import kernel_times
 
     names = {
@@ -288,13 +355,18 @@ def test_kernel_times_reports_the_staged_instances():
             "pk1_stream_tile<f32, 3D, two-direction, Full>",
         "_ZN6ryujin17pk1_stream_kernelIdLi3ELb1ENS_10SepStaticsIdEEEEvPKT_":
             "pk1_stream<f64, 3D, half-slot, Sep>",
+        "_ZN6ryujin10pk1_kernelIfEEvPKT_S3_S3_S3_S3_PS1_S4_NS_9EqConstsIS1_EE":
+            "pk1<f32>",
+        "_ZN6ryujin10pk1_kernelIdEEvPKT_S3_S3_S3_S3_PS1_S4_NS_9EqConstsIS1_EE":
+            "pk1<f64>",
     }
     log = "".join(
         f"ptxas info    : Function properties for {name}\n"
         f"    {8 * i} bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         f"ptxas info    : Used {100 + i} registers, used 1 barriers\n"
         for i, name in enumerate(names)
-    ) + ("ptxas info    : Function properties for _ZN6ryujin10pk1_kernelIfEEvPKT_\n"
+    ) + ("ptxas info    : Function properties for "
+         "_ZN6ryujin12probe_kernelIfEEvPKT_\n"
          "    0 bytes stack frame\nptxas info    : Used 64 registers\n")
     seen = []
     res = kernel_times.resources(
@@ -305,6 +377,10 @@ def test_kernel_times_reports_the_staged_instances():
     assert ("pk3", 2) in seen and ("pk2_stream", 3) in seen
     assert ("pk2_stream_tile", 2) in seen and ("pk2", 2) in seen
     assert ("pk1_stream_tile", 3) in seen and ("pk1_stream", 3) in seen
+    assert ("pk1", 2) in seen
+    # the stacked pk1's launch: its tile() at K = 8, 32 x 4 threads
+    assert kernel_times.launch_shape("pk1", 2, torch.float32) == (
+        128, pk1.tile((64, 64), 8, torch.float32).smem)
     a = torch.arange(12, dtype=torch.float32)
     b = a.clone()
     b.view(torch.int32)[5] ^= 1
