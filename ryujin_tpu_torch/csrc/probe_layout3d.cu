@@ -15,25 +15,42 @@
 // Rows z >= gz TD, which the TPU leaves unwritten, are written as 0.
 //
 // The TPU moves each z tile's window with explicit DMA, double-buffered,
-// the grid running in order on one core.  Here a block owns a tile of TILE
-// consecutive cells of the (H, W) plane and marches along z: it stages its
-// window with cp.async (__pipeline_memcpy_async, 16 bytes a copy),
-// double-buffered, and reduces from shared memory, one thread per (row of
-// the tile, cell).  The full-window kernels (the three layouts, pk1_shape,
-// moveaxis) march over ZCHUNK z tiles a block, so that the grid also runs
-// along z; z-major-slide marches over all gz tiles, keeps the wz-deep window
-// in a ring of wz + TD rows and loads only the TD new rows a step (the
-// z-marching kernel of the 3D stencils' shared-memory lever), the (H, W)
-// tiles giving the parallelism.  pk1_shape and moveaxis read one plane but
-// stage every plane of the TPU kernel's transfer set; moveaxis with MOV = 1
-// transposes the staged [wz, P, TILE] window to [P, wz, TILE] in shared
-// memory before reading it.  So that their result depends on every staged
-// value, these two also write a checksum, check[z] (z < gz TD, 0 past): the
-// XOR of the bit patterns that thread (z, cell) reads back of its z tile's
-// staged (for MOV = 1: transposed) set, every plane of the window rows
-// z % TD, z % TD + TD, ... (pk1_shape's centre: row z % TD).  XOR is
-// associative, so the reads may run in any order and overlap; the probe's
-// time includes them.
+// the grid running in order on one core.  Here a block owns tiles of TILE
+// consecutive cells of the (H, W) plane and marches along z.
+//
+// The three layouts (window_full_kernel, window_slide_kernel) move each z
+// row of a tile, TILE cells of all P planes, with one TMA copy of a box of
+// a tensor map (tma.cuh) issued by one thread and counted on an mbarrier,
+// so that no thread computes a copy's addresses, and keep many rows in
+// flight: their bound is the device memory's rate, which needs some 30 KB
+// or more in flight on every SM.  (A 1D bulk copy a (z, p) row, issued by
+// the lanes of a warp, took about 45 ns a copy a warp on an H100: slower
+// than 16-byte cp.async.)  The full-window kernel stages each z tile's
+// whole window, wz = TD + 2 rows of all P planes, in a ring of `stages`
+// windows, and
+// z-major-slide stages only the TD new rows of each next z tile after a
+// first window, in a ring of wz + stages TD rows (row z in slot z % slots),
+// `stages` groups of TD rows in flight.  Both split the gz z tiles of each
+// x tile into `segments` runs, a block each: the blocks of one segment
+// march their z tiles in step, reading neighbouring tiles of the same rows
+// at about the same time; a full window's rows shared with the z tile
+// before, read moments before by the same block, come from L2; each
+// further segment of the slide re-reads the wz - TD rows of its first
+// window that the segment before also read.  The sum reads the staged
+// rows, one thread per (row of the z tile, cell).  (A persistent grid
+// walking (x tile, z tile) items lost to this by 6-20 % on the card.)
+//
+// pk1_shape and moveaxis (window_kernel, pk1_shape_kernel) stage with
+// cp.async (__pipeline_memcpy_async, 16 bytes a copy), double-buffered over
+// ZCHUNK z tiles a block.  They read one plane but stage every plane of the
+// TPU kernel's transfer set; moveaxis with MOV = 1 transposes the staged
+// [wz, P, TILE] window to [P, wz, TILE] in shared memory before reading it.
+// So that their result depends on every staged value, these two also write
+// a checksum, check[z] (z < gz TD, 0 past): the XOR of the bit patterns
+// that thread (z, cell) reads back of its z tile's staged (for MOV = 1:
+// transposed) set, every plane of the window rows z % TD, z % TD + TD, ...
+// (pk1_shape's centre: row z % TD).  XOR is associative, so the reads may
+// run in any order and overlap; the probe's time includes them.
 //
 // Bound on an H100: bytes, the transfer set read once: P planes of the
 // gz TD + 2 rows the windows cover (pk1_shape: the centre's gz TD rows of
@@ -45,11 +62,18 @@
 
 #include <cstdint>
 
+#include "tma.cuh"
+
 namespace ryujin {
 
-constexpr int TILE = 64;   // cells of the (H, W) plane a block owns
-constexpr int ZCHUNK = 4;  // z tiles a full-window block marches over
+constexpr int TILE = 64;   // cells of the (H, W) plane a block owns (pk1_shape, moveaxis)
+constexpr int ZCHUNK = 4;  // z tiles a block marches over (pk1_shape, moveaxis)
 constexpr int VEC = 4;     // floats a cp.async moves
+// the three layouts: the shared bytes of barriers ahead of the staged rows,
+// and the most stages they serve (the slide takes stages + 1 barriers);
+// mirrored by kernels/probe_layout3d.py
+constexpr int LAYOUT_BARRIER_BYTES = 128;
+constexpr int LAYOUT_MAX_STAGES = LAYOUT_BARRIER_BYTES / 8 - 1;
 
 enum WindowMode { PLANE_MAJOR = 0, Z_MAJOR = 1, Z_MAJOR_SLIDE = 2, MOVEAXIS = 3, NO_MOVEAXIS = 4 };
 
@@ -101,8 +125,8 @@ __device__ __forceinline__ unsigned staged_xor(const float* w, int depth, int np
   return (b0 ^ b1) ^ (b2 ^ b3);
 }
 
-// The three layouts and moveaxis: each z tile's whole window, double-buffered.
-// check: the staged window's checksum (MOVEAXIS and NO_MOVEAXIS only).
+// moveaxis (MOVEAXIS, NO_MOVEAXIS): each z tile's whole window,
+// double-buffered.  check: the staged window's checksum.
 template <int MODE>
 __global__ void __launch_bounds__(1024)
 window_kernel(const float* __restrict__ src, float* __restrict__ out,
@@ -167,42 +191,111 @@ window_kernel(const float* __restrict__ src, float* __restrict__ out,
   }
 }
 
-// z-major-slide: one block marches its tile over every z tile; row z of the
-// window lives in ring slot z % (wz + TD), [slot][P][TILE].
-__global__ void __launch_bounds__(1024)
-window_slide_kernel(const float* __restrict__ src, float* __restrict__ out, int P, int D,
-                    int64_t HW, int TD, int gz) {
-  extern __shared__ __align__(16) float ring[];
-  const int wz = TD + 2, slots = wz + TD;
-  const int64_t q0 = int64_t(blockIdx.x) * TILE;
-  const int64_t zs = P * HW;
-  const int slot = P * TILE;
-  const int zo = threadIdx.x / TILE, q = threadIdx.x % TILE;
-  zero_rows(out, gz * TD, D, 1, TD, HW, q0);
+// The three layouts' helpers.  Rows [gz TD, D) of out: zeros, spread over
+// every thread of the grid (HW % 4 == 0, so both ends are 16-byte aligned).
+__device__ __forceinline__ void zero_tail(float* out, int64_t from, int64_t to) {
+  const int64_t block = int64_t(blockIdx.y) * gridDim.x + blockIdx.x;
+  const int64_t stride = int64_t(gridDim.x) * gridDim.y * blockDim.x;
+  for (int64_t v = from / 4 + block * blockDim.x + threadIdx.x; v < to / 4; v += stride)
+    reinterpret_cast<float4*>(out)[v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
 
-  // rows [z0, z0 + nz) into their slots (a run of rows may wrap the ring)
-  auto load_rows = [&](int z0, int nz) {
-    for (int z = z0; z < z0 + nz; ++z)
-      stage(ring + (z % slots) * slot, src + int64_t(z) * zs, 1, P, zs, HW, 0, TILE, q0, HW);
-    __pipeline_commit();
+// Thread 0: rows [z0, z0 + nz) of the tile at q0, each the box (TILE
+// cells, one z row, P planes) of `map` there, zeros past the plane's end,
+// into buf, row z in slot z % slots, [slot][P][TILE]; counted on bar.  map:
+// src [D, P, H, W] (ZM) with the box's coordinates (q0, p, z), else
+// [P, D, H, W] with (q0, z, p).
+template <bool ZM, int TILE>
+__device__ __forceinline__ void stage_rows(float* buf, int slots, const CUtensorMap* map, int z0,
+                                           int nz, int P, int q0, uint64_t* bar) {
+  bar_expect(bar, unsigned(nz * P * TILE) * unsigned(sizeof(float)));
+  for (int z = z0; z < z0 + nz; ++z)
+    tma_copy_3d(buf + (z % slots) * P * TILE, map, q0, ZM ? 0 : z, ZM ? z : 0, bar);
+}
+
+// out rows [t TD, t TD + TD) of the tile at q0: out[z] = sum_p of staged
+// row z + 1, summed from 0 in p order; one thread per (row, cell).
+template <int TILE>
+__device__ __forceinline__ void sum_rows(const float* buf, int slots, float* out, int t, int TD,
+                                         int P, int64_t HW, int64_t q0) {
+  for (int e = threadIdx.x; e < TD * TILE; e += blockDim.x) {
+    const int zo = e / TILE, c = e % TILE;
+    if (q0 + c >= HW) continue;
+    const int z = t * TD + zo;
+    const float* row = buf + ((z + 1) % slots) * P * TILE + c;
+    float acc = 0.0f;
+    for (int p = 0; p < P; ++p) acc = acc + row[p * TILE];
+    out[int64_t(z) * HW + q0 + c] = acc;
+  }
+}
+
+// Plane-major (ZM false, src [P, D, H, W]) and z-major (src [D, P, H, W]):
+// block (x, segment) marches the tile at x TILE over z tiles [t0, t0 + n),
+// t0 = gz segment / S, S segments; its z tile t0 + k stages its whole
+// window into buffer k % stages, [wz][P][TILE], on barrier k % stages.
+template <bool ZM, int TILE>
+__global__ void __launch_bounds__(1024)
+window_full_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ out, int P,
+                   int D, int64_t HW, int TD, int gz, int stages) {
+  extern __shared__ __align__(128) unsigned char layout_smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(layout_smem);
+  float* buf = reinterpret_cast<float*>(layout_smem + LAYOUT_BARRIER_BYTES);
+  const int wz = TD + 2, window = wz * P * TILE;
+  const int q0 = int(blockIdx.x) * TILE;
+  const int t0 = gz * int(blockIdx.y) / int(gridDim.y);
+  const int n = gz * int(blockIdx.y + 1) / int(gridDim.y) - t0;
+  zero_tail(out, int64_t(gz) * TD * HW, int64_t(D) * HW);
+  if (threadIdx.x == 0)
+    for (int s = 0; s < stages; ++s) bar_init(bar + s, 1);
+  __syncthreads();
+
+  auto issue = [&](int k) {  // thread 0: z tile t0 + k
+    stage_rows<ZM, TILE>(buf + k % stages * window, wz, &map, (t0 + k) * TD, wz, P, q0,
+                         bar + k % stages);
   };
-  load_rows(0, wz);
-  if (gz > 1) load_rows(wz, TD);
-  for (int tz = 0; tz < gz; ++tz) {
-    if (tz + 1 < gz)
-      __pipeline_wait_prior(1);
-    else
-      __pipeline_wait_prior(0);
+  if (threadIdx.x == 0)
+    for (int k = 0; k < stages && k < n; ++k) issue(k);
+  for (int k = 0; k < n; ++k) {
+    const int s = k % stages;
+    bar_wait(bar + s, unsigned(k / stages) & 1u);
+    sum_rows<TILE>(buf + s * window, wz, out, t0 + k, TD, P, HW, q0);
     __syncthreads();
-    const int z = tz * TD + zo;
-    if (q0 + q < HW) {
-      const float* row = ring + ((z + 1) % slots) * slot;
-      float acc = 0.0f;
-      for (int p = 0; p < P; ++p) acc = acc + row[p * TILE + q];
-      out[int64_t(z) * HW + q0 + q] = acc;
-    }
+    if (threadIdx.x == 0 && k + stages < n) issue(k + stages);
+  }
+}
+
+// z-major-slide (src [D, P, H, W]): block (x, segment) marches the tile at
+// x TILE over z tiles [t0, t0 + n), t0 = gz segment / S, S segments.  Group
+// 0 stages the first window, group g >= 1 tile t0 + g's TD new rows, on
+// barrier g % (stages + 1); after tile t0 + g is summed its first TD rows'
+// slots take group g + stages + 1.
+template <int TILE>
+__global__ void __launch_bounds__(1024)
+window_slide_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ out, int P,
+                    int D, int64_t HW, int TD, int gz, int stages) {
+  extern __shared__ __align__(128) unsigned char layout_smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(layout_smem);
+  float* ring = reinterpret_cast<float*>(layout_smem + LAYOUT_BARRIER_BYTES);
+  const int wz = TD + 2, slots = wz + stages * TD, nbar = stages + 1;
+  const int q0 = int(blockIdx.x) * TILE;
+  const int t0 = gz * int(blockIdx.y) / int(gridDim.y);
+  const int n = gz * int(blockIdx.y + 1) / int(gridDim.y) - t0;
+  zero_tail(out, int64_t(gz) * TD * HW, int64_t(D) * HW);
+  if (threadIdx.x == 0)
+    for (int s = 0; s < nbar; ++s) bar_init(bar + s, 1);
+  __syncthreads();
+
+  auto issue = [&](int g) {  // thread 0: group g
+    const int z0 = g == 0 ? t0 * TD : (t0 + g) * TD + wz - TD;
+    stage_rows<true, TILE>(ring, slots, &map, z0, g == 0 ? wz : TD, P, q0, bar + g % nbar);
+  };
+  if (threadIdx.x == 0)
+    for (int g = 0; g <= stages && g < n; ++g) issue(g);
+  for (int g = 0; g < n; ++g) {
+    bar_wait(bar + g % nbar, unsigned(g / nbar) & 1u);
+    sum_rows<TILE>(ring, slots, out, t0 + g, TD, P, HW, q0);
     __syncthreads();
-    if (tz + 2 < gz) load_rows((tz + 1) * TD + wz, TD);
+    if (threadIdx.x == 0 && g + nbar < n) issue(g + nbar);
   }
 }
 
@@ -287,18 +380,114 @@ cudaError_t launch(Kernel kernel, dim3 grid, int TD, size_t smem, cudaStream_t s
   return cudaGetLastError();
 }
 
+// The tensor map of the rows of src for the TMA: z-major [D, P, HW] or
+// plane-major [P, D, HW] f32, its box one z row of all P planes, TILE
+// cells wide.  cuTensorMapEncodeTiled lies in libcuda, which the library
+// does not link: it is looked up at run time.
+inline cudaError_t encode_rows(CUtensorMap* map, const float* src, bool zm, int P, int D,
+                               int64_t HW, int tile) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[3] = {cuuint64_t(HW), cuuint64_t(zm ? P : D), cuuint64_t(zm ? D : P)};
+  const cuuint64_t strides[2] = {cuuint64_t(HW) * sizeof(float),
+                                 cuuint64_t(zm ? P : D) * HW * sizeof(float)};
+  const cuuint32_t box[3] = {cuuint32_t(tile), cuuint32_t(zm ? P : 1), cuuint32_t(zm ? 1 : P)};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(src),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The three layouts' launch.  One allowed shared-memory size a kernel
+// instance, raised once as a size first needs it; the tensor map of the
+// last source kept for the next launch on it.
+template <int TILE>
+cudaError_t launch_layout(int layout, const float* src, float* out, int P, int D, int64_t HW,
+                          int TD, int gz, int stages, int blocks, int segments, int threads,
+                          int smem, cudaStream_t stream) {
+  static int allowed[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+  static CUtensorMap map[2];
+  static int64_t key[2][4] = {};
+  const bool zm = layout != PLANE_MAJOR;
+  const int64_t k[4] = {int64_t(reinterpret_cast<uintptr_t>(src)), P, D, HW};
+  if (k[0] != key[zm][0] || k[1] != key[zm][1] || k[2] != key[zm][2] || k[3] != key[zm][3]) {
+    const cudaError_t err = encode_rows(&map[zm], src, zm, P, D, HW, TILE);
+    if (err != cudaSuccess) return err;
+    for (int i = 0; i < 4; ++i) key[zm][i] = k[i];
+  }
+  void (*kernel)(const CUtensorMap, float*, int, int, int64_t, int, int, int) =
+      layout == PLANE_MAJOR ? window_full_kernel<false, TILE>
+      : layout == Z_MAJOR   ? window_full_kernel<true, TILE>
+                            : window_slide_kernel<TILE>;
+  if (smem > allowed[layout]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    allowed[layout] = smem;
+  }
+  kernel<<<dim3(blocks / segments, segments), threads, smem, stream>>>(map[zm], out, P, D, HW,
+                                                                      TD, gz, stages);
+  return cudaGetLastError();
+}
+
 }  // namespace ryujin
 
-// mode: a ryujin::WindowMode; src [P, D, H, W] for PLANE_MAJOR, else
-// [D, P, H, W]; out [D, H, W]; check [D, H, W] (32-bit) for MOVEAXIS and
-// NO_MOVEAXIS, unused (may be null) for the three layouts.  HW % 4 == 0 and
-// TD <= 16.
+// layout: PLANE_MAJOR (src [P, D, H, W]), Z_MAJOR or Z_MAJOR_SLIDE (src
+// [D, P, H, W]); out [D, H, W].  The launch shape is layout_shape()'s
+// (kernels/probe_layout3d.py): tile (64 or 128 cells), stages, blocks (x
+// tiles x segments), segments, threads, smem; one that does not fit the
+// layout is refused.  HW % 4 == 0, P <= 256 (a box's extent).
+extern "C" int ryujin_probe_layout(int layout, const void* src, void* out, int P, int D,
+                                   long long HW, int TD, int tile, int stages, int blocks,
+                                   int segments, int threads, int smem, void* stream) {
+  using namespace ryujin;
+  const int gz = TD >= 1 ? D / TD - 2 : 0, wz = TD + 2;
+  if (layout < PLANE_MAJOR || layout > Z_MAJOR_SLIDE || P < 1 || P > 256 || gz < 1 ||
+      HW % VEC != 0 || HW > INT32_MAX ||
+      (tile != 64 && tile != 128) || stages < 1 || stages > LAYOUT_MAX_STAGES ||
+      threads != (TD * tile < 1024 ? TD * tile : 1024))
+    return int(cudaErrorInvalidValue);
+  const bool slide = layout == Z_MAJOR_SLIDE;
+  const int64_t tiles = (HW + tile - 1) / tile;
+  const int64_t rows = slide ? wz + int64_t(stages) * TD : int64_t(stages) * wz;
+  if (int64_t(smem) != LAYOUT_BARRIER_BYTES + rows * P * tile * int64_t(sizeof(float)) ||
+      segments < 1 || segments > gz || blocks != tiles * segments)
+    return int(cudaErrorInvalidValue);
+  const float* s = static_cast<const float*>(src);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return int(tile == 64 ? launch_layout<64>(layout, s, o, P, D, HW, TD, gz, stages, blocks,
+                                            segments, threads, smem, st)
+                        : launch_layout<128>(layout, s, o, P, D, HW, TD, gz, stages, blocks,
+                                             segments, threads, smem, st));
+}
+
+// mode: MOVEAXIS or NO_MOVEAXIS; src [D, P, H, W]; out, check [D, H, W]
+// (check 32-bit).  HW % 4 == 0 and TD <= 16.
 extern "C" int ryujin_probe_window(int mode, const void* src, void* out, void* check, int P,
                                    int D, long long HW, int TD, void* stream) {
   using namespace ryujin;
   const int gz = D / TD - 2, wz = TD + 2;
-  if (TD < 1 || TILE * TD > 1024 || HW % VEC != 0 || P < 1 || gz < 1 ||
-      ((mode == MOVEAXIS || mode == NO_MOVEAXIS) && check == nullptr))
+  if (TD < 1 || TILE * TD > 1024 || HW % VEC != 0 || P < 1 || gz < 1 || check == nullptr)
     return int(cudaErrorInvalidValue);
   const unsigned tiles = unsigned((HW + TILE - 1) / TILE);
   const unsigned chunks = unsigned((gz + ZCHUNK - 1) / ZCHUNK);
@@ -309,22 +498,12 @@ extern "C" int ryujin_probe_window(int mode, const void* src, void* out, void* c
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(tiles, chunks);
   switch (mode) {
-    case PLANE_MAJOR:
-      return int(launch(window_kernel<PLANE_MAJOR>, grid, TD, 2 * window, st, s, o, c, P, D, HW,
-                        TD, gz));
-    case Z_MAJOR:
-      return int(
-          launch(window_kernel<Z_MAJOR>, grid, TD, 2 * window, st, s, o, c, P, D, HW, TD, gz));
     case MOVEAXIS:
       return int(
           launch(window_kernel<MOVEAXIS>, grid, TD, 3 * window, st, s, o, c, P, D, HW, TD, gz));
     case NO_MOVEAXIS:
       return int(launch(window_kernel<NO_MOVEAXIS>, grid, TD, 2 * window, st, s, o, c, P, D, HW,
                         TD, gz));
-    case Z_MAJOR_SLIDE:
-      return int(launch(window_slide_kernel, dim3(tiles), TD,
-                        size_t(P) * (wz + TD) * TILE * sizeof(float), st, s, o, P, D, HW, TD,
-                        gz));
     default:
       return int(cudaErrorInvalidValue);
   }

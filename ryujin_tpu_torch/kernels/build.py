@@ -51,6 +51,9 @@ PROBE_ENTRY_POINTS = {
     "ryujin_probe_sublane_gather": [_P, _P, _P] + [_I] * 7 + [_P],
     # X, cols, out, C, K, n, stream
     "ryujin_probe_ell_gather_sum": [_P, _P, _P, _I, _I, _L, _P],
+    # layout, src, out, P, D, H * W, TD, tile, stages, blocks, segments,
+    # threads, smem, stream
+    "ryujin_probe_layout": [_I, _P, _P, _I, _I, _L] + [_I] * 7 + [_P],
     # mode, src, out, check, P, D, H * W, TD, stream
     "ryujin_probe_window": [_I, _P, _P, _P, _I, _I, _L, _I, _P],
     # centre, h0, h1, h2, out, check, nwin, p0, p1, p2, cen_pl, out_pl, D,

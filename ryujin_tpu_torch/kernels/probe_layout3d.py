@@ -12,6 +12,9 @@ stage, so they also return a checksum of everything staged
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Optional
+
 import torch
 
 from . import build
@@ -20,6 +23,22 @@ from . import build
 LAYOUTS = {"plane-major": 0, "z-major": 1, "z-major-slide": 2}
 # moveaxis_cost, with (MOV = 1) and without the relayout
 MOVEAXIS = {1: 3, 0: 4}
+# the three layouts' kernels (csrc/probe_layout3d.cu): the tile widths they
+# are built for, the shared bytes of barriers ahead of the staged rows
+# (LAYOUT_BARRIER_BYTES) and the most stages those serve
+# (LAYOUT_MAX_STAGES)
+LAYOUT_TILES = (64, 128)
+LAYOUT_BARRIER_BYTES = 128
+LAYOUT_MAX_STAGES = LAYOUT_BARRIER_BYTES // 8 - 1
+# the default launch of each layout: tile width, stages and z segments,
+# the fastest of tile_sweep layouts at the script's sizes in a CUDA graph
+# of 100 calls (NVIDIA H100 80GB HBM3, 700.00 W): full-window 0.0247 ms a
+# call, the slide 0.0253 (torch's sums 0.0252-0.0256)
+LAYOUT_DEFAULTS = {
+    "plane-major": {"tile": 64, "stages": 2, "segments": 2},
+    "z-major": {"tile": 64, "stages": 2, "segments": 2},
+    "z-major-slide": {"tile": 64, "stages": 2, "segments": 6},
+}
 
 
 def interior_rows(D: int, TD: int) -> int:
@@ -54,21 +73,79 @@ def window_sum_reference(h, layout: str, TD: int):
     return out
 
 
-def window_sum(h, layout: str, TD: int):
-    """out [D, H, W] of window_sum_reference through the layout's kernel.
-    Counted under build.probe_key("window_sum", layout)."""
+class LayoutShape(NamedTuple):
+    """Launch shape of a layout kernel: `tile` cells of the (H, W) plane a
+    block, `stages` windows (full-window) or groups of TD rows (slide) in
+    flight, `blocks` = x tiles x `segments` (runs of z tiles), `threads`
+    and `smem` shared bytes a block."""
+
+    tile: int
+    stages: int
+    blocks: int
+    segments: int
+    threads: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def layout_shape(layout: str, P: int, D: int, HW: int, TD: int,
+                 tile: Optional[int] = None, stages: Optional[int] = None,
+                 segments: Optional[int] = None) -> LayoutShape:
+    """The launch of `layout`'s kernel on a (D, H, W) canvas of P planes,
+    HW = H W cells a plane: x tiles of `tile` cells x `segments` runs of
+    the gz z tiles (at most gz), a block each, with a ring of `stages`
+    windows of TD + 2 rows (full-window: plane-major, z-major) or of
+    TD + 2 + stages TD rows (z-major-slide), P planes of `tile` cells a
+    row.  Defaults: LAYOUT_DEFAULTS, the stages cut to what fits the
+    shared memory.  Raises ValueError where nothing fits.  Cached, so
+    that a launch spends little host time on it."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; one of {tuple(LAYOUTS)}")
+    gz = interior_rows(D, TD) // TD
+    d = LAYOUT_DEFAULTS[layout]
+    tile = tile or d["tile"]
+    if tile not in LAYOUT_TILES or not 1 <= P <= 256 or HW < 1:
+        raise ValueError(f"the layout kernels take a tile of {LAYOUT_TILES} "
+                         f"cells, 1 <= P <= 256 and HW >= 1, not {tile}, "
+                         f"{P}, {HW}")
+    wz = TD + 2
+
+    def smem_of(s):
+        rows = wz + s * TD if layout == "z-major-slide" else s * wz
+        return LAYOUT_BARRIER_BYTES + rows * P * tile * 4
+
+    if stages is None:
+        stages = d["stages"]
+        while stages > 1 and smem_of(stages) > build.SMEM_MAX:
+            stages -= 1
+    smem = smem_of(stages)
+    if not 1 <= stages <= LAYOUT_MAX_STAGES or smem > build.SMEM_MAX:
+        raise ValueError(f"{layout}: {stages} stages of P = {P}, TD = {TD}, "
+                         f"tile {tile} take {smem} shared bytes; at most "
+                         f"{LAYOUT_MAX_STAGES} stages and {build.SMEM_MAX} "
+                         "bytes")
+    segments = min(segments or d["segments"], gz)
+    return LayoutShape(tile, stages, -(-HW // tile) * segments, segments,
+                       min(1024, TD * tile), smem)
+
+
+def window_sum(h, layout: str, TD: int, shape: Optional[LayoutShape] = None):
+    """out [D, H, W] of window_sum_reference through the layout's kernel,
+    launched with `shape` (default: layout_shape's).  Counted under
+    build.probe_key("window_sum", layout)."""
     if not build.on_card(h):
         return window_sum_reference(h, layout, TD)
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; one of {tuple(LAYOUTS)}")
     pm = layout == "plane-major"
     P, D, H, W = h.shape if pm else (h.shape[1], h.shape[0]) + h.shape[2:]
-    interior_rows(D, TD)
     _check({"h": (h, h.shape)}, H * W, TD)
+    if shape is None:
+        shape = layout_shape(layout, P, D, H * W, TD)
     out = torch.empty((D, H, W), dtype=h.dtype, device=h.device)
     build.launch_probe(build.probe_key("window_sum", layout),
-                       "ryujin_probe_window", LAYOUTS[layout], h.data_ptr(),
-                       out.data_ptr(), None, P, D, H * W, TD)
+                       "ryujin_probe_layout", LAYOUTS[layout], h.data_ptr(),
+                       out.data_ptr(), P, D, H * W, TD, *shape)
     return out
 
 

@@ -71,6 +71,25 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def layout_inputs(args, device="cuda"):
+    """(hz [D, P, H, W], hp [P, D, H, W]) of the layouts part: hz uniform
+    on [0, 1) from np.random.default_rng(0), hp the same canvas
+    plane-major."""
+    rng = np.random.default_rng(0)
+    hz = torch.from_numpy(rng.random((args.D, args.P, args.H, args.W),
+                                     dtype=np.float32)).to(device)
+    return hz, hz.movedim(0, 1).contiguous()
+
+
+def layout_calls(hz, hp, TD: int):
+    """The PyTorch call that computes each layout's window sums: rows
+    1 .. gz TD of the canvas summed over the planes."""
+    rows = interior_rows(hz.shape[0], TD)
+    return {"plane-major": lambda: hp[:, 1 : rows + 1].sum(0),
+            "z-major": lambda: hz[1 : rows + 1].sum(1),
+            "z-major-slide": lambda: hz[1 : rows + 1].sum(1)}
+
+
 def cases(args, part: str, device="cuda"):
     """The cases of one part at the options' sizes, on `device`."""
     rng = np.random.default_rng(0)
@@ -88,12 +107,9 @@ def cases(args, part: str, device="cuda"):
 
     if part == "layouts":
         reps = args.REPS or LAYOUTS_ENV["REPS"]
-        hz = canvas(D, args.P, H, W)
-        hp = hz.movedim(0, 1).contiguous()
+        hz, hp = layout_inputs(args, dev)
         nbytes = 4 * (args.P * (rows + 2) * HW + D * HW)
-        library = {"plane-major": lambda: hp[:, 1 : rows + 1].sum(0),
-                   "z-major": lambda: hz[1 : rows + 1].sum(1),
-                   "z-major-slide": lambda: hz[1 : rows + 1].sum(1)}
+        library = layout_calls(hz, hp, TD)
         return [
             Case(name=named(f"window_sum_{layout}", P=args.P),
                  kernel=lambda L=layout, h=h: window_sum(h, L, TD),

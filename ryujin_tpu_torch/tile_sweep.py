@@ -1,6 +1,7 @@
 """Time the stacked pk1 and pk2 and pk1_stream over their tiles, and
-other checkouts' builds of them on the same inputs; and the sublane
-gather probe over its row groups.
+other checkouts' builds of them on the same inputs; the sublane gather
+probe over its row groups; and the layout probe's kernels over their
+launches.
 
     python -m ryujin_tpu_torch.tile_sweep [--tree NAME=ROOT ...] [CASE ...]
 
@@ -16,7 +17,11 @@ ones on the same state), or gather (the sublane gather of
 probes/gather.py at S = 1024, L = 128 with each group count of GROUPS,
 held exactly against the plain version, beside torch.gather, each in
 a CUDA graph of probes.CHAIN calls: probes.graph_ms; this checkout
-only); without one, all five.  For each launch it
+only), or layouts (the three layouts of probes/layout3d.py at the
+script's sizes over the launches of LAYOUT_CANDIDATES, and at the
+default launch, each held exactly against the plain version and timed
+the same way beside its PyTorch call; this checkout only); without one,
+all six.  For each launch it
 times, with CUDA events (chip_smoke.time_ms, mean of 20 launches after
 a warm one), this checkout's kernel at the tile its wrapper chooses and
 each other checkout's, in turns (this, the others, this, the others
@@ -47,13 +52,22 @@ TILES = {2: [(1, 1), (2, 1), (4, 1), (8, 1)],
          3: [(2, 2), (4, 2), (2, 4), (8, 1), (4, 1), (1, 8)]}
 # candidate row groups of the sublane gather (its blocks: 4 tiles each)
 GROUPS = (1, 2, 4, 8, 16, 32)
+# candidate launches of the layout kernels (kernels/probe_layout3d.py
+# layout_shape): tile widths, stages and z segments, for the full-window
+# kernels and the slide
+LAYOUT_CANDIDATES = {
+    "full": {"tile": (64, 128), "stages": (2, 3, 4),
+             "segments": (1, 2, 3, 4, 6, 8, 12, 17)},
+    "slide": {"tile": (64, 128), "stages": (2, 3, 4, 6),
+              "segments": (1, 2, 3, 4, 6, 8, 12, 17)},
+}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("cases", nargs="*",
                     default=["step2d", "q2step2d", "box3d", "cylinder3d",
-                             "gather"])
+                             "gather", "layouts"])
     ap.add_argument("--tree", action="append", default=[],
                     metavar="NAME=ROOT")
     args = ap.parse_args(argv)
@@ -206,12 +220,55 @@ def main(argv=None) -> int:
                 pg.sublane_shape = default
         gm("gather torch.gather", lambda: torch.gather(x, 0, idx64))
 
+    def layout_launches():
+        """The three layouts over LAYOUT_CANDIDATES and at the default
+        launch, and their PyTorch calls, in CUDA graphs of probes.CHAIN
+        calls."""
+        import itertools
+
+        from . import probes
+        from .kernels import probe_layout3d as kl
+        from .probes import layout3d
+
+        la = layout3d.parser().parse_args([])
+        P, D, HW, TD = la.P, la.D, la.H * la.W, la.TD
+        hz, hp = layout3d.layout_inputs(la, dev)
+        library = layout3d.layout_calls(hz, hp, TD)
+
+        def gm(key, fn):
+            fn()
+            res["ms"][key] = probes.graph_ms(fn, probes.CHAIN)
+            print(f"  {key}: {res['ms'][key]:.4f} ms", flush=True)
+
+        for layout, h in (("plane-major", hp), ("z-major", hz),
+                          ("z-major-slide", hz)):
+            want = kl.window_sum_reference(h, layout, TD)
+            cand = LAYOUT_CANDIDATES[
+                "slide" if layout == "z-major-slide" else "full"]
+            shapes = {kl.layout_shape(layout, P, D, HW, TD): "default"}
+            for values in itertools.product(*cand.values()):
+                try:
+                    shape = kl.layout_shape(layout, P, D, HW, TD,
+                                            **dict(zip(cand, values)))
+                except ValueError:  # does not fit the shared memory
+                    continue
+                shapes.setdefault(shape, "")
+            for shape, tag in shapes.items():
+                same = torch.equal(kl.window_sum(h, layout, TD, shape), want)
+                gm(f"layouts {layout} {tuple(shape)}{' ' + tag if tag else ''}"
+                   f"{'' if same else ' WRONG'}",
+                   lambda: kl.window_sum(h, layout, TD, shape))
+            gm(f"layouts {layout} torch", library[layout])
+
     dev = torch.device("cuda")
     use("this")
     for case in args.cases:
         print(f"{case}:", flush=True)
         if case == "gather":
             gather_groups()
+            continue
+        if case == "layouts":
+            layout_launches()
             continue
         if case == "step2d":
             eq, sd, hm, _, U0 = bench.build_step2d(cs.REFINEMENT,

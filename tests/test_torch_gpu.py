@@ -229,6 +229,37 @@ def test_probe_kernels_on_card_match_plain():
         assert ok, (case.name, err)
 
 
+@pytest.mark.gpu
+def test_layout_kernels_exact_at_every_launch():
+    """The three layout kernels bit-equal to their plain version at every
+    launch tile_sweep layouts tries, on a ragged canvas (H W = 160:
+    partial tiles of 64 and 128 cells), TD = 1, 2, 3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import itertools
+
+    import numpy as np
+
+    from ryujin_tpu_torch.kernels import probe_layout3d as kl
+    from ryujin_tpu_torch.tile_sweep import LAYOUT_CANDIDATES
+
+    P, D, H, W = 5, 13, 4, 40
+    rng = np.random.default_rng(3)
+    hz = torch.from_numpy(rng.random((D, P, H, W), dtype=np.float32)).cuda()
+    hp = hz.movedim(0, 1).contiguous()
+    for TD in (1, 2, 3):
+        want = kl.window_sum_reference(hz, "z-major", TD)
+        for layout, h in (("plane-major", hp), ("z-major", hz),
+                          ("z-major-slide", hz)):
+            cand = LAYOUT_CANDIDATES[
+                "slide" if layout == "z-major-slide" else "full"]
+            for values in itertools.product(*cand.values()):
+                shape = kl.layout_shape(layout, P, D, H * W, TD,
+                                        **dict(zip(cand, values)))
+                got = kl.window_sum(h, layout, TD, shape)
+                assert torch.equal(got, want), (layout, TD, shape)
+
+
 def ragged_case(dim, ansatz=None):
     """A build_case whose canvas leaves partial tiles of the tiled kernels
     (32 cells along x, 4 rows along y in f32) on x and y, packed with no

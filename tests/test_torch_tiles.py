@@ -4,9 +4,11 @@ instance's tile fits the card's shared memory, stages a halo of the
 lattice reach, and its grid covers every cell of the bench canvases and
 of the small test canvases, ragged edges included; the C side of the
 launch (the Consts struct, the entry points, the staged layouts) mirrors
-what the wrappers pass; and the sublane gather probe's launch covers its
-output and fits its window in shared memory."""
+what the wrappers pass; and the launches of the sublane gather probe
+and of the layout probe's three layouts cover their outputs and fit
+their windows in shared memory."""
 
+import itertools
 import re
 
 import pytest
@@ -15,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 from ryujin_tpu_torch.kernels import (  # noqa: E402
     build, pk1, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
-    probe_gather,
+    probe_gather, probe_layout3d,
 )
 from ryujin_tpu_torch.offline.structured import lattice_offsets  # noqa: E402
 
@@ -175,6 +177,67 @@ def test_sublane_gather_shape_covers_and_fits(S):
         probe_gather.sublane_shape(largest + 1, 128)
 
 
+def _layout_written(sh, D, HW, TD):
+    """How often each (interior z tile, cell) is written by the launch
+    `sh`, as the kernels split the work (csrc/probe_layout3d.cu): block
+    (x tile, segment) the z tiles [gz segment / S, gz (segment + 1) / S),
+    S segments; each segment's first window lies within D."""
+    gz = D // TD - 2
+    tiles = -(-HW // sh.tile)
+    assert sh.blocks == tiles * sh.segments and 1 <= sh.segments <= gz
+    written = torch.zeros((gz, HW), dtype=torch.int32)
+    for seg in range(sh.segments):
+        t0, t1 = gz * seg // sh.segments, gz * (seg + 1) // sh.segments
+        assert t1 > t0 and 0 <= t0 * TD and t0 * TD + TD + 2 <= D
+        for x in range(tiles):
+            written[t0:t1, x * sh.tile:(x + 1) * sh.tile] += 1
+    return written
+
+
+@pytest.mark.parametrize("P,D,H,W,TD", [
+    (24, 72, 72, 128, 2),  # the script's sizes
+    (3, 8, 4, 8, 2), (3, 8, 4, 8, 1),  # the CPU tests' sizes
+    (5, 20, 5, 36, 3), (2, 9, 3, 44, 1),  # ragged H W, one tile or several
+])
+def test_layout_shape_covers_and_fits(P, D, H, W, TD):
+    """The three layouts' launches, by default and over the candidates of
+    tile_sweep layouts: every interior z tile and every (H, W) cell is
+    written exactly once; each segment's first window lies within D; the
+    full-window ring holds `stages` windows of TD + 2 rows, the slide's
+    TD + 2 + stages TD rows; the shared bytes are the barriers and those
+    rows of P planes of `tile` cells and fit 232,448 B; the threads fit
+    1,024."""
+    from ryujin_tpu_torch.tile_sweep import LAYOUT_CANDIDATES
+
+    HW = H * W
+    for layout in probe_layout3d.LAYOUTS:
+        slide = layout == "z-major-slide"
+        cand = LAYOUT_CANDIDATES["slide" if slide else "full"]
+        kinds = [{}] + [dict(zip(cand, values))
+                        for values in itertools.product(*cand.values())]
+        for kw in kinds:
+            try:
+                sh = probe_layout3d.layout_shape(layout, P, D, HW, TD, **kw)
+            except ValueError:
+                assert kw, "the default launch always fits"
+                continue
+            rows = TD + 2 + sh.stages * TD if slide else sh.stages * (TD + 2)
+            assert sh.smem == (probe_layout3d.LAYOUT_BARRIER_BYTES
+                               + rows * P * sh.tile * 4)
+            assert sh.smem <= build.SMEM_MAX == 232448
+            assert sh.threads == min(1024, TD * sh.tile) <= 1024
+            assert 1 <= sh.stages <= probe_layout3d.LAYOUT_MAX_STAGES
+            written = _layout_written(sh, D, HW, TD)
+            assert bool((written == 1).all()), (layout, sh)
+    for bad in ({"tile": 32}, {"stages": 16}, {"stages": 0}):
+        with pytest.raises(ValueError):
+            probe_layout3d.layout_shape("z-major", P, D, HW, TD, **bad)
+    with pytest.raises(ValueError):
+        probe_layout3d.layout_shape("z-major", 257, D, HW, TD)
+    with pytest.raises(ValueError):
+        probe_layout3d.layout_shape("diagonal", P, D, HW, TD)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_pk2_tile_fits_and_covers(dtype):
     """The stacked pk2 (2D, K = 8): the layout of pk2_stream's tile with
@@ -314,6 +377,32 @@ def test_launch_struct_mirrors_the_c_side():
             in gather)
     assert ("int64_t(smem) != int64_t(S) * SUBLANE_TILE * "
             "int64_t(sizeof(float))") in gather
+    layout = (CSRC / "probe_layout3d.cu").read_text()
+    assert (f"constexpr int LAYOUT_BARRIER_BYTES = "
+            f"{probe_layout3d.LAYOUT_BARRIER_BYTES};") in layout
+    assert ("constexpr int LAYOUT_MAX_STAGES = LAYOUT_BARRIER_BYTES / 8 - 1;"
+            in layout and probe_layout3d.LAYOUT_MAX_STAGES == 128 // 8 - 1)
+    assert "(tile != 64 && tile != 128)" in layout
+    assert probe_layout3d.LAYOUT_TILES == (64, 128)
+    for mirrored in (
+            "threads != (TD * tile < 1024 ? TD * tile : 1024)",
+            "rows = slide ? wz + int64_t(stages) * TD : int64_t(stages) * wz",
+            "int64_t(smem) != LAYOUT_BARRIER_BYTES + rows * P * tile * "
+            "int64_t(sizeof(float))",
+            "segments < 1 || segments > gz || blocks != tiles * segments",
+            "kernel<<<dim3(blocks / segments, segments), threads, smem,"):
+        assert mirrored in layout, mirrored
+    # both kernels split the z tiles of a tile so
+    assert layout.count("const int t0 = gz * int(blockIdx.y) / "
+                        "int(gridDim.y);") == 2
+    assert layout.count("const int n = gz * int(blockIdx.y + 1) / "
+                        "int(gridDim.y) - t0;") == 2
+    args = build.PROBE_ENTRY_POINTS["ryujin_probe_layout"]
+    m = re.search(r'extern "C" int ryujin_probe_layout\((.*?)\)', layout,
+                  re.S)
+    params = [p.split()[-1] for p in m.group(1).split(",")]
+    assert params[-7:-1] == list(probe_layout3d.LayoutShape._fields)
+    assert len(params) == len(args)
     for stem, n_ptr in build.ENTRY_POINTS.items():
         text = (CSRC / f"{stem}.cu").read_text()
         m = re.search(r'extern "C" int ryujin_' + stem + r"_##SUFFIX\((.*?)\)",
