@@ -100,10 +100,12 @@ any failure exits non-zero):
    and sqrt within 4 ulp pointwise and 1e-6 relative on the sums)
    and times it with CUDA events (a warm launch, then 20, or the script's
    count, each after an L2 flush where its bytes fit in the 50 MB L2),
-   with its plain version, its PyTorch call where one exists (then both
-   also chained: 100 calls in one CUDA graph), and its
+   with its plain version, its PyTorch call where one exists, each also
+   chained (100 calls in one CUDA graph), and its
    bound (for the pows, the fewest FMA-pipe and MUFU instructions that any
-   evaluation executes, from the SASS).
+   evaluation executes, from the SASS); then the pow kernels at a ragged
+   n, aligned and on an offset view x[1:] (the scalar pointwise
+   instance), pointwise and summed with the carry, each at its bar.
 
 pk_up's two launches a substep, PK4 and PK5 (`last`), are timed, bounded
 and counted apart.  The stream PK1's e, the stream PK2's U_low, F and
@@ -1047,9 +1049,44 @@ def check_probes():
         if rec["launches"] < 1:
             fail(f"{rec['name']} was not launched by its probe")
         records[rec["name"]] = rec
+    check_pow_ragged()
     print(f"phase 12: {len(records)} probe kernels held and timed in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return records
+
+
+def check_pow_ragged():
+    """Phase 12, after the counts are read: the pow kernels at a ragged n
+    on an offset view x[1:] (not 16-byte aligned: the scalar pointwise
+    instance) and on x[:n] (float4 vectors and a tail of 3), every form
+    pointwise and summed with the carry, each at its bar against the
+    plain version."""
+    import itertools
+
+    import numpy as np
+
+    from ryujin_tpu_torch.kernels import probe_pow as kp
+    from ryujin_tpu_torch.probes import held
+    from ryujin_tpu_torch.probes.pow import LIBM
+
+    n = 524291
+    base = torch.from_numpy(np.random.default_rng(5).uniform(
+        0.5, 3.0, n + 1).astype(np.float32)).cuda()
+    s = kp.shifts(0.01, 40).cuda()
+    for off, form in itertools.product((0, 1), kp.FORMS):
+        x = base[off:off + n]
+        for shifts, carry in ((None, None), (s, base[:n])):
+            bar = ("exact" if form not in LIBM
+                   else "4 ulp" if shifts is None else "rel 1e-6")
+            _, err, ok = held(bar, kp.probe_pow(x, form, 1.4, shifts, carry),
+                              kp.probe_pow_reference(x, form, 1.4, shifts,
+                                                     carry))
+            if not ok:
+                fail(f"probe_pow[{form}, n = {n}, offset {off}, "
+                     f"{'summed' if shifts is not None else 'pointwise'}]: "
+                     f"{err} against the plain version ({bar})")
+    print(f"phase 12: the pow kernels hold their bars at n = {n}, aligned "
+          "and on x[1:], pointwise and summed with the carry", flush=True)
 
 
 def per_substep(fns):

@@ -43,8 +43,9 @@ MAX_K = 48  # lattice offsets a launch can carry (cG Q3: reach 3, K = 48)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # the probes' entry points -> argtypes (every pointer and the stream void *)
 PROBE_ENTRY_POINTS = {
-    # form, one, x, carry, shifts, R, b, out, n, stream
-    "ryujin_probe_pow": [_I, _I, _P, _P, _P, _I, _F, _P, _L, _P],
+    # form, summed, x, carry, shifts, R, b, out, n, threads, items,
+    # unroll, vec, blocks, stream
+    "ryujin_probe_pow": [_I, _I, _P, _P, _P, _I, _F, _P, _L] + [_I] * 5 + [_P],
     # x, idx, out, P, W, stream
     "ryujin_probe_lane_gather": [_P, _P, _P, _I, _I, _P],
     # x, idx, out, S, L, tiles, groups, rows, threads, smem, stream

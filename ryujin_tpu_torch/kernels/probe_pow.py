@@ -5,6 +5,9 @@ bench_pow.py:58-71 and bench_pow_tpu.py:50-70)."""
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
 
@@ -13,6 +16,87 @@ from . import build
 # the kernel's PowForm codes
 FORMS = {"powf": 0, "exp2_log2": 1, "fast": 2, "newton": 3, "mult": 4,
          "sqrt": 5}
+# mirrored by csrc/probe_pow.cu: the largest n, the shifts a block stages,
+# the largest block of each kernel, and the launches it takes
+POW_MAX_N = 1 << 30
+POW_MAX_TERMS = 256
+POW_POINTWISE_THREADS = 512
+POW_SUMMED_THREADS = 256
+POW_ITEMS = {False: (1, 2, 4), True: (1, 2)}
+POW_UNROLLS = (1, 2, 4, 8)
+# the default launches (tile_sweep pow): (threads, items, unroll) of the
+# pointwise and the summed kernel
+POW_DEFAULTS = {False: (256, 1, 1), True: (256, 1, 8)}
+# items a thread of the forms that take more than one, from POW_VEC_MIN_N
+# on (below, one): pointwise float4 vectors, where x b, one FMUL an
+# element, moves bytes alone (row 11: 0.00182-0.00185 ms chained at two,
+# 0.00189-0.00194 at one; the other forms lose at two); summed elements,
+# where the short forms spread a thread's staging, barrier and loads over
+# two sums (row 11, unroll 8: x b 0.00426-0.00435 against 0.00500-0.00523,
+# sqrt, exp2 log2 and fast 1-4 % less; powf and Newton lose, their
+# registers leave a wave's tail) (tile_sweep pow; NVIDIA H100 80GB HBM3,
+# 700.00 W)
+POW_ITEMS_OF = {False: {"mult": 2},
+                True: {"mult": 2, "sqrt": 2, "exp2_log2": 2, "fast": 2}}
+# the pointwise kernel takes float4 vectors from this n on, where they
+# leave 16 warps an SM (132 SMs); below, one float a thread keeps four
+# times the warps, which the long forms need to hide their latency: at
+# row 12's 131,072 elements powf read 0.00180 ms chained one a thread,
+# 0.00207-0.00492 in float4 launches, at row 11's 524,288 0.00309 against
+# 0.00298 (tile_sweep pow; NVIDIA H100 80GB HBM3, 700.00 W)
+POW_VEC_MIN_N = 4 * 132 * 512
+
+
+class PowShape(NamedTuple):
+    """Launch shape of the pow kernels: `threads` a block, `items` float4
+    vectors (pointwise) or elements (summed) a thread, `unroll` terms a
+    step (summed; 1 pointwise), `vec` floats a vector (4, or 1 for the
+    scalar pointwise instance; 1 summed) and `blocks`."""
+
+    threads: int
+    items: int
+    unroll: int
+    vec: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def pow_shape(n: int, summed: bool, aligned: bool = True,
+              threads: Optional[int] = None, items: Optional[int] = None,
+              unroll: Optional[int] = None, vec: Optional[int] = None,
+              form: Optional[str] = None) -> PowShape:
+    """The launch of the pow kernel on n elements: pointwise, `items`
+    float4 vectors a thread when x and out are 16-byte `aligned` and n is
+    at least POW_VEC_MIN_N (the n mod 4 last elements go to the grid's
+    first threads), else one float a thread; summed, `items` elements a
+    thread and `unroll` terms a step; `vec` 4 or 1 asks for float4 or
+    scalar pointwise launches at any n (scalar: one item).  As many
+    blocks of `threads` as cover the vectors or elements, at least one.
+    Defaults: POW_DEFAULTS, and from POW_VEC_MIN_N on the items of
+    `form` in POW_ITEMS_OF.  Raises ValueError for a launch the kernels
+    do not take.  Cached, so that a launch spends little host time on
+    it."""
+    d = POW_DEFAULTS[summed]
+    threads, unroll = threads or d[0], unroll or d[2]
+    if vec is None:
+        vec = 4 if aligned and not summed and n >= POW_VEC_MIN_N else 1
+    if items is None:
+        big = n >= POW_VEC_MIN_N and (summed or vec == 4)
+        items = POW_ITEMS_OF[summed].get(form, d[1]) if big else d[1]
+    largest = POW_SUMMED_THREADS if summed else POW_POINTWISE_THREADS
+    if (not 1 <= n <= POW_MAX_N or threads % 32 or not 32 <= threads <= largest
+            or items not in POW_ITEMS[summed]
+            or unroll not in (POW_UNROLLS if summed else (1,))
+            or vec not in ((1,) if summed or not aligned else (1, 4))
+            or (vec == 1 and not summed and items != 1)):
+        raise ValueError(
+            f"the pow kernel takes 1 <= n <= {POW_MAX_N}, whole warps up to "
+            f"{largest} threads, items in {POW_ITEMS[summed]}, unroll in "
+            f"{POW_UNROLLS if summed else (1,)} and float4 only pointwise on "
+            f"an aligned base, not n = {n}, {threads} threads, items "
+            f"{items}, unroll {unroll}, vec {vec}")
+    units, chunk = n // vec, threads * items
+    return PowShape(threads, items, unroll, vec, max(1, -(-units // chunk)))
 
 
 def shifts(step: float, R: int) -> torch.Tensor:
@@ -94,16 +178,21 @@ def key(form: str, R: int, shape) -> str:
                            "x".join(map(str, shape)))
 
 
-def probe_pow(x, form: str, b: float, shifts=None, carry=None):
+def probe_pow(x, form: str, b: float, shifts=None, carry=None,
+              shape: Optional[PowShape] = None):
     """sum_r f(x + s_r) of the f32 tensor x (or f(x) once when `shifts` is
-    None; with `carry`, x + 1e-9 carry in place of x).  Counted under
-    key(form, R, x.shape)."""
+    None; with `carry`, x + 1e-9 carry in place of x), at most
+    POW_MAX_TERMS shifts, launched with `shape` (default: pow_shape's).
+    Counted under key(form, R, x.shape)."""
     if form not in FORMS:
         raise ValueError(f"unknown pow form {form!r}; one of {tuple(FORMS)}")
     if not build.on_card(x):
         return probe_pow_reference(x, form, b, shifts, carry)
     if shifts is None and carry is not None:
         raise ValueError("the pointwise form takes no carry")
+    if shifts is not None and not 1 <= shifts.numel() <= POW_MAX_TERMS:
+        raise ValueError(f"the summed pow takes 1 to {POW_MAX_TERMS} shifts, "
+                         f"not {shifts.numel()}")
     tensors = {"x": (x, x.shape)}
     if carry is not None:
         tensors["carry"] = (carry, x.shape)
@@ -111,9 +200,16 @@ def probe_pow(x, form: str, b: float, shifts=None, carry=None):
         tensors["shifts"] = (shifts, (shifts.numel(),))
     build.check_probe(x.device, tensors)
     out = torch.empty_like(x)
-    R = 1 if shifts is None else shifts.numel()
+    if x.numel() == 0:
+        return out
+    summed = shifts is not None
+    if shape is None:
+        shape = pow_shape(x.numel(), summed,
+                          (x.data_ptr() | out.data_ptr()) % 16 == 0,
+                          form=form)
+    R = shifts.numel() if summed else 1
     build.launch_probe(
-        key(form, R, x.shape), "ryujin_probe_pow", FORMS[form],
-        int(shifts is None), x.data_ptr(), build.ptr(carry), build.ptr(shifts),
-        R, b, out.data_ptr(), x.numel())
+        key(form, R, x.shape), "ryujin_probe_pow", FORMS[form], int(summed),
+        x.data_ptr(), build.ptr(carry), build.ptr(shifts), R, b,
+        out.data_ptr(), x.numel(), *shape)
     return out

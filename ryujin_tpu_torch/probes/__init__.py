@@ -11,11 +11,11 @@ figures and each kernel's error against its plain-torch version, and exits
 1 where a kernel misses its bar or there is no CUDA device.  Every kernel
 is timed here by `measure`: one warm launch (whose output is held against
 the plain version), then 20 launches between CUDA events, each after an
-L2 flush where the function's bytes fit in the 50 MB L2; and, where one
-PyTorch call computes the same function, the kernel and that call each in
-a chain of CHAIN calls captured in one CUDA graph and replayed between
+L2 flush where the function's bytes fit in the 50 MB L2; then the kernel
+and, where one PyTorch call computes the same function, that call, each
+in a chain of CHAIN calls captured in one CUDA graph and replayed between
 one pair of events (`graph_ms`), so that launch costs and the host's gaps
-between calls drop out of their ratio.
+between calls drop out: the kernel's device time, beside its bound.
 """
 
 from __future__ import annotations
@@ -173,11 +173,11 @@ def held(bar: str, k, p):
 def measure(case: Case) -> dict:
     """The record of `case`: its kernel's output (the warm call) held
     against the plain version, the mean ms of a launch, of the plain
-    version and of the library call, and the bound; where there is a
-    library call, also "chain_ms" and "library_chain_ms", the mean ms of a
-    launch and of a library call in CUDA graphs of CHAIN calls (graph_ms;
-    "chain": CHAIN).  Launches only the kernels that the warm call and
-    the timing make.  "instance" is the key of its launch count."""
+    version and of the library call, and the bound; "chain_ms", the mean
+    ms of a launch in a CUDA graph of CHAIN calls (graph_ms; "chain":
+    CHAIN), and "library_chain_ms", a library call's the same way (None
+    without one).  Launches only the kernels that the warm call and the
+    timing make.  "instance" is the key of its launch count."""
     out = case.kernel()
     ref = case.plain()
     max_abs, err, ok = held(case.bar, out, ref)
@@ -186,11 +186,11 @@ def measure(case: Case) -> dict:
     per, reps = case.launches_per_call, case.reps
     ms = time_ms(case.kernel, reps, flush) / per
     plain_ms = time_ms(case.plain, max(reps // 4, 2), flush) / per
-    library_ms = chain_ms = library_chain_ms = None
+    library_ms = library_chain_ms = None
+    chain_ms = graph_ms(case.kernel, CHAIN) / per
     if case.library is not None:
         case.library()
         library_ms = time_ms(case.library, reps, flush)
-        chain_ms = graph_ms(case.kernel, CHAIN) / per
         library_chain_ms = graph_ms(case.library, CHAIN)
     by_bytes = case.nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = case.ops_ms or 0.0
@@ -201,7 +201,7 @@ def measure(case: Case) -> dict:
         "library_ms": library_ms, "bound_ms": max(by_bytes, by_ops),
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
         "flushed": flush, "instance": case.instance,
-        "chain": CHAIN if chain_ms is not None else None,
+        "chain": CHAIN,
         "chain_ms": chain_ms, "library_chain_ms": library_chain_ms,
     }
 
@@ -210,10 +210,10 @@ def report(rec: dict) -> str:
     """One line: the kernel against its plain version, and its times."""
     lib = ("null" if rec["library_ms"] is None
            else f"{rec['library_ms']:.4f} ms")
-    chained = ("" if rec["chain_ms"] is None else
-               f"; chained ({rec['chain']} calls, one graph) kernel "
-               f"{rec['chain_ms']:.4f} ms, library "
-               f"{rec['library_chain_ms']:.4f} ms")
+    lib_chain = ("null" if rec["library_chain_ms"] is None
+                 else f"{rec['library_chain_ms']:.4f} ms")
+    chained = (f"; chained ({rec['chain']} calls, one graph) kernel "
+               f"{rec['chain_ms']:.4f} ms, library {lib_chain}")
     return (f"  {rec['name']}: vs plain {rec['err']:.3e} ({rec['bar']}) "
             f"{'ok' if rec['ok'] else 'FAIL'}; kernel {rec['ms']:.4f} ms, "
             f"plain {rec['plain_ms']:.4f} ms, library {lib}, bound "

@@ -12,10 +12,11 @@ sum_{r < reps} f(x + f32(1e-3 r)) over an N array, x uniform on [0.01, 4)
 powf, exp2 log2 and the Newton form (x^1.4 whatever G is), the summed and
 pointwise errors against powf (torch.pow) and the time per launch of a
 `loop`-launch chain in which each launch takes x + 1e-9 (its predecessor's
-output).  Every form also runs once pointwise (its ONE instance).  The
-operations bound counts, in the SASS of each form's ONE instance (read
-with cuobjdump from the built library), the fewest FMA-pipe and MUFU
-instructions that any evaluation executes (least_issued).
+output).  Every form also runs once pointwise.  The operations bound
+counts, in the SASS of each form's single-evaluation instance (ONE_EVAL:
+the scalar pointwise kernel, one element a thread; read with cuobjdump
+from the built library), the fewest FMA-pipe and MUFU instructions that
+any evaluation executes (least_issued).
 """
 
 from __future__ import annotations
@@ -52,7 +53,11 @@ LIBM = ("powf", "exp2_log2", "sqrt")
 # (FADD, FMUL, FFMA) and the MUFU (the special-function unit)
 RATES = {"fma": 128, "mufu": 16}
 _FMA = {"FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I"}
-_ONE = re.compile(r"_ZN6ryujin16probe_pow_kernelILi(\d)ELb1E")
+# the instance of each form that evaluates f once a thread: the scalar
+# pointwise kernel, probe_pow_pointwise_kernel<FORM, 1, 1> (its vector
+# instances evaluate f four times an item and may skip every item)
+ONE_EVAL = re.compile(
+    r"_ZN6ryujin26probe_pow_pointwise_kernelILi(\d)ELi1ELi1EE")
 _TARGET = re.compile(r"(0x[0-9a-f]+)$")
 
 
@@ -87,7 +92,8 @@ def _decode(text: str):
 
 
 def least_issued(code, pipe: str, start: int = 0, stop: str = "EXIT") -> int:
-    """The fewest unguarded `pipe` instructions that one thread executes in
+    """The fewest unguarded `pipe` instructions (pipe "all": instructions
+    of any kind) that one thread executes in
     the function `code` ([(address, text)] from sass_diff.listing) from the
     instruction at `start` to an unguarded `stop`: a shortest path over the
     instructions that may go either way at each conditional branch and
@@ -103,7 +109,7 @@ def least_issued(code, pipe: str, start: int = 0, stop: str = "EXIT") -> int:
         if d > best[i]:
             continue
         guarded, op, unit = _decode(code[i][1])
-        d += int(unit == pipe and not guarded)
+        d += int((pipe == "all" or unit == pipe) and not guarded)
         if op == stop and not guarded:
             return d
         nxt = [(i + 1, d)]
@@ -122,9 +128,12 @@ def least_issued(code, pipe: str, start: int = 0, stop: str = "EXIT") -> int:
 
 
 def pow_mix(library):
-    """{form: {"fma", "mufu": least_issued of one evaluation, "static":
-    the ONE instance's instruction count}} from the built library's SASS;
-    None where cuobjdump is missing."""
+    """{form: {"fma", "mufu": least_issued of one evaluation, "issued":
+    the fewest instructions of any kind it executes (each takes an issue
+    slot: a warp scheduler issues one a clock, and the FMA pipe takes one
+    warp instruction a clock per scheduler, so "issued" bounds as "fma"
+    does), "static": the ONE_EVAL instance's instruction count}} from the
+    built library's SASS; None where cuobjdump is missing."""
     from ..sass_diff import listing
 
     if not build.cuda_tool("cuobjdump").exists():
@@ -132,10 +141,11 @@ def pow_mix(library):
     names = {code: name for name, code in FORMS.items()}
     mix = {}
     for fn, code in listing(library).items():
-        m = _ONE.match(fn)
+        m = ONE_EVAL.match(fn)
         if m:
             mix[names[int(m.group(1))]] = {
                 **{unit: least_issued(code, unit) for unit in RATES},
+                "issued": least_issued(code, "all"),
                 "static": sum(not t.startswith("NOP") for _, t in code)}
     return mix or None
 
@@ -152,6 +162,21 @@ def ops_ms(mix, clock_mhz, form, evals, summed):
     counts["fma"] += 2 if summed else 0
     per_clock = max(counts[unit] / (SMS * rate) for unit, rate in RATES.items())
     return evals * per_clock / (clock_mhz * 1e6) * 1e3
+
+
+def library_call(form, x, b, summed=False):
+    """The PyTorch call that computes `form` on x, summed over its first
+    axis (x the stack of shifted inputs [R, ...]) when `summed`, or None.
+    exp2(b log2 x) computes x^b, as powf does: it is held to the same bars
+    against torch.pow (LIBM), so torch.pow is its call too; the fast and
+    Newton forms compute other values (7.8 % and 4e-5 off x^b) and no
+    single call evaluates them."""
+    one = {"powf": lambda v: torch.pow(v, b),
+           "exp2_log2": lambda v: torch.pow(v, b),
+           "mult": lambda v: torch.mul(v, b), "sqrt": torch.sqrt}.get(form)
+    if one is None:
+        return None
+    return (lambda: one(x).sum(0)) if summed else (lambda: one(x))
 
 
 def cases(args, mix, clock_mhz, device="cuda"):
@@ -173,24 +198,6 @@ def cases(args, mix, clock_mhz, device="cuda"):
     shape11 = f"{args.H}x{args.W}"
     shape12 = f"{args.N[0]}x{args.N[1]}"
 
-    # exp2(b log2 x) computes x^b, as powf does: it is held to the same
-    # bars against torch.pow (LIBM), so torch.pow is its call too; the fast
-    # and Newton forms compute other values (7.8 % and 4e-5 off x^b) and
-    # no single call evaluates them
-    def summed_library(form, X, b):
-        """One PyTorch call on the shifted stack X [R, ...], or None."""
-        if form in ("powf", "exp2_log2"):
-            return lambda: torch.pow(X, b).sum(0)
-        if form == "sqrt":
-            return lambda: torch.sqrt(X).sum(0)
-        return None
-
-    def pointwise_library(form, x, b):
-        calls = {"powf": lambda: torch.pow(x, b),
-                 "exp2_log2": lambda: torch.pow(x, b),
-                 "sqrt": lambda: torch.sqrt(x), "mult": lambda: torch.mul(x, b)}
-        return calls.get(form)
-
     def pointwise(form, x, b, shape, replaces):
         return Case(
             name=f"probe_pow[{form}, {shape}, pointwise]",
@@ -199,7 +206,7 @@ def cases(args, mix, clock_mhz, device="cuda"):
             bar="4 ulp" if form in LIBM else "exact",
             nbytes=8 * x.numel(), source=SOURCE, replaces=replaces,
             instance=key(form, 1, x.shape),
-            library=pointwise_library(form, x, b),
+            library=library_call(form, x, b),
             ops_ms=ops_ms(mix, clock_mhz, form, x.numel(), False))
 
     summed_bar = {form: "rel 1e-6" for form in LIBM}
@@ -211,7 +218,7 @@ def cases(args, mix, clock_mhz, device="cuda"):
             plain=lambda f=form: probe_pow_reference(x11, f, args.b, s11),
             bar=summed_bar.get(form, "exact"), nbytes=8 * n11, source=SOURCE,
             replaces=ROW11, instance=key(form, args.REPS, x11.shape),
-            library=summed_library(form, X11, args.b),
+            library=library_call(form, X11, args.b, summed=True),
             ops_ms=ops_ms(mix, clock_mhz, form, n11 * args.REPS, True),
             reps=args.n_iter))
         row11.append(pointwise(form, x11, args.b, shape11, ROW11))
@@ -234,7 +241,7 @@ def cases(args, mix, clock_mhz, device="cuda"):
             bar=summed_bar.get(form, "exact"), nbytes=12 * n12,
             source=SOURCE, replaces=ROW12,
             instance=key(form, args.reps, x12.shape),
-            library=summed_library(form, X12, args.G),
+            library=library_call(form, X12, args.G, summed=True),
             ops_ms=ops_ms(mix, clock_mhz, form, n12 * args.reps, True),
             launches_per_call=args.loop, reps=args.iters))
         row12.append(pointwise(form, x12, args.G, shape12, ROW12))
@@ -295,16 +302,17 @@ def main(argv=None, records=None) -> int:
         recs.append(rec)
 
     if mix is None:
-        print("SASS per pow: not measured (no cuobjdump, or no ONE instance "
-              "found in its listing)", flush=True)
+        print("SASS per pow: not measured (no cuobjdump, or no ONE_EVAL "
+              "instance found in its listing)", flush=True)
     else:
         print(f"SASS per pow (one evaluation, the fewest executed on any "
               f"path; top SM clock {clock} MHz):", flush=True)
         for form in FORMS:
             m = mix.get(form, {})
             print(f"  {form:10s} FMA pipe {m.get('fma', 0):3d}  MUFU "
-                  f"{m.get('mufu', 0):3d}  (of {m.get('static', 0)} "
-                  "instructions in the function)", flush=True)
+                  f"{m.get('mufu', 0):3d}  issued {m.get('issued', 0):3d}  "
+                  f"(of {m.get('static', 0)} instructions in the function)",
+                  flush=True)
     if records is not None:
         records.extend(recs)
     return 0 if all(r["ok"] for r in recs) else 1

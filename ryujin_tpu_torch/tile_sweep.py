@@ -1,7 +1,8 @@
 """Time the stacked pk1 and pk2 and pk1_stream over their tiles, and
 other checkouts' builds of them on the same inputs; the sublane gather
-probe over its row groups; and the layout probe's kernels over their
-launches.
+probe over its row groups; the layout probe's and the pow probe's
+kernels over their launches; and the pow probe of other checkouts in
+turns.
 
     python -m ryujin_tpu_torch.tile_sweep [--tree NAME=ROOT ...] [CASE ...]
 
@@ -20,8 +21,17 @@ a CUDA graph of probes.CHAIN calls: probes.graph_ms; this checkout
 only), or layouts (the three layouts of probes/layout3d.py at the
 script's sizes over the launches of LAYOUT_CANDIDATES, and at the
 default launch, each held exactly against the plain version and timed
-the same way beside its PyTorch call; this checkout only); without one,
-all six.  For each launch it
+the same way beside its PyTorch call; this checkout only), or pow (every
+PowForm pointwise and summed at the sizes of rows 11 and 12 over the
+launches of POW_CANDIDATES, and at the default launch, each held
+against the plain version at its bar and against the default launch
+bit for bit, timed the same way beside its PyTorch call; this checkout
+only), or pow-turns (pow_turn, run in each checkout's own process with
+its package first on the path, in turns: the others, this, this, the
+others reversed; every form's chained time at the default launch and a
+digest of its output, compared with this checkout's; so P C C P with
+the parent as the one other); without one, all but pow-turns.  For
+each launch of the solver kernels it
 times, with CUDA events (chip_smoke.time_ms, mean of 20 launches after
 a warm one), this checkout's kernel at the tile its wrapper chooses and
 each other checkout's, in turns (this, the others, this, the others
@@ -39,7 +49,9 @@ warps}}}}.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import os
 import subprocess
 import sys
 import time
@@ -52,6 +64,16 @@ TILES = {2: [(1, 1), (2, 1), (4, 1), (8, 1)],
          3: [(2, 2), (4, 2), (2, 4), (8, 1), (4, 1), (1, 8)]}
 # candidate row groups of the sublane gather (its blocks: 4 tiles each)
 GROUPS = (1, 2, 4, 8, 16, 32)
+# candidate launches of the pow kernels (kernels/probe_pow.py pow_shape):
+# threads and items a thread of the pointwise float4 kernel, threads,
+# elements a thread and unroll of the summed one; the scalar pointwise
+# instance is timed at 256 threads
+POW_CANDIDATES = {
+    False: {"threads": (128, 256, 512), "items": (1, 2, 4), "unroll": (1,),
+            "vec": (4,)},
+    True: {"threads": (64, 128, 256), "items": (1, 2),
+           "unroll": (1, 2, 4, 8)},
+}
 # candidate launches of the layout kernels (kernels/probe_layout3d.py
 # layout_shape): tile widths, stages and z segments, for the full-window
 # kernels and the slide
@@ -63,11 +85,128 @@ LAYOUT_CANDIDATES = {
 }
 
 
+def pow_turn():
+    """One turn of `pow-turns`, run in a checkout's own process (its
+    package first on the path): every PowForm pointwise and summed at the
+    sizes of rows 11 (512 x 1024, 40 terms, b = 1.4) and 12 (64 x 2048,
+    16 terms, a 64-launch chain each on x + 1e-9 carry), through that
+    checkout's default launch; for each, a digest of the output's bytes
+    and the mean ms of a call (of a launch in the chain) in a CUDA graph
+    of probes.CHAIN calls (probes.graph_ms), beside the PyTorch calls.
+    Uses only what every checkout since the chained reading has:
+    kernels.probe_pow's probe_pow and FORMS, probes.graph_ms and
+    probes.CHAIN, and probes.pow's parser and cases (for the inputs).
+    Returns {"ms": {entry: ms}, "digest": {entry: hex}}."""
+    import hashlib
+
+    import torch
+
+    from ryujin_tpu_torch import probes
+    from ryujin_tpu_torch.kernels import probe_pow as kp
+    from ryujin_tpu_torch.probes import pow as ppow
+
+    _, _, (x11, s11, x12, s12) = ppow.cases(ppow.parser().parse_args([]),
+                                            None, 0)
+    X11 = torch.stack([x11 + s for s in s11.tolist()])
+    X12 = torch.stack([x12 + s for s in s12.tolist()])
+    b, loop = 1.4, 64
+    res = {"ms": {}, "digest": {}}
+
+    def chain(form):
+        def run():
+            a = x12
+            for _ in range(loop):
+                a = kp.probe_pow(x12, form, b, s12, a)
+            return a
+        return run
+
+    def entry(name, fn, per=1, digest=True):
+        out = fn()
+        torch.cuda.synchronize()
+        if digest:
+            res["digest"][name] = hashlib.sha256(
+                out.cpu().numpy().tobytes()).hexdigest()[:16]
+        res["ms"][name] = probes.graph_ms(fn, probes.CHAIN) / per
+
+    for form in kp.FORMS:
+        entry(f"{form} row11 pointwise", lambda: kp.probe_pow(x11, form, b))
+        entry(f"{form} row11 summed",
+              lambda: kp.probe_pow(x11, form, b, s11))
+        entry(f"{form} row12 pointwise", lambda: kp.probe_pow(x12, form, b))
+        entry(f"{form} row12 summed",
+              lambda: kp.probe_pow(x12, form, b, s12))
+        entry(f"{form} row12 chain", chain(form), per=loop)
+    for name, fn in (
+            ("torch.mul row11", lambda: torch.mul(x11, b)),
+            ("torch.sqrt row11", lambda: torch.sqrt(x11)),
+            ("torch.pow row11", lambda: torch.pow(x11, b)),
+            ("torch.mul(X).sum(0) row11", lambda: torch.mul(X11, b).sum(0)),
+            ("torch.sqrt(X).sum(0) row11", lambda: torch.sqrt(X11).sum(0)),
+            ("torch.pow(X).sum(0) row11", lambda: torch.pow(X11, b).sum(0)),
+            ("torch.pow(X).sum(0) row12", lambda: torch.pow(X12, b).sum(0))):
+        entry(name, fn, digest=False)
+    return res
+
+
+def pow_launches(res, dev, argv=()):
+    """Every PowForm pointwise and summed at rows 11 and 12's sizes
+    (row 12: one launch of its chain, on x + 1e-9 x) over
+    POW_CANDIDATES, each held against the plain version at its bar
+    and against the default launch bit for bit, beside the PyTorch
+    calls, in CUDA graphs of probes.CHAIN calls, into res["ms"]; argv:
+    probes.pow's options, for other sizes."""
+    import itertools
+
+    from . import probes
+    from .kernels import probe_pow as kpow
+    from .probes import held
+    from .probes import pow as ppow
+
+    pa = ppow.parser().parse_args(list(argv))
+    _, _, (x11, s11, x12, s12) = ppow.cases(pa, None, 0, dev)
+    rows = {"row11": (x11, pa.b, s11, None),
+            "row12": (x12, pa.G, s12, x12)}
+
+    def gm(key, fn):
+        fn()
+        res["ms"][key] = probes.graph_ms(fn, probes.CHAIN)
+        print(f"  {key}: {res['ms'][key]:.5f} ms", flush=True)
+
+    for (row, (x, b, sh, carry)), form, summed in itertools.product(
+            rows.items(), kpow.FORMS, (False, True)):
+        shifts = sh if summed else None
+        cy = carry if summed else None
+        plain = kpow.probe_pow_reference(x, form, b, shifts, cy)
+        bar = ("exact" if form not in ppow.LIBM
+               else "rel 1e-6" if summed else "4 ulp")
+        want = kpow.probe_pow(x, form, b, shifts, cy)
+        cand = POW_CANDIDATES[summed]
+        shapes = {kpow.pow_shape(x.numel(), summed, form=form): "default"}
+        if not summed:
+            shapes.setdefault(kpow.pow_shape(x.numel(), False, vec=1),
+                              "scalar")
+        for values in itertools.product(*cand.values()):
+            shapes.setdefault(kpow.pow_shape(
+                x.numel(), summed, True, *values), "")
+        kind = "summed" if summed else "pointwise"
+        for shape, tag in shapes.items():
+            got = kpow.probe_pow(x, form, b, shifts, cy, shape)
+            ok = held(bar, got, plain)[2] and torch.equal(got, want)
+            gm(f"pow {row} {form} {kind} {tuple(shape)}"
+               f"{' ' + tag if tag else ''}{'' if ok else ' WRONG'}",
+               lambda: kpow.probe_pow(x, form, b, shifts, cy, shape))
+        library = ppow.library_call(
+            form, x if shifts is None else
+            torch.stack([x + s for s in shifts.tolist()]), b, summed)
+        if library is not None:  # row 12's: the stack of x, no carry
+            gm(f"pow {row} {form} {kind} torch", library)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("cases", nargs="*",
                     default=["step2d", "q2step2d", "box3d", "cylinder3d",
-                             "gather", "layouts"])
+                             "gather", "layouts", "pow"])
     ap.add_argument("--tree", action="append", default=[],
                     metavar="NAME=ROOT")
     args = ap.parse_args(argv)
@@ -260,10 +399,46 @@ def main(argv=None) -> int:
                    lambda: kl.window_sum(h, layout, TD, shape))
             gm(f"layouts {layout} torch", library[layout])
 
+    def pow_turns():
+        """pow_turn in each checkout's own process, in turns: the others,
+        this, this, the others reversed (P C C P with one other); each
+        entry's digest against this checkout's."""
+        src = (inspect.getsource(pow_turn)
+               + "\nimport json\nprint('POW_TURN', json.dumps(pow_turn()))")
+        digests = {}
+        for turn, tree in enumerate(others + ["this", "this"] + others[::-1]):
+            root = str(trees[tree])
+            proc = subprocess.run(
+                [sys.executable, "-c", src], cwd=root, capture_output=True,
+                text=True, env={**os.environ, "PYTHONPATH": root})
+            line = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("POW_TURN ")]
+            if proc.returncode or not line:
+                raise RuntimeError(f"pow turn of {tree} failed:\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            got = json.loads(line[0].split(" ", 1)[1])
+            digests.setdefault(tree, got["digest"])
+            for entry, ms in got["ms"].items():
+                res["ms"][f"pow-turns {entry} {tree} {turn}"] = ms
+                print(f"  pow-turns {entry} {tree} {turn}: {ms:.5f} ms",
+                      flush=True)
+        for tree in others:
+            for entry, d in digests["this"].items():
+                same = digests[tree].get(entry) == d
+                res["equal"][f"pow-turns {entry} {tree}"] = same
+                print(f"  pow-turns {entry}: {tree} {digests[tree].get(entry)}"
+                      f" this {d} {'equal' if same else 'DIFFER'}", flush=True)
+
     dev = torch.device("cuda")
     use("this")
     for case in args.cases:
         print(f"{case}:", flush=True)
+        if case == "pow-turns":
+            pow_turns()
+            continue
+        if case == "pow":
+            pow_launches(res, dev)
+            continue
         if case == "gather":
             gather_groups()
             continue

@@ -230,6 +230,56 @@ def test_probe_kernels_on_card_match_plain():
 
 
 @pytest.mark.gpu
+def test_pow_kernels_ragged_and_offset():
+    """Every pow form pointwise and summed, with and without the carry,
+    at ragged n (float4 by default from kernels.probe_pow.POW_VEC_MIN_N
+    on) and on an offset view x[1:] (whose base is not 16-byte aligned:
+    the scalar pointwise instance), by default and over the candidates of
+    tile_sweep pow and the scalar launch at each block size: each result holds its bar against
+    probe_pow_reference (exact for fast, Newton and x b; 4 ulp pointwise
+    and rel 1e-6 summed for powf, exp2 log2 and sqrt) and equals the
+    default launch bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import itertools
+
+    import numpy as np
+
+    from ryujin_tpu_torch.kernels import probe_pow as kp
+    from ryujin_tpu_torch.probes import held
+    from ryujin_tpu_torch.probes.pow import LIBM
+    from ryujin_tpu_torch.tile_sweep import POW_CANDIDATES
+
+    rng = np.random.default_rng(3)
+    s = kp.shifts(0.01, 13).cuda()
+    for n in (1, 3, 5, 1023, 4099, 131075, 524291):
+        base = torch.from_numpy(rng.uniform(0.5, 3.0, n + 1).astype(
+            np.float32)).cuda()
+        carry = torch.from_numpy(rng.uniform(0.0, 40.0, n).astype(
+            np.float32)).cuda()
+        for off, form in itertools.product((0, 1), kp.FORMS):
+            x = base[off:off + n]
+            assert (x.data_ptr() % 16 == 0) == (off == 0)
+            for shifts, c in ((None, None), (s, None), (s, carry)):
+                summed = shifts is not None
+                bar = ("exact" if form not in LIBM
+                       else "rel 1e-6" if summed else "4 ulp")
+                want = kp.probe_pow(x, form, 1.4, shifts, c)
+                ref = kp.probe_pow_reference(x, form, 1.4, shifts, c)
+                assert held(bar, want, ref)[2], (n, form, summed, c is None)
+                cand = POW_CANDIDATES[summed]
+                launches = list(itertools.product(*cand.values()))
+                if not summed:  # the scalar instance at each block size
+                    launches += [(t, 1, 1, 1) for t in cand["threads"]]
+                for values in launches:
+                    if off and not summed and values[-1] == 4:
+                        continue  # float4 needs a 16-byte aligned base
+                    shape = kp.pow_shape(n, summed, not off, *values)
+                    got = kp.probe_pow(x, form, 1.4, shifts, c, shape)
+                    assert torch.equal(got, want), (n, form, shape)
+
+
+@pytest.mark.gpu
 def test_layout_kernels_exact_at_every_launch():
     """The three layout kernels bit-equal to their plain version at every
     launch tile_sweep layouts tries, on a ragged canvas (H W = 160:

@@ -4,20 +4,22 @@ instance's tile fits the card's shared memory, stages a halo of the
 lattice reach, and its grid covers every cell of the bench canvases and
 of the small test canvases, ragged edges included; the C side of the
 launch (the Consts struct, the entry points, the staged layouts) mirrors
-what the wrappers pass; and the launches of the sublane gather probe
-and of the layout probe's three layouts cover their outputs and fit
-their windows in shared memory."""
+what the wrappers pass; and the launches of the sublane gather probe,
+of the layout probe's three layouts and of the pow probe's two kernels
+cover their outputs and fit their windows in shared memory and their
+blocks on the card."""
 
 import itertools
 import re
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from ryujin_tpu_torch.kernels import (  # noqa: E402
     build, pk1, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
-    probe_gather, probe_layout3d,
+    probe_gather, probe_layout3d, probe_pow,
 )
 from ryujin_tpu_torch.offline.structured import lattice_offsets  # noqa: E402
 
@@ -236,6 +238,113 @@ def test_layout_shape_covers_and_fits(P, D, H, W, TD):
         probe_layout3d.layout_shape("z-major", 257, D, HW, TD)
     with pytest.raises(ValueError):
         probe_layout3d.layout_shape("diagonal", P, D, HW, TD)
+
+
+FORMS = (None,) + tuple(probe_pow.FORMS)
+
+
+def _pow_written(sh, n, summed):
+    """How often each of the n elements is written by the launch `sh`, as
+    csrc/probe_pow.cu splits the work: block b, thread t, item k takes
+    unit (b items + k) threads + t (a float4 vector pointwise when vec is
+    4, else an element); pointwise with vec 4, the n mod 4 elements past
+    the last vector go to grid threads 0 .. n mod 4 - 1."""
+    units = n // sh.vec
+    b, k, t = np.meshgrid(np.arange(sh.blocks), np.arange(sh.items),
+                          np.arange(sh.threads), indexing="ij")
+    unit = ((b * sh.items + k) * sh.threads + t).ravel()
+    unit = unit[unit < units]
+    idx = (unit[:, None] * sh.vec + np.arange(sh.vec)).ravel()
+    if not summed and sh.vec == 4:
+        idx = np.concatenate([idx, 4 * units + np.arange(n - 4 * units)])
+        assert n - 4 * units <= sh.blocks * sh.threads
+    return np.bincount(idx, minlength=n)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 131072, 524288, 524291])
+def test_pow_shape_covers_and_fits(n):
+    """The pow kernels' launches, by default and over the candidates of
+    tile_sweep pow, pointwise (float4 vectors from POW_VEC_MIN_N on, or
+    asked for; else, and on a base that is not 16-byte aligned, the
+    scalar instance) and summed: every element is
+    written exactly once, no block lies wholly past n (one block when no
+    unit is whole), the threads are whole warps up to the kernel's
+    largest block, at most 1,024."""
+    from ryujin_tpu_torch.tile_sweep import POW_CANDIDATES
+
+    for summed in (False, True):
+        cand = POW_CANDIDATES[summed]
+        kinds = [(aligned, (), form) for aligned in (True, False)
+                 for form in FORMS] + [
+            (True, values, None)
+            for values in itertools.product(*cand.values())]
+        for aligned, values, form in kinds:
+            sh = probe_pow.pow_shape(n, summed, aligned, *values, form=form)
+            if not values:
+                big = n >= probe_pow.POW_VEC_MIN_N and (summed or sh.vec == 4)
+                assert sh.items == (probe_pow.POW_ITEMS_OF[summed].get(
+                    form, 1) if big else 1)
+            vec4 = values or n >= probe_pow.POW_VEC_MIN_N
+            assert sh.vec == (4 if aligned and not summed and vec4 else 1)
+            assert sh.unroll in (probe_pow.POW_UNROLLS if summed else (1,))
+            largest = (probe_pow.POW_SUMMED_THREADS if summed
+                       else probe_pow.POW_POINTWISE_THREADS)
+            assert sh.threads % 32 == 0 and sh.threads <= largest <= 1024
+            chunk = sh.threads * sh.items
+            units = n // sh.vec
+            assert (sh.blocks - 1) * chunk < max(units, 1) <= sh.blocks * chunk
+            written = _pow_written(sh, n, summed)
+            assert written.shape == (n,) and bool((written == 1).all()), sh
+    for bad in ({"threads": 48}, {"threads": 1024}, {"items": 3},
+                {"unroll": 2}, {"vec": 2}):
+        with pytest.raises(ValueError):
+            probe_pow.pow_shape(n, False, True, **bad)
+    with pytest.raises(ValueError):
+        probe_pow.pow_shape(n, False, False, vec=4)
+    for bad in ({"threads": 512}, {"items": 4}, {"unroll": 3}, {"vec": 4}):
+        with pytest.raises(ValueError):
+            probe_pow.pow_shape(n, True, True, **bad)
+    for bad_n in (0, probe_pow.POW_MAX_N + 1):
+        with pytest.raises(ValueError):
+            probe_pow.pow_shape(bad_n, True)
+
+
+def test_pow_launch_mirrors_the_c_side():
+    """csrc/probe_pow.cu's entry point takes the wrapper's arguments, the
+    launch shape last in PowShape's order; its limits are the wrapper's;
+    and the layout it accepts (pow_layout) is pow_shape's: whole warps up
+    to each kernel's largest block, the items and unrolls of each form,
+    float4 only on 16-byte aligned x and out, the blocks that cover the
+    units."""
+    src = (CSRC / "probe_pow.cu").read_text()
+    for name in ("POW_MAX_TERMS", "POW_POINTWISE_THREADS",
+                 "POW_SUMMED_THREADS"):
+        assert f"constexpr int {name} = {getattr(probe_pow, name)};" in src
+    assert probe_pow.POW_MAX_N == 1 << 30
+    assert "constexpr int64_t POW_MAX_N = int64_t(1) << 30;" in src
+    assert probe_pow.POW_ITEMS == {False: (1, 2, 4), True: (1, 2)}
+    assert probe_pow.POW_UNROLLS == (1, 2, 4, 8)
+    for mirrored in (
+            "threads < 32 || threads % 32 != 0 || blocks < 1",
+            "threads > POW_SUMMED_THREADS || (items != 1 && items != 2) || "
+            "vec != 1",
+            "(unroll != 1 && unroll != 2 && unroll != 4 && unroll != 8)",
+            "R < 1 ||\n        R > POW_MAX_TERMS",
+            "((uintptr_t(x) | uintptr_t(out)) & 15) == 0",
+            "threads > POW_POINTWISE_THREADS || unroll != 1",
+            "(vec == 1 ? items == 1 : vec == 4 && aligned && (items == 1 || "
+            "items == 2 || items == 4))",
+            "const int64_t units = n / vec, chunk = int64_t(threads) * items;",
+            "return blocks == (units > chunk ? (units + chunk - 1) / chunk "
+            ": 1);",
+            "n > POW_MAX_N ||"):
+        assert mirrored in src, mirrored
+    m = re.search(r'extern "C" int ryujin_probe_pow\((.*?)\)', src, re.S)
+    params = [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
+    assert params[-6:-1] == list(probe_pow.PowShape._fields)
+    assert params[:9] == ["form", "summed", "x", "carry", "shifts", "R", "b",
+                          "out", "n"]
+    assert len(params) == len(build.PROBE_ENTRY_POINTS["ryujin_probe_pow"])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
