@@ -105,7 +105,12 @@ any failure exits non-zero):
    bound (for the pows, the fewest FMA-pipe and MUFU instructions that any
    evaluation executes, from the SASS); then the pow kernels at a ragged
    n, aligned and on an offset view x[1:] (the scalar pointwise
-   instance), pointwise and summed with the carry, each at its bar.
+   instance), pointwise and summed with the carry, each at its bar; the
+   ELL gather-sum exactly (NaN where its plain version gives NaN) at the
+   script's input, an unbanded one, n = 2^20 + 3 and with columns out of
+   range, its count of blocks that staged their band equal to
+   ell_staged_blocks' (at the script's input, every block); and moveaxis,
+   both MOV, exactly at P = 24, (20, 9, 20), TD = 1 and 4.
 
 pk_up's two launches a substep, PK4 and PK5 (`last`), are timed, bounded
 and counted apart.  The stream PK1's e, the stream PK2's U_low, F and
@@ -1050,6 +1055,8 @@ def check_probes():
             fail(f"{rec['name']} was not launched by its probe")
         records[rec["name"]] = rec
     check_pow_ragged()
+    check_ell_inputs()
+    check_moveaxis_shapes()
     print(f"phase 12: {len(records)} probe kernels held and timed in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return records
@@ -1087,6 +1094,63 @@ def check_pow_ragged():
                      f"{err} against the plain version ({bar})")
     print(f"phase 12: the pow kernels hold their bars at n = {n}, aligned "
           "and on x[1:], pointwise and summed with the carry", flush=True)
+
+
+def check_ell_inputs():
+    """Phase 12, after the counts are read: the ELL gather-sum exactly
+    against its plain version (NaN where it gives NaN) at the script's
+    input, at an unbanded one (n = 2^20, columns uniform on [0, n)), at a
+    ragged n (2^20 + 3, banded: 4-byte cp.async) and with a few columns
+    out of range; at each the blocks the kernel counts as staged are those
+    ell_staged_blocks finds, at the script's input every block."""
+    import numpy as np
+
+    from ryujin_tpu_torch.kernels import probe_gather as kg
+    from ryujin_tpu_torch.probes import gather
+
+    n, K, C = 1 << 20, 9, 12
+    X, cols = gather.ell_inputs(n, K, C)
+    unbanded = np.random.default_rng(1).integers(
+        0, n, size=(K, n)).astype(np.int32)
+    off = cols.copy()
+    off[0, 0], off[3, n // 2], off[8, n - 1], off[5, 77] = -1, n, 2**31 - 1, -5
+    cases = {"the script's input": (X, cols), "unbanded": (X, unbanded),
+             "n = 2^20 + 3": gather.ell_inputs(n + 3, K, C),
+             "columns out of range": (X, off)}
+    for name, (x, c) in cases.items():
+        x, c = torch.from_numpy(x).cuda(), torch.from_numpy(c).cuda()
+        (counted, mirror, blocks), out = gather.ell_staged(x, c)
+        want = kg.ell_gather_sum_reference(x, c)
+        same = torch.equal(out.isnan(), want.isnan()) and torch.equal(
+            out.nan_to_num(), want.nan_to_num())
+        if not same or counted != mirror or (
+                name == "the script's input" and counted != blocks):
+            fail(f"ell_gather_sum, {name}: bit-equal {same}, {counted} "
+                 f"blocks staged, ell_staged_blocks {mirror}, of {blocks}")
+        print(f"phase 12: ell_gather_sum exact, {name}: {counted} of "
+              f"{blocks} blocks staged (ell_staged_blocks {mirror})",
+              flush=True)
+
+
+def check_moveaxis_shapes():
+    """Phase 12, after the counts are read: moveaxis, MOV = 1 and 0, out
+    and check exactly against the plain version at a second shape, P = 24,
+    (20, 9, 20) (H W = 180: a partial tile of 64 cells), TD = 1 and 4."""
+    import numpy as np
+
+    from ryujin_tpu_torch.kernels import probe_layout3d as kl
+
+    h = torch.from_numpy(np.random.default_rng(4).random(
+        (20, 24, 9, 20), dtype=np.float32)).cuda()
+    for TD in (1, 4):
+        for mov in (1, 0):
+            got, want = kl.moveaxis(h, TD, mov), kl.moveaxis_reference(
+                h, TD, mov)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"moveaxis MOV = {mov}, TD = {TD}, (20, 9, 20): out or "
+                     "check differs from the plain version")
+    print("phase 12: moveaxis exact at P = 24, (20, 9, 20), TD = 1 and 4, "
+          "MOV = 1 and 0", flush=True)
 
 
 def per_substep(fns):

@@ -32,19 +32,49 @@
 //   bench_xla_ell_gather (:78; XLA on the TPU, no pallas_call): out[c, i] =
 //     sum_{k < K} X[c, cols[k, i]], X f32 [C, n], cols int32 [K, n]; the
 //     throughput half of the row, and the access pattern of the padded-ELL
-//     stencil.  One thread per node reads its K columns once and gathers
-//     the C components from device memory, summing k = 0 .. K-1 from 0.
+//     stencil.  Its columns are banded (i + jitter, |jitter| <= 1500).
+//     One thread a node reading X from device memory (the earlier form)
+//     took 0.2140 ms chained, the same launch reading X[c, i + k]
+//     coalesced 0.1286, with no X at all 0.0334 (NVIDIA H100 80GB HBM3,
+//     700.00 W; PERF.md §6 row 13).
+//     Design: a block owns `nodes` consecutive nodes.  One thread stages
+//     the block's K x nodes columns in shared memory with a bulk copy a
+//     slot (so a block waits one round trip for them, not one a load);
+//     the block reduces their least and greatest in-range value to a band
+//     [lo, hi] (warp reductions, a shared word a warp) and stages
+//     X[c, lo .. hi] one component at a time through a ring of `stages`
+//     buffers, component c + 1 in flight while c is gathered: one 1D bulk
+//     copy issued by one thread and counted on an mbarrier, or, where n, X
+//     or cols is not 16-byte aligned, 4-byte cp.async by every thread
+//     arriving on the same kind of barrier.  (16-byte cp.async by every
+//     thread took 4-16 % longer than the bulk copy at every launch tried.)
+//     Each thread turns its staged columns, in place, into byte offsets
+//     into a buffer, a column outside [0, n) into the offset of the
+//     buffer's last float, a NaN: a slot of the sum is then one shared
+//     load of its offset, one of its value (32 random words a warp, some
+//     3.5 bank wavefronts, where device memory served some 27 lines) and
+//     one add.  A block whose band does not fit its buffer gathers from
+//     device memory, one node a thread, as the earlier form did; so does
+//     a block with no column in range.  Either way the sum runs k = 0 ..
+//     K - 1 from 0, so every output is bit-equal to the plain version.
+//     The launch shape (nodes, threads, stages, bulk, band, blocks, shared
+//     bytes) is kernels/probe_gather.py ell_shape()'s; the C side
+//     refuses any other.
 //
 // Bound on an H100: bytes.  The window gathers move at most 1 MB and are
 // launch-bound; the ELL gather-sum reads X and cols once and writes out
-// (138.4 MB at C = 12, K = 9, n = 2^20) if its banded columns hit in L2.
+// (138.4 MB at C = 12, K = 9, n = 2^20).
 //
-// An index out of range gives NaN (the plain versions raise on it).
+// An index out of range gives NaN (the plain versions of the window
+// gathers raise on it; the ELL gather-sum's gives NaN too).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
+
+#include "tma.cuh"
 
 namespace ryujin {
 
@@ -53,7 +83,14 @@ constexpr int GATHER_THREADS = 256;
 // mirrored by kernels/probe_gather.py sublane_shape()
 constexpr int SUBLANE_TILE = 32;
 constexpr int SUBLANE_THREADS = 256;
-constexpr int ELL_MAX_K = 16;     // slots the ELL gather-sum keeps in registers
+// the ELL gather-sum's layout, mirrored by kernels/probe_gather.py
+// ell_shape(): slots a node, threads a block, stages of the ring, and the
+// shared bytes ahead of the offsets (a barrier a stage, then the band
+// reduction's words, two a warp)
+constexpr int ELL_MAX_K = 16;
+constexpr int ELL_MAX_THREADS = 512;
+constexpr int ELL_MAX_STAGES = 8;
+constexpr int ELL_HEADER_BYTES = 256;
 
 __global__ void __launch_bounds__(GATHER_THREADS)
 lane_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx,
@@ -104,21 +141,129 @@ sublane_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   }
 }
 
-__global__ void __launch_bounds__(GATHER_THREADS)
+// The ELL gather-sum.  Block b owns nodes [b nodes, b nodes + nodes) of
+// n, thread t the nodes t, t + threads, ... of those (every load and
+// store coalesced).  Shared memory: the header (a barrier a stage, the
+// columns' barrier, the band words), then the block's columns [K][nodes],
+// then the ring of `stages` bands of `band` floats, each band's last float
+// a NaN that out-of-range columns read.  staged: null, or a counter the
+// block adds 1 to when it stages.
+__global__ void __launch_bounds__(ELL_MAX_THREADS)
 ell_gather_sum_kernel(const float* __restrict__ X, const int* __restrict__ cols,
-                      float* __restrict__ out, int C, int K, int64_t n) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int j[ELL_MAX_K];
+                      float* __restrict__ out, int* __restrict__ staged, int C, int K, int64_t n,
+                      int nodes, int stages, int bulk, int band) {
+  extern __shared__ __align__(128) unsigned char ell_smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ell_smem);
+  uint64_t* cols_bar = bar + ELL_MAX_STAGES;
+  int* warp_lo = reinterpret_cast<int*>(cols_bar + 1);
+  int* warp_hi = warp_lo + ELL_MAX_THREADS / 32;
+  int* cs = reinterpret_cast<int*>(ell_smem + ELL_HEADER_BYTES);
+  float* ring = reinterpret_cast<float*>(cs + size_t(K) * nodes);
+  const int t = threadIdx.x, T = blockDim.x;
+  const int64_t i0 = int64_t(blockIdx.x) * nodes;
+  const int m_end = int(min(int64_t(nodes), n - i0));
+
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) bar_init(bar + s, bulk ? 1 : T);
+    bar_init(cols_bar, bulk ? 1 : T);
+  }
+  __syncthreads();
+  // the block's columns, row k at cs + k nodes
+  if (bulk) {
+    if (t == 0) {
+      bar_expect(cols_bar, unsigned(K) * unsigned(m_end) * unsigned(sizeof(int)));
+      for (int k = 0; k < K; ++k)
+        bulk_copy_1d(cs + k * nodes, cols + k * n + i0, unsigned(m_end) * unsigned(sizeof(int)),
+                     cols_bar);
+    }
+  } else {
+    for (int k = 0; k < K; ++k)
+      for (int v = t; v < m_end; v += T)
+        __pipeline_memcpy_async(cs + k * nodes + v, cols + k * n + i0 + v, 4);
+    cp_async_arrive(cols_bar);
+  }
+  bar_wait(cols_bar, 0);
+
+  // the band: the least and greatest column in [0, n) of the block's
+  int lo = INT_MAX, hi = -1;
+  for (int k = 0; k < K; ++k)
+    for (int m = t; m < m_end; m += T) {
+      const int j = cs[k * nodes + m];
+      if (uint64_t(j) < uint64_t(n)) {
+        lo = min(lo, j);
+        hi = max(hi, j);
+      }
+    }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (t % 32 == 0) {
+    warp_lo[t / 32] = lo;
+    warp_hi[t / 32] = hi;
+  }
+  if (t < stages) ring[t * band + band - 1] = NAN;
+  __syncthreads();
+  for (int w = 0; w < T / 32; ++w) {
+    lo = min(lo, warp_lo[w]);
+    hi = max(hi, warp_hi[w]);
+  }
+  // the band's ends rounded out to 16 bytes, within the row
+  const int64_t lo_a = lo & ~3, hi_a = min(n, (int64_t(hi) | 3) + 1);
+
+  if (hi < 0 || hi_a - lo_a > band - 4) {  // gather from device memory
+    for (int m = t; m < m_end; m += T) {
+      int j[ELL_MAX_K];
 #pragma unroll
-  for (int k = 0; k < ELL_MAX_K; ++k) j[k] = k < K ? cols[k * n + i] : 0;
+      for (int k = 0; k < ELL_MAX_K; ++k) j[k] = k < K ? cs[k * nodes + m] : 0;
+      for (int c = 0; c < C; ++c) {
+        const float* Xc = X + c * n;
+        float acc = 0.0f;
+#pragma unroll
+        for (int k = 0; k < ELL_MAX_K; ++k)
+          if (k < K) acc = acc + (uint64_t(j[k]) < uint64_t(n) ? Xc[j[k]] : NAN);
+        out[c * n + i0 + m] = acc;
+      }
+    }
+    return;
+  }
+  if (t == 0 && staged != nullptr) atomicAdd(staged, 1);
+  const int width = int(hi_a - lo_a);
+  auto issue = [&](int c) {  // component c's band into slot c % stages
+    float* dst = ring + (c % stages) * band;
+    const float* src = X + c * n + lo_a;
+    uint64_t* b = bar + c % stages;
+    if (bulk) {
+      if (t == 0) {
+        bar_expect(b, unsigned(width) * unsigned(sizeof(float)));
+        bulk_copy_1d(dst, src, unsigned(width) * unsigned(sizeof(float)), b);
+      }
+    } else {
+      for (int v = t; v < width; v += T) __pipeline_memcpy_async(dst + v, src + v, 4);
+      cp_async_arrive(b);
+    }
+  };
+  for (int c = 0; c < stages && c < C; ++c) issue(c);
+
+  // each column as a byte offset into a ring slot, the NaN cell where it
+  // lies outside [0, n); a thread reads back only its own nodes' columns
+  for (int k = 0; k < K; ++k)
+    for (int m = t; m < m_end; m += T) {
+      const int j = cs[k * nodes + m];
+      cs[k * nodes + m] = int(uint64_t(j) < uint64_t(n) ? j - lo_a : band - 1) * int(sizeof(float));
+    }
+
   for (int c = 0; c < C; ++c) {
-    const float* Xc = X + c * n;
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < ELL_MAX_K; ++k)
-      if (k < K) acc = acc + (uint64_t(j[k]) < uint64_t(n) ? Xc[j[k]] : NAN);
-    out[c * n + i] = acc;
+    const int s = c % stages;
+    bar_wait(bar + s, unsigned(c / stages) & 1u);
+    const char* w = reinterpret_cast<const char*>(ring + s * band);
+    for (int m = t; m < m_end; m += T) {
+      float acc = 0.0f;
+#pragma unroll 4
+      for (int k = 0; k < K; ++k)
+        acc = acc + *reinterpret_cast<const float*>(w + cs[k * nodes + m]);
+      out[c * n + i0 + m] = acc;
+    }
+    __syncthreads();
+    if (c + stages < C) issue(c + stages);
   }
 }
 
@@ -165,14 +310,38 @@ extern "C" int ryujin_probe_sublane_gather(const void* x, const void* idx, void*
   return int(cudaGetLastError());
 }
 
-extern "C" int ryujin_probe_ell_gather_sum(const void* X, const void* cols, void* out, int C,
-                                           int K, long long n, void* stream) {
+// The launch shape (nodes a block, threads, stages, bulk: 1 bulk copies,
+// 0 4-byte cp.async; band: floats a ring buffer holds; blocks; shared
+// bytes) comes from kernels/probe_gather.py ell_shape(); refused unless it
+// is this layout's: whole warps up to ELL_MAX_THREADS, nodes a multiple of
+// the threads, blocks that cover n, bulk copies only on 16-byte aligned X
+// and cols with n % 4 == 0, the header, the columns and the ring's bytes.  staged: null or an int on the card.
+extern "C" int ryujin_probe_ell_gather_sum(const void* X, const void* cols, void* out,
+                                           void* staged, int C, int K, long long n, int nodes,
+                                           int threads, int stages, int bulk, int band,
+                                           int blocks, int smem, void* stream) {
   using namespace ryujin;
-  if (K > ELL_MAX_K || K < 0) return int(cudaErrorInvalidValue);
-  if (n <= 0 || C <= 0) return int(cudaSuccess);
-  const unsigned blocks = unsigned((n + GATHER_THREADS - 1) / GATHER_THREADS);
-  ell_gather_sum_kernel<<<blocks, GATHER_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(X), static_cast<const int*>(cols), static_cast<float*>(out), C,
-      K, int64_t(n));
+  if (K > ELL_MAX_K || K < 0 || C < 0 || n < 0) return int(cudaErrorInvalidValue);
+  if (n == 0 || C == 0) return int(cudaSuccess);
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(X) | reinterpret_cast<uintptr_t>(cols)) & 15) == 0 &&
+      n % 4 == 0;
+  const int64_t offs = int64_t(K) * nodes * int64_t(sizeof(int));
+  if (threads < 32 || threads % 32 != 0 || threads > ELL_MAX_THREADS || nodes < threads ||
+      nodes % threads != 0 || stages < 1 || stages > ELL_MAX_STAGES || (bulk != 0 && bulk != 1) ||
+      (bulk && !aligned) || band < 8 ||
+      band % 4 != 0 || int64_t(blocks) != (n + nodes - 1) / nodes ||
+      int64_t(smem) != ELL_HEADER_BYTES + offs + int64_t(stages) * band * int64_t(sizeof(float)))
+    return int(cudaErrorInvalidValue);
+  static int allowed = 48 * 1024;  // dynamic shared bytes the kernel may take
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ell_gather_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return int(err);
+    allowed = smem;
+  }
+  ell_gather_sum_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(X), static_cast<const int*>(cols), static_cast<float*>(out),
+      static_cast<int*>(staged), C, K, int64_t(n), nodes, stages, bulk, band);
   return int(cudaGetLastError());
 }

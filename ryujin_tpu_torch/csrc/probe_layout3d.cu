@@ -40,17 +40,22 @@
 // rows, one thread per (row of the z tile, cell).  (A persistent grid
 // walking (x tile, z tile) items lost to this by 6-20 % on the card.)
 //
-// pk1_shape and moveaxis (window_kernel, pk1_shape_kernel) stage with
-// cp.async (__pipeline_memcpy_async, 16 bytes a copy), double-buffered over
-// ZCHUNK z tiles a block.  They read one plane but stage every plane of the
-// TPU kernel's transfer set; moveaxis with MOV = 1 transposes the staged
-// [wz, P, TILE] window to [P, wz, TILE] in shared memory before reading it.
-// So that their result depends on every staged value, these two also write
-// a checksum, check[z] (z < gz TD, 0 past): the XOR of the bit patterns
-// that thread (z, cell) reads back of its z tile's staged (for MOV = 1:
-// transposed) set, every plane of the window rows z % TD, z % TD + TD, ...
-// (pk1_shape's centre: row z % TD).  XOR is associative, so the reads may
-// run in any order and overlap; the probe's time includes them.
+// moveaxis (moveaxis_kernel) marches as the full-window kernel does but
+// stages each z tile's whole window with ONE TMA box of a tensor map whose
+// box spans the window: for MOV = 0 a map of dimensions (cell, plane, z),
+// the window as it lies, [wz][P][TILE]; for MOV = 1 a map over the same
+// z-major canvas with its dimensions in the order (cell, z, plane), whose
+// box lands plane-major, [P][wz][TILE]: the copy engine does the
+// relayout, with no pass over shared memory.  pk1_shape
+// (pk1_shape_kernel) stages with cp.async (__pipeline_memcpy_async, 16
+// bytes a copy), double-buffered over ZCHUNK z tiles a block.  Both read
+// one plane but stage every plane of the TPU kernel's transfer set.  So
+// that their result depends on every staged value, these two also write a
+// checksum, check[z] (z < gz TD, 0 past): the XOR of the bit patterns that
+// thread (z, cell) reads back of its z tile's staged (for MOV = 1:
+// plane-major) set, every plane of the window rows z % TD, z % TD + TD,
+// ... (pk1_shape's centre: row z % TD).  XOR is associative, so the reads
+// may run in any order and overlap; the probe's time includes them.
 //
 // Bound on an H100: bytes, the transfer set read once: P planes of the
 // gz TD + 2 rows the windows cover (pk1_shape: the centre's gz TD rows of
@@ -66,16 +71,22 @@
 
 namespace ryujin {
 
-constexpr int TILE = 64;   // cells of the (H, W) plane a block owns (pk1_shape, moveaxis)
-constexpr int ZCHUNK = 4;  // z tiles a block marches over (pk1_shape, moveaxis)
+constexpr int TILE = 64;   // cells of the (H, W) plane a block owns (pk1_shape)
+constexpr int ZCHUNK = 4;  // z tiles a block marches over (pk1_shape)
 constexpr int VEC = 4;     // floats a cp.async moves
-// the three layouts: the shared bytes of barriers ahead of the staged rows,
-// and the most stages they serve (the slide takes stages + 1 barriers);
-// mirrored by kernels/probe_layout3d.py
+// the three layouts and moveaxis: the shared bytes of barriers ahead of
+// the staged rows, and the most stages they serve (the slide takes
+// stages + 1 barriers); mirrored by kernels/probe_layout3d.py
 constexpr int LAYOUT_BARRIER_BYTES = 128;
 constexpr int LAYOUT_MAX_STAGES = LAYOUT_BARRIER_BYTES / 8 - 1;
 
-enum WindowMode { PLANE_MAJOR = 0, Z_MAJOR = 1, Z_MAJOR_SLIDE = 2, MOVEAXIS = 3, NO_MOVEAXIS = 4 };
+enum WindowMode {
+  PLANE_MAJOR = 0,
+  Z_MAJOR = 1,
+  Z_MAJOR_SLIDE = 2,
+  MOVEAXIS = 3,
+  NO_MOVEAXIS = 4
+};
 
 // Copy rows [0, nz) of planes [0, np) of the tile at q0 from src (row
 // stride zs, plane stride ps in floats) to dst (row stride dzs, plane stride
@@ -123,72 +134,6 @@ __device__ __forceinline__ unsigned staged_xor(const float* w, int depth, int np
     for (; p < np; ++p) b0 ^= __float_as_uint(row[p * ps]);
   }
   return (b0 ^ b1) ^ (b2 ^ b3);
-}
-
-// moveaxis (MOVEAXIS, NO_MOVEAXIS): each z tile's whole window,
-// double-buffered.  check: the staged window's checksum.
-template <int MODE>
-__global__ void __launch_bounds__(1024)
-window_kernel(const float* __restrict__ src, float* __restrict__ out,
-              unsigned* __restrict__ check, int P, int D, int64_t HW, int TD, int gz) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr bool ZM = MODE != PLANE_MAJOR;
-  constexpr bool CHECK = MODE == MOVEAXIS || MODE == NO_MOVEAXIS;
-  const int wz = TD + 2;
-  const int64_t q0 = int64_t(blockIdx.x) * TILE;
-  const int64_t zs = ZM ? P * HW : HW, ps = ZM ? HW : int64_t(D) * HW;
-  const int dzs = ZM ? P * TILE : TILE, dps = ZM ? TILE : wz * TILE;
-  const int window = P * wz * TILE;
-  float* moved = smem + 2 * window;  // [P][wz][TILE], MOVEAXIS only
-  const int zo = threadIdx.x / TILE, q = threadIdx.x % TILE;
-  if (blockIdx.y == 0) {
-    zero_rows(out, gz * TD, D, 1, TD, HW, q0);
-    if (CHECK) zero_rows(check, gz * TD, D, 1, TD, HW, q0);
-  }
-  const int t0 = blockIdx.y * ZCHUNK, t1 = min(gz, t0 + ZCHUNK);
-  if (t0 >= t1) return;
-
-  stage(smem, src + int64_t(t0) * TD * zs, wz, P, zs, ps, dzs, dps, q0, HW);
-  __pipeline_commit();
-  for (int tz = t0; tz < t1; ++tz) {
-    const float* win = smem + ((tz - t0) & 1) * window;
-    if (tz + 1 < t1) {
-      stage(smem + ((tz - t0 + 1) & 1) * window, src + int64_t(tz + 1) * TD * zs, wz, P, zs, ps,
-            dzs, dps, q0, HW);
-      __pipeline_commit();
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    if (MODE == MOVEAXIS) {
-      for (int e = threadIdx.x; e < window; e += blockDim.x) {
-        const int c = e % TILE, r = e / TILE;
-        const int zl = r % wz, p = r / wz;
-        moved[e] = win[zl * dzs + p * dps + c];
-      }
-      __syncthreads();
-    }
-    if (q0 + q < HW) {
-      float acc = 0.0f;
-      if (MODE == MOVEAXIS) {
-        acc = acc + moved[(zo + 1) * TILE + q];
-      } else if (MODE == NO_MOVEAXIS) {
-        acc = acc + win[(zo + 1) * dzs + q];
-      } else {
-        for (int p = 0; p < P; ++p) acc = acc + win[(zo + 1) * dzs + p * dps + q];
-      }
-      out[(int64_t(tz) * TD + zo) * HW + q0 + q] = acc;
-      if (CHECK) {
-        // MOVEAXIS reads the transposed copy, [P][wz][TILE]
-        const unsigned bits = MODE == MOVEAXIS
-                                  ? staged_xor(moved, wz, P, TILE, wz * TILE, zo, TD, q)
-                                  : staged_xor(win, wz, P, dzs, dps, zo, TD, q);
-        check[(int64_t(tz) * TD + zo) * HW + q0 + q] = bits;
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // The three layouts' helpers.  Rows [gz TD, D) of out: zeros, spread over
@@ -299,6 +244,65 @@ window_slide_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__
   }
 }
 
+// moveaxis (src [D, P, H, W]): block (x, segment) marches the tile at x
+// TILE over z tiles [t0, t0 + n), as window_full_kernel does, and stages
+// z tile t0 + k's whole window with ONE box of `map` into buffer k %
+// stages on barrier k % stages.  MOVEAXIS: map's dimensions are (cell, z,
+// plane), so the box lands plane-major, [P][wz][TILE], the window moved
+// by the copy engine; NO_MOVEAXIS: (cell, plane, z), the window as it
+// lies, [wz][P][TILE].  out[z] = 0 + row z + 1 of plane 0; check[z] the
+// XOR of the staged rows zo, zo + TD, ... of every plane.  (Staging as
+// NO_MOVEAXIS and moving each thread's rows into a plane-major copy in
+// shared memory took 0.0384 ms a call chained at the script's sizes, the
+// map's box 0.0262, on an NVIDIA H100 80GB HBM3 at 700.00 W: PERF.md §6
+// row 14.)
+template <int MODE, int TILE>
+__global__ void __launch_bounds__(1024)
+moveaxis_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ out,
+                unsigned* __restrict__ check, int P, int D, int64_t HW, int TD, int gz,
+                int stages) {
+  extern __shared__ __align__(128) unsigned char layout_smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(layout_smem);
+  float* buf = reinterpret_cast<float*>(layout_smem + LAYOUT_BARRIER_BYTES);
+  constexpr bool PM = MODE == MOVEAXIS;  // reads a plane-major window
+  const int wz = TD + 2, window = wz * P * TILE;
+  const int q0 = int(blockIdx.x) * TILE;
+  const int t0 = gz * int(blockIdx.y) / int(gridDim.y);
+  const int n = gz * int(blockIdx.y + 1) / int(gridDim.y) - t0;
+  zero_tail(out, int64_t(gz) * TD * HW, int64_t(D) * HW);
+  zero_tail(reinterpret_cast<float*>(check), int64_t(gz) * TD * HW, int64_t(D) * HW);
+  if (threadIdx.x == 0)
+    for (int s = 0; s < stages; ++s) bar_init(bar + s, 1);
+  __syncthreads();
+
+  auto issue = [&](int k) {  // thread 0: z tile t0 + k
+    uint64_t* b = bar + k % stages;
+    const int z0 = (t0 + k) * TD;
+    bar_expect(b, unsigned(window) * unsigned(sizeof(float)));
+    tma_copy_3d(buf + k % stages * window, &map, q0, MODE == MOVEAXIS ? z0 : 0,
+                MODE == MOVEAXIS ? 0 : z0, b);
+  };
+  if (threadIdx.x == 0)
+    for (int k = 0; k < stages && k < n; ++k) issue(k);
+  for (int k = 0; k < n; ++k) {
+    const int s = k % stages;
+    bar_wait(bar + s, unsigned(k / stages) & 1u);
+    const float* win = buf + s * window;
+    for (int e = threadIdx.x; e < TD * TILE; e += blockDim.x) {
+      const int zo = e / TILE, c = e % TILE;
+      if (q0 + c >= HW) continue;
+      const int64_t z = int64_t(t0 + k) * TD + zo;
+      float acc = 0.0f;
+      acc = acc + win[(zo + 1) * (PM ? 1 : P) * TILE + c];
+      out[z * HW + q0 + c] = acc;
+      check[z * HW + q0 + c] = PM ? staged_xor(win, wz, P, TILE, wz * TILE, zo, TD, c)
+                                  : staged_xor(win, wz, P, P * TILE, TILE, zo, TD, c);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && k + stages < n) issue(k + stages);
+  }
+}
+
 // pk1_shape: per z tile the centre's TD rows of cen_pl planes and each
 // window's wz rows, double-buffered; out [D, out_pl, H, W].
 struct Pk1Shape {
@@ -380,12 +384,12 @@ cudaError_t launch(Kernel kernel, dim3 grid, int TD, size_t smem, cudaStream_t s
   return cudaGetLastError();
 }
 
-// The tensor map of the rows of src for the TMA: z-major [D, P, HW] or
-// plane-major [P, D, HW] f32, its box one z row of all P planes, TILE
-// cells wide.  cuTensorMapEncodeTiled lies in libcuda, which the library
-// does not link: it is looked up at run time.
-inline cudaError_t encode_rows(CUtensorMap* map, const float* src, bool zm, int P, int D,
-                               int64_t HW, int tile) {
+// A 3D tensor map of f32 src for the TMA: dimensions dims (innermost
+// first), byte strides of the outer two, box box, zeros past the ends.
+// cuTensorMapEncodeTiled lies in libcuda, which the library does not
+// link: it is looked up at run time.
+inline cudaError_t encode_3d(CUtensorMap* map, const float* src, const cuuint64_t dims[3],
+                             const cuuint64_t strides[2], const cuuint32_t box[3]) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -405,16 +409,38 @@ inline cudaError_t encode_rows(CUtensorMap* map, const float* src, bool zm, int 
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[3] = {cuuint64_t(HW), cuuint64_t(zm ? P : D), cuuint64_t(zm ? D : P)};
-  const cuuint64_t strides[2] = {cuuint64_t(HW) * sizeof(float),
-                                 cuuint64_t(zm ? P : D) * HW * sizeof(float)};
-  const cuuint32_t box[3] = {cuuint32_t(tile), cuuint32_t(zm ? P : 1), cuuint32_t(zm ? 1 : P)};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(src),
                               dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of the rows of src: z-major [D, P, HW] or plane-major
+// [P, D, HW], its box one z row of all P planes, TILE cells wide.
+inline cudaError_t encode_rows(CUtensorMap* map, const float* src, bool zm, int P, int D,
+                               int64_t HW, int tile) {
+  const cuuint64_t dims[3] = {cuuint64_t(HW), cuuint64_t(zm ? P : D), cuuint64_t(zm ? D : P)};
+  const cuuint64_t strides[2] = {cuuint64_t(HW) * sizeof(float),
+                                 cuuint64_t(zm ? P : D) * HW * sizeof(float)};
+  const cuuint32_t box[3] = {cuuint32_t(tile), cuuint32_t(zm ? P : 1), cuuint32_t(zm ? 1 : P)};
+  return encode_3d(map, src, dims, strides, box);
+}
+
+// The tensor map of moveaxis's windows of a z-major src [D, P, HW], its
+// box a whole window of wz rows, all P planes, TILE cells: with `moved`
+// the dimensions (cell, z, plane), strides P HW and HW floats, so that a
+// box lands plane-major; else (cell, plane, z).
+inline cudaError_t encode_windows(CUtensorMap* map, const float* src, bool moved, int P, int D,
+                                  int64_t HW, int wz, int tile) {
+  const cuuint64_t plane = cuuint64_t(HW) * sizeof(float), row = cuuint64_t(P) * plane;
+  const cuuint64_t dims[3] = {cuuint64_t(HW), cuuint64_t(moved ? D : P),
+                              cuuint64_t(moved ? P : D)};
+  const cuuint64_t strides[2] = {moved ? row : plane, moved ? plane : row};
+  const cuuint32_t box[3] = {cuuint32_t(tile), cuuint32_t(moved ? wz : P),
+                             cuuint32_t(moved ? P : wz)};
+  return encode_3d(map, src, dims, strides, box);
 }
 
 // The three layouts' launch.  One allowed shared-memory size a kernel
@@ -446,6 +472,39 @@ cudaError_t launch_layout(int layout, const float* src, float* out, int P, int D
   }
   kernel<<<dim3(blocks / segments, segments), threads, smem, stream>>>(map[zm], out, P, D, HW,
                                                                       TD, gz, stages);
+  return cudaGetLastError();
+}
+
+// moveaxis's launch, as launch_layout's: one allowed shared-memory size
+// an instance, the tensor map of the last (source, shape) of each mode
+// kept for the next launch on it.
+template <int TILE>
+cudaError_t launch_moveaxis(int mode, const float* src, float* out, unsigned* check, int P,
+                            int D, int64_t HW, int TD, int gz, int stages, int blocks,
+                            int segments, int threads, int smem, cudaStream_t stream) {
+  static int allowed[2] = {48 * 1024, 48 * 1024};
+  static CUtensorMap map[2];
+  static int64_t key[2][5] = {};
+  const int m = mode == MOVEAXIS;
+  const int64_t k[5] = {int64_t(reinterpret_cast<uintptr_t>(src)), P, D, HW, TD};
+  bool same = true;
+  for (int i = 0; i < 5; ++i) same = same && k[i] == key[m][i];
+  if (!same) {
+    const cudaError_t err =
+        encode_windows(&map[m], src, mode == MOVEAXIS, P, D, HW, TD + 2, TILE);
+    if (err != cudaSuccess) return err;
+    for (int i = 0; i < 5; ++i) key[m][i] = k[i];
+  }
+  void (*kernel)(const CUtensorMap, float*, unsigned*, int, int, int64_t, int, int, int) =
+      mode == MOVEAXIS ? moveaxis_kernel<MOVEAXIS, TILE> : moveaxis_kernel<NO_MOVEAXIS, TILE>;
+  if (smem > allowed[m]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    allowed[m] = smem;
+  }
+  kernel<<<dim3(blocks / segments, segments), threads, smem, stream>>>(map[m], out, check, P, D,
+                                                                      HW, TD, gz, stages);
   return cudaGetLastError();
 }
 
@@ -482,31 +541,34 @@ extern "C" int ryujin_probe_layout(int layout, const void* src, void* out, int P
 }
 
 // mode: MOVEAXIS or NO_MOVEAXIS; src [D, P, H, W]; out, check [D, H, W]
-// (check 32-bit).  HW % 4 == 0 and TD <= 16.
+// (check 32-bit).  The launch shape is layout_shape()'s for "moveaxis"
+// (kernels/probe_layout3d.py): tile (64 or 128 cells), stages, blocks (x
+// tiles x segments), segments, threads, smem (the barriers and `stages`
+// windows); one that does not fit is refused.  HW % 4 == 0, P <= 256 and TD <= 16 (a box's
+// extents).
 extern "C" int ryujin_probe_window(int mode, const void* src, void* out, void* check, int P,
-                                   int D, long long HW, int TD, void* stream) {
+                                   int D, long long HW, int TD, int tile, int stages, int blocks,
+                                   int segments, int threads, int smem, void* stream) {
   using namespace ryujin;
-  const int gz = D / TD - 2, wz = TD + 2;
-  if (TD < 1 || TILE * TD > 1024 || HW % VEC != 0 || P < 1 || gz < 1 || check == nullptr)
+  const int gz = TD >= 1 ? D / TD - 2 : 0, wz = TD + 2;
+  if (mode < MOVEAXIS || mode > NO_MOVEAXIS || P < 1 || P > 256 || TD > 16 || gz < 1 ||
+      HW % VEC != 0 || HW > INT32_MAX || check == nullptr || (tile != 64 && tile != 128) ||
+      stages < 1 || stages > LAYOUT_MAX_STAGES ||
+      threads != (TD * tile < 1024 ? TD * tile : 1024))
     return int(cudaErrorInvalidValue);
-  const unsigned tiles = unsigned((HW + TILE - 1) / TILE);
-  const unsigned chunks = unsigned((gz + ZCHUNK - 1) / ZCHUNK);
-  const size_t window = size_t(P) * wz * TILE * sizeof(float);
+  const int64_t tiles = (HW + tile - 1) / tile;
+  const int64_t rows = int64_t(stages) * wz;
+  if (int64_t(smem) != LAYOUT_BARRIER_BYTES + rows * P * tile * int64_t(sizeof(float)) ||
+      segments < 1 || segments > gz || blocks != tiles * segments)
+    return int(cudaErrorInvalidValue);
   const float* s = static_cast<const float*>(src);
   float* o = static_cast<float*>(out);
   unsigned* c = static_cast<unsigned*>(check);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(tiles, chunks);
-  switch (mode) {
-    case MOVEAXIS:
-      return int(
-          launch(window_kernel<MOVEAXIS>, grid, TD, 3 * window, st, s, o, c, P, D, HW, TD, gz));
-    case NO_MOVEAXIS:
-      return int(launch(window_kernel<NO_MOVEAXIS>, grid, TD, 2 * window, st, s, o, c, P, D, HW,
-                        TD, gz));
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  return int(tile == 64 ? launch_moveaxis<64>(mode, s, o, c, P, D, HW, TD, gz, stages, blocks,
+                                              segments, threads, smem, st)
+                        : launch_moveaxis<128>(mode, s, o, c, P, D, HW, TD, gz, stages, blocks,
+                                               segments, threads, smem, st));
 }
 
 // cen [D, cen_pl, H, W] or null; h0..h2 [D, p_i, H, W], the first nwin used;

@@ -72,4 +72,24 @@ __device__ __forceinline__ void tma_copy_3d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// Copy `bytes` (a multiple of 16) from src (device memory, 16-byte
+// aligned) to dst (shared memory, 16-byte aligned) as one bulk copy,
+// counted on bar: no tensor map, one instruction from one thread.
+__device__ __forceinline__ void bulk_copy_1d(void* dst, const void* src, unsigned bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(shared_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+
+// Arrive on bar once every cp.async this thread has issued so far has
+// landed (the barrier's count includes this arrival: initialise it with
+// the number of threads that arrive).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(shared_addr(bar))
+               : "memory");
+}
+
 }  // namespace ryujin

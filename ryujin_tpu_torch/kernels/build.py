@@ -50,13 +50,15 @@ PROBE_ENTRY_POINTS = {
     "ryujin_probe_lane_gather": [_P, _P, _P, _I, _I, _P],
     # x, idx, out, S, L, tiles, groups, rows, threads, smem, stream
     "ryujin_probe_sublane_gather": [_P, _P, _P] + [_I] * 7 + [_P],
-    # X, cols, out, C, K, n, stream
-    "ryujin_probe_ell_gather_sum": [_P, _P, _P, _I, _I, _L, _P],
+    # X, cols, out, staged, C, K, n, nodes, threads, stages, bulk, band,
+    # blocks, smem, stream
+    "ryujin_probe_ell_gather_sum": [_P] * 4 + [_I, _I, _L] + [_I] * 7 + [_P],
     # layout, src, out, P, D, H * W, TD, tile, stages, blocks, segments,
     # threads, smem, stream
     "ryujin_probe_layout": [_I, _P, _P, _I, _I, _L] + [_I] * 7 + [_P],
-    # mode, src, out, check, P, D, H * W, TD, stream
-    "ryujin_probe_window": [_I, _P, _P, _P, _I, _I, _L, _I, _P],
+    # mode, src, out, check, P, D, H * W, TD, tile, stages, blocks,
+    # segments, threads, smem, stream
+    "ryujin_probe_window": [_I, _P, _P, _P, _I, _I, _L] + [_I] * 7 + [_P],
     # centre, h0, h1, h2, out, check, nwin, p0, p1, p2, cen_pl, out_pl, D,
     # H * W, TD, stream
     "ryujin_probe_pk1_shape": [_P] * 6 + [_I] * 7 + [_L, _I, _P],

@@ -22,6 +22,21 @@ SUBLANE_MIN_ROWS = SUBLANE_THREADS // SUBLANE_TILE
 # W; tile_sweep gather)
 SUBLANE_BLOCKS = 128
 
+# the ELL gather-sum's layout (csrc/probe_gather.cu ELL_MAX_K,
+# ELL_MAX_THREADS, ELL_MAX_STAGES, ELL_HEADER_BYTES): slots a node,
+# threads and stages a block, the shared bytes ahead of the columns
+ELL_MAX_K = 16
+ELL_MAX_THREADS = 512
+ELL_MAX_STAGES = 8
+ELL_HEADER_BYTES = 256
+# shared bytes an SM holds, and what the card keeps of it for each block
+SM_SMEM = 233472
+BLOCK_RESERVED_SMEM = 1024
+# the default launch: nodes a block, threads, stages and blocks an SM the
+# shared bytes leave room for, the fastest of tile_sweep ell at the
+# script's input (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6 row 13)
+ELL_DEFAULTS = {"nodes": 1024, "threads": 256, "stages": 2, "per_sm": 3}
+
 
 def lane_gather_reference(x, idx):
     """Plain torch: out[p, w] = x[p, idx[p, w]]."""
@@ -98,26 +113,134 @@ def sublane_gather(x, idx):
 
 def ell_gather_sum_reference(X, cols):
     """Plain torch: out[c, i] = sum_k X[c, cols[k, i]], summed from 0 in k
-    order."""
+    order; a column outside [0, n) adds NaN, as in the kernel."""
+    n = X.shape[1]
     acc = torch.zeros_like(X)
     for k in range(cols.shape[0]):
-        acc = acc + X.index_select(1, cols[k])
+        inside = (cols[k] >= 0) & (cols[k] < n)
+        picked = X.index_select(1, torch.where(inside, cols[k], 0))
+        acc = acc + torch.where(inside, picked, float("nan"))
     return acc
 
 
-def ell_gather_sum(X, cols):
+class EllShape(NamedTuple):
+    """Launch shape of the ELL gather-sum: `nodes` consecutive nodes a
+    block, `threads` a block, a ring of `stages` bands of `band` floats in
+    shared memory (the last four past any staged band, the last of them
+    the NaN cell), each band and the block's columns staged by bulk
+    copies (`bulk` 1) or by 4-byte cp.async (`bulk` 0), `blocks` covering
+    n, `smem` shared bytes a block (the header, the block's K x nodes
+    columns and the ring)."""
+
+    nodes: int
+    threads: int
+    stages: int
+    bulk: int
+    band: int
+    blocks: int
+    smem: int
+
+
+def ell_shape(n: int, K: int, aligned: bool = True,
+              nodes: Optional[int] = None, threads: Optional[int] = None,
+              stages: Optional[int] = None,
+              per_sm: Optional[int] = None) -> EllShape:
+    """The ELL gather-sum's launch on X [C, n] and K slots a node; aligned:
+    X's and cols' bases are 16-byte aligned.  Bulk copies need both
+    aligned and n % 4 == 0; else 4-byte cp.async.  The ring takes what
+    shared memory is left when `per_sm` blocks share an SM, cut to whole
+    16-byte pieces.  Defaults: ELL_DEFAULTS, the blocks an SM cut to what
+    the columns leave room for.  Raises ValueError for a shape the kernel
+    refuses, or whose ring cannot hold the band of a block's own nodes
+    (nodes + 8 floats with the NaN cell's piece)."""
+    d = ELL_DEFAULTS
+    nodes = nodes or d["nodes"]
+    threads = threads or d["threads"]
+    stages = stages or d["stages"]
+    if (n < 1 or not 0 <= K <= ELL_MAX_K or threads % 32
+            or not 32 <= threads <= ELL_MAX_THREADS or nodes % threads
+            or not 1 <= stages <= ELL_MAX_STAGES
+            or (per_sm is not None and per_sm < 1)):
+        raise ValueError(
+            f"the ELL gather-sum takes n >= 1, K <= {ELL_MAX_K}, whole warps "
+            f"up to {ELL_MAX_THREADS} threads, nodes a multiple of them and "
+            f"1 to {ELL_MAX_STAGES} stages, not n = {n}, K = {K}, nodes = "
+            f"{nodes}, threads = {threads}, stages = {stages}")
+    columns = K * nodes * 4
+
+    def band_of(per):  # floats a ring buffer holds at `per` blocks an SM
+        budget = min(build.SMEM_MAX, SM_SMEM // per - BLOCK_RESERVED_SMEM)
+        return (budget - ELL_HEADER_BYTES - columns) // stages // 16 * 4
+
+    if per_sm is None:
+        per_sm = d["per_sm"]
+        while per_sm > 1 and band_of(per_sm) < nodes + 8:
+            per_sm -= 1
+    band = band_of(per_sm)
+    if band < nodes + 8:
+        raise ValueError(
+            f"the ELL gather-sum's ring of {stages} bands at {per_sm} blocks "
+            f"an SM cannot hold {nodes} nodes' band at K = {K}")
+    return EllShape(nodes, threads, stages, int(aligned and n % 4 == 0),
+                    band, -(-n // nodes),
+                    ELL_HEADER_BYTES + columns + stages * band * 4)
+
+
+def ell_staged_blocks(cols, shape: EllShape) -> int:
+    """The blocks of `shape` that stage their band, by the kernel's rule:
+    a block's band runs from its least to its greatest column in [0, n),
+    rounded out to 16 bytes within the row; it stages when it has such a
+    column and that band fits `shape.band` - 4 floats (the rest of a ring
+    buffer holds the NaN cell)."""
+    K, n = cols.shape
+    if K == 0:
+        return 0
+    B = shape.nodes
+    c = cols.long()
+    inside = (c >= 0) & (c < n)
+    pad = shape.blocks * B - n
+    lo = torch.nn.functional.pad(torch.where(inside, c, n), (0, pad), value=n)
+    hi = torch.nn.functional.pad(torch.where(inside, c, -1), (0, pad),
+                                 value=-1)
+    lo = lo.view(K, shape.blocks, B).amin(dim=(0, 2))
+    hi = hi.view(K, shape.blocks, B).amax(dim=(0, 2))
+    width = torch.clamp((hi // 4 + 1) * 4, max=n) - lo // 4 * 4
+    return int(((hi >= 0) & (width <= shape.band - 4)).sum())
+
+
+def ell_default_shape(X, cols) -> EllShape:
+    """ell_shape's default launch for X [C, n] and cols [K, n]."""
+    return ell_shape(X.shape[1], cols.shape[0],
+                     (X.data_ptr() | cols.data_ptr()) % 16 == 0)
+
+
+def ell_gather_sum(X, cols, shape: Optional[EllShape] = None, staged=None):
     """out[c, i] = sum_{k < K} X[c, cols[k, i]] of f32 X [C, n] and int32
-    cols [K, n], K <= 16 (indices in [0, n); the kernel gives NaN for any
-    other).  Counted under build.probe_key("ell_gather_sum", C, K, n)."""
-    if not build.on_card(X):
-        return ell_gather_sum_reference(X, cols)
+    cols [K, n], K <= 16 (a column outside [0, n) adds NaN), launched with
+    `shape` (default: ell_default_shape).  staged: None, or an int32
+    tensor of one element to which the kernel adds the blocks that staged
+    their band (the plain version: ell_staged_blocks).  Counted under
+    build.probe_key("ell_gather_sum", C, K, n)."""
     C, n = X.shape
     K = cols.shape[0]
-    if K > 16:
-        raise ValueError(f"the ELL gather-sum takes at most 16 slots, not {K}")
+    if not build.on_card(X):
+        if staged is not None:
+            shape = shape or ell_default_shape(X, cols)
+            staged += ell_staged_blocks(cols, shape)
+        return ell_gather_sum_reference(X, cols)
+    if K > ELL_MAX_K:
+        raise ValueError(f"the ELL gather-sum takes at most {ELL_MAX_K} "
+                         f"slots, not {K}")
     build.check_probe(X.device, {"X": (X, X.shape), "cols": (cols, (K, n))})
+    if staged is not None and (staged.dtype != torch.int32
+                               or staged.device != X.device
+                               or staged.numel() != 1):
+        raise ValueError("staged is one int32 on X's device")
+    if shape is None:
+        shape = ell_default_shape(X, cols)
     out = torch.empty_like(X)
     build.launch_probe(build.probe_key("ell_gather_sum", C, K, n),
                        "ryujin_probe_ell_gather_sum", X.data_ptr(),
-                       cols.data_ptr(), out.data_ptr(), C, K, n)
+                       cols.data_ptr(), out.data_ptr(), build.ptr(staged), C,
+                       K, n, *shape)
     return out

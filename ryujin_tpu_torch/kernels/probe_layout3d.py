@@ -23,9 +23,9 @@ from . import build
 LAYOUTS = {"plane-major": 0, "z-major": 1, "z-major-slide": 2}
 # moveaxis_cost, with (MOV = 1) and without the relayout
 MOVEAXIS = {1: 3, 0: 4}
-# the three layouts' kernels (csrc/probe_layout3d.cu): the tile widths they
-# are built for, the shared bytes of barriers ahead of the staged rows
-# (LAYOUT_BARRIER_BYTES) and the most stages those serve
+# the three layouts' kernels and moveaxis's (csrc/probe_layout3d.cu): the
+# tile widths they are built for, the shared bytes of barriers ahead of the
+# staged rows (LAYOUT_BARRIER_BYTES) and the most stages those serve
 # (LAYOUT_MAX_STAGES)
 LAYOUT_TILES = (64, 128)
 LAYOUT_BARRIER_BYTES = 128
@@ -33,11 +33,13 @@ LAYOUT_MAX_STAGES = LAYOUT_BARRIER_BYTES // 8 - 1
 # the default launch of each layout: tile width, stages and z segments,
 # the fastest of tile_sweep layouts at the script's sizes in a CUDA graph
 # of 100 calls (NVIDIA H100 80GB HBM3, 700.00 W): full-window 0.0247 ms a
-# call, the slide 0.0253 (torch's sums 0.0252-0.0256)
+# call, the slide 0.0253 (torch's sums 0.0252-0.0256); moveaxis's of
+# tile_sweep moveaxis, 0.0263 (MOV = 1) and 0.0264 (MOV = 0)
 LAYOUT_DEFAULTS = {
     "plane-major": {"tile": 64, "stages": 2, "segments": 2},
     "z-major": {"tile": 64, "stages": 2, "segments": 2},
     "z-major-slide": {"tile": 64, "stages": 2, "segments": 6},
+    "moveaxis": {"tile": 64, "stages": 2, "segments": 2},
 }
 
 
@@ -91,16 +93,18 @@ class LayoutShape(NamedTuple):
 def layout_shape(layout: str, P: int, D: int, HW: int, TD: int,
                  tile: Optional[int] = None, stages: Optional[int] = None,
                  segments: Optional[int] = None) -> LayoutShape:
-    """The launch of `layout`'s kernel on a (D, H, W) canvas of P planes,
-    HW = H W cells a plane: x tiles of `tile` cells x `segments` runs of
-    the gz z tiles (at most gz), a block each, with a ring of `stages`
-    windows of TD + 2 rows (full-window: plane-major, z-major) or of
-    TD + 2 + stages TD rows (z-major-slide), P planes of `tile` cells a
-    row.  Defaults: LAYOUT_DEFAULTS, the stages cut to what fits the
-    shared memory.  Raises ValueError where nothing fits.  Cached, so
-    that a launch spends little host time on it."""
-    if layout not in LAYOUTS:
-        raise ValueError(f"unknown layout {layout!r}; one of {tuple(LAYOUTS)}")
+    """The launch of `layout`'s kernel (or of "moveaxis"'s, both MOV) on a
+    (D, H, W) canvas of P planes, HW = H W cells a plane: x tiles of
+    `tile` cells x `segments` runs of the gz z tiles (at most gz), a block
+    each, with a ring of `stages` windows of TD + 2 rows (full-window:
+    plane-major, z-major, moveaxis) or of TD + 2 + stages TD rows
+    (z-major-slide), P planes of `tile` cells a row.  Defaults:
+    LAYOUT_DEFAULTS, the stages cut to what fits the shared memory.
+    Raises ValueError where nothing fits.  Cached, so that a launch spends
+    little host time on it."""
+    if layout not in LAYOUT_DEFAULTS:
+        raise ValueError(f"unknown layout {layout!r}; one of "
+                         f"{tuple(LAYOUT_DEFAULTS)}")
     gz = interior_rows(D, TD) // TD
     d = LAYOUT_DEFAULTS[layout]
     tile = tile or d["tile"]
@@ -127,6 +131,21 @@ def layout_shape(layout: str, P: int, D: int, HW: int, TD: int,
     segments = min(segments or d["segments"], gz)
     return LayoutShape(tile, stages, -(-HW // tile) * segments, segments,
                        min(1024, TD * tile), smem)
+
+
+def moveaxis_map(P: int, D: int, HW: int, TD: int, tile: int, mov: int):
+    """(dims, byte strides of the outer two, box), innermost first, of the
+    tensor map moveaxis's kernel encodes over a z-major h [D, P, HW]
+    (csrc/probe_layout3d.cu encode_windows); the box at coordinates
+    (q0, z0, 0) for mov = 1, (q0, 0, z0) for mov = 0, is the window of z
+    tile z0 / TD at cells q0 ..: for mov = 1 the dimensions run (cell, z,
+    plane), so that it lands plane-major, h[z0 : z0 + TD + 2, :,
+    q0 : q0 + tile].movedim(0, 1); for mov = 0 (cell, plane, z), the
+    window as it lies."""
+    plane, row = HW * 4, P * HW * 4
+    if mov:
+        return (HW, D, P), (row, plane), (tile, TD + 2, P)
+    return (HW, P, D), (plane, row), (tile, P, TD + 2)
 
 
 def window_sum(h, layout: str, TD: int, shape: Optional[LayoutShape] = None):
@@ -183,21 +202,26 @@ def moveaxis_reference(h, TD: int, mov: int):
     return out, staged_checksum_reference([(h, TD + 2)], TD)
 
 
-def moveaxis(h, TD: int, mov: int):
+def moveaxis(h, TD: int, mov: int, shape: Optional[LayoutShape] = None):
     """(out [D, H, W], check [D, H, W] int32) of moveaxis_reference; the
-    kernel stages all P planes of each window and, with mov = 1,
-    transposes it to plane-major in shared memory, where both outputs read
-    it.  Counted under build.probe_key("moveaxis", f"MOV={mov}")."""
+    kernel stages all P planes of each window with one TMA box, for mov =
+    1 through a tensor map whose box lands plane-major (the relayout done
+    by the copy engine), and both outputs read it there.  Launched with
+    `shape` (default: layout_shape("moveaxis", ...)).  Counted under
+    build.probe_key("moveaxis", f"MOV={mov}")."""
     if not build.on_card(h):
         return moveaxis_reference(h, TD, mov)
     D, P, H, W = h.shape
     interior_rows(D, TD)
     _check({"h": (h, h.shape)}, H * W, TD)
+    if shape is None:
+        shape = layout_shape("moveaxis", P, D, H * W, TD)
     out = torch.empty((D, H, W), dtype=h.dtype, device=h.device)
     check = torch.empty((D, H, W), dtype=torch.int32, device=h.device)
     build.launch_probe(build.probe_key("moveaxis", f"MOV={int(mov)}"),
                        "ryujin_probe_window", MOVEAXIS[int(mov)], h.data_ptr(),
-                       out.data_ptr(), check.data_ptr(), P, D, H * W, TD)
+                       out.data_ptr(), check.data_ptr(), P, D, H * W, TD,
+                       *shape)
     return out, check
 
 

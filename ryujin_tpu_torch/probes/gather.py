@@ -8,8 +8,10 @@ gather out[s, l] = x[idx[s, l], l] for each S, from a shared-memory
 window, each held exactly against np.take_along_axis ("ok=", as the
 script prints it); then the ELL gather-sum sum_k X[:, cols[k]] over
 banded columns (|j - i| <= 1500), whose ms, GB/s gathered (n K C 4 bytes)
-and Mnode/s the script prints for the TPU's XLA gather.  Inputs are made
-as the script makes them: x = arange, indices and X from
+and Mnode/s the script prints for the TPU's XLA gather, and the blocks
+that staged their band in shared memory, counted by the kernel, against
+ell_staged_blocks and the blocks of the launch.  Inputs are made as the
+script makes them: x = arange, indices and X from
 np.random.default_rng(0).
 """
 
@@ -23,8 +25,9 @@ import torch
 
 from ..kernels import build
 from ..kernels.probe_gather import (
-    ell_gather_sum, ell_gather_sum_reference, lane_gather,
-    lane_gather_reference, sublane_gather, sublane_gather_reference,
+    ell_default_shape, ell_gather_sum, ell_gather_sum_reference,
+    ell_staged_blocks, lane_gather, lane_gather_reference, sublane_gather,
+    sublane_gather_reference,
 )
 from . import Case, card, measure, report
 
@@ -75,6 +78,16 @@ def ell_inputs(n: int, K: int, C: int):
     return X, cols
 
 
+def ell_staged(X, cols):
+    """(blocks that staged their band, as the kernel counts them in one
+    launch of the default shape; as ell_staged_blocks mirrors the rule;
+    blocks of the launch) and that launch's output."""
+    shape = ell_default_shape(X, cols)
+    staged = torch.zeros(1, dtype=torch.int32, device=X.device)
+    out = ell_gather_sum(X, cols, shape, staged)
+    return (int(staged), ell_staged_blocks(cols, shape), shape.blocks), out
+
+
 def _to(device, *arrays):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
@@ -114,8 +127,9 @@ def cases(args, device="cuda"):
 
 def main(argv=None, records=None) -> int:
     """Run the probe; append each kernel's record to `records` when given.
-    0 when every gather is right and every kernel holds its bar, 1
-    otherwise or without a card."""
+    0 when every gather is right, every kernel holds its bar and the
+    staged blocks are those ell_staged_blocks finds, 1 otherwise or
+    without a card."""
     args = parser().parse_args(argv)
     if card() is None:
         return 1
@@ -135,11 +149,16 @@ def main(argv=None, records=None) -> int:
     recs = [measure(case) for case in cases(args)]
     dt = recs[-1]["ms"] * 1e-3
     gathered_gb = args.n * args.K * args.C * 4 / 1e9
-    print(f"ELL gather (one thread a node): n={args.n} K={args.K} "
+    print(f"ELL gather (band staged in shared memory): n={args.n} K={args.K} "
           f"C={args.C}: {dt * 1e3:.4f} ms/iter, {gathered_gb / dt:.1f} GB/s "
           f"gathered, {args.n / dt / 1e6:.1f} Mnode/s", flush=True)
     for rec in recs:
         print(report(rec), flush=True)
+    (counted, mirror, blocks), _ = ell_staged(
+        *_to("cuda", *ell_inputs(args.n, args.K, args.C)))
+    print(f"ELL gather-sum: {counted} of {blocks} blocks staged their band "
+          f"(ell_staged_blocks: {mirror})", flush=True)
+    good &= counted == mirror
     if records is not None:
         records.extend(recs)
     return 0 if good and all(r["ok"] for r in recs) else 1

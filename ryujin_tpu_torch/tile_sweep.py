@@ -1,8 +1,8 @@
 """Time the stacked pk1 and pk2 and pk1_stream over their tiles, and
 other checkouts' builds of them on the same inputs; the sublane gather
-probe over its row groups; the layout probe's and the pow probe's
-kernels over their launches; and the pow probe of other checkouts in
-turns.
+probe over its row groups; the ELL gather-sum's, the layout probe's,
+moveaxis's and the pow probe's kernels over their launches; and the pow
+probe, the ELL gather-sum and moveaxis of other checkouts in turns.
 
     python -m ryujin_tpu_torch.tile_sweep [--tree NAME=ROOT ...] [CASE ...]
 
@@ -30,7 +30,18 @@ only), or pow-turns (pow_turn, run in each checkout's own process with
 its package first on the path, in turns: the others, this, this, the
 others reversed; every form's chained time at the default launch and a
 digest of its output, compared with this checkout's; so P C C P with
-the parent as the one other); without one, all but pow-turns.  For
+the parent as the one other), or ell (the ELL gather-sum of
+probes/gather.py at the script's input over the launches of
+ELL_CANDIDATES whose ring holds every block's band, and at the default
+launch, each held exactly against the plain version and against the
+default launch, with its staged-block count against ell_staged_blocks,
+timed in CUDA graphs beside X[:, cols].sum(1); this checkout only), or
+moveaxis (both MOV of probes/layout3d.py at the script's sizes over the
+launches of LAYOUT_CANDIDATES["full"], each held exactly, timed the same
+way; this checkout only), or gather-turns (gather_turn: the ELL
+gather-sum at the script's input, digest of out and chained ms) or
+moveaxis-turns (moveaxis_turn: both MOV, digests of out and check),
+each in turns as pow-turns; without one, all but the turns.  For
 each launch of the solver kernels it
 times, with CUDA events (chip_smoke.time_ms, mean of 20 launches after
 a warm one), this checkout's kernel at the tile its wrapper chooses and
@@ -49,6 +60,7 @@ warps}}}}.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import functools
 import inspect
 import json
 import os
@@ -57,6 +69,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # candidate tiles (TY, TZ); TZ is 1 in 2D
@@ -74,6 +87,10 @@ POW_CANDIDATES = {
     True: {"threads": (64, 128, 256), "items": (1, 2),
            "unroll": (1, 2, 4, 8)},
 }
+# candidate launches of the ELL gather-sum (kernels/probe_gather.py
+# ell_shape): nodes a block, threads, stages and blocks an SM
+ELL_CANDIDATES = {"nodes": (512, 1024, 2048, 4096), "threads": (256, 512),
+                  "stages": (2, 3), "per_sm": (1, 2, 3, 4)}
 # candidate launches of the layout kernels (kernels/probe_layout3d.py
 # layout_shape): tile widths, stages and z segments, for the full-window
 # kernels and the slide
@@ -148,6 +165,146 @@ def pow_turn():
     return res
 
 
+def gather_turn():
+    """One turn of `gather-turns`, run in a checkout's own process: the
+    ELL gather-sum at the script's input (probes.gather.ell_inputs, n =
+    2^20, K = 9, C = 12) through that checkout's default launch, a digest
+    of out's bytes and the mean ms of a call in a CUDA graph of
+    probes.CHAIN calls, beside X[:, cols].sum(1).  Uses only what every
+    checkout since the chained reading has.  Returns {"ms": {entry: ms},
+    "digest": {entry: hex}}."""
+    import hashlib
+
+    import torch
+
+    from ryujin_tpu_torch import probes
+    from ryujin_tpu_torch.kernels import probe_gather as kg
+    from ryujin_tpu_torch.probes import gather
+
+    X, cols = (torch.from_numpy(a).cuda()
+               for a in gather.ell_inputs(1 << 20, 9, 12))
+    cols64 = cols.long()
+    res = {"ms": {}, "digest": {}}
+    for name, fn, digest in (
+            ("ell_gather_sum", lambda: kg.ell_gather_sum(X, cols), True),
+            ("X[:, cols].sum(1)", lambda: X[:, cols64].sum(1), False)):
+        out = fn()
+        torch.cuda.synchronize()
+        if digest:
+            res["digest"][name] = hashlib.sha256(
+                out.cpu().numpy().tobytes()).hexdigest()[:16]
+        del out
+        res["ms"][name] = probes.graph_ms(fn, probes.CHAIN)
+    return res
+
+
+def moveaxis_turn():
+    """One turn of `moveaxis-turns`, run in a checkout's own process:
+    moveaxis with MOV = 1 and 0 at the script's sizes (probes.layout3d's
+    cases, --MOV both) through that checkout's default launch, digests of
+    out and check and the mean ms of a call in a CUDA graph of
+    probes.CHAIN calls.  Returns {"ms": {entry: ms}, "digest": {entry:
+    hex}}."""
+    import hashlib
+
+    import torch
+
+    from ryujin_tpu_torch import probes
+    from ryujin_tpu_torch.probes import layout3d
+
+    res = {"ms": {}, "digest": {}}
+    args = layout3d.parser().parse_args(["--MOV", "both"])
+    for case in layout3d.cases(args, "moveaxis_cost"):
+        name = "moveaxis " + case.name[case.name.index("MOV="):][:5]
+        out, check = case.kernel()
+        torch.cuda.synchronize()
+        for part, t in (("out", out), ("check", check)):
+            res["digest"][f"{name} {part}"] = hashlib.sha256(
+                t.cpu().numpy().tobytes()).hexdigest()[:16]
+        del out, check
+        res["ms"][name] = probes.graph_ms(case.kernel, probes.CHAIN)
+    return res
+
+
+def ell_launches(res, dev):
+    """The ELL gather-sum at the script's input over ELL_CANDIDATES (the
+    launches whose ring holds every block's band) and at the default
+    launch, beside X[:, cols].sum(1), in CUDA graphs of probes.CHAIN
+    calls, into res["ms"]."""
+    import itertools
+
+    from . import probes
+    from .kernels import probe_gather as kg
+    from .probes.gather import ell_inputs
+
+    X, cols = (torch.from_numpy(a).to(dev) for a in ell_inputs(1 << 20, 9, 12))
+    K, n = cols.shape
+    want, cols64 = kg.ell_gather_sum_reference(X, cols), cols.long()
+    default = kg.ell_gather_sum(X, cols)
+    shapes = {kg.ell_shape(n, K): "default"}
+    for values in itertools.product(*ELL_CANDIDATES.values()):
+        try:
+            shapes.setdefault(kg.ell_shape(
+                n, K, True, **dict(zip(ELL_CANDIDATES, values))), "")
+        except ValueError:  # the ring cannot hold a block's own nodes
+            continue
+    for shape, tag in shapes.items():
+        mirror = kg.ell_staged_blocks(cols, shape)
+        if mirror < shape.blocks:
+            print(f"  ell {tuple(shape)}: {mirror} of {shape.blocks} blocks "
+                  "stage, not timed", flush=True)
+            continue
+        staged = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = kg.ell_gather_sum(X, cols, shape, staged)
+        ok = (torch.equal(got, want) and torch.equal(got, default)
+              and int(staged) == mirror)
+        del got
+        fn = lambda: kg.ell_gather_sum(X, cols, shape)  # noqa: E731
+        fn()
+        key = (f"ell {tuple(shape)}{' ' + tag if tag else ''}"
+               f"{'' if ok else ' WRONG'}")
+        res["ms"][key] = probes.graph_ms(fn, probes.CHAIN)
+        print(f"  {key}: {res['ms'][key]:.5f} ms", flush=True)
+    lib = lambda: X[:, cols64].sum(1)  # noqa: E731
+    lib()
+    res["ms"]["ell X[:, cols].sum(1)"] = probes.graph_ms(lib, probes.CHAIN)
+    print(f"  ell X[:, cols].sum(1): {res['ms']['ell X[:, cols].sum(1)']:.5f}"
+          " ms", flush=True)
+
+
+def moveaxis_launches(res, dev):
+    """moveaxis, both MOV, at the script's sizes over
+    LAYOUT_CANDIDATES["full"] and at the default launch, each held
+    exactly, in CUDA graphs of probes.CHAIN calls, into res["ms"]."""
+    import itertools
+
+    from . import probes
+    from .kernels import probe_layout3d as kl
+    from .probes import layout3d
+
+    la = layout3d.parser().parse_args([])
+    P, D, H, W, TD = la.P, la.D, la.H, la.W, la.TD
+    h = torch.from_numpy(np.random.default_rng(0).random(
+        (D, P, H, W), dtype=np.float32)).to(dev)
+    cand = LAYOUT_CANDIDATES["full"]
+    shapes = {kl.layout_shape("moveaxis", P, D, H * W, TD): "default"}
+    for values in itertools.product(*cand.values()):
+        try:
+            shapes.setdefault(kl.layout_shape(
+                "moveaxis", P, D, H * W, TD, **dict(zip(cand, values))), "")
+        except ValueError:  # does not fit the shared memory
+            continue
+    for mov in (1, 0):
+        want = kl.moveaxis_reference(h, TD, mov)
+        for shape, tag in shapes.items():
+            fn = functools.partial(kl.moveaxis, h, TD, mov, shape)
+            ok = all(torch.equal(a, b) for a, b in zip(fn(), want))
+            key = (f"moveaxis MOV={mov} {tuple(shape)}"
+                   f"{' ' + tag if tag else ''}{'' if ok else ' WRONG'}")
+            res["ms"][key] = probes.graph_ms(fn, probes.CHAIN)
+            print(f"  {key}: {res['ms'][key]:.5f} ms", flush=True)
+
+
 def pow_launches(res, dev, argv=()):
     """Every PowForm pointwise and summed at rows 11 and 12's sizes
     (row 12: one launch of its chain, on x + 1e-9 x) over
@@ -206,7 +363,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("cases", nargs="*",
                     default=["step2d", "q2step2d", "box3d", "cylinder3d",
-                             "gather", "layouts", "pow"])
+                             "gather", "layouts", "pow", "ell", "moveaxis"])
     ap.add_argument("--tree", action="append", default=[],
                     metavar="NAME=ROOT")
     args = ap.parse_args(argv)
@@ -399,45 +556,48 @@ def main(argv=None) -> int:
                    lambda: kl.window_sum(h, layout, TD, shape))
             gm(f"layouts {layout} torch", library[layout])
 
-    def pow_turns():
-        """pow_turn in each checkout's own process, in turns: the others,
-        this, this, the others reversed (P C C P with one other); each
-        entry's digest against this checkout's."""
-        src = (inspect.getsource(pow_turn)
-               + "\nimport json\nprint('POW_TURN', json.dumps(pow_turn()))")
+    def turns_of(case, turn):
+        """`turn` (pow_turn, gather_turn, moveaxis_turn) in each
+        checkout's own process, in turns: the others, this, this, the
+        others reversed (P C C P with one other); each entry's digest
+        against this checkout's."""
+        src = (inspect.getsource(turn)
+               + f"\nimport json\nprint('TURN', json.dumps({turn.__name__}()))")
         digests = {}
-        for turn, tree in enumerate(others + ["this", "this"] + others[::-1]):
+        for n, tree in enumerate(others + ["this", "this"] + others[::-1]):
             root = str(trees[tree])
             proc = subprocess.run(
                 [sys.executable, "-c", src], cwd=root, capture_output=True,
                 text=True, env={**os.environ, "PYTHONPATH": root})
             line = [ln for ln in proc.stdout.splitlines()
-                    if ln.startswith("POW_TURN ")]
+                    if ln.startswith("TURN ")]
             if proc.returncode or not line:
-                raise RuntimeError(f"pow turn of {tree} failed:\n"
+                raise RuntimeError(f"{case} turn of {tree} failed:\n"
                                    f"{proc.stdout}\n{proc.stderr}")
             got = json.loads(line[0].split(" ", 1)[1])
             digests.setdefault(tree, got["digest"])
             for entry, ms in got["ms"].items():
-                res["ms"][f"pow-turns {entry} {tree} {turn}"] = ms
-                print(f"  pow-turns {entry} {tree} {turn}: {ms:.5f} ms",
-                      flush=True)
+                res["ms"][f"{case} {entry} {tree} {n}"] = ms
+                print(f"  {case} {entry} {tree} {n}: {ms:.5f} ms", flush=True)
         for tree in others:
             for entry, d in digests["this"].items():
                 same = digests[tree].get(entry) == d
-                res["equal"][f"pow-turns {entry} {tree}"] = same
-                print(f"  pow-turns {entry}: {tree} {digests[tree].get(entry)}"
+                res["equal"][f"{case} {entry} {tree}"] = same
+                print(f"  {case} {entry}: {tree} {digests[tree].get(entry)}"
                       f" this {d} {'equal' if same else 'DIFFER'}", flush=True)
 
     dev = torch.device("cuda")
     use("this")
     for case in args.cases:
         print(f"{case}:", flush=True)
-        if case == "pow-turns":
-            pow_turns()
+        turn = {"pow-turns": pow_turn, "gather-turns": gather_turn,
+                "moveaxis-turns": moveaxis_turn}.get(case)
+        if turn is not None:
+            turns_of(case, turn)
             continue
-        if case == "pow":
-            pow_launches(res, dev)
+        if case in ("pow", "ell", "moveaxis"):
+            {"pow": pow_launches, "ell": ell_launches,
+             "moveaxis": moveaxis_launches}[case](res, dev)
             continue
         if case == "gather":
             gather_groups()

@@ -20,7 +20,8 @@ of the four 3D kernels (separable statics, synthesized per offset) on the
 cylinder o-grid of cylinder3d at refinement 1 (two-direction route) and
 the 3 x 2 x 2 box (half-slot route), the plain path on the CPU in the same
 separable mode; and the measurement probes' kernels (csrc/probe_*.cu) on
-small shapes against their plain versions on the card, each at its bar.
+small shapes against their plain versions on the card, each at its bar,
+the ELL gather-sum and moveaxis also at every launch of their sweeps.
 """
 
 import functools
@@ -308,6 +309,86 @@ def test_layout_kernels_exact_at_every_launch():
                                         **dict(zip(cand, values)))
                 got = kl.window_sum(h, layout, TD, shape)
                 assert torch.equal(got, want), (layout, TD, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["script", "unbanded", "ragged n",
+                                  "out of range"])
+def test_ell_gather_sum_exact_at_every_launch(case):
+    """The ELL gather-sum bit for bit against its plain version (NaN
+    where it gives NaN) at the default launch and every launch of
+    tile_sweep ell, on the script's input (n = 2^20), on unbanded columns,
+    at n = 2^20 + 3 (4-byte cp.async) and with columns out of range; at
+    each launch the blocks the kernel counts as staged are
+    ell_staged_blocks' (on the script's input at the default launch,
+    every block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import itertools
+
+    import numpy as np
+
+    from ryujin_tpu_torch.kernels import probe_gather as kg
+    from ryujin_tpu_torch.probes import gather
+    from ryujin_tpu_torch.tile_sweep import ELL_CANDIDATES
+
+    n, K = 1 << 20, 9
+    X, cols = gather.ell_inputs(n + 3 if case == "ragged n" else n, K, 12)
+    if case == "unbanded":
+        cols = np.random.default_rng(1).integers(0, n, (K, n)).astype(np.int32)
+    if case == "out of range":
+        cols[0, 0], cols[4, 9999], cols[8, n - 1] = -1, n, 2**31 - 1
+    X, cols = torch.from_numpy(X).cuda(), torch.from_numpy(cols).cuda()
+    want = kg.ell_gather_sum_reference(X, cols)
+    shapes = [kg.ell_shape(X.shape[1], K)]
+    for values in itertools.product(*ELL_CANDIDATES.values()):
+        try:
+            shapes.append(kg.ell_shape(X.shape[1], K, True,
+                                       **dict(zip(ELL_CANDIDATES, values))))
+        except ValueError:
+            continue
+    for shape in shapes:
+        staged = torch.zeros(1, dtype=torch.int32, device="cuda")
+        got = kg.ell_gather_sum(X, cols, shape, staged)
+        assert torch.equal(got.isnan(), want.isnan()), (case, shape)
+        assert torch.equal(got.nan_to_num(), want.nan_to_num()), (case, shape)
+        assert int(staged) == kg.ell_staged_blocks(cols, shape), (case, shape)
+    if case == "script":
+        staged = torch.zeros(1, dtype=torch.int32, device="cuda")
+        kg.ell_gather_sum(X, cols, None, staged)
+        assert int(staged) == shapes[0].blocks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("TD", [1, 2, 4])
+def test_moveaxis_exact_at_every_launch(TD):
+    """moveaxis, MOV = 1 and 0, out and check bit for bit against the
+    plain version at every launch tile_sweep moveaxis tries, at P = 24 on
+    a (20, 9, 20) canvas (H W = 180: partial tiles of 64 and 128 cells)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import itertools
+
+    import numpy as np
+
+    from ryujin_tpu_torch.kernels import probe_layout3d as kl
+    from ryujin_tpu_torch.tile_sweep import LAYOUT_CANDIDATES
+
+    P, D, H, W = 24, 20, 9, 20
+    h = torch.from_numpy(np.random.default_rng(4).random(
+        (D, P, H, W), dtype=np.float32)).cuda()
+    cand = LAYOUT_CANDIDATES["full"]
+    for mov in (1, 0):
+        want = kl.moveaxis_reference(h, TD, mov)
+        for values in itertools.product(*cand.values()):
+            try:
+                shape = kl.layout_shape("moveaxis", P, D, H * W, TD,
+                                        **dict(zip(cand, values)))
+            except ValueError:
+                continue
+            got = kl.moveaxis(h, TD, mov, shape)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                mov, TD, shape)
 
 
 def ragged_case(dim, ansatz=None):

@@ -5,9 +5,10 @@ lattice reach, and its grid covers every cell of the bench canvases and
 of the small test canvases, ragged edges included; the C side of the
 launch (the Consts struct, the entry points, the staged layouts) mirrors
 what the wrappers pass; and the launches of the sublane gather probe,
-of the layout probe's three layouts and of the pow probe's two kernels
-cover their outputs and fit their windows in shared memory and their
-blocks on the card."""
+of the ELL gather-sum, of the layout probe's three layouts and moveaxis
+and of the pow probe's two kernels cover their outputs and fit their
+windows in shared memory and their blocks on the card; moveaxis's tensor
+maps land the windows the kernel reads."""
 
 import itertools
 import re
@@ -202,8 +203,9 @@ def _layout_written(sh, D, HW, TD):
     (5, 20, 5, 36, 3), (2, 9, 3, 44, 1),  # ragged H W, one tile or several
 ])
 def test_layout_shape_covers_and_fits(P, D, H, W, TD):
-    """The three layouts' launches, by default and over the candidates of
-    tile_sweep layouts: every interior z tile and every (H, W) cell is
+    """The three layouts' launches and moveaxis's (as the full-window
+    kernels'), by default and over the candidates of tile_sweep layouts:
+    every interior z tile and every (H, W) cell is
     written exactly once; each segment's first window lies within D; the
     full-window ring holds `stages` windows of TD + 2 rows, the slide's
     TD + 2 + stages TD rows; the shared bytes are the barriers and those
@@ -212,7 +214,7 @@ def test_layout_shape_covers_and_fits(P, D, H, W, TD):
     from ryujin_tpu_torch.tile_sweep import LAYOUT_CANDIDATES
 
     HW = H * W
-    for layout in probe_layout3d.LAYOUTS:
+    for layout in (*probe_layout3d.LAYOUTS, "moveaxis"):
         slide = layout == "z-major-slide"
         cand = LAYOUT_CANDIDATES["slide" if slide else "full"]
         kinds = [{}] + [dict(zip(cand, values))
@@ -238,6 +240,135 @@ def test_layout_shape_covers_and_fits(P, D, H, W, TD):
         probe_layout3d.layout_shape("z-major", 257, D, HW, TD)
     with pytest.raises(ValueError):
         probe_layout3d.layout_shape("diagonal", P, D, HW, TD)
+
+
+def test_moveaxis_map_lands_the_moved_window():
+    """moveaxis_map's dimensions, strides and box, applied with as_strided
+    at a window's coordinates, take h[z0 : z0 + wz, :, q0 : q0 + tile]
+    moved to plane-major (MOV = 1) or as it lies (MOV = 0); the C side
+    (encode_windows, the box's coordinates in moveaxis_kernel) encodes the
+    same."""
+    P, D, H, W = 5, 13, 4, 48
+    HW = H * W
+    h = torch.arange(D * P * HW, dtype=torch.float32).view(D, P, HW)
+    for TD, tile, mov in itertools.product((1, 2, 4), (64, 128), (1, 0)):
+        dims, strides, box = probe_layout3d.moveaxis_map(P, D, HW, TD, tile,
+                                                         mov)
+        assert dims == ((HW, D, P) if mov else (HW, P, D))
+        assert box[0] == tile and sorted(box[1:]) == sorted((TD + 2, P))
+        for z0, q0 in ((0, 0), (TD, 0), ((D // TD - 3) * TD, HW - tile)):
+            coord = (q0, z0, 0) if mov else (q0, 0, z0)
+            view = torch.as_strided(
+                h, size=box[::-1], stride=(strides[1] // 4, strides[0] // 4, 1),
+                storage_offset=(coord[0] + coord[1] * strides[0] // 4
+                                + coord[2] * strides[1] // 4))
+            window = h[z0:z0 + TD + 2, :, q0:q0 + tile]
+            assert torch.equal(view, window.movedim(0, 1) if mov else window)
+    src = (CSRC / "probe_layout3d.cu").read_text()
+    for mirrored in (
+            "const cuuint64_t plane = cuuint64_t(HW) * sizeof(float), "
+            "row = cuuint64_t(P) * plane;",
+            "const cuuint64_t dims[3] = {cuuint64_t(HW), cuuint64_t(moved ? D "
+            ": P),\n                              cuuint64_t(moved ? P : D)};",
+            "const cuuint64_t strides[2] = {moved ? row : plane, moved ? plane "
+            ": row};",
+            "const cuuint32_t box[3] = {cuuint32_t(tile), cuuint32_t(moved ? "
+            "wz : P),\n                             cuuint32_t(moved ? P : "
+            "wz)};",
+            "encode_windows(&map[m], src, mode == MOVEAXIS, P, D, HW, TD + 2, "
+            "TILE);",
+            "tma_copy_3d(buf + k % stages * window, &map, q0, MODE == MOVEAXIS "
+            "? z0 : 0,\n                MODE == MOVEAXIS ? 0 : z0, b);"):
+        assert mirrored in src, mirrored
+
+
+def _ell_written(sh, n):
+    """How often each of the n nodes is taken by the launch `sh`, as
+    csrc/probe_gather.cu splits the work: block b, thread t, the nodes
+    b nodes + t, + threads, ... of the block's nodes that lie below n."""
+    b, j, t = np.meshgrid(np.arange(sh.blocks),
+                          np.arange(sh.nodes // sh.threads),
+                          np.arange(sh.threads), indexing="ij")
+    node = (b * sh.nodes + t + j * sh.threads).ravel()
+    return np.bincount(node[node < n], minlength=n)
+
+
+@pytest.mark.parametrize("n", [1, 9, 1000, (1 << 20) + 3])
+def test_ell_shape_covers_and_fits(n):
+    """The ELL gather-sum's launches, by default and over the candidates
+    of tile_sweep ell, for K = 0, 1, 9 and 16 slots, on an aligned X and
+    not: every node is taken by exactly one thread; whole warps up to 512
+    threads, nodes a multiple of them; the header, the block's columns and
+    `stages` bands of whole 16-byte pieces fill the shared bytes, which
+    fit 232,448 B and leave room for `per_sm` blocks an SM; each band
+    holds a block's own nodes and the NaN cell; bulk copies only on
+    aligned X and cols with n % 4 == 0.  A shape that
+    cannot be raises."""
+    from ryujin_tpu_torch.tile_sweep import ELL_CANDIDATES
+
+    kg = probe_gather
+    kinds = [{}] + [dict(zip(ELL_CANDIDATES, values))
+                    for values in itertools.product(*ELL_CANDIDATES.values())]
+    covered = {}
+    for K, aligned, kw in itertools.product((0, 1, 9, 16), (True, False),
+                                            kinds):
+        try:
+            sh = kg.ell_shape(n, K, aligned, **kw)
+        except ValueError:
+            assert kw, "the default launch always fits"
+            continue
+        assert sh.threads % 32 == 0 and 32 <= sh.threads <= 512
+        assert sh.nodes % sh.threads == 0
+        assert (sh.blocks - 1) * sh.nodes < n <= sh.blocks * sh.nodes
+        key = (sh.nodes, sh.threads, sh.blocks)
+        if key not in covered:
+            covered[key] = bool((_ell_written(sh, n) == 1).all())
+        assert covered[key], sh
+        assert sh.band % 4 == 0 and sh.band >= sh.nodes + 8
+        assert sh.smem == (kg.ELL_HEADER_BYTES + K * sh.nodes * 4
+                           + sh.stages * sh.band * 4) <= build.SMEM_MAX
+        per_sm = kw.get("per_sm", 1)
+        assert sh.smem <= kg.SM_SMEM // per_sm - kg.BLOCK_RESERVED_SMEM
+        assert 1 <= sh.stages <= kg.ELL_MAX_STAGES
+        assert sh.bulk == int(aligned and n % 4 == 0)
+    for bad in ({"K": 17}, {"threads": 48}, {"nodes": 1000}, {"stages": 9},
+                {"nodes": 4096, "stages": 3, "per_sm": 2},
+                {"nodes": 2048, "per_sm": 4}, {"per_sm": 0}):
+        K = bad.pop("K", 9)
+        with pytest.raises(ValueError):
+            kg.ell_shape(n, K, True, **bad)
+
+
+def test_ell_launch_mirrors_the_c_side():
+    """csrc/probe_gather.cu's ELL entry point takes the wrapper's
+    arguments, the launch shape last in EllShape's order; its limits are
+    the wrapper's; and the layout it accepts is ell_shape's."""
+    src = (CSRC / "probe_gather.cu").read_text()
+    kg = probe_gather
+    for name in ("ELL_MAX_K", "ELL_MAX_THREADS", "ELL_MAX_STAGES",
+                 "ELL_HEADER_BYTES"):
+        assert f"constexpr int {name} = {getattr(kg, name)};" in src
+    for mirrored in (
+            "threads < 32 || threads % 32 != 0 || threads > ELL_MAX_THREADS || "
+            "nodes < threads ||\n      nodes % threads != 0",
+            "(bulk && !aligned) || band < 8 ||\n      band % 4 != 0",
+            "((reinterpret_cast<uintptr_t>(X) | reinterpret_cast<uintptr_t>"
+            "(cols)) & 15) == 0 &&\n      n % 4 == 0",
+            "int64_t(blocks) != (n + nodes - 1) / nodes",
+            "const int64_t offs = int64_t(K) * nodes * int64_t(sizeof(int));",
+            "int64_t(smem) != ELL_HEADER_BYTES + offs + int64_t(stages) * band "
+            "* int64_t(sizeof(float))",
+            "const int64_t lo_a = lo & ~3, hi_a = min(n, (int64_t(hi) | 3) + 1);",
+            "if (hi < 0 || hi_a - lo_a > band - 4) {",
+            "if (t < stages) ring[t * band + band - 1] = NAN;"):
+        assert mirrored in src, mirrored
+    m = re.search(r'extern "C" int ryujin_probe_ell_gather_sum\((.*?)\)', src,
+                  re.S)
+    params = [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
+    assert params[:7] == ["X", "cols", "out", "staged", "C", "K", "n"]
+    assert params[7:-1] == list(kg.EllShape._fields)
+    assert len(params) == len(
+        build.PROBE_ENTRY_POINTS["ryujin_probe_ell_gather_sum"])
 
 
 FORMS = (None,) + tuple(probe_pow.FORMS)
@@ -448,7 +579,8 @@ def test_launch_struct_mirrors_the_c_side():
     pk2_stream, pk3_stream and the stacked pk1, pk2 and pk3 take the shared
     bytes of the wrappers' formulas (staged.cuh holds the layouts they
     share); the entry points take the pointers ENTRY_POINTS counts; the
-    sublane gather's window is the one sublane_shape() sizes."""
+    sublane gather's window is the one sublane_shape() sizes; the layouts'
+    and moveaxis's launchers take layout_shape()'s shape."""
     src = (CSRC / "euler.cuh").read_text()
     body = re.search(r"struct Consts \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
@@ -501,17 +633,19 @@ def test_launch_struct_mirrors_the_c_side():
             "segments < 1 || segments > gz || blocks != tiles * segments",
             "kernel<<<dim3(blocks / segments, segments), threads, smem,"):
         assert mirrored in layout, mirrored
-    # both kernels split the z tiles of a tile so
+    # the three kernels (full window, slide, moveaxis) split the z tiles
+    # of a tile so
     assert layout.count("const int t0 = gz * int(blockIdx.y) / "
-                        "int(gridDim.y);") == 2
+                        "int(gridDim.y);") == 3
     assert layout.count("const int n = gz * int(blockIdx.y + 1) / "
-                        "int(gridDim.y) - t0;") == 2
-    args = build.PROBE_ENTRY_POINTS["ryujin_probe_layout"]
-    m = re.search(r'extern "C" int ryujin_probe_layout\((.*?)\)', layout,
-                  re.S)
-    params = [p.split()[-1] for p in m.group(1).split(",")]
-    assert params[-7:-1] == list(probe_layout3d.LayoutShape._fields)
-    assert len(params) == len(args)
+                        "int(gridDim.y) - t0;") == 3
+    for entry in ("ryujin_probe_layout", "ryujin_probe_window"):
+        args = build.PROBE_ENTRY_POINTS[entry]
+        m = re.search(r'extern "C" int ' + entry + r"\((.*?)\)", layout,
+                      re.S)
+        params = [p.split()[-1] for p in m.group(1).split(",")]
+        assert params[-7:-1] == list(probe_layout3d.LayoutShape._fields)
+        assert len(params) == len(args)
     for stem, n_ptr in build.ENTRY_POINTS.items():
         text = (CSRC / f"{stem}.cu").read_text()
         m = re.search(r'extern "C" int ryujin_' + stem + r"_##SUFFIX\((.*?)\)",
