@@ -109,8 +109,11 @@ any failure exits non-zero):
    ELL gather-sum exactly (NaN where its plain version gives NaN) at the
    script's input, an unbanded one, n = 2^20 + 3 and with columns out of
    range, its count of blocks that staged their band equal to
-   ell_staged_blocks' (at the script's input, every block); and moveaxis,
-   both MOV, exactly at P = 24, (20, 9, 20), TD = 1 and 4.
+   ell_staged_blocks' (at the script's input, every block); moveaxis,
+   both MOV, exactly at P = 24, (20, 9, 20), TD = 1 and 4; pk1_shape
+   exactly at (20, 9, 20), TD = 1 and 4, with and without its centre and
+   0 to 3 windows; and the lane gather exactly at W = 2047 and on an
+   unaligned view at W = 2048, NaN for an index out of range.
 
 pk_up's two launches a substep, PK4 and PK5 (`last`), are timed, bounded
 and counted apart.  The stream PK1's e, the stream PK2's U_low, F and
@@ -1057,6 +1060,8 @@ def check_probes():
     check_pow_ragged()
     check_ell_inputs()
     check_moveaxis_shapes()
+    check_pk1_shape_shapes()
+    check_lane_ragged()
     print(f"phase 12: {len(records)} probe kernels held and timed in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return records
@@ -1151,6 +1156,66 @@ def check_moveaxis_shapes():
                      "check differs from the plain version")
     print("phase 12: moveaxis exact at P = 24, (20, 9, 20), TD = 1 and 4, "
           "MOV = 1 and 0", flush=True)
+
+
+def check_pk1_shape_shapes():
+    """Phase 12, after the counts are read: pk1_shape, out and check
+    exactly against the plain version at a second shape, (20, 9, 20) (H W
+    = 180: a partial tile of 64 cells), TD = 1 and 4, with a centre of 78
+    planes and without, and 0 to 3 windows of 5, 4 and 2 planes, OUTPL
+    14."""
+    import itertools
+
+    import numpy as np
+
+    from ryujin_tpu_torch.kernels import probe_layout3d as kl
+
+    rng = np.random.default_rng(6)
+    cen = torch.from_numpy(rng.random((20, 78, 9, 20),
+                                      dtype=np.float32)).cuda()
+    wins = [torch.from_numpy(rng.random((20, p, 9, 20),
+                                        dtype=np.float32)).cuda()
+            for p in (5, 4, 2)]
+    for TD, cen_on, nwin in itertools.product((1, 4), (1, 0), range(4)):
+        if not cen_on and not nwin:
+            continue
+        c = cen if cen_on else None
+        got = kl.pk1_shape(c, wins[:nwin], TD, 14)
+        want = kl.pk1_shape_reference(c, wins[:nwin], TD, 14)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"pk1_shape CEN = {cen_on}, NWIN = {nwin}, TD = {TD}, "
+                 "(20, 9, 20): out or check differs from the plain version")
+    print("phase 12: pk1_shape exact at (20, 9, 20), TD = 1 and 4, CEN = 0 "
+          "and 1, NWIN = 0 to 3", flush=True)
+
+
+def check_lane_ragged():
+    """Phase 12, after the counts are read: the lane gather exactly
+    against np.take_along_axis at P = 8 and a ragged W = 2047 (4-byte
+    pieces), and at W = 2048 on a view one float into a buffer (its base
+    not 16-byte aligned: 4-byte pieces), an index past each end giving
+    NaN."""
+    import numpy as np
+
+    from ryujin_tpu_torch.kernels import probe_gather as kg
+
+    P = 8
+    for W, offset in ((2047, 0), (2048, 1)):
+        x = np.arange(P * W, dtype=np.float32).reshape(P, W)
+        idx = np.random.default_rng(0).integers(0, W, size=(P, W)).astype(
+            np.int32)
+        want = np.take_along_axis(x, idx, axis=1)
+        idx[0, 0], idx[-1, -1] = W, -1
+        want[0, 0] = want[-1, -1] = np.nan
+        flat = torch.zeros(P * W + offset, dtype=torch.float32, device="cuda")
+        flat[offset:] = torch.from_numpy(x).cuda().reshape(-1)
+        got = kg.lane_gather(flat[offset:].view(P, W),
+                             torch.from_numpy(idx).cuda())
+        if not np.array_equal(got.cpu().numpy(), want, equal_nan=True):
+            fail(f"lane_gather, P = {P}, W = {W}, offset {offset}: differs "
+                 "from np.take_along_axis")
+    print("phase 12: lane_gather exact at W = 2047 and on an offset view at "
+          "W = 2048, NaN past each end", flush=True)
 
 
 def per_substep(fns):

@@ -4,8 +4,21 @@
 // Replaces: row 13 of the kernel table, scripts/probe_gather.py:
 //   probe_lane_gather (:41, pallas_call :50): out[p, w] = x[p, idx[p, w]],
 //     x f32 [P, W], idx int32; on the TPU, whether a kernel gathers across
-//     its whole VMEM window.  Here the window is shared memory: one block a
-//     row stages x[p, :] and gathers from it.
+//     its whole VMEM window.  Here the window is shared memory.  Design:
+//     the grid is rows x groups of output columns (kernels/probe_gather.py
+//     lane_shape), so at P = 8 it spreads over more SMs than the 8 rows;
+//     each block stages its whole row x[p, :] (8 KB at W = 2048, again from
+//     L2 for every group) with cp.async, 16-byte pieces where W % 4 == 0
+//     and x, idx and out are 16-byte aligned (else 4 bytes), loads its
+//     group's indices into registers while the row lands (int4 on the
+//     16-byte path), and gathers; out is written in float4 on that path.
+//     The shared-memory attribute is set once a size, not at every launch.
+//     The earlier form, one block a row (8 blocks of 256 threads staging
+//     4-byte words, the indices loaded only after the row had landed, the
+//     attribute set at every launch), took 0.0040 ms a call in a CUDA graph
+//     of 100 calls at P = 8, W = 2048, where this one, 4 groups of 128
+//     threads, took 0.0016 and torch.gather 0.0045 (NVIDIA H100 80GB HBM3,
+//     700.00 W; PERF.md §6 row 13).
 //   probe_sublane_gather (:60, pallas_call :69): out[s, l] = x[idx[s, l], l],
 //     x f32 [S, L]; on the TPU, whether a kernel gathers across the rows of
 //     its whole window.  Design: a block stages the window of a tile of TL
@@ -78,7 +91,10 @@
 
 namespace ryujin {
 
-constexpr int GATHER_THREADS = 256;
+// the lane gather's layout, mirrored by kernels/probe_gather.py
+// lane_shape(): index vectors a thread holds, and the most threads a block
+constexpr int LANE_ITEMS = 4;
+constexpr int LANE_MAX_THREADS = 1024;
 // the sublane gather's window: columns a block stages, and its threads;
 // mirrored by kernels/probe_gather.py sublane_shape()
 constexpr int SUBLANE_TILE = 32;
@@ -92,17 +108,53 @@ constexpr int ELL_MAX_THREADS = 512;
 constexpr int ELL_MAX_STAGES = 8;
 constexpr int ELL_HEADER_BYTES = 256;
 
-__global__ void __launch_bounds__(GATHER_THREADS)
-lane_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx,
-                   float* __restrict__ out, int W) {
-  extern __shared__ float row[];
-  const int64_t base = int64_t(blockIdx.x) * W;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) row[w] = x[base + w];
-  __syncthreads();
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    const int j = idx[base + w];
-    out[base + w] = unsigned(j) < unsigned(W) ? row[j] : NAN;
+// The lane gather's vectors: VEC (1 or 4) indices, floats.
+template <int VEC>
+struct LaneVec;
+template <>
+struct LaneVec<1> {
+  using Idx = int;
+  using Val = float;
+  __device__ static float pick(const float* row, int j, int W) {
+    return unsigned(j) < unsigned(W) ? row[j] : NAN;
   }
+};
+template <>
+struct LaneVec<4> {
+  using Idx = int4;
+  using Val = float4;
+  __device__ static float4 pick(const float* row, int4 j, int W) {
+    return make_float4(LaneVec<1>::pick(row, j.x, W), LaneVec<1>::pick(row, j.y, W),
+                       LaneVec<1>::pick(row, j.z, W), LaneVec<1>::pick(row, j.w, W));
+  }
+};
+
+// Block (row, group): stage x[row, :] whole, load the group's vectors
+// [span group, span group + span) of VEC indices (at most LANE_ITEMS a
+// thread) into registers while it lands, then gather them.  VEC divides W.
+template <int VEC>
+__global__ void __launch_bounds__(LANE_MAX_THREADS)
+lane_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                   float* __restrict__ out, int W, int span) {
+  using V = LaneVec<VEC>;
+  extern __shared__ __align__(16) float row[];
+  const int64_t base = int64_t(blockIdx.x) * W;
+  const int t = threadIdx.x, T = blockDim.x, nvec = W / VEC;
+  for (int v = t; v < nvec; v += T)
+    __pipeline_memcpy_async(row + v * VEC, x + base + v * VEC, VEC * sizeof(float));
+  __pipeline_commit();
+  const int v0 = int(blockIdx.y) * span + t, v1 = min(nvec, int(blockIdx.y) * span + span);
+  const typename V::Idx* iv = reinterpret_cast<const typename V::Idx*>(idx + base);
+  typename V::Val* ov = reinterpret_cast<typename V::Val*>(out + base);
+  typename V::Idx j[LANE_ITEMS];
+#pragma unroll
+  for (int i = 0; i < LANE_ITEMS; ++i)
+    if (v0 + i * T < v1) j[i] = iv[v0 + i * T];
+  __pipeline_wait_prior(0);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < LANE_ITEMS; ++i)
+    if (v0 + i * T < v1) ov[v0 + i * T] = V::pick(row, j[i], W);
 }
 
 // Block (tile, group): stage x[:, 32 tile ..] whole, then gather the output
@@ -269,16 +321,38 @@ ell_gather_sum_kernel(const float* __restrict__ X, const int* __restrict__ cols,
 
 }  // namespace ryujin
 
+// The launch shape (groups, span: vectors a group, threads, vec: 4 for
+// 16-byte pieces, 1 for 4-byte ones, shared bytes) comes from
+// kernels/probe_gather.py lane_shape(); refused unless it is this
+// layout's: whole warps up to LANE_MAX_THREADS, at most LANE_ITEMS vectors
+// a thread, groups that cover the row's vectors with none wholly past
+// them, 16-byte pieces only where W % 4 == 0 and x, idx and out are
+// 16-byte aligned, the row's bytes.
 extern "C" int ryujin_probe_lane_gather(const void* x, const void* idx, void* out, int P, int W,
+                                        int groups, int span, int threads, int vec, int smem,
                                         void* stream) {
   using namespace ryujin;
   if (P <= 0 || W <= 0) return int(cudaSuccess);
-  const size_t smem = size_t(W) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      lane_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  lane_gather_kernel<<<P, GATHER_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(idx), static_cast<float*>(out), W);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(idx) |
+                         reinterpret_cast<uintptr_t>(out)) & 15) == 0 && W % 4 == 0;
+  const int64_t nvec = vec == 4 ? W / 4 : W;
+  if ((vec != 1 && vec != 4) || (vec == 4 && !aligned) || threads < 32 || threads % 32 != 0 ||
+      threads > LANE_MAX_THREADS || span < 1 || span > LANE_ITEMS * threads ||
+      int64_t(groups) * span < nvec || int64_t(groups - 1) * span >= nvec || groups > 65535 ||
+      int64_t(smem) != int64_t(W) * int64_t(sizeof(float)))
+    return int(cudaErrorInvalidValue);
+  static int allowed[2] = {48 * 1024, 48 * 1024};  // dynamic shared bytes each instance may take
+  void (*kernel)(const float*, const int*, float*, int, int) =
+      vec == 4 ? lane_gather_kernel<4> : lane_gather_kernel<1>;
+  if (smem > allowed[vec == 4]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return int(err);
+    allowed[vec == 4] = smem;
+  }
+  kernel<<<dim3(P, groups), threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int*>(idx), static_cast<float*>(out), W,
+      span);
   return int(cudaGetLastError());
 }
 

@@ -47,22 +47,31 @@
 // z-major canvas with its dimensions in the order (cell, z, plane), whose
 // box lands plane-major, [P][wz][TILE]: the copy engine does the
 // relayout, with no pass over shared memory.  pk1_shape
-// (pk1_shape_kernel) stages with cp.async (__pipeline_memcpy_async, 16
-// bytes a copy), double-buffered over ZCHUNK z tiles a block.  Both read
+// (pk1_shape_kernel) marches the same way and stages each z tile with one
+// TMA box a part, all counted on the stage's barrier: the centre's TD rows
+// of its CENPL planes and each window's wz rows of its p_i planes, through
+// maps of dimensions (cell, plane, z), landing [z][plane][cell] part after
+// part.  At the script's sizes the fastest launch gives a block one z
+// tile and puts 4 blocks on an SM: 0.0909 ms a call chained, 87 % of the
+// bound, its staging alone 0.0734 (3.05 TB/s), where the earlier form,
+// 16-byte cp.async by every thread (25 copies a thread a z tile) double-
+// buffered over 4 z tiles a block, took 0.1591, its staging alone 0.0940
+// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6 row 14).  Both read
 // one plane but stage every plane of the TPU kernel's transfer set.  So
 // that their result depends on every staged value, these two also write a
 // checksum, check[z] (z < gz TD, 0 past): the XOR of the bit patterns that
 // thread (z, cell) reads back of its z tile's staged (for MOV = 1:
 // plane-major) set, every plane of the window rows z % TD, z % TD + TD,
 // ... (pk1_shape's centre: row z % TD).  XOR is associative, so the reads
-// may run in any order and overlap; the probe's time includes them.
+// may run in any order and overlap, and pk1_shape splits them over groups
+// of threads whose partial XORs meet in shared memory; the probe's time
+// includes them.
 //
 // Bound on an H100: bytes, the transfer set read once: P planes of the
 // gz TD + 2 rows the windows cover (pk1_shape: the centre's gz TD rows of
 // CENPL planes and the windows' rows) and the outputs written once.  Sums
 // run p = 0 .. P-1 (pk1_shape: window 0 .. NWIN-1, then the centre) from 0,
 // as the plain versions do, so the results are bit-equal.
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -71,12 +80,10 @@
 
 namespace ryujin {
 
-constexpr int TILE = 64;   // cells of the (H, W) plane a block owns (pk1_shape)
-constexpr int ZCHUNK = 4;  // z tiles a block marches over (pk1_shape)
-constexpr int VEC = 4;     // floats a cp.async moves
-// the three layouts and moveaxis: the shared bytes of barriers ahead of
-// the staged rows, and the most stages they serve (the slide takes
-// stages + 1 barriers); mirrored by kernels/probe_layout3d.py
+constexpr int VEC = 4;  // H W a multiple of 4: 16-byte rows for the TMA
+// the three layouts, moveaxis and pk1_shape: the shared bytes of barriers
+// ahead of the staged rows, and the most stages they serve (the slide
+// takes stages + 1 barriers); mirrored by kernels/probe_layout3d.py
 constexpr int LAYOUT_BARRIER_BYTES = 128;
 constexpr int LAYOUT_MAX_STAGES = LAYOUT_BARRIER_BYTES / 8 - 1;
 
@@ -87,34 +94,6 @@ enum WindowMode {
   MOVEAXIS = 3,
   NO_MOVEAXIS = 4
 };
-
-// Copy rows [0, nz) of planes [0, np) of the tile at q0 from src (row
-// stride zs, plane stride ps in floats) to dst (row stride dzs, plane stride
-// dps); vectors past the plane's end (q >= HW) are skipped.
-__device__ __forceinline__ void stage(float* dst, const float* src, int nz, int np, int64_t zs,
-                                      int64_t ps, int dzs, int dps, int64_t q0, int64_t HW) {
-  constexpr int per_row = TILE / VEC;
-  const int nvec = nz * np * per_row;
-  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
-    const int vq = v % per_row, r = v / per_row;
-    const int p = r % np, zl = r / np;
-    const int64_t q = q0 + int64_t(vq) * VEC;
-    if (q < HW)
-      __pipeline_memcpy_async(dst + zl * dzs + p * dps + vq * VEC, src + zl * zs + p * ps + q,
-                              VEC * sizeof(float));
-  }
-}
-
-// out rows [z0, D) of the block's tile (zeros past the last z tile); `planes`
-// output planes a row.
-template <typename T>
-__device__ __forceinline__ void zero_rows(T* out, int z0, int D, int planes, int TD, int64_t HW,
-                                          int64_t q0) {
-  const int zo = threadIdx.x / TILE, q = threadIdx.x % TILE;
-  if (q0 + q >= HW) return;
-  for (int z = z0 + zo; z < D; z += TD)
-    for (int o = 0; o < planes; ++o) out[(int64_t(z) * planes + o) * HW + q0 + q] = T(0);
-}
 
 // XOR of the bit patterns of rows zo, zo + TD, ... < depth of planes
 // [0, np) of a staged window, element (zl, p) at w[zl * zs + p * ps + q]:
@@ -132,6 +111,24 @@ __device__ __forceinline__ unsigned staged_xor(const float* w, int depth, int np
       b3 ^= __float_as_uint(row[(p + 3) * ps]);
     }
     for (; p < np; ++p) b0 ^= __float_as_uint(row[p * ps]);
+  }
+  return (b0 ^ b1) ^ (b2 ^ b3);
+}
+
+// As staged_xor, over the planes p0, p0 + step, ... < np only.
+__device__ __forceinline__ unsigned planes_xor(const float* w, int depth, int np, int zs, int ps,
+                                               int zo, int TD, int q, int p0, int step) {
+  unsigned b0 = 0u, b1 = 0u, b2 = 0u, b3 = 0u;
+  for (int zl = zo; zl < depth; zl += TD) {
+    const float* row = w + zl * zs + q;
+    int p = p0;
+    for (; p + 3 * step < np; p += 4 * step) {
+      b0 ^= __float_as_uint(row[p * ps]);
+      b1 ^= __float_as_uint(row[(p + step) * ps]);
+      b2 ^= __float_as_uint(row[(p + 2 * step) * ps]);
+      b3 ^= __float_as_uint(row[(p + 3 * step) * ps]);
+    }
+    for (; p < np; p += step) b0 ^= __float_as_uint(row[p * ps]);
   }
   return (b0 ^ b1) ^ (b2 ^ b3);
 }
@@ -303,85 +300,99 @@ moveaxis_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ out
   }
 }
 
-// pk1_shape: per z tile the centre's TD rows of cen_pl planes and each
-// window's wz rows, double-buffered; out [D, out_pl, H, W].
+// pk1_shape: the plane counts of the parts of a z tile, the centre's
+// (0: none) and the windows'; out [D, out_pl, H, W].
 struct Pk1Shape {
-  const float* cen;
-  const float* h[3];
   int np[3];
   int nwin, cen_pl, out_pl;
 };
 
+// pk1_shape (the centre cen [D, CENPL, H W] and the windows h_i [D, p_i,
+// H W], each read through its map, box (TILE, all planes, TD rows for
+// the centre, wz for a window)): block (x, segment) marches the tile at x
+// TILE over z tiles [t0, t0 + n), as window_full_kernel does; z tile
+// t0 + k lands in buffer k % stages, the centre [TD][CENPL][TILE] then
+// each window [wz][p_i][TILE], on barrier k % stages.  Thread (g, zo, c)
+// of G = blockDim.x / (TD TILE) groups: every group sums window 0 ..
+// NWIN-1 then the centre, from 0, for (row zo, cell c) and writes output
+// planes g, g + G, ...; group g XORs planes g, g + G, ... of every part,
+// groups 1 .. G-1 leave their XOR in shared memory ([2][G - 1][TD TILE],
+// by the parity of k), and group 0 writes check.
+template <int TILE>
 __global__ void __launch_bounds__(1024)
-pk1_shape_kernel(Pk1Shape a, float* __restrict__ out, unsigned* __restrict__ check, int D,
-                 int64_t HW, int TD, int gz) {
-  extern __shared__ __align__(16) float smem[];
-  const int wz = TD + 2;
-  const int64_t q0 = int64_t(blockIdx.x) * TILE;
-  const int cen_floats = a.cen ? TD * a.cen_pl * TILE : 0;
+pk1_shape_kernel(const __grid_constant__ CUtensorMap cen_map,
+                 const __grid_constant__ CUtensorMap win0, const __grid_constant__ CUtensorMap win1,
+                 const __grid_constant__ CUtensorMap win2, Pk1Shape a, float* __restrict__ out,
+                 unsigned* __restrict__ check, int D, int64_t HW, int TD, int gz, int stages) {
+  extern __shared__ __align__(128) unsigned char layout_smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(layout_smem);
+  float* ring = reinterpret_cast<float*>(layout_smem + LAYOUT_BARRIER_BYTES);
+  const int wz = TD + 2, rows = TD * TILE, G = int(blockDim.x) / rows;
+  const int cen_floats = TD * a.cen_pl * TILE;
   int stage_floats = cen_floats;
-  for (int i = 0; i < a.nwin; ++i) stage_floats += wz * a.np[i] * TILE;
-  const int zo = threadIdx.x / TILE, q = threadIdx.x % TILE;
-  if (blockIdx.y == 0) {
-    zero_rows(out, gz * TD, D, a.out_pl, TD, HW, q0);
-    zero_rows(check, gz * TD, D, 1, TD, HW, q0);
-  }
-  const int t0 = blockIdx.y * ZCHUNK, t1 = min(gz, t0 + ZCHUNK);
-  if (t0 >= t1) return;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    if (i < a.nwin) stage_floats += wz * a.np[i] * TILE;
+  unsigned* part = reinterpret_cast<unsigned*>(ring + stages * stage_floats);
+  const int g = int(threadIdx.x) / rows, e = int(threadIdx.x) % rows;
+  const int zo = e / TILE, c = e % TILE;
+  const int q0 = int(blockIdx.x) * TILE;
+  const int t0 = gz * int(blockIdx.y) / int(gridDim.y);
+  const int n = gz * int(blockIdx.y + 1) / int(gridDim.y) - t0;
+  zero_tail(out, int64_t(gz) * TD * a.out_pl * HW, int64_t(D) * a.out_pl * HW);
+  zero_tail(reinterpret_cast<float*>(check), int64_t(gz) * TD * HW, int64_t(D) * HW);
+  if (threadIdx.x == 0)
+    for (int s = 0; s < stages; ++s) bar_init(bar + s, 1);
+  __syncthreads();
 
-  auto load_tile = [&](int tz, float* buf) {
-    if (a.cen)
-      stage(buf, a.cen + int64_t(tz) * TD * a.cen_pl * HW, TD, a.cen_pl, a.cen_pl * HW, HW,
-            a.cen_pl * TILE, TILE, q0, HW);
+  auto issue = [&](int k) {  // thread 0: z tile t0 + k, a box a part
+    float* buf = ring + k % stages * stage_floats;
+    uint64_t* b = bar + k % stages;
+    const int z0 = (t0 + k) * TD;
+    bar_expect(b, unsigned(stage_floats) * unsigned(sizeof(float)));
+    if (a.cen_pl) tma_copy_3d(buf, &cen_map, q0, 0, z0, b);
     float* w = buf + cen_floats;
-    for (int i = 0; i < a.nwin; ++i) {
-      stage(w, a.h[i] + int64_t(tz) * TD * a.np[i] * HW, wz, a.np[i], a.np[i] * HW, HW,
-            a.np[i] * TILE, TILE, q0, HW);
-      w += wz * a.np[i] * TILE;
-    }
-    __pipeline_commit();
+    if (a.nwin > 0) tma_copy_3d(w, &win0, q0, 0, z0, b);
+    if (a.nwin > 1) tma_copy_3d(w += wz * a.np[0] * TILE, &win1, q0, 0, z0, b);
+    if (a.nwin > 2) tma_copy_3d(w + wz * a.np[1] * TILE, &win2, q0, 0, z0, b);
   };
-  load_tile(t0, smem);
-  for (int tz = t0; tz < t1; ++tz) {
-    const float* buf = smem + ((tz - t0) & 1) * stage_floats;
-    if (tz + 1 < t1) {
-      load_tile(tz + 1, smem + ((tz - t0 + 1) & 1) * stage_floats);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    if (q0 + q < HW) {
-      float acc = 0.0f;
-      const float* w = buf + cen_floats;
-      for (int i = 0; i < a.nwin; ++i) {
-        acc = acc + w[(zo + 1) * a.np[i] * TILE + q];
+  if (threadIdx.x == 0)
+    for (int k = 0; k < stages && k < n; ++k) issue(k);
+  const bool live = q0 + c < HW;
+  for (int k = 0; k < n; ++k) {
+    const int s = k % stages;
+    bar_wait(bar + s, unsigned(k / stages) & 1u);
+    const float* buf = ring + s * stage_floats;
+    const int64_t z = int64_t(t0 + k) * TD + zo;
+    float acc = 0.0f;
+    const float* w = buf + cen_floats;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (i < a.nwin) {
+        acc = acc + w[(zo + 1) * a.np[i] * TILE + c];
         w += wz * a.np[i] * TILE;
       }
-      if (a.cen) acc = acc + buf[zo * a.cen_pl * TILE + q];
-      const int64_t z = int64_t(tz) * TD + zo;
-      for (int o = 0; o < a.out_pl; ++o) out[(z * a.out_pl + o) * HW + q0 + q] = acc;
-      unsigned bits =
-          a.cen ? staged_xor(buf, TD, a.cen_pl, a.cen_pl * TILE, TILE, zo, TD, q) : 0u;
-      w = buf + cen_floats;
-      for (int i = 0; i < a.nwin; ++i) {
-        bits ^= staged_xor(w, wz, a.np[i], a.np[i] * TILE, TILE, zo, TD, q);
+    if (a.cen_pl) acc = acc + buf[zo * a.cen_pl * TILE + c];
+    if (live)
+      for (int o = g; o < a.out_pl; o += G) out[(z * a.out_pl + o) * HW + q0 + c] = acc;
+    unsigned bits =
+        a.cen_pl ? planes_xor(buf, TD, a.cen_pl, a.cen_pl * TILE, TILE, zo, TD, c, g, G) : 0u;
+    w = buf + cen_floats;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (i < a.nwin) {
+        bits ^= planes_xor(w, wz, a.np[i], a.np[i] * TILE, TILE, zo, TD, c, g, G);
         w += wz * a.np[i] * TILE;
       }
-      check[z * HW + q0 + q] = bits;
-    }
+    unsigned* parts = part + (k & 1) * (G - 1) * rows;
+    if (g > 0) parts[(g - 1) * rows + e] = bits;
     __syncthreads();
+    if (threadIdx.x == 0 && k + stages < n) issue(k + stages);
+    if (g == 0) {
+      for (int h = 1; h < G; ++h) bits ^= parts[(h - 1) * rows + e];
+      if (live) check[z * HW + q0 + c] = bits;
+    }
   }
-}
-
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, int TD, size_t smem, cudaStream_t stream,
-                   Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, TILE * TD, smem, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 // A 3D tensor map of f32 src for the TMA: dimensions dims (innermost
@@ -508,6 +519,40 @@ cudaError_t launch_moveaxis(int mode, const float* src, float* out, unsigned* ch
   return cudaGetLastError();
 }
 
+// pk1_shape's launch, as launch_layout's: one allowed shared-memory size
+// an instance, the tensor map of each part's last (source, shape) kept for
+// the next launch on it.  src[0] the centre or null, src[1 + i] window i
+// or null; planes[j] its planes.
+template <int TILE>
+cudaError_t launch_pk1_shape(const float* const src[4], const int planes[4], const Pk1Shape& a,
+                             float* out, unsigned* check, int D, int64_t HW, int TD, int gz,
+                             int stages, int blocks, int segments, int threads, int smem,
+                             cudaStream_t stream) {
+  static int allowed = 48 * 1024;
+  static CUtensorMap map[4];
+  static int64_t key[4][5] = {};
+  for (int j = 0; j < 4; ++j) {
+    if (src[j] == nullptr) continue;
+    const int depth = j == 0 ? TD : TD + 2;
+    const int64_t k[5] = {int64_t(reinterpret_cast<uintptr_t>(src[j])), planes[j], D, HW, depth};
+    bool same = true;
+    for (int i = 0; i < 5; ++i) same = same && k[i] == key[j][i];
+    if (same) continue;
+    const cudaError_t err = encode_windows(&map[j], src[j], false, planes[j], D, HW, depth, TILE);
+    if (err != cudaSuccess) return err;
+    for (int i = 0; i < 5; ++i) key[j][i] = k[i];
+  }
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pk1_shape_kernel<TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
+  pk1_shape_kernel<TILE><<<dim3(blocks / segments, segments), threads, smem, stream>>>(
+      map[0], map[1], map[2], map[3], a, out, check, D, HW, TD, gz, stages);
+  return cudaGetLastError();
+}
+
 }  // namespace ryujin
 
 // layout: PLANE_MAJOR (src [P, D, H, W]), Z_MAJOR or Z_MAJOR_SLIDE (src
@@ -572,28 +617,52 @@ extern "C" int ryujin_probe_window(int mode, const void* src, void* out, void* c
 }
 
 // cen [D, cen_pl, H, W] or null; h0..h2 [D, p_i, H, W], the first nwin used;
-// out [D, out_pl, H, W]; check [D, H, W] (32-bit).  HW % 4 == 0 and TD <= 16.
+// out [D, out_pl, H, W]; check [D, H, W] (32-bit); every pointer 16-byte
+// aligned.  The launch shape is pk1_shape_shape()'s
+// (kernels/probe_layout3d.py): tile (64 or 128 cells), stages, blocks (x
+// tiles x segments), segments, threads (groups of TD tile), smem (the
+// barriers, `stages` z tiles of every part and the groups' XORs); one
+// that does not fit is refused.  HW % 4 == 0; CENPL, p_i and TD + 2 at
+// most 256 (a box's extents).
 extern "C" int ryujin_probe_pk1_shape(const void* cen, const void* h0, const void* h1,
                                       const void* h2, void* out, void* check, int nwin, int p0,
                                       int p1, int p2, int cen_pl, int out_pl, int D,
-                                      long long HW, int TD, void* stream) {
+                                      long long HW, int TD, int tile, int stages, int blocks,
+                                      int segments, int threads, int smem, void* stream) {
   using namespace ryujin;
-  const int gz = D / TD - 2, wz = TD + 2;
-  if (TD < 1 || TILE * TD > 1024 || HW % VEC != 0 || nwin < 0 || nwin > 3 || gz < 1 ||
-      check == nullptr)
+  const int gz = TD >= 1 ? D / TD - 2 : 0, wz = TD + 2;
+  const void* given[4] = {cen, h0, h1, h2};
+  const float* src[4] = {};
+  int planes[4] = {cen ? cen_pl : 0, p0, p1, p2};
+  uintptr_t bases = reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(check);
+  bool fits = nwin >= 0 && nwin <= 3 && (cen != nullptr || nwin > 0) && out_pl >= 0 &&
+              gz >= 1 && wz <= 256 && HW % VEC == 0 && HW <= INT32_MAX && check != nullptr;
+  for (int j = 0; j < 4; ++j) {
+    if (j > nwin || (j == 0 && cen == nullptr)) {
+      planes[j] = 0;
+      continue;
+    }
+    src[j] = static_cast<const float*>(given[j]);
+    fits = fits && src[j] != nullptr && planes[j] >= 1 && planes[j] <= 256;
+    bases |= reinterpret_cast<uintptr_t>(src[j]);
+  }
+  if (!fits || (bases & 15) != 0 || (tile != 64 && tile != 128) || stages < 1 ||
+      stages > LAYOUT_MAX_STAGES || threads > 1024 || threads < TD * tile ||
+      threads % (TD * tile) != 0)
     return int(cudaErrorInvalidValue);
-  const Pk1Shape a{static_cast<const float*>(cen),
-                   {static_cast<const float*>(h0), static_cast<const float*>(h1),
-                    static_cast<const float*>(h2)},
-                   {p0, p1, p2},
-                   nwin,
-                   cen_pl,
-                   out_pl};
-  size_t stage_floats = cen ? size_t(TD) * cen_pl * TILE : 0;
-  for (int i = 0; i < nwin; ++i) stage_floats += size_t(wz) * a.np[i] * TILE;
-  const size_t smem = 2 * stage_floats * sizeof(float);
-  const dim3 grid(unsigned((HW + TILE - 1) / TILE), unsigned((gz + ZCHUNK - 1) / ZCHUNK));
-  return int(launch(pk1_shape_kernel, grid, TD, smem, static_cast<cudaStream_t>(stream), a,
-                    static_cast<float*>(out), static_cast<unsigned*>(check), D, int64_t(HW), TD,
-                    gz));
+  const int64_t groups = threads / (TD * tile), tiles = (HW + tile - 1) / tile;
+  const int64_t stage = (int64_t(TD) * planes[0] + int64_t(wz) * (planes[1] + planes[2] +
+                         planes[3])) * tile * int64_t(sizeof(float));
+  if (int64_t(smem) != LAYOUT_BARRIER_BYTES + stages * stage +
+                           2 * (groups - 1) * TD * tile * int64_t(sizeof(unsigned)) ||
+      segments < 1 || segments > gz || blocks != tiles * segments)
+    return int(cudaErrorInvalidValue);
+  const Pk1Shape a{{planes[1], planes[2], planes[3]}, nwin, planes[0], out_pl};
+  float* o = static_cast<float*>(out);
+  unsigned* c = static_cast<unsigned*>(check);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return int(tile == 64 ? launch_pk1_shape<64>(src, planes, a, o, c, D, HW, TD, gz, stages,
+                                               blocks, segments, threads, smem, st)
+                        : launch_pk1_shape<128>(src, planes, a, o, c, D, HW, TD, gz, stages,
+                                                blocks, segments, threads, smem, st));
 }

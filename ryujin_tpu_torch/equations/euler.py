@@ -514,7 +514,7 @@ class Euler:
             )
         raise NotImplementedError(
             f"boundary id {bc_id}: only dirichlet, slip, no_slip and do_nothing are "
-            "ported (ROADMAP queue 1 item 12)"
+            'ported (ROADMAP queue 1, "The rest of the single-block canvas")'
         )
 
 

@@ -23,7 +23,8 @@ def galilei_wrap(state_fn, direction, position, dim):
     if dim not in (2, 3):
         raise NotImplementedError(
             "the torch initial states are ported for dim 2 and 3 "
-            "(ROADMAP queue 1 item 7)"
+            '(ROADMAP queue 1, "Initial states, error norms and the '
+            'explicit tableaux")'
         )
     direction = np.asarray(direction, dtype=np.float64)
     direction = tuple(float(v) for v in direction / np.linalg.norm(direction))
@@ -103,7 +104,8 @@ def make_initial_state(eq, configuration: str, direction=None, position=None,
     if configuration != "uniform":
         raise NotImplementedError(
             f"initial state '{configuration}' is not ported (only "
-            "'uniform'; ROADMAP queue 1 item 7)"
+            "'uniform'; ROADMAP queue 1, \"Initial states, error norms and "
+            "the explicit tableaux\")"
         )
     fn = uniform(eq, **kwargs)
     if direction is None:

@@ -46,8 +46,8 @@ PROBE_ENTRY_POINTS = {
     # form, summed, x, carry, shifts, R, b, out, n, threads, items,
     # unroll, vec, blocks, stream
     "ryujin_probe_pow": [_I, _I, _P, _P, _P, _I, _F, _P, _L] + [_I] * 5 + [_P],
-    # x, idx, out, P, W, stream
-    "ryujin_probe_lane_gather": [_P, _P, _P, _I, _I, _P],
+    # x, idx, out, P, W, groups, span, threads, vec, smem, stream
+    "ryujin_probe_lane_gather": [_P, _P, _P] + [_I] * 7 + [_P],
     # x, idx, out, S, L, tiles, groups, rows, threads, smem, stream
     "ryujin_probe_sublane_gather": [_P, _P, _P] + [_I] * 7 + [_P],
     # X, cols, out, staged, C, K, n, nodes, threads, stages, bulk, band,
@@ -60,8 +60,8 @@ PROBE_ENTRY_POINTS = {
     # segments, threads, smem, stream
     "ryujin_probe_window": [_I, _P, _P, _P, _I, _I, _L] + [_I] * 7 + [_P],
     # centre, h0, h1, h2, out, check, nwin, p0, p1, p2, cen_pl, out_pl, D,
-    # H * W, TD, stream
-    "ryujin_probe_pk1_shape": [_P] * 6 + [_I] * 7 + [_L, _I, _P],
+    # H * W, TD, tile, stages, blocks, segments, threads, smem, stream
+    "ryujin_probe_pk1_shape": [_P] * 6 + [_I] * 7 + [_L] + [_I] * 7 + [_P],
 }
 # launches of each probe kernel instance, by probe_key; launch_probe adds
 # one for each launch it makes

@@ -10,6 +10,18 @@ import torch
 
 from . import build
 
+# the lane gather's layout (csrc/probe_gather.cu LANE_ITEMS,
+# LANE_MAX_THREADS): index vectors a thread holds, and the most threads a
+# block
+LANE_ITEMS = 4
+LANE_MAX_THREADS = 1024
+# the lane gather's default launch: threads a block, and the blocks the
+# default group count aims at (each group at least a warp's vectors); at
+# P = 8, W = 2048, 2 or 4 groups of 128 or 256 threads took 0.0016 ms a
+# call in a CUDA graph of 100 calls, 16 groups 0.0018, torch.gather
+# 0.0045 (NVIDIA H100 80GB HBM3, 700.00 W; tile_sweep gather)
+LANE_DEFAULTS = {"threads": 128, "blocks": 32}
+
 # the sublane gather's window (csrc/probe_gather.cu SUBLANE_TILE,
 # SUBLANE_THREADS): columns a block stages, its threads, and the output rows
 # a group takes at least (one a warp)
@@ -43,18 +55,64 @@ def lane_gather_reference(x, idx):
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx.long()]
 
 
-def lane_gather(x, idx):
+class LaneShape(NamedTuple):
+    """Launch shape of the lane gather: a grid of rows x `groups` groups of
+    `span` vectors of `vec` output columns (4: 16-byte pieces, 1: 4-byte
+    ones), `threads` a block, `smem` shared bytes a block (the row)."""
+
+    groups: int
+    span: int
+    threads: int
+    vec: int
+    smem: int
+
+
+def lane_shape(P: int, W: int, groups: Optional[int] = None,
+               threads: Optional[int] = None,
+               aligned: bool = True) -> LaneShape:
+    """The lane gather's launch on x [P, W]; aligned: x's and idx's bases
+    are 16-byte aligned (out's is).  Each block stages the whole row
+    (W * 4 bytes, so W up to 58,112) and gathers one group of its
+    columns, in vectors of 4 where W % 4 == 0 and aligned, else of 1, at
+    most LANE_ITEMS vectors a thread; without `groups`, as many groups as
+    bring the blocks near LANE_DEFAULTS["blocks"], each of at least 32
+    vectors.  A group count is raised to what the threads can hold and cut
+    to the groups its vectors need."""
+    threads = threads or LANE_DEFAULTS["threads"]
+    smem = W * 4
+    if (P < 1 or W < 1 or smem > build.SMEM_MAX or threads % 32
+            or not 32 <= threads <= LANE_MAX_THREADS):
+        raise ValueError(f"the lane gather takes P >= 1, 1 <= W <= "
+                         f"{build.SMEM_MAX // 4} and whole warps up to "
+                         f"{LANE_MAX_THREADS} threads, not {P} x {W}, "
+                         f"{threads} threads")
+    vec = 4 if aligned and W % 4 == 0 else 1
+    nvec = W // vec
+    if groups is None:
+        groups = min(-(-nvec // 32), max(1, LANE_DEFAULTS["blocks"] // P))
+    groups = min(max(groups, -(-nvec // (LANE_ITEMS * threads))), nvec)
+    span = -(-nvec // groups)
+    return LaneShape(-(-nvec // span), span, threads, vec, smem)
+
+
+def lane_gather(x, idx, shape: Optional[LaneShape] = None):
     """out[p, w] = x[p, idx[p, w]] of f32 x [P, W] and int32 idx [P, W]
-    (indices in [0, W); the kernel gives NaN for any other).  Counted under
-    build.probe_key("lane_gather", P, W)."""
+    (indices in [0, W); the kernel gives NaN for any other), W up to
+    58,112 (lane_shape), launched with `shape` (default: lane_shape's).
+    Counted under build.probe_key("lane_gather", P, W)."""
     if not build.on_card(x):
         return lane_gather_reference(x, idx)
     build.check_probe(x.device, {"x": (x, x.shape), "idx": (idx, x.shape)})
     out = torch.empty_like(x)
     P, W = x.shape
+    if not out.numel():
+        return out
+    if shape is None:
+        shape = lane_shape(P, W, aligned=(x.data_ptr() | idx.data_ptr()
+                                          | out.data_ptr()) % 16 == 0)
     build.launch_probe(build.probe_key("lane_gather", P, W),
                        "ryujin_probe_lane_gather", x.data_ptr(),
-                       idx.data_ptr(), out.data_ptr(), P, W)
+                       idx.data_ptr(), out.data_ptr(), P, W, *shape)
     return out
 
 

@@ -41,6 +41,12 @@ LAYOUT_DEFAULTS = {
     "z-major-slide": {"tile": 64, "stages": 2, "segments": 6},
     "moveaxis": {"tile": 64, "stages": 2, "segments": 2},
 }
+# pk1_shape's default launch (pk1_shape_shape): tile width, stages, z
+# segments and thread groups (a group is TD x tile threads); the fastest
+# of tile_sweep pk1-shape at the script's sizes in a CUDA graph of 100
+# calls (NVIDIA H100 80GB HBM3, 700.00 W): 0.0909 ms a call, a block a z
+# tile, 4 blocks an SM (one group: 0.0921; 2 stages, 17 segments: 0.0935)
+PK1_SHAPE_DEFAULTS = {"tile": 64, "stages": 1, "segments": 34, "groups": 2}
 
 
 def interior_rows(D: int, TD: int) -> int:
@@ -131,6 +137,64 @@ def layout_shape(layout: str, P: int, D: int, HW: int, TD: int,
     segments = min(segments or d["segments"], gz)
     return LayoutShape(tile, stages, -(-HW // tile) * segments, segments,
                        min(1024, TD * tile), smem)
+
+
+@functools.lru_cache(maxsize=64)
+def pk1_shape_shape(cen_pl: int, planes: tuple, D: int, HW: int, TD: int,
+                    tile: Optional[int] = None, stages: Optional[int] = None,
+                    segments: Optional[int] = None,
+                    threads: Optional[int] = None) -> LayoutShape:
+    """The launch of pk1_shape's kernel for a centre of cen_pl planes (0:
+    none) and windows of `planes` planes (a tuple, at most 3) on a
+    (D, H, W) canvas, HW = H W cells a plane: x tiles of `tile` cells x
+    `segments` runs of the gz z tiles (at most gz), a block each, with a
+    ring of `stages` z tiles, each the centre's TD rows and each window's
+    TD + 2 rows of all their planes, `tile` cells a row, one TMA box a
+    part; `threads` a multiple of TD tile (its groups split the checksum
+    and the output planes).  smem: the barriers, the ring and the groups'
+    partial checksums ([2][groups - 1][TD tile] words).  Defaults:
+    PK1_SHAPE_DEFAULTS (tile 64 where TD 128 > 1024 threads), the stages
+    cut to what fits the shared memory, the groups to 1024 threads.
+    Raises ValueError where a box cannot take a part (more than 256 planes
+    or TD + 2 > 256 rows, H W not a multiple of 4) or nothing fits."""
+    gz = interior_rows(D, TD) // TD
+    d = PK1_SHAPE_DEFAULTS
+    planes = tuple(planes)
+    if (HW < 1 or HW % 4 or not 0 <= cen_pl <= 256 or TD + 2 > 256
+            or len(planes) > 3 or not all(1 <= p <= 256 for p in planes)
+            or not (cen_pl or planes)):
+        raise ValueError(
+            f"pk1_shape takes H * W a multiple of 4, a centre of at most 256 "
+            f"planes and 0 to 3 windows of 1 to 256 planes (not none of "
+            f"either), TD + 2 <= 256, not H * W = {HW}, CENPL = {cen_pl}, "
+            f"windows {planes}, TD = {TD}")
+    tile = tile or (d["tile"] if TD * d["tile"] <= 1024 else 64)
+    rows = TD * tile
+    if threads is None:
+        threads = max(1, min(d["groups"], 1024 // rows)) * rows
+    if tile not in LAYOUT_TILES or threads % rows or not rows <= threads <= 1024:
+        raise ValueError(f"pk1_shape takes a tile of {LAYOUT_TILES} cells and "
+                         f"whole groups of TD * tile = {rows} threads, at "
+                         f"most 1024, not {tile}, {threads}")
+    stage = (TD * cen_pl + (TD + 2) * sum(planes)) * tile * 4
+
+    def smem_of(s):
+        return (LAYOUT_BARRIER_BYTES + s * stage
+                + 2 * (threads // rows - 1) * rows * 4)
+
+    if stages is None:
+        stages = d["stages"]
+        while stages > 1 and smem_of(stages) > build.SMEM_MAX:
+            stages -= 1
+    smem = smem_of(stages)
+    if not 1 <= stages <= LAYOUT_MAX_STAGES or smem > build.SMEM_MAX:
+        raise ValueError(f"pk1_shape: {stages} stages of {stage} bytes and "
+                         f"{threads} threads take {smem} shared bytes; at most "
+                         f"{LAYOUT_MAX_STAGES} stages and {build.SMEM_MAX} "
+                         "bytes")
+    segments = min(segments or d["segments"], gz)
+    return LayoutShape(tile, stages, -(-HW // tile) * segments, segments,
+                       threads, smem)
 
 
 def moveaxis_map(P: int, D: int, HW: int, TD: int, tile: int, mov: int):
@@ -247,11 +311,14 @@ def pk1_shape_reference(cen, wins, TD: int, out_pl: int):
     return out, staged_checksum_reference(parts, TD)
 
 
-def pk1_shape(cen, wins, TD: int, out_pl: int):
+def pk1_shape(cen, wins, TD: int, out_pl: int,
+              shape: Optional[LayoutShape] = None):
     """(out [D, out_pl, H, W], check [D, H, W] int32) of
     pk1_shape_reference; the kernel stages the centre's TD rows and each
-    window's TD + 2 rows, every plane, and both outputs read them from
-    there.  Counted under build.probe_key("pk1_shape")."""
+    window's TD + 2 rows, every plane, one TMA box a part, and both
+    outputs read them from there.  Every tensor's base 16-byte aligned.
+    Launched with `shape` (default: pk1_shape_shape's).  Counted under
+    build.probe_key("pk1_shape")."""
     first = cen if cen is not None else wins[0]
     if not build.on_card(first):
         return pk1_shape_reference(cen, wins, TD, out_pl)
@@ -263,12 +330,17 @@ def pk1_shape(cen, wins, TD: int, out_pl: int):
     if cen is not None:
         tensors["cen"] = (cen, (D, cen.shape[1], H, W))
     _check(tensors, H * W, TD)
+    if any(t.data_ptr() % 16 for t, _ in tensors.values()):
+        raise ValueError("pk1_shape's tensor maps take 16-byte aligned bases")
+    cen_pl = 0 if cen is None else cen.shape[1]
+    planes = tuple(h.shape[1] for h in wins)
+    default = pk1_shape_shape(cen_pl, planes, D, H * W, TD)
     out = torch.empty((D, out_pl, H, W), dtype=first.dtype, device=first.device)
     check = torch.empty((D, H, W), dtype=torch.int32, device=first.device)
     ptrs = [h.data_ptr() for h in wins] + [None] * (3 - len(wins))
-    planes = [h.shape[1] for h in wins] + [0] * (3 - len(wins))
     build.launch_probe(
         build.probe_key("pk1_shape"), "ryujin_probe_pk1_shape", build.ptr(cen),
-        *ptrs, out.data_ptr(), check.data_ptr(), len(wins), *planes,
-        0 if cen is None else cen.shape[1], out_pl, D, H * W, TD)
+        *ptrs, out.data_ptr(), check.data_ptr(), len(wins),
+        *(planes + (0,) * (3 - len(planes))), cen_pl, out_pl, D, H * W, TD,
+        *(shape or default))
     return out, check

@@ -356,8 +356,8 @@ class HyperbolicModule:
             for bc_id in sorted(rnd.keys()):
                 if bc_id not in _PORTED_BCS:
                     raise NotImplementedError(
-                        f"boundary id {bc_id} is not ported (ROADMAP queue 1 "
-                        "item 12)"
+                        f"boundary id {bc_id} is not ported (ROADMAP queue 1, "
+                        '"The rest of the single-block canvas")'
                     )
                 if bc_id == Boundary.do_nothing:
                     continue

@@ -58,7 +58,8 @@ class TimeIntegrator:
         if self.scheme not in TABLEAUX:
             raise NotImplementedError(
                 f"scheme '{self.scheme}' is not ported (only 'erk 33'; "
-                "ROADMAP queue 1 item 5)"
+                'ROADMAP queue 1, "Initial states, error norms and the '
+                'explicit tableaux")'
             )
         if self.cfl_recovery_strategy not in RECOVERY_STRATEGIES:
             raise NotImplementedError(

@@ -31,7 +31,8 @@ from ..offline.structured import StructuredData
 def _unsupported(what: str):
     raise NotImplementedError(
         f"{what} canvases are not ported to the torch stencil yet "
-        "(ROADMAP queue 1 items 9-11)"
+        '(ROADMAP queue 1, "The rest of the single-block canvas" and '
+        '"Multi-block canvases, then bench.py\'s last case")'
     )
 
 

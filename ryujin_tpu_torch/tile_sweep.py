@@ -1,8 +1,10 @@
 """Time the stacked pk1 and pk2 and pk1_stream over their tiles, and
 other checkouts' builds of them on the same inputs; the sublane gather
-probe over its row groups; the ELL gather-sum's, the layout probe's,
-moveaxis's and the pow probe's kernels over their launches; and the pow
-probe, the ELL gather-sum and moveaxis of other checkouts in turns.
+probe over its row groups and the lane gather over its column groups;
+the ELL gather-sum's, the layout probe's, moveaxis's, pk1_shape's and the
+pow probe's kernels over their launches; and the pow probe, the ELL
+gather-sum, the lane gather, moveaxis and pk1_shape of other checkouts in
+turns.
 
     python -m ryujin_tpu_torch.tile_sweep [--tree NAME=ROOT ...] [CASE ...]
 
@@ -17,8 +19,9 @@ cylinder3d (pk1_stream with the full statics, and with the separable
 ones on the same state), or gather (the sublane gather of
 probes/gather.py at S = 1024, L = 128 with each group count of GROUPS,
 held exactly against the plain version, beside torch.gather, each in
-a CUDA graph of probes.CHAIN calls: probes.graph_ms; this checkout
-only), or layouts (the three layouts of probes/layout3d.py at the
+a CUDA graph of probes.CHAIN calls: probes.graph_ms; and the lane gather
+at P = 8, W = 2048 and 2047 over the launches of LANE_CANDIDATES, the
+same way; this checkout only), or layouts (the three layouts of probes/layout3d.py at the
 script's sizes over the launches of LAYOUT_CANDIDATES, and at the
 default launch, each held exactly against the plain version and timed
 the same way beside its PyTorch call; this checkout only), or pow (every
@@ -38,10 +41,14 @@ default launch, with its staged-block count against ell_staged_blocks,
 timed in CUDA graphs beside X[:, cols].sum(1); this checkout only), or
 moveaxis (both MOV of probes/layout3d.py at the script's sizes over the
 launches of LAYOUT_CANDIDATES["full"], each held exactly, timed the same
-way; this checkout only), or gather-turns (gather_turn: the ELL
-gather-sum at the script's input, digest of out and chained ms) or
-moveaxis-turns (moveaxis_turn: both MOV, digests of out and check),
-each in turns as pow-turns; without one, all but the turns.  For
+way; this checkout only), or pk1-shape (pk1_shape at the script's
+sizes over the launches of LAYOUT_CANDIDATES["pk1_shape"], each held
+exactly, timed the same way; this checkout only), or gather-turns
+(gather_turn: the ELL gather-sum at the script's input and the lane
+gather at P = 8, W = 2048, digests of out and chained ms), moveaxis-turns
+(moveaxis_turn: both MOV, digests of out and check) or pk1-shape-turns
+(pk1_shape_turn: digests of out and check, chained and single ms), each
+in turns as pow-turns; without one, all but the turns.  For
 each launch of the solver kernels it
 times, with CUDA events (chip_smoke.time_ms, mean of 20 launches after
 a warm one), this checkout's kernel at the tile its wrapper chooses and
@@ -75,8 +82,12 @@ import torch
 # candidate tiles (TY, TZ); TZ is 1 in 2D
 TILES = {2: [(1, 1), (2, 1), (4, 1), (8, 1)],
          3: [(2, 2), (4, 2), (2, 4), (8, 1), (4, 1), (1, 8)]}
-# candidate row groups of the sublane gather (its blocks: 4 tiles each)
+# candidate row groups of the sublane gather (its blocks: 4 tiles each);
+# column groups and threads of the lane gather (its blocks: P = 8 rows
+# each)
 GROUPS = (1, 2, 4, 8, 16, 32)
+LANE_CANDIDATES = {"groups": (1, 2, 4, 8, 16, 32, 64),
+                   "threads": (32, 64, 128, 256)}
 # candidate launches of the pow kernels (kernels/probe_pow.py pow_shape):
 # threads and items a thread of the pointwise float4 kernel, threads,
 # elements a thread and unroll of the summed one; the scalar pointwise
@@ -99,6 +110,10 @@ LAYOUT_CANDIDATES = {
              "segments": (1, 2, 3, 4, 6, 8, 12, 17)},
     "slide": {"tile": (64, 128), "stages": (2, 3, 4, 6),
               "segments": (1, 2, 3, 4, 6, 8, 12, 17)},
+    # pk1_shape (pk1_shape_shape): threads a block, in groups of TD tile
+    "pk1_shape": {"tile": (64, 128), "stages": (1, 2, 3, 4),
+                  "segments": (1, 2, 3, 4, 6, 11, 17, 34),
+                  "threads": (128, 256, 512, 1024)},
 }
 
 
@@ -168,11 +183,14 @@ def pow_turn():
 def gather_turn():
     """One turn of `gather-turns`, run in a checkout's own process: the
     ELL gather-sum at the script's input (probes.gather.ell_inputs, n =
-    2^20, K = 9, C = 12) through that checkout's default launch, a digest
-    of out's bytes and the mean ms of a call in a CUDA graph of
-    probes.CHAIN calls, beside X[:, cols].sum(1).  Uses only what every
-    checkout since the chained reading has.  Returns {"ms": {entry: ms},
-    "digest": {entry: hex}}."""
+    2^20, K = 9, C = 12) and the lane gather at the probe's P = 8, W =
+    2048 (probes.gather.lane_inputs) through that checkout's default
+    launches, a digest of each out's bytes, the mean ms of a call in a
+    CUDA graph of probes.CHAIN calls and, for the lane gather, of a
+    single call after an L2 flush (probes.time_ms), beside
+    X[:, cols].sum(1) and torch.gather.  Uses only what every checkout
+    since the chained reading has.  Returns {"ms": {entry: ms}, "digest":
+    {entry: hex}}."""
     import hashlib
 
     import torch
@@ -183,11 +201,14 @@ def gather_turn():
 
     X, cols = (torch.from_numpy(a).cuda()
                for a in gather.ell_inputs(1 << 20, 9, 12))
-    cols64 = cols.long()
+    x, idx = (torch.from_numpy(a).cuda() for a in gather.lane_inputs(8, 2048))
+    cols64, idx64 = cols.long(), idx.long()
     res = {"ms": {}, "digest": {}}
     for name, fn, digest in (
             ("ell_gather_sum", lambda: kg.ell_gather_sum(X, cols), True),
-            ("X[:, cols].sum(1)", lambda: X[:, cols64].sum(1), False)):
+            ("X[:, cols].sum(1)", lambda: X[:, cols64].sum(1), False),
+            ("lane_gather", lambda: kg.lane_gather(x, idx), True),
+            ("torch.gather", lambda: torch.gather(x, 1, idx64), False)):
         out = fn()
         torch.cuda.synchronize()
         if digest:
@@ -195,6 +216,8 @@ def gather_turn():
                 out.cpu().numpy().tobytes()).hexdigest()[:16]
         del out
         res["ms"][name] = probes.graph_ms(fn, probes.CHAIN)
+        if name in ("lane_gather", "torch.gather"):
+            res["ms"][f"{name} single"] = probes.time_ms(fn, probes.REPS, True)
     return res
 
 
@@ -223,6 +246,36 @@ def moveaxis_turn():
                 t.cpu().numpy().tobytes()).hexdigest()[:16]
         del out, check
         res["ms"][name] = probes.graph_ms(case.kernel, probes.CHAIN)
+    return res
+
+
+def pk1_shape_turn():
+    """One turn of `pk1-shape-turns`, run in a checkout's own process:
+    pk1_shape at the script's sizes (probes.layout3d's cases, part
+    pk1_shape: CENPL 78, windows of 5, 4 and 2 planes, OUTPL 14 on
+    (72, 72, 128), TD = 2) through that checkout's default launch,
+    digests of out and check, the mean ms of a call in a CUDA graph of
+    probes.CHAIN calls and of 30 single calls back to back (its 264 MB
+    do not fit the L2; probes.time_ms).  Returns {"ms": {entry: ms},
+    "digest": {entry: hex}}."""
+    import hashlib
+
+    import torch
+
+    from ryujin_tpu_torch import probes
+    from ryujin_tpu_torch.probes import layout3d
+
+    res = {"ms": {}, "digest": {}}
+    (case,) = layout3d.cases(layout3d.parser().parse_args([]), "pk1_shape")
+    out, check = case.kernel()
+    torch.cuda.synchronize()
+    for part, t in (("out", out), ("check", check)):
+        res["digest"][f"pk1_shape {part}"] = hashlib.sha256(
+            t.cpu().numpy().tobytes()).hexdigest()[:16]
+    del out, check
+    res["ms"]["pk1_shape"] = probes.graph_ms(case.kernel, probes.CHAIN)
+    res["ms"]["pk1_shape single"] = probes.time_ms(case.kernel, case.reps,
+                                                   False)
     return res
 
 
@@ -305,6 +358,44 @@ def moveaxis_launches(res, dev):
             print(f"  {key}: {res['ms'][key]:.5f} ms", flush=True)
 
 
+def pk1_shape_launches(res, dev):
+    """pk1_shape at the script's sizes over LAYOUT_CANDIDATES["pk1_shape"]
+    and at the default launch, out and check each held exactly against the
+    plain version, in CUDA graphs of probes.CHAIN calls, into
+    res["ms"]."""
+    import itertools
+
+    from . import probes
+    from .kernels import probe_layout3d as kl
+    from .probes import layout3d
+
+    la = layout3d.parser().parse_args([])
+    D, HW, TD = la.D, la.H * la.W, la.TD
+    rng = np.random.default_rng(0)
+    cen = torch.from_numpy(rng.random((D, la.CENPL, la.H, la.W),
+                                      dtype=np.float32)).to(dev)
+    wins = [torch.from_numpy(rng.random((D, p, la.H, la.W),
+                                        dtype=np.float32)).to(dev)
+            for p in layout3d.WINDOW_PLANES[: la.NWIN]]
+    planes = layout3d.WINDOW_PLANES[: la.NWIN]
+    want = kl.pk1_shape_reference(cen, wins, TD, la.OUTPL)
+    cand = LAYOUT_CANDIDATES["pk1_shape"]
+    shapes = {kl.pk1_shape_shape(la.CENPL, planes, D, HW, TD): "default"}
+    for values in itertools.product(*cand.values()):
+        try:
+            shapes.setdefault(kl.pk1_shape_shape(
+                la.CENPL, planes, D, HW, TD, **dict(zip(cand, values))), "")
+        except ValueError:  # does not fit the shared memory or the threads
+            continue
+    for shape, tag in shapes.items():
+        fn = functools.partial(kl.pk1_shape, cen, wins, TD, la.OUTPL, shape)
+        ok = all(torch.equal(a, b) for a, b in zip(fn(), want))
+        key = (f"pk1_shape {tuple(shape)}{' ' + tag if tag else ''}"
+               f"{'' if ok else ' WRONG'}")
+        res["ms"][key] = probes.graph_ms(fn, probes.CHAIN)
+        print(f"  {key}: {res['ms'][key]:.5f} ms", flush=True)
+
+
 def pow_launches(res, dev, argv=()):
     """Every PowForm pointwise and summed at rows 11 and 12's sizes
     (row 12: one launch of its chain, on x + 1e-9 x) over
@@ -363,7 +454,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("cases", nargs="*",
                     default=["step2d", "q2step2d", "box3d", "cylinder3d",
-                             "gather", "layouts", "pow", "ell", "moveaxis"])
+                             "gather", "layouts", "pow", "ell", "moveaxis",
+                             "pk1-shape"])
     ap.add_argument("--tree", action="append", default=[],
                     metavar="NAME=ROOT")
     args = ap.parse_args(argv)
@@ -492,11 +584,15 @@ def main(argv=None) -> int:
                     pk1_stream, [] if sep else TILES[dim])
 
     def gather_groups():
-        """The sublane gather at each group count of GROUPS and
-        torch.gather, in CUDA graphs of probes.CHAIN calls."""
+        """The sublane gather at each group count of GROUPS and the lane
+        gather at each launch of LANE_CANDIDATES (P = 8, W = 2048, and W =
+        2047: 4-byte pieces), each held exactly, and torch.gather, in CUDA
+        graphs of probes.CHAIN calls."""
+        import itertools
+
         from . import probes
         from .kernels import probe_gather as pg
-        from .probes.gather import sublane_inputs
+        from .probes.gather import lane_inputs, sublane_inputs
 
         def gm(key, fn):
             fn()
@@ -515,6 +611,20 @@ def main(argv=None) -> int:
             finally:
                 pg.sublane_shape = default
         gm("gather torch.gather", lambda: torch.gather(x, 0, idx64))
+        for W in (2048, 2047):
+            x, idx = (torch.from_numpy(a).to(dev) for a in lane_inputs(8, W))
+            want, idx64 = pg.lane_gather_reference(x, idx), idx.long()
+            shapes = {pg.lane_shape(8, W): "default"}
+            for values in itertools.product(*LANE_CANDIDATES.values()):
+                shapes.setdefault(pg.lane_shape(
+                    8, W, **dict(zip(LANE_CANDIDATES, values))), "")
+            for shape, tag in shapes.items():
+                same = torch.equal(pg.lane_gather(x, idx, shape), want)
+                gm(f"gather lane W={W} {tuple(shape)}"
+                   f"{' ' + tag if tag else ''}{'' if same else ' WRONG'}",
+                   functools.partial(pg.lane_gather, x, idx, shape))
+            gm(f"gather lane W={W} torch.gather",
+               lambda: torch.gather(x, 1, idx64))
 
     def layout_launches():
         """The three layouts over LAYOUT_CANDIDATES and at the default
@@ -591,13 +701,15 @@ def main(argv=None) -> int:
     for case in args.cases:
         print(f"{case}:", flush=True)
         turn = {"pow-turns": pow_turn, "gather-turns": gather_turn,
-                "moveaxis-turns": moveaxis_turn}.get(case)
+                "moveaxis-turns": moveaxis_turn,
+                "pk1-shape-turns": pk1_shape_turn}.get(case)
         if turn is not None:
             turns_of(case, turn)
             continue
-        if case in ("pow", "ell", "moveaxis"):
+        if case in ("pow", "ell", "moveaxis", "pk1-shape"):
             {"pow": pow_launches, "ell": ell_launches,
-             "moveaxis": moveaxis_launches}[case](res, dev)
+             "moveaxis": moveaxis_launches,
+             "pk1-shape": pk1_shape_launches}[case](res, dev)
             continue
         if case == "gather":
             gather_groups()

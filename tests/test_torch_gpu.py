@@ -21,7 +21,8 @@ cylinder o-grid of cylinder3d at refinement 1 (two-direction route) and
 the 3 x 2 x 2 box (half-slot route), the plain path on the CPU in the same
 separable mode; and the measurement probes' kernels (csrc/probe_*.cu) on
 small shapes against their plain versions on the card, each at its bar,
-the ELL gather-sum and moveaxis also at every launch of their sweeps.
+the ELL gather-sum, moveaxis, pk1_shape and the lane gather also at every
+launch of their sweeps.
 """
 
 import functools
@@ -389,6 +390,98 @@ def test_moveaxis_exact_at_every_launch(TD):
             got = kl.moveaxis(h, TD, mov, shape)
             assert all(torch.equal(a, b) for a, b in zip(got, want)), (
                 mov, TD, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("TD", [1, 2, 4])
+def test_pk1_shape_exact_at_every_launch(TD):
+    """pk1_shape, out and check bit for bit against the plain version at
+    every launch tile_sweep pk1-shape tries, on a (20, 9, 20) canvas (H W
+    = 180: partial tiles of 64 and 128 cells) with a centre of 78 planes
+    or none and 0 to 3 windows of 5, 4 and 2 planes, OUTPL 14."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import itertools
+
+    import numpy as np
+
+    from ryujin_tpu_torch.kernels import build
+    from ryujin_tpu_torch.kernels import probe_layout3d as kl
+    from ryujin_tpu_torch.tile_sweep import LAYOUT_CANDIDATES
+
+    D, H, W = 20, 9, 20
+    rng = np.random.default_rng(6)
+    cen_all = torch.from_numpy(rng.random((D, 78, H, W),
+                                          dtype=np.float32)).cuda()
+    wins_all = [torch.from_numpy(rng.random((D, p, H, W),
+                                            dtype=np.float32)).cuda()
+                for p in (5, 4, 2)]
+    cand = LAYOUT_CANDIDATES["pk1_shape"]
+    key = build.probe_key("pk1_shape")
+    for cen_on, nwin in itertools.product((1, 0), range(4)):
+        if not cen_on and not nwin:
+            continue
+        cen, wins = cen_all if cen_on else None, wins_all[:nwin]
+        planes = tuple(h.shape[1] for h in wins)
+        want = kl.pk1_shape_reference(cen, wins, TD, 14)
+        before = build.PROBE_LAUNCHES[key]
+        assert all(torch.equal(a, b) for a, b in zip(
+            kl.pk1_shape(cen, wins, TD, 14), want)), (TD, cen_on, nwin)
+        assert build.PROBE_LAUNCHES[key] == before + 1
+        for values in itertools.product(*cand.values()):
+            try:
+                shape = kl.pk1_shape_shape(78 * cen_on, planes, D, H * W, TD,
+                                           **dict(zip(cand, values)))
+            except ValueError:
+                continue
+            got = kl.pk1_shape(cen, wins, TD, 14, shape)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                TD, cen_on, nwin, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [2048, 2047, 128, 1])
+def test_lane_gather_exact_at_every_launch(W):
+    """The lane gather out[p, w] = x[p, idx[p, w]] bit for bit against
+    np.take_along_axis at P = 8 by default and at every launch tile_sweep
+    gather tries, at the probe's W = 2048 and 128 (16-byte pieces), W =
+    2047 and 1 (4-byte ones), and on a view of x one float into a buffer
+    (its base not 16-byte aligned: 4-byte pieces), with an index past each
+    end giving NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import itertools
+
+    import numpy as np
+
+    from ryujin_tpu_torch.kernels import build, probe_gather
+    from ryujin_tpu_torch.tile_sweep import LANE_CANDIDATES
+
+    P = 8
+    x = np.arange(P * W, dtype=np.float32).reshape(P, W)
+    idx = np.random.default_rng(0).integers(0, W, size=(P, W)).astype(np.int32)
+    want = np.take_along_axis(x, idx, axis=1)
+    idx[0, 0], idx[-1, -1] = W, -1
+    want[0, 0] = want[-1, -1] = np.nan
+    xc, ic = torch.from_numpy(x).cuda(), torch.from_numpy(idx).cuda()
+    key = build.probe_key("lane_gather", P, W)
+    before = build.PROBE_LAUNCHES[key]
+    got = probe_gather.lane_gather(xc, ic)
+    assert build.PROBE_LAUNCHES[key] == before + 1
+    assert np.array_equal(got.cpu().numpy(), want, equal_nan=True), W
+    aligned = W % 4 == 0
+    for values in itertools.product(*LANE_CANDIDATES.values()):
+        shape = probe_gather.lane_shape(P, W, aligned=aligned,
+                                        **dict(zip(LANE_CANDIDATES, values)))
+        got = probe_gather.lane_gather(xc, ic, shape)
+        assert np.array_equal(got.cpu().numpy(), want, equal_nan=True), (
+            W, shape)
+    flat = torch.zeros(P * W + 1, dtype=torch.float32, device="cuda")
+    flat[1:] = xc.reshape(-1)
+    offset = flat[1:].view(P, W)
+    assert offset.data_ptr() % 16 != 0
+    got = probe_gather.lane_gather(offset, ic)
+    assert np.array_equal(got.cpu().numpy(), want, equal_nan=True), W
 
 
 def ragged_case(dim, ansatz=None):

@@ -242,6 +242,112 @@ def test_layout_shape_covers_and_fits(P, D, H, W, TD):
         probe_layout3d.layout_shape("diagonal", P, D, HW, TD)
 
 
+@pytest.mark.parametrize("cen_pl,planes,D,H,W,TD", [
+    (78, (5, 4, 2), 72, 72, 128, 2),  # the script's sizes
+    (7, (5, 4, 2), 13, 4, 40, 2),  # the gpu tests' probe sizes
+    (78, (5, 4, 2), 20, 9, 20, 1), (78, (5, 4, 2), 20, 9, 20, 4),
+    (0, (5, 4, 2), 20, 9, 20, 2), (78, (), 20, 9, 20, 2),
+    (78, (5,), 20, 9, 20, 4), (0, (5, 4), 20, 9, 20, 1),  # partial tiles
+    (256, (16,), 9, 1, 4, 1), (0, (200,), 9, 1, 4, 1),
+    (3, (2,), 72, 4, 8, 16),
+])
+def test_pk1_shape_shape_covers_and_fits(cen_pl, planes, D, H, W, TD):
+    """pk1_shape's launches, by default and over the candidates of
+    tile_sweep pk1-shape: every interior z tile and every (H, W) cell is
+    written exactly once (as the layouts split the work); the ring holds
+    `stages` z tiles of the centre's TD rows and each window's TD + 2
+    rows of all their planes, the groups' partial checksums two words a
+    thread past the first group, within 232,448 B; the threads are whole
+    groups of TD tile, at most 1,024."""
+    from ryujin_tpu_torch.tile_sweep import LAYOUT_CANDIDATES
+
+    HW = H * W
+    cand = LAYOUT_CANDIDATES["pk1_shape"]
+    kinds = [{}] + [dict(zip(cand, values))
+                    for values in itertools.product(*cand.values())]
+    fitted = 0
+    for kw in kinds:
+        try:
+            sh = probe_layout3d.pk1_shape_shape(cen_pl, planes, D, HW, TD,
+                                                **kw)
+        except ValueError:
+            assert kw, "the default launch always fits"
+            continue
+        fitted += 1
+        rows = TD * sh.tile
+        stage = (TD * cen_pl + (TD + 2) * sum(planes)) * sh.tile * 4
+        assert sh.smem == (probe_layout3d.LAYOUT_BARRIER_BYTES
+                           + sh.stages * stage
+                           + 2 * (sh.threads // rows - 1) * rows * 4)
+        assert sh.smem <= build.SMEM_MAX
+        assert sh.threads % rows == 0 and rows <= sh.threads <= 1024
+        assert 1 <= sh.stages <= probe_layout3d.LAYOUT_MAX_STAGES
+        assert bool((_layout_written(sh, D, HW, TD) == 1).all()), sh
+    assert fitted > 1
+
+
+@pytest.mark.parametrize("bad", [
+    {"cen_pl": 257}, {"planes": (5, 257)}, {"planes": (5, 4, 2, 1)},
+    {"cen_pl": 0, "planes": ()}, {"planes": (5, 0)}, {"H": 9, "W": 21},
+    {"TD": 255, "D": 800}, {"tile": 32}, {"threads": 192},
+    {"threads": 2048}, {"stages": 0}, {"stages": 16}, {"stages": 5},
+    {"tile": 128, "TD": 16, "D": 72},
+])
+def test_pk1_shape_shape_refuses(bad):
+    """pk1_shape_shape raises ValueError where a TMA box cannot take a
+    part (more than 256 planes, TD + 2 > 256 rows, H W not a multiple of
+    4), for more than 3 windows or no part at all, and for a launch the C
+    side refuses (a tile of 32, threads that are not whole groups of TD
+    tile or more than 1024, stages outside 1 .. 15 or past the shared
+    memory)."""
+    args = {"cen_pl": 78, "planes": (5, 4, 2), "D": 72, "H": 72, "W": 128,
+            "TD": 2}
+    args.update({k: v for k, v in bad.items() if k in args})
+    launch = {k: v for k, v in bad.items() if k not in args}
+    with pytest.raises(ValueError):
+        probe_layout3d.pk1_shape_shape(args["cen_pl"], args["planes"],
+                                       args["D"], args["H"] * args["W"],
+                                       args["TD"], **launch)
+
+
+@pytest.mark.parametrize("W", [1, 3, 128, 2047, 2048, 58112])
+def test_lane_shape_covers_and_fits(W):
+    """The lane gather's launches (rows x column groups), by default and
+    over the candidates of tile_sweep gather, aligned and not: each
+    group's vectors cover the row's W columns once, none wholly past it,
+    at most LANE_ITEMS vectors a thread; vectors of 4 only where W % 4 ==
+    0 and aligned; the row fits the shared memory up to the stated
+    largest W, 58,112; at P = 8, W = 2048 the default launches more than
+    the 8 blocks of one block a row; a larger W raises."""
+    from ryujin_tpu_torch.tile_sweep import LANE_CANDIDATES
+
+    for P, aligned in itertools.product((1, 8), (True, False)):
+        kinds = [{}] + [dict(zip(LANE_CANDIDATES, values)) for values in
+                        itertools.product(*LANE_CANDIDATES.values())]
+        for kw in kinds:
+            sh = probe_gather.lane_shape(P, W, aligned=aligned, **kw)
+            assert sh.vec == (4 if aligned and W % 4 == 0 else 1)
+            nvec = W // sh.vec
+            assert sh.groups * sh.span >= nvec > (sh.groups - 1) * sh.span
+            assert sh.span <= probe_gather.LANE_ITEMS * sh.threads
+            assert sh.threads % 32 == 0 and 32 <= sh.threads <= 1024
+            assert sh.smem == W * 4 <= build.SMEM_MAX
+            covered = np.zeros(W, dtype=int)
+            for g in range(sh.groups):
+                covered[g * sh.span * sh.vec:(g + 1) * sh.span * sh.vec] += 1
+            assert (covered == 1).all()
+    if W == 2048:
+        assert probe_gather.lane_shape(8, W).groups > 1
+    assert build.SMEM_MAX // 4 == 58112
+    assert "W up to 58,112" in " ".join(probe_gather.lane_gather.__doc__.split())
+    for bad in ({"W": 58113}, {"threads": 48}, {"threads": 2048},
+                {"P": 0}):
+        args = {"P": 8, "W": W, **bad}
+        with pytest.raises(ValueError):
+            probe_gather.lane_shape(args["P"], args["W"],
+                                    threads=args.get("threads"))
+
+
 def test_moveaxis_map_lands_the_moved_window():
     """moveaxis_map's dimensions, strides and box, applied with as_strided
     at a window's coordinates, take h[z0 : z0 + wz, :, q0 : q0 + tile]
@@ -579,8 +685,10 @@ def test_launch_struct_mirrors_the_c_side():
     pk2_stream, pk3_stream and the stacked pk1, pk2 and pk3 take the shared
     bytes of the wrappers' formulas (staged.cuh holds the layouts they
     share); the entry points take the pointers ENTRY_POINTS counts; the
-    sublane gather's window is the one sublane_shape() sizes; the layouts'
-    and moveaxis's launchers take layout_shape()'s shape."""
+    sublane gather's window is the one sublane_shape() sizes; the lane
+    gather's launcher takes lane_shape()'s shape; the layouts', moveaxis's
+    and pk1_shape's launchers take layout_shape()'s and pk1_shape_shape()'s
+    shape."""
     src = (CSRC / "euler.cuh").read_text()
     body = re.search(r"struct Consts \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
@@ -618,6 +726,15 @@ def test_launch_struct_mirrors_the_c_side():
             in gather)
     assert ("int64_t(smem) != int64_t(S) * SUBLANE_TILE * "
             "int64_t(sizeof(float))") in gather
+    assert f"constexpr int LANE_ITEMS = {probe_gather.LANE_ITEMS};" in gather
+    assert (f"constexpr int LANE_MAX_THREADS = "
+            f"{probe_gather.LANE_MAX_THREADS};") in gather
+    m = re.search(r'extern "C" int ryujin_probe_lane_gather\((.*?)\)', gather,
+                  re.S)
+    params = [p.split()[-1] for p in m.group(1).split(",")]
+    assert params[-6:-1] == list(probe_gather.LaneShape._fields)
+    assert len(params) == len(build.PROBE_ENTRY_POINTS[
+        "ryujin_probe_lane_gather"])
     layout = (CSRC / "probe_layout3d.cu").read_text()
     assert (f"constexpr int LAYOUT_BARRIER_BYTES = "
             f"{probe_layout3d.LAYOUT_BARRIER_BYTES};") in layout
@@ -633,13 +750,14 @@ def test_launch_struct_mirrors_the_c_side():
             "segments < 1 || segments > gz || blocks != tiles * segments",
             "kernel<<<dim3(blocks / segments, segments), threads, smem,"):
         assert mirrored in layout, mirrored
-    # the three kernels (full window, slide, moveaxis) split the z tiles
-    # of a tile so
+    # the four kernels (full window, slide, moveaxis, pk1_shape) split the
+    # z tiles of a tile so
     assert layout.count("const int t0 = gz * int(blockIdx.y) / "
-                        "int(gridDim.y);") == 3
+                        "int(gridDim.y);") == 4
     assert layout.count("const int n = gz * int(blockIdx.y + 1) / "
-                        "int(gridDim.y) - t0;") == 3
-    for entry in ("ryujin_probe_layout", "ryujin_probe_window"):
+                        "int(gridDim.y) - t0;") == 4
+    for entry in ("ryujin_probe_layout", "ryujin_probe_window",
+                  "ryujin_probe_pk1_shape"):
         args = build.PROBE_ENTRY_POINTS[entry]
         m = re.search(r'extern "C" int ' + entry + r"\((.*?)\)", layout,
                       re.S)
