@@ -113,7 +113,25 @@ any failure exits non-zero):
    both MOV, exactly at P = 24, (20, 9, 20), TD = 1 and 4; pk1_shape
    exactly at (20, 9, 20), TD = 1 and 4, with and without its centre and
    0 to 3 windows; and the lane gather exactly at W = 2047 and on an
-   unaligned view at W = 2048, NaN for an index out of range.
+   unaligned view at W = 2048, NaN for an index out of range;
+13. four stage slots and the isentropic vortex.  13a: the instances of
+   PK2 and PK3 that take 3 and 4 stage slots (ERK54's fourth and fifth
+   substeps; pk2 and pk3 on step2d's canvas, pk2_stream and pk3_stream
+   on those of q2step2d, box3d, dg1box3d and cylinder3d with separable
+   statics) against their plain versions at the sizes and on the states
+   of phases 2-10 in f32, with times and bounds, then on the small
+   canvases of phases 2c, 4c, 6c, 8d and 10c in f64, each followed by
+   three ERK54 steps through the kernels against the plain path on the
+   card with the launch counts.  13b: the isentropic vortex
+   (ryujin_tpu_torch.vortex) through the kernels in f64 at refinement 6,
+   ERK33, ERK22 and SSPRK33, each norm within 2 % of the reference's
+   committed baselines, every substep's launches counted, and steps past
+   t_final leaving the state as it was; the other explicit tableaux
+   (erk 11, erk 43, erk 54, ssprk 22) at refinement 5, kernels against
+   the plain path on the card to 1e-9 on each norm.  13c: the vortex in
+   f32 at refinement 8 (66,049 dofs), ERK33: finite, admissible, no
+   warning, L1 within twice the reference's f32 plateau (2.88e-5), with
+   its wall seconds and steps.
 
 pk_up's two launches a substep, PK4 and PK5 (`last`), are timed, bounded
 and counted apart.  The stream PK1's e, the stream PK2's U_low, F and
@@ -196,6 +214,21 @@ CYL_PLAIN_TIMED_STEPS = 2
 SMALL_CYL_PAD = 32
 # launches per kernel timing
 REPS = 20
+# phase 13: ERK54's substeps of 3 and 4 stage slots; steps through the
+# kernels before the f64 comparisons on the small canvases; the vortex:
+# refinements of the f64 norms held to the reference's baselines (within
+# VORTEX_BAR), of the f64 schemes held to the plain path (within
+# VORTEX_PLAIN_BAR), and of the f32 run held to twice the reference's f32
+# plateau
+WIDE_SLOTS = (3, 4)
+WIDE_DEVELOP_STEPS = 5
+VORTEX_REFINEMENT = 6
+VORTEX_SCHEMES = ("erk 33", "erk 22", "ssprk 33")
+VORTEX_BAR = 0.02
+VORTEX_PLAIN_REFINEMENT = 5
+VORTEX_PLAIN_SCHEMES = ("erk 11", "erk 43", "erk 54", "ssprk 22")
+VORTEX_PLAIN_BAR = 1e-9
+VORTEX_F32_REFINEMENT = 8
 
 # The limiter's l is decided at roundoff where psi is flat at its root,
 # so an ulp of difference in its input state can move one edge by up to
@@ -350,11 +383,14 @@ def bound_ms(name, dim, half, inputs, outputs, mask, live_edges, n_stages,
 
 
 def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
-                    tag="", up_tag="", exact_l64=True):
+                    tag="", up_tag="", exact_l64=True, weights=(0.75, -2.0),
+                    timed=None):
     """Each kernel of the substep against its reference on identical
     inputs.  U_a is the state entering the substep, U_b a second prepared
     state; the stage inputs are those of the third ERK33 substep (weights
-    0.75, -2).  `stream` picks the slot-streaming PK1-PK3 (default: as the
+    0.75, -2) unless `weights` names others: the stage states are then
+    U_a, U_b and two states between them (stage_states).  `timed`, a set
+    of kernel names (pk2, pk3_stream, ...), limits the timing to them.  `stream` picks the slot-streaming PK1-PK3 (default: as the
     stepper of `hm` does); the Riemann route is the module's (`hm.half`).
     With `records`, also times every kernel and its reference and fills
     records[name + tag] = {max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -386,8 +422,8 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     dt = U_a.dtype
     K, n = ca.K, ca.n
     U, prec = hm.prepare_state_vector(U_b, 0.0)
-    stage_U = torch.stack([U_a, U])
-    weights = [0.75, -2.0]
+    weights = list(weights)
+    stage_U = torch.stack(stage_states(hm, U_a, U)[: len(weights)])
     real = st.node_mask > 0
     live = torch.stack([st.live_k(k) for k in range(K)])
     live_edges = int(live.sum())
@@ -534,6 +570,8 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     }
     calls = {n1: args1, n2: args2, n3: args3, nu: args4, nu5: args5}
     for name, a in calls.items():
+        if timed is not None and name.split("[")[0] not in timed:
+            continue
         fk, fr = pair(name)
         ms = time_ms(lambda: fk(*a), reps)
         plain = time_ms(lambda: fr(*a), max(reps // 4, 2))
@@ -553,6 +591,15 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
               f"bound {least:.4f} ms ({by}; {stored:.4f} ms with the mask "
               f"as stored)   {100 * least / ms:.1f} % of bound", flush=True)
     return ok
+
+
+def stage_states(hm, U_a, U):
+    """Four stage states from the state U_a entering a substep and the
+    prepared state U: U_a, U, and U_a + (U - U_a) / 2 and / 4 prepared
+    (convex combinations: admissible where U_a and U are)."""
+    mid = [hm.prepare_state_vector(U_a + (U - U_a) * f, 0.0)[0]
+           for f in (0.5, 0.25)]
+    return [U_a, U] + mid
 
 
 def pk1_against_stream(hm, U_b):
@@ -599,7 +646,8 @@ def bumped(sd, U0, blast=False):
 
 def card_vs_plain_f64(ti_kernels, ti_plain, sd, U0, plain_device, steps=3,
                       blast=False, counted=None, counter="launches"):
-    """`steps` ERK33 steps in f64, the kernels on the card against the
+    """`steps` steps in f64 (of ERK33 but in phase 13), the kernels on the
+    card against the
     plain path, from the inflow state times a smooth bump or, with
     `blast`, with an 8:1 density and 1000:1 energy contrast in a disc
     (at a cfl_max far beyond 1 such a step fails its limiter and
@@ -607,8 +655,10 @@ def card_vs_plain_f64(ti_kernels, ti_plain, sd, U0, plain_device, steps=3,
     agree to 1e-10 and the restart and warning counts are equal; with
     `blast` also only if a step was redone.  `counted` = (wrappers, want)
     also holds the launch counts, read from each wrapper's `counter`
-    ("sep_launches" for the SEP instances), to want x 3 x (steps +
-    restarts)."""
+    ("sep_launches" for the SEP instances), to want x substeps x (steps +
+    restarts), the substeps of the integrators' scheme (ERK33: 3)."""
+    from ryujin_tpu_torch.solver.integrator import TABLEAUX
+
     U0 = bumped(sd, U0.cpu(), blast)
     if counted:
         for fn in counted[0].values():
@@ -629,7 +679,7 @@ def card_vs_plain_f64(ti_kernels, ti_plain, sd, U0, plain_device, steps=3,
         good &= restarts[0] > 0
     extra = ""
     if counted:
-        substeps = 3 * (steps + restarts[0])
+        substeps = TABLEAUX[ti_kernels.scheme].n_sub * (steps + restarts[0])
         good &= all(launches[k] == w * substeps for k, w in counted[1].items())
         extra = f", launches {launches} in {substeps} substeps"
     print(f"  U rel-err {rel:.3e}, tau rel-err {tau_rel:.3e} (tol 1e-10), "
@@ -711,10 +761,11 @@ def up_launches(records, name, launches):
     records[name + " last"]["launches"] = launches["pk_up last"]
 
 
-def check_dg(dev, card, streamed, stacked):
+def check_dg(dev, card, streamed, stacked, kept):
     """Phases 8 and 9, the dG path: the dG instances of PK2 and PK3 (the
     incidence beta_ij in the high-order viscosity factor) against their
-    plain versions, and the dg1box3d slice.  Returns the kernels' records;
+    plain versions, and the dg1box3d slice.  Returns the kernels' records
+    and keeps the f32 module and states of phase 8 in `kept` for phase 13;
     fails the run on any error."""
     from ryujin_tpu_torch.bench import build_dg1box3d, build_q2step2d
     from ryujin_tpu_torch.solver.hyperbolic import (
@@ -758,6 +809,7 @@ def check_dg(dev, card, streamed, stacked):
     records = {}
     ok = compare_kernels(hm, U_a, U_b, TOL_F32, REPS, records,
                          tag="[3D dG two-direction]", up_tag=" dG")
+    kept["dg1box3d"] = (hm, U_a, U_b)
     print("phase 8a: dg1box3d kernels in f64", flush=True)
     hm64 = in_f64(hm, sd)
     # torch's f64 limiter differs from the kernels' l by 3.1e-15 here
@@ -880,11 +932,12 @@ def live_edges_agree(label, hm, sd):
     return same and count == int(mask.sum())
 
 
-def check_cylinder(dev, card, streamed):
+def check_cylinder(dev, card, streamed, kept):
     """Phases 10 and 11, cylinder3d: the 3D kernels with the full statics at
     size, their SEP instances against their plain versions on both routes
     and three f64 steps through them, and the slice in both modes.
-    Returns the kernels' records; fails the run on any error."""
+    Returns the kernels' records and keeps the SEP module and states of
+    phase 10b in `kept` for phase 13; fails the run on any error."""
     from ryujin_tpu_torch.bench import build_box3d, build_cylinder3d
     from ryujin_tpu_torch.solver.hyperbolic import (
         HyperbolicModule, _boundary_pair_data,
@@ -954,6 +1007,7 @@ def check_cylinder(dev, card, streamed):
           "plain versions at cylinder3d size, f32 and f64", flush=True)
     ok &= compare_kernels(hm_sep, U_a, U_b, TOL_F32, REPS, records,
                           tag="[3D two-direction SEP]", up_tag=" SEP")
+    kept["cylinder3d SEP"] = (hm_sep, U_a, U_b)
     hm64 = module(torch.float64, True)
     # torch's f64 limiter differs from the kernels' l by 1.2e-13 here
     ok &= compare_kernels(hm64, U_a.double(), U_b.double(), TOL_F64, REPS,
@@ -1218,6 +1272,253 @@ def check_lane_ragged():
           "W = 2048, NaN past each end", flush=True)
 
 
+def erk54_weights(slots):
+    """The static weights of ERK54's substep that passes `slots` stage
+    slots (its substep of that index), as the integrator passes them."""
+    from ryujin_tpu_torch.solver.integrator import TABLEAUX
+
+    return [w for w in TABLEAUX["erk 54"].W[slots] if w != 0.0]
+
+
+def check_stages(dev, streamed, stacked, kept):
+    """Phase 13a: the instances of PK2 and PK3 that take 3 and 4 stage
+    slots (ERK54's fourth and fifth substeps) against their plain versions:
+    at the sizes of phases 2-10 in f32 on the states kept there (`kept`:
+    canvas -> f32 module, the state entering a substep, a second one),
+    timed beside their bounds; then on the small canvases of phases 2c, 4c,
+    6c, 8d and 10c in f64, each followed by three ERK54 steps with
+    bang-bang recovery, kernels vs the plain path on the card, with the
+    launch counts.  Returns the records of the timed instances, their
+    launches those of the ERK54 steps (the stacked ones' are set from the
+    vortex, phase 13b); fails the run on any error."""
+    from ryujin_tpu_torch.bench import (
+        build_box3d, build_cylinder3d, build_dg1box3d, build_q2step2d,
+        build_step2d,
+    )
+    from ryujin_tpu_torch.solver.integrator import TimeIntegrator
+
+    records, ok = {}, True
+    timed = {"pk2", "pk3", "pk2_stream", "pk3_stream"}
+    print("phase 13a: PK2 and PK3 at 3 and 4 stage slots (ERK54's weights) "
+          "against their plain versions, f32, at the sizes of phases 2-10",
+          flush=True)
+    for canvas, (hm, U_a, U_b) in kept.items():
+        for slots in WIDE_SLOTS:
+            print(f"  {canvas}, {slots} stage slots", flush=True)
+            ok &= compare_kernels(hm, U_a, U_b, TOL_F32, REPS, records,
+                                  tag=f"[S={slots} {canvas}]",
+                                  weights=erk54_weights(slots), timed=timed)
+    kept.clear()
+    torch.cuda.empty_cache()
+
+    print("phase 13a: the same in f64 on the small canvases, on states "
+          f"developed as their phases develop them ({WIDE_DEVELOP_STEPS} "
+          "ERK33 steps through the kernels from a bumped inflow; the 2D dG "
+          f"steps {Q2_DEVELOP_STEPS} in f32, as phase 8c), then 3 ERK54 steps "
+          "with bang-bang recovery, kernels vs the plain path on the card",
+          flush=True)
+    f64 = torch.float64
+
+    def developed(built, steps):
+        """The state entering a substep and a second one, after `steps`
+        ERK33 steps through the kernels from the bumped inflow."""
+        _, sd_s, _, ti_s, U0_s = built
+        Ua_s, _, t_s, _, _, _ = ti_s.advance(bumped(sd_s, U0_s), 0.0, steps)
+        return Ua_s, ti_s.advance(Ua_s, t_s, 1)[0]
+
+    small = [
+        ("step2d", None, build_step2d(0, f64, dev), stacked),
+        ("q2step2d", "q2step2d", build_q2step2d(0, f64, dev), streamed),
+    ]
+    for subdiv, half in SMALL_BOXES:
+        small.append((f"box {subdiv}", None if half else "box3d",
+                      build_box3d(1, f64, dev, subdiv=subdiv), streamed))
+    for subdiv, half in SMALL_DG_BOXES:
+        small.append((f"dG box {subdiv}", None if half else "dg1box3d",
+                       build_dg1box3d(1, f64, dev, subdiv=subdiv), streamed))
+    for ansatz in DG_STEP_ANSATZE:
+        built = build_q2step2d(0, f64, dev, ansatz=ansatz)
+        small.append((f"{ansatz} step", None, built,
+                      streamed if built[2].canvas.stream else stacked))
+    small.append(("SEP box (3, 2, 2)", None,
+                  build_box3d(1, f64, dev, subdiv=(3, 2, 2), separable=True),
+                  streamed))
+    small.append(("SEP cylinder, refinement 1", "cylinder3d SEP",
+                  build_cylinder3d(1, f64, dev, pad_minor=SMALL_CYL_PAD,
+                                   separable=True), streamed))
+    for name, canvas, built, fns in small:
+        _, sd_s, hm_s, _, U0_s = built
+        sep = hm_s.canvas.arrays.separable
+        if name.startswith("dG Q"):
+            ansatz = name[: len("dG Q1")]
+            Ua_s, Ub_s = developed(
+                build_q2step2d(0, torch.float32, dev, ansatz=ansatz),
+                Q2_DEVELOP_STEPS)
+            Ua_s, Ub_s = Ua_s.double(), Ub_s.double()
+        else:
+            Ua_s, Ub_s = developed(built, WIDE_DEVELOP_STEPS)
+        for slots in WIDE_SLOTS:
+            print(f"  {name}, {slots} stage slots, f64", flush=True)
+            # l and l' within 1e-8: torch's f64 limiter rounds otherwise
+            # than the kernels' on some inputs (phases 8a, 8c, 10b), and
+            # these stage slots give PK3 and PK4 new inputs (the SEP
+            # cylinder's l' read 5.4e-15 at 3 slots)
+            ok &= compare_kernels(hm_s, Ua_s, Ub_s, TOL_F64, REPS,
+                                  weights=erk54_weights(slots),
+                                  exact_l64=False)
+        print(f"  {name}: 3 ERK54 steps, kernels vs plain", flush=True)
+        for k in timed & fns.keys():
+            fns[k].stage_launches.clear()
+        counter = "sep_launches" if sep else "launches"
+
+        def erk54(steps_of):
+            return TimeIntegrator(steps_of, "erk 54", cfl_min=0.45,
+                                  cfl_max=0.9,
+                                  cfl_recovery_strategy="bang bang control")
+
+        ok &= card_vs_plain_f64(erk54(hm_s), erk54(PlainSteps(hm_s)), sd_s,
+                                U0_s, dev, counted=(fns, per_substep(fns)),
+                                counter=counter)
+        wide = {k: dict(fns[k].stage_launches) for k in timed & fns.keys()}
+        print(f"  {name}: launches by stage slots {wide}", flush=True)
+        for k, by_slots in wide.items():
+            ok &= all(by_slots.get(slots, 0) > 0 for slots in WIDE_SLOTS)
+            for slots in WIDE_SLOTS:
+                rec = records.get(f"{k}[S={slots} {canvas}]")
+                if rec is not None and canvas is not None:
+                    rec["launches"] = by_slots.get(slots, 0)
+    del small
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("a kernel at 3 or 4 stage slots disagrees with its plain "
+             "version")
+    return records
+
+
+def check_vortex(dev, card, stacked):
+    """Phases 13b and 13c: the isentropic vortex through the kernels
+    (ryujin_tpu_torch.vortex) against the reference's own baselines, with
+    the launch counts of every substep; the other explicit tableaux against
+    the plain path on the card; float32 at refinement 8 against the
+    reference's float32 plateau.  Returns {pk2, pk3: {stage slots:
+    launches}} of the ERK54 run through the kernels; fails the run on any
+    error."""
+    from ryujin_tpu_torch.solver.integrator import TABLEAUX, TimeIntegrator
+    from ryujin_tpu_torch.vortex import (
+        BASELINES, F32_PLATEAU_L1, T_FINAL, build_vortex, drive_vortex,
+    )
+
+    want = per_substep(stacked)
+    ok = True
+
+    def driven(refinement, scheme, dtype, built, plain=False):
+        """One drive with the launch counts set to 0 just before it and
+        read just after: through the kernels every substep must have
+        launched pk1, pk2, pk3 once and pk_up twice, on the plain path
+        nothing."""
+        nonlocal ok
+        for fn in stacked.values():
+            fn.launches = 0
+            if hasattr(fn, "stage_launches"):
+                fn.stage_launches.clear()
+        run = drive_vortex(refinement, scheme, dtype, dev, built=built,
+                           steps_of=PlainSteps if plain else None)
+        launches = {k: fn.launches for k, fn in stacked.items()}
+        substeps = TABLEAUX[scheme].n_sub * run.requested
+        good = all(launches[k] == (0 if plain else w * substeps)
+                   for k, w in want.items())
+        real = torch.as_tensor(run.sd.node_mask > 0, device=run.U.device)
+        Ur = run.U[:, real]
+        good &= bool(torch.isfinite(Ur).all())
+        good &= bool(run.hm.eq.is_admissible(Ur).all())
+        good &= run.warnings == 0 and run.t == T_FINAL
+        print(f"  {scheme:8s} {'plain ' if plain else 'kernels'} "
+              f"{str(dtype):13s} refinement {refinement}: Linf "
+              f"{run.norms[0]:.6e}  L1 {run.norms[1]:.6e}  L2 "
+              f"{run.norms[2]:.6e}; {run.steps} steps ({run.requested} "
+              f"asked), {run.warnings} warnings, {run.seconds:.2f} s wall; "
+              f"launches {launches} for {substeps} substeps "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+        return run
+
+    print(f"phase 13b: the isentropic vortex through the kernels, f64, "
+          f"refinement {VORTEX_REFINEMENT}, CFL 0.2, recovery none, t = "
+          f"{T_FINAL}, against the reference's baselines (within "
+          f"{100 * VORTEX_BAR:.0f} %), on {card}", flush=True)
+    built = build_vortex(VORTEX_REFINEMENT, torch.float64, dev)
+    print(f"  canvas {built[2].shape}, {built[2].n_nodes} dofs, "
+          f"{len(built[4]._bp['k'])} boundary-pair slots, route "
+          f"{'half-slot' if built[4].half else 'two-direction'}, "
+          f"{'stream' if built[4].canvas.stream else 'stacked'} kernels",
+          flush=True)
+    for scheme in VORTEX_SCHEMES:
+        run = driven(VORTEX_REFINEMENT, scheme, torch.float64, built)
+        for kind, got, ref in zip(("Linf", "L1", "L2"), run.norms,
+                                  BASELINES[scheme]):
+            if ref is None:
+                continue
+            rel = abs(got / ref - 1.0)
+            good = rel <= VORTEX_BAR
+            ok &= good
+            print(f"    {kind} {got:.6e} against the reference's {ref:.6e}:"
+                  f" {100 * rel:.3f} % {'ok' if good else 'FAIL'}",
+                  flush=True)
+        if scheme == "erk 33":
+            # steps that start at t_final change nothing
+            ti = TimeIntegrator(run.hm, scheme, cfl_min=0.2, cfl_max=0.2,
+                                cfl_recovery_strategy="none")
+            U_in = run.hm.prepare_state_vector(run.U, run.t)[0]
+            U2, _, t2, _, _, warns = ti.advance(run.U, run.t, 2, T_FINAL)
+            still = (torch.equal(U2, U_in) and t2.item() == run.t
+                     and int(warns) == 0 and int(ti.steps_taken) == 0)
+            ok &= still
+            print(f"    2 more steps at t = {run.t}: state bit-equal "
+                  f"{torch.equal(U2, U_in)}, t {t2.item()}, warnings "
+                  f"{int(warns)}, steps taken {int(ti.steps_taken)} "
+                  f"{'ok' if still else 'FAIL'}", flush=True)
+    del built
+
+    print(f"phase 13b: the other tableaux at refinement "
+          f"{VORTEX_PLAIN_REFINEMENT}, f64, kernels against the plain path on "
+          f"the card (within {VORTEX_PLAIN_BAR:.0e} relative on each norm)",
+          flush=True)
+    built = build_vortex(VORTEX_PLAIN_REFINEMENT, torch.float64, dev)
+    wide = {}
+    for scheme in VORTEX_PLAIN_SCHEMES:
+        run_k = driven(VORTEX_PLAIN_REFINEMENT, scheme, torch.float64, built)
+        if scheme == "erk 54":
+            wide = {k: dict(stacked[k].stage_launches) for k in ("pk2", "pk3")}
+            print(f"    launches by stage slots {wide}", flush=True)
+            ok &= all(wide[k].get(slots, 0) > 0 for k in wide
+                      for slots in WIDE_SLOTS)
+        run_p = driven(VORTEX_PLAIN_REFINEMENT, scheme, torch.float64, built,
+                       plain=True)
+        rel = max(abs(a / b - 1.0) for a, b in zip(run_k.norms, run_p.norms))
+        good = rel <= VORTEX_PLAIN_BAR and run_k.steps == run_p.steps
+        ok &= good
+        print(f"    {scheme}: kernels vs plain, norms {rel:.3e} relative, "
+              f"steps {run_k.steps} / {run_p.steps} "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+    del built
+
+    print(f"phase 13c: the isentropic vortex through the kernels, f32, "
+          f"refinement {VORTEX_F32_REFINEMENT}, ERK33", flush=True)
+    built = build_vortex(VORTEX_F32_REFINEMENT, torch.float32, dev)
+    run = driven(VORTEX_F32_REFINEMENT, "erk 33", torch.float32, built)
+    good = run.norms[1] <= 2.0 * F32_PLATEAU_L1
+    ok &= good
+    print(f"    {built[2].n_nodes} dofs: L1 {run.norms[1]:.6e} beside the "
+          f"reference's f32 plateau {F32_PLATEAU_L1:.2e} (gate "
+          f"{2.0 * F32_PLATEAU_L1:.2e}) {'ok' if good else 'FAIL'}; "
+          f"{run.steps} steps in {run.seconds:.2f} s wall on {card}",
+          flush=True)
+    del built
+    if not ok:
+        fail("the isentropic vortex missed a bar")
+    return wide
+
+
 def per_substep(fns):
     """Launches per substep of each wrapper in `fns`: PK1-PK3 once,
     pk_up twice."""
@@ -1246,6 +1547,9 @@ def main():
     def plain_integrator(hm, recovery):
         return TimeIntegrator(PlainSteps(hm), "erk 33", cfl_min=0.45,
                               cfl_max=0.9, cfl_recovery_strategy=recovery)
+
+    # the f32 module and states of phases 2-10, for phase 13a
+    kept = {}
 
     # ---- phase 1: card + build -------------------------------------------
     card = smi_line()
@@ -1288,6 +1592,7 @@ def main():
     print(f"  t = {t_a.item():.4e}, warnings {int(warns)}", flush=True)
     records = {}
     ok = compare_kernels(hm, U_a, U_b, TOL_F32, REPS, records)
+    kept["step2d"] = (hm, U_a, U_b)
 
     print("phase 2a: the stream kernels on the same K = 8 canvas", flush=True)
     records_k8 = {}
@@ -1342,6 +1647,7 @@ def main():
         fail("q2step2d: the developed state is not admissible")
     records_q2 = {}
     ok = compare_kernels(hm, U_a, U_b, TOL_F32, REPS, records_q2)
+    kept["q2step2d"] = (hm, U_a, U_b)
 
     print("phase 4b: q2step2d kernels in f64", flush=True)
     hm64 = HyperbolicModule(eq, sd, hm.initial_state_fn,
@@ -1415,6 +1721,7 @@ def main():
     records_3d = {}
     ok = compare_kernels(hm, U_a, U_b, TOL_F32, REPS, records_3d,
                          tag="[3D two-direction]")
+    kept["box3d"] = (hm, U_a, U_b)
 
     print("phase 6d: the SEP instances at box3d size (separable statics) "
           "against their plain versions, on the same state as their "
@@ -1498,8 +1805,8 @@ def main():
     del hm, ti, U0
     torch.cuda.empty_cache()
 
-    records.update(check_dg(dev, card, streamed, stacked))
-    cyl_records, launches = check_cylinder(dev, card, streamed)
+    records.update(check_dg(dev, card, streamed, stacked, kept))
+    cyl_records, launches = check_cylinder(dev, card, streamed, kept)
     records.update(cyl_records)
     # the SEP instances' launches on the main path: the separable
     # cylinder3d slice (the box3d-size records are the same instances)
@@ -1511,6 +1818,14 @@ def main():
 
     # ---- phase 12: the measurement probes (rows 11-14) ------------------------
     records.update(check_probes())
+
+    # ---- phase 13: four stage slots, and the isentropic vortex -------------
+    records.update(check_stages(dev, streamed, stacked, kept))
+    # the stacked PK2 and PK3 at 3 and 4 slots: launches of the vortex's
+    # ERK54 run, the path of this phase
+    for name, by_slots in check_vortex(dev, card, stacked).items():
+        for slots in WIDE_SLOTS:
+            records[f"{name}[S={slots} step2d]"]["launches"] = by_slots[slots]
     print(f"chip_smoke: every phase passed, {time.perf_counter() - t_start:.1f}"
           " s in all", flush=True)
 

@@ -36,6 +36,11 @@ constexpr int K = 8;
 constexpr int K2 = K / 2;
 constexpr int C = 4;  // rho, m_1, m_2, E of the 2D reach-1 kernels
 constexpr int MAX_K = 48;  // offsets a launch can carry (reach 3)
+// Stage slots a launch can carry (ERK54's last substep passes 4).  PK2 and
+// PK3 are templates on the most stages an instance takes (MS): 2, the
+// instances of ERK33 and the shorter tableaux, whose per-stage arrays keep
+// their size, or MAX_STAGES; the launcher picks by the launch's n_stages.
+constexpr int MAX_STAGES = 4;
 
 __host__ __device__ constexpr int DY(int k) { return k < 3 ? -1 : (k < 5 ? 0 : 1); }
 __host__ __device__ constexpr int DX(int k) {
@@ -46,7 +51,7 @@ __host__ __device__ constexpr int DX(int k) {
 struct Consts {
   double gamma, reference_density, vacuum_small, vacuum_large;
   double evc_factor, relaxation_factor, newton_tol, measure_inv;
-  double weight, w0, w1;  // 1 - sum(stage weights), stage weights
+  double weight, w0, w1;  // 1 - sum(stage weights), stage weights 0 and 1
   int newton_iterations, pow_n, n_stages, D, H, W;
   int dim, half;  // space dimension; 1: half-slot pre-scaled e, 0: two-direction e
   int K, dz[MAX_K], dy[MAX_K], dx[MAX_K];  // lattice offsets of the canvas
@@ -54,6 +59,9 @@ struct Consts {
   // pk1, pk2, pk3, pk_up), from the wrapper's tile(): block, grid, shared
   // bytes, halo
   int block[3], grid[3], smem, halo;
+  // stage weights 2 and 3 (ERK54's), last: the fields before keep the
+  // offsets the instances of at most 2 stages were compiled against
+  double w2, w3;
 };
 
 template <typename T> struct Limits;
@@ -77,6 +85,7 @@ struct EqConsts {
   double gamma_d, pow_e;
   int pow_n, newton_iterations, n_stages, D, H, W;
   int K, dz[MAX_K], dy[MAX_K], dx[MAX_K];
+  T w2, w3;  // last, as in Consts
 
   static EqConsts make(const Consts& c) {
     EqConsts e;
@@ -109,6 +118,8 @@ struct EqConsts {
     e.weight_m1 = T(c.weight - 1.0);
     e.w0 = T(c.w0);
     e.w1 = T(c.w1);
+    e.w2 = T(c.w2);
+    e.w3 = T(c.w3);
     e.gamma_d = g;
     e.pow_e = 2.0 * g / (g - 1.0);
     e.pow_n = c.pow_n;
@@ -199,6 +210,18 @@ template <typename T> __device__ __forceinline__ T pos(T x) { return x > T(0) ? 
 template <typename T> __device__ __forceinline__ T neg(T x) { return -x > T(0) ? -x : T(0); }
 template <typename T> __device__ __forceinline__ T mn(T a, T b) { return a < b ? a : b; }
 template <typename T> __device__ __forceinline__ T mx(T a, T b) { return a > b ? a : b; }
+
+// The weight of stage slot s of an instance that takes at most MS slots:
+// a chain of selects on the slot index, no indexed read of the kernel's
+// parameters; at MS = 2 the two-slot instances' own expression.
+template <int MS, typename T>
+__device__ __forceinline__ T stage_weight(const EqConsts<T>& e, int s) {
+  static_assert(MS == 2 || MS == MAX_STAGES, "an instance takes 2 or MAX_STAGES slots");
+  if constexpr (MS == 2)
+    return s == 0 ? e.w0 : e.w1;
+  else
+    return s == 0 ? e.w0 : (s == 1 ? e.w1 : (s == 2 ? e.w2 : e.w3));
+}
 
 // x^e with a (near-)integer exponent strength-reduced to multiplies, as
 // euler._pow; pow_n == 0 means a general exponent.

@@ -8,7 +8,7 @@
 //
 // Bound on an H100: memory traffic.  Per cell: c_ij (16 planes), mask (8),
 // cmax (8), c_ii (2), node, U (4), prec (2), lambda (4), alpha and up to
-// two stage states (4 each), with the neighbour reads of U, prec, lambda,
+// four stage states (4 each), with the neighbour reads of U, prec, lambda,
 // alpha and the stages; writes U_low (4), F (4) and bounds (3).  The one
 // transcendental per live edge (rho^gamma in the interpolated entropy)
 // does not change that.
@@ -29,9 +29,12 @@
 // on step2d, PERF.md §6), and from device memory only the statics (c_ij,
 // cmax, the mask, the dG `inc`), all of a slot at once and the next
 // slot's while this one computes.  The stage sums are kept apart, one
-// accumulator per stage in a loop unrolled over the two stages a launch
-// can carry, and the stage fluxes are read from shared memory at the
-// stage's index, so no instance has a stack frame.  Every slot keeps this
+// accumulator per stage in a loop unrolled over the MS stages an instance
+// carries, and the stage fluxes are read from shared memory at the
+// stage's index, so no instance has a stack frame.  MS is a template
+// parameter: 2 for ERK33 and the shorter tableaux, whose instances keep
+// their registers and code, MAX_STAGES (4) for ERK54's fourth and fifth
+// substeps (3 and 4 slots), chosen at launch by n_stages.  Every slot keeps this
 // kernel's own arithmetic and its order, which differs from pk2_stream's
 // in three places: d = lambda * cmax from the half-slot lambda planes,
 // the stage terms summed apart over the slots and added to F last, and
@@ -53,7 +56,7 @@
 
 namespace ryujin {
 
-template <typename T, bool DG>
+template <typename T, bool DG, int MS>
 __global__ void __launch_bounds__(256)
 pk2_kernel(const T* __restrict__ cij, const T* __restrict__ mask, const T* __restrict__ inc,
            const T* __restrict__ cmax,
@@ -114,9 +117,13 @@ pk2_kernel(const T* __restrict__ cij, const T* __restrict__ mask, const T* __res
 #pragma unroll
   for (int q = 0; q < C; ++q) flux_ii[q] = flux_div(fi, fi, q, cii0, cii1);
 
-  T low_acc[C], F_acc[C], stage_F[2][C];
+  T low_acc[C], F_acc[C], stage_F[MS][C];
 #pragma unroll
-  for (int q = 0; q < C; ++q) low_acc[q] = F_acc[q] = stage_F[0][q] = stage_F[1][q] = T(0);
+  for (int q = 0; q < C; ++q) {
+    low_acc[q] = F_acc[q] = T(0);
+#pragma unroll
+    for (int s = 0; s < MS; ++s) stage_F[s][q] = T(0);
+  }
   T rho_min = ui[0], rho_max = ui[0], s_min = s_i, s_interp_max = s_i;
   T relax_num = T(0), k_count = T(0);
 
@@ -161,7 +168,7 @@ pk2_kernel(const T* __restrict__ cij, const T* __restrict__ mask, const T* __res
         }
       }
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
+      for (int s = 0; s < MS; ++s) {
         if (s >= S) break;
         T fsi[C][DIM], fsj[C][DIM];
         staged_stage_flux(sm, ns, SB + s * SV, si, fsi);
@@ -198,11 +205,11 @@ pk2_kernel(const T* __restrict__ cij, const T* __restrict__ mask, const T* __res
   if (S > 0) {
     T inc_F[C];
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < MS; ++s) {
       if (s >= S) break;
       T fsi[C][DIM];
       staged_stage_flux(sm, ns, SB + s * SV, si, fsi);
-      const T w_s = s == 0 ? e.w0 : e.w1;
+      const T w_s = stage_weight<MS>(e, s);
 #pragma unroll
       for (int q = 0; q < C; ++q) {
         const T v = w_s * (stage_F[s][q] + flux_div(fsi, fsi, q, cii0, cii1));
@@ -249,12 +256,12 @@ bool pk2_tile_ok(const Consts* c) {
          c->smem == pk2_smem<T>(c->n_stages, ty);
 }
 
-template <typename T, bool DG>
+template <typename T, bool DG, int MS>
 int launch_pk2_instance(const T* cij, const T* mask, const T* inc, const T* cmax, const T* cii,
                         const T* node, const T* U, const T* prec, const T* lam, const T* alpha,
                         const T* sU, const T* tau, T* U_low, T* F, T* bounds,
                         const EqConsts<T>& e, const Consts* consts, cudaStream_t stream) {
-  auto kernel = pk2_kernel<T, DG>;
+  auto kernel = pk2_kernel<T, DG, MS>;
   const int smem = consts->smem;
   const int rc = allow_smem(kernel, smem);
   if (rc != int(cudaSuccess)) return rc;
@@ -272,12 +279,22 @@ int launch_pk2(const T* cij, const T* mask, const T* inc, const T* cmax, const T
                cudaStream_t stream) {
   if (consts->dim != 2 || consts->K != K || !pk2_tile_ok<T>(consts))
     return int(cudaErrorInvalidValue);
+  if (consts->n_stages < 0 || consts->n_stages > MAX_STAGES) return int(cudaErrorInvalidValue);
   const EqConsts<T> e = EqConsts<T>::make(*consts);
+  const bool wide = consts->n_stages > 2;
+  if (inc && wide)
+    return launch_pk2_instance<T, true, MAX_STAGES>(cij, mask, inc, cmax, cii, node, U, prec, lam,
+                                                    alpha, sU, tau, U_low, F, bounds, e, consts,
+                                                    stream);
   if (inc)
-    return launch_pk2_instance<T, true>(cij, mask, inc, cmax, cii, node, U, prec, lam, alpha, sU,
-                                        tau, U_low, F, bounds, e, consts, stream);
-  return launch_pk2_instance<T, false>(cij, mask, inc, cmax, cii, node, U, prec, lam, alpha, sU,
-                                       tau, U_low, F, bounds, e, consts, stream);
+    return launch_pk2_instance<T, true, 2>(cij, mask, inc, cmax, cii, node, U, prec, lam, alpha,
+                                           sU, tau, U_low, F, bounds, e, consts, stream);
+  if (wide)
+    return launch_pk2_instance<T, false, MAX_STAGES>(cij, mask, inc, cmax, cii, node, U, prec,
+                                                     lam, alpha, sU, tau, U_low, F, bounds, e,
+                                                     consts, stream);
+  return launch_pk2_instance<T, false, 2>(cij, mask, inc, cmax, cii, node, U, prec, lam, alpha,
+                                          sU, tau, U_low, F, bounds, e, consts, stream);
 }
 
 }  // namespace ryujin

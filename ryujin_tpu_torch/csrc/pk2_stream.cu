@@ -9,7 +9,7 @@
 //
 // Bound on an H100: memory traffic.  At K = 26 in 3D: c_ij (78 planes),
 // mask (26), c_ii (3), node, U (5), prec, e (13 or 26), alpha and up to
-// two stage states (5 each), with the neighbour reads of U, prec, e,
+// four stage states (5 each), with the neighbour reads of U, prec, e,
 // alpha and the stages; writes U_low (5), F (5) and bounds (3).  cmax is
 // not read.
 //
@@ -32,7 +32,11 @@
 // memory only the statics (c_ij, the mask, the dG `inc`) and the
 // transposed e, all of a slot at once and the next slot's while this one
 // computes.  The stage loop reads shared memory at a runtime stage index
-// and keeps no per-stage array, so no instance has a stack frame.  On
+// and keeps no per-stage array, so no instance has a stack frame (the
+// stage weight is a select on the stage index among the MS weights of the
+// instance: MS = 2, or MAX_STAGES for ERK54's 3 and 4 slots, chosen at
+// launch by n_stages; the SEP instances keep MS stage fluxes of the
+// cell).  On
 // box3d this form takes 0.45 ms against 0.63 at two stages (H100 SXM,
 // 700 W; PERF.md §6).  The thread carries only running accumulators: the low-order and F sums
 // (2 x C) and the six bound accumulators of limiter_bounds_accum, seeded
@@ -72,7 +76,7 @@
 namespace ryujin {
 
 // ---- one thread a cell: the SEP instances ---------------------------------
-template <typename T, int DIM, bool HALF, bool DG, class ST>
+template <typename T, int DIM, bool HALF, bool DG, class ST, int MS>
 __global__ void __launch_bounds__(128)
 pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
                   const T* __restrict__ inc, const T* __restrict__ cii, const T* __restrict__ node,
@@ -89,7 +93,9 @@ pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
   const int64_t i = c.i, n = c.n;
   const int K = e.K, K2 = K / 2;
   const int S = e.n_stages;
-  const T w_s[2] = {e.w0, e.w1};
+  T w_s[MS];
+#pragma unroll
+  for (int s = 0; s < MS; ++s) w_s[s] = stage_weight<MS>(e, s);
 
   T ui[NC];
   load_state(U, i, n, ui);
@@ -103,7 +109,7 @@ pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
 #pragma unroll
   for (int d = 0; d < DIM; ++d) cvi[d] = st.cii(c, e, d);
 
-  T fs_i[2][NC][DIM];
+  T fs_i[MS][NC][DIM];
   for (int s = 0; s < S; ++s) {
     T us[NC];
     load_state(sU + s * NC * n, i, n, us);
@@ -198,7 +204,7 @@ pk2_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
 
 // ---- a staged tile: the full-statics instances ----------------------------
 
-template <typename T, int DIM, bool HALF, bool DG>
+template <typename T, int DIM, bool HALF, bool DG, int MS>
 __global__ void __launch_bounds__(256)
 pk2_stream_tile_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
                        const T* __restrict__ inc, const T* __restrict__ cii,
@@ -314,7 +320,7 @@ pk2_stream_tile_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
         T fsi[NC][DIM], fsj[NC][DIM];
         staged_stage_flux(sm, ns, SB + s * SV, si, fsi);
         staged_stage_flux(sm, ns, SB + s * SV, sj, fsj);
-        const T w_s = s == 0 ? e.w0 : e.w1;
+        const T w_s = stage_weight<MS>(e, s);
 #pragma unroll
         for (int q = 0; q < NC; ++q) F_acc[q] += w_s * flux_div(fsi, fsj, q, cur.cv);
       }
@@ -350,7 +356,7 @@ pk2_stream_tile_kernel(const T* __restrict__ cij, const T* __restrict__ mask,
   for (int s = 0; s < S; ++s) {
     T fsi[NC][DIM];
     staged_stage_flux(sm, ns, SB + s * SV, si, fsi);
-    const T w_s = s == 0 ? e.w0 : e.w1;
+    const T w_s = stage_weight<MS>(e, s);
 #pragma unroll
     for (int q = 0; q < NC; ++q) F[q] = F[q] + w_s * flux_div(fsi, fsi, q, cvi);
   }
@@ -399,12 +405,12 @@ bool pk2_stream_tile_ok(const Consts* c) {
          c->smem == pk2_stream_smem<T>(c->dim, c->n_stages, ty, tz, c->halo);
 }
 
-template <typename T, int DIM, bool HALF, bool DG>
+template <typename T, int DIM, bool HALF, bool DG, int MS>
 int launch_pk2_stream_tile(const T* cij, const T* mask, const T* inc, const T* cii,
                            const T* node, const T* U, const T* prec, const T* ed,
                            const T* alpha, const T* sU, const T* tau, T* U_low, T* F, T* bounds,
                            const EqConsts<T>& e, const Consts* consts, cudaStream_t stream) {
-  auto kernel = pk2_stream_tile_kernel<T, DIM, HALF, DG>;
+  auto kernel = pk2_stream_tile_kernel<T, DIM, HALF, DG, MS>;
   const int smem = consts->smem;
   const int rc = allow_smem(kernel, smem);
   if (rc != int(cudaSuccess)) return rc;
@@ -415,50 +421,75 @@ int launch_pk2_stream_tile(const T* cij, const T* mask, const T* inc, const T* c
   return int(cudaGetLastError());
 }
 
-template <typename T, bool DG>
+template <typename T, bool DG, int MS>
 int launch_pk2_stream_route(const T* cij, const T* mask, const T* inc, const T* cii, const T* node,
                             const T* U, const T* prec, const T* ed, const T* alpha, const T* sU,
                             const T* tau, T* U_low, T* F, T* bounds, const EqConsts<T>& e,
                             const Consts* consts, cudaStream_t stream) {
   if (consts->dim == 2 && consts->half)
-    return launch_pk2_stream_tile<T, 2, true, DG>(cij, mask, inc, cii, node, U, prec, ed, alpha,
+    return launch_pk2_stream_tile<T, 2, true, DG, MS>(cij, mask, inc, cii, node, U, prec, ed, alpha,
                                                   sU, tau, U_low, F, bounds, e, consts, stream);
   if (consts->dim == 3 && consts->half)
-    return launch_pk2_stream_tile<T, 3, true, DG>(cij, mask, inc, cii, node, U, prec, ed, alpha,
+    return launch_pk2_stream_tile<T, 3, true, DG, MS>(cij, mask, inc, cii, node, U, prec, ed, alpha,
                                                   sU, tau, U_low, F, bounds, e, consts, stream);
   if (consts->dim == 3)
-    return launch_pk2_stream_tile<T, 3, false, DG>(cij, mask, inc, cii, node, U, prec, ed, alpha,
+    return launch_pk2_stream_tile<T, 3, false, DG, MS>(cij, mask, inc, cii, node, U, prec, ed, alpha,
                                                    sU, tau, U_low, F, bounds, e, consts, stream);
   return int(cudaErrorInvalidValue);
 }
 
+// The SEP instances of a route at most MS stages.
+template <typename T, int MS>
+int launch_pk2_stream_sep(const T* cij, const T* mask, const T* inc, const T* cii, const T* node,
+                          const T* U, const T* prec, const T* ed, const T* alpha, const T* sU,
+                          const T* tau, T* U_low, T* F, T* bounds, const T* g2, const T* fz,
+                          const EqConsts<T>& e, const Consts* consts, cudaStream_t stream) {
+  const dim3 grid = canvas_grid(e.D, e.H, e.W), block = canvas_block();
+  if (consts->half)
+    pk2_stream_kernel<T, 3, true, false, SepStatics<T>, MS><<<grid, block, 0, stream>>>(
+        cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e, g2, fz);
+  else
+    pk2_stream_kernel<T, 3, false, false, SepStatics<T>, MS><<<grid, block, 0, stream>>>(
+        cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e, g2, fz);
+  return int(cudaGetLastError());
+}
+
 // g2 and fz given: the SEP instances (3D cG, K = 26), one thread a cell;
 // both null: the full statics, cG or dG by `inc`, on the wrapper's tile.
+// Each takes its instance of at most 2 stages, or of MAX_STAGES above 2.
 template <typename T>
 int launch_pk2_stream(const T* cij, const T* mask, const T* inc, const T* cii, const T* node,
                       const T* U, const T* prec, const T* ed, const T* alpha, const T* sU,
                       const T* tau, T* U_low, T* F, T* bounds, const T* g2, const T* fz,
                       const Consts* consts, cudaStream_t stream) {
   if (consts->K < 2 || consts->K > MAX_K || consts->K % 2) return int(cudaErrorInvalidValue);
+  if (consts->n_stages < 0 || consts->n_stages > MAX_STAGES) return int(cudaErrorInvalidValue);
   const EqConsts<T> e = EqConsts<T>::make(*consts);
+  const bool wide = consts->n_stages > 2;
   if (g2 || fz) {
     if (!g2 || !fz || inc || consts->dim != 3 || consts->K != 26)
       return int(cudaErrorInvalidValue);
-    const dim3 grid = canvas_grid(e.D, e.H, e.W), block = canvas_block();
-    if (consts->half)
-      pk2_stream_kernel<T, 3, true, false, SepStatics<T>><<<grid, block, 0, stream>>>(
-          cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e, g2, fz);
-    else
-      pk2_stream_kernel<T, 3, false, false, SepStatics<T>><<<grid, block, 0, stream>>>(
-          cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau, U_low, F, bounds, e, g2, fz);
-    return int(cudaGetLastError());
+    if (wide)
+      return launch_pk2_stream_sep<T, MAX_STAGES>(cij, mask, inc, cii, node, U, prec, ed, alpha,
+                                                  sU, tau, U_low, F, bounds, g2, fz, e, consts,
+                                                  stream);
+    return launch_pk2_stream_sep<T, 2>(cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau,
+                                       U_low, F, bounds, g2, fz, e, consts, stream);
   }
   if (!pk2_stream_tile_ok<T>(consts)) return int(cudaErrorInvalidValue);
+  if (inc && wide)
+    return launch_pk2_stream_route<T, true, MAX_STAGES>(cij, mask, inc, cii, node, U, prec, ed,
+                                                        alpha, sU, tau, U_low, F, bounds, e,
+                                                        consts, stream);
   if (inc)
-    return launch_pk2_stream_route<T, true>(cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau,
-                                            U_low, F, bounds, e, consts, stream);
-  return launch_pk2_stream_route<T, false>(cij, mask, inc, cii, node, U, prec, ed, alpha, sU, tau,
-                                           U_low, F, bounds, e, consts, stream);
+    return launch_pk2_stream_route<T, true, 2>(cij, mask, inc, cii, node, U, prec, ed, alpha, sU,
+                                               tau, U_low, F, bounds, e, consts, stream);
+  if (wide)
+    return launch_pk2_stream_route<T, false, MAX_STAGES>(cij, mask, inc, cii, node, U, prec, ed,
+                                                         alpha, sU, tau, U_low, F, bounds, e,
+                                                         consts, stream);
+  return launch_pk2_stream_route<T, false, 2>(cij, mask, inc, cii, node, U, prec, ed, alpha, sU,
+                                              tau, U_low, F, bounds, e, consts, stream);
 }
 
 }  // namespace ryujin

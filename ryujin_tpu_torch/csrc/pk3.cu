@@ -24,7 +24,10 @@
 // the half-slot lambda, all of a slot at once and the next slot's while
 // this one computes; P and l are written one plane per slot, coalesced
 // along x.  The stage loop reads shared memory at a runtime stage index
-// and keeps no per-stage array, so no instance has a stack frame.  Every
+// and keeps no per-stage array, so no instance has a stack frame; the
+// stage weight is a select on the stage index among the MS weights an
+// instance takes (MS = 2, or MAX_STAGES for ERK54's 3 and 4 slots,
+// chosen at launch by n_stages).  Every
 // slot keeps this kernel's own arithmetic and its order, which differs
 // from pk3_stream's in three places: d = lambda * cmax from the half-slot
 // lambda planes, the first term of P as -flux_ij + weight * flux_ij, and
@@ -52,7 +55,7 @@ namespace ryujin {
 // At most 256 threads a block; the cG f32 instance is held to 85
 // registers (three such blocks an SM), as the 2D pk3_stream instances are
 // (the dG one spilled under that cap).
-template <typename T, bool DG>
+template <typename T, bool DG, int MS>
 __global__ void __launch_bounds__(256, sizeof(T) == 4 && !DG ? 3 : 1)
 pk3_kernel(const T* __restrict__ cij, const T* __restrict__ cmax, const T* __restrict__ mij,
            const T* __restrict__ mask, const T* __restrict__ inc, const T* __restrict__ node,
@@ -170,7 +173,7 @@ pk3_kernel(const T* __restrict__ cij, const T* __restrict__ cmax, const T* __res
           T fsi[C][DIM], fsj[C][DIM];
           staged_stage_flux(sm, ns, UV + s * SV, si, fsi);
           staged_stage_flux(sm, ns, UV + s * SV, sj, fsj);
-          const T w_s = s == 0 ? e.w0 : e.w1;
+          const T w_s = stage_weight<MS>(e, s);
 #pragma unroll
           for (int q = 0; q < C; ++q) {
             const T v = w_s * flux_div(fsi, fsj, q, cur.c0, cur.c1);
@@ -214,12 +217,12 @@ bool pk3_tile_ok(const Consts* c) {
          c->smem == pk3_smem<T>(c->n_stages, ty);
 }
 
-template <typename T, bool DG>
+template <typename T, bool DG, int MS>
 int launch_pk3_instance(const T* cij, const T* cmax, const T* mij, const T* mask, const T* inc,
                         const T* node, const T* U, const T* lam, const T* alpha, const T* F,
                         const T* U_low, const T* bounds, const T* sU, const T* tau, T* P, T* l,
                         T* okp, const EqConsts<T>& e, const Consts* consts, cudaStream_t stream) {
-  auto kernel = pk3_kernel<T, DG>;
+  auto kernel = pk3_kernel<T, DG, MS>;
   const int smem = consts->smem;
   const int rc = allow_smem(kernel, smem);
   if (rc != int(cudaSuccess)) return rc;
@@ -237,12 +240,22 @@ int launch_pk3(const T* cij, const T* cmax, const T* mij, const T* mask, const T
                const Consts* consts, cudaStream_t stream) {
   if (consts->dim != 2 || consts->K != K || !pk3_tile_ok<T>(consts))
     return int(cudaErrorInvalidValue);
+  if (consts->n_stages < 0 || consts->n_stages > MAX_STAGES) return int(cudaErrorInvalidValue);
   const EqConsts<T> e = EqConsts<T>::make(*consts);
+  const bool wide = consts->n_stages > 2;
+  if (inc && wide)
+    return launch_pk3_instance<T, true, MAX_STAGES>(cij, cmax, mij, mask, inc, node, U, lam, alpha,
+                                                    F, U_low, bounds, sU, tau, P, l, okp, e,
+                                                    consts, stream);
   if (inc)
-    return launch_pk3_instance<T, true>(cij, cmax, mij, mask, inc, node, U, lam, alpha, F, U_low,
-                                        bounds, sU, tau, P, l, okp, e, consts, stream);
-  return launch_pk3_instance<T, false>(cij, cmax, mij, mask, inc, node, U, lam, alpha, F, U_low,
-                                       bounds, sU, tau, P, l, okp, e, consts, stream);
+    return launch_pk3_instance<T, true, 2>(cij, cmax, mij, mask, inc, node, U, lam, alpha, F,
+                                           U_low, bounds, sU, tau, P, l, okp, e, consts, stream);
+  if (wide)
+    return launch_pk3_instance<T, false, MAX_STAGES>(cij, cmax, mij, mask, inc, node, U, lam,
+                                                     alpha, F, U_low, bounds, sU, tau, P, l, okp,
+                                                     e, consts, stream);
+  return launch_pk3_instance<T, false, 2>(cij, cmax, mij, mask, inc, node, U, lam, alpha, F,
+                                          U_low, bounds, sU, tau, P, l, okp, e, consts, stream);
 }
 
 }  // namespace ryujin

@@ -31,7 +31,10 @@
 // transposed e, all of a slot at once and the next slot's while this one
 // computes; P and l are still written one plane per slot, coalesced along
 // x.  The stage loop reads shared memory at a runtime stage index and
-// keeps no per-stage array, so no instance has a stack frame.  Staged
+// keeps no per-stage array, so no instance has a stack frame; the stage
+// weight is a select on that index among the MS weights of the instance
+// (MS = 2, or MAX_STAGES for ERK54's 3 and 4 slots, chosen at launch by
+// n_stages).  Staged
 // cells wrap on every axis as nbr_k does (a ragged or narrow tile wraps
 // further, and only cells no output reads lie past a single wrap).  The
 // tile (TY, G), the halo and the shared bytes come from
@@ -70,7 +73,7 @@ namespace ryujin {
 // registers (three such blocks an SM): 0.6636 against 0.7303 ms on
 // q2step2d with the (4, 1) tile, where the 3D instances lost 6-10 % under
 // any cap (H100 SXM, 700 W).
-template <typename T, int DIM, bool HALF, bool DG, class ST>
+template <typename T, int DIM, bool HALF, bool DG, class ST, int MS>
 __global__ void __launch_bounds__(256, DIM == 2 && sizeof(T) == 4 ? 3 : 1)
 pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
                   const T* __restrict__ mask, const T* __restrict__ inc,
@@ -214,7 +217,7 @@ pk3_stream_kernel(const T* __restrict__ cij, const T* __restrict__ mij,
           T fsi[NC][DIM], fsj[NC][DIM];
           staged_stage_flux(sm, ns, UV + s * SV, si, fsi);
           staged_stage_flux(sm, ns, UV + s * SV, sj, fsj);
-          const T w_s = s == 0 ? e.w0 : e.w1;
+          const T w_s = stage_weight<MS>(e, s);
 #pragma unroll
           for (int q = 0; q < NC; ++q) P[q] = P[q] + w_s * flux_div(fsi, fsj, q, cur.cv);
         }
@@ -245,13 +248,13 @@ int64_t pk3_stream_smem(int dim, int stages, int ty, int h) {
   return pk3_vals(dim, stages) * ns * int64_t(sizeof(T)) + int64_t(ty) * TILE_TX * 4;
 }
 
-template <typename T, int DIM, bool HALF, bool DG, class ST>
+template <typename T, int DIM, bool HALF, bool DG, class ST, int MS>
 int launch_pk3_stream_instance(const T* cij, const T* mij, const T* mask, const T* inc,
                                const T* node, const T* U, const T* ed, const T* alpha,
                                const T* F, const T* U_low, const T* bounds, const T* sU,
                                const T* tau, T* P, T* l, T* okp, const T* g2, const T* fz,
                                const EqConsts<T>& e, const Consts* consts, cudaStream_t stream) {
-  auto kernel = pk3_stream_kernel<T, DIM, HALF, DG, ST>;
+  auto kernel = pk3_stream_kernel<T, DIM, HALF, DG, ST, MS>;
   const int smem = consts->smem;
   const int rc = allow_smem(kernel, smem);
   if (rc != int(cudaSuccess)) return rc;
@@ -262,7 +265,7 @@ int launch_pk3_stream_instance(const T* cij, const T* mij, const T* mask, const 
   return int(cudaGetLastError());
 }
 
-template <typename T, bool DG, class ST>
+template <typename T, bool DG, class ST, int MS>
 int launch_pk3_stream_route(const T* cij, const T* mij, const T* mask, const T* inc,
                             const T* node, const T* U, const T* ed, const T* alpha, const T* F,
                             const T* U_low, const T* bounds, const T* sU, const T* tau, T* P,
@@ -270,16 +273,16 @@ int launch_pk3_stream_route(const T* cij, const T* mij, const T* mask, const T* 
                             const Consts* consts, cudaStream_t stream) {
   if constexpr (!ST::kSeparable) {
     if (consts->dim == 2 && consts->half)
-      return launch_pk3_stream_instance<T, 2, true, DG, ST>(cij, mij, mask, inc, node, U, ed,
+      return launch_pk3_stream_instance<T, 2, true, DG, ST, MS>(cij, mij, mask, inc, node, U, ed,
                                                             alpha, F, U_low, bounds, sU, tau, P,
                                                             l, okp, g2, fz, e, consts, stream);
   }
   if (consts->dim == 3 && consts->half)
-    return launch_pk3_stream_instance<T, 3, true, DG, ST>(cij, mij, mask, inc, node, U, ed, alpha,
+    return launch_pk3_stream_instance<T, 3, true, DG, ST, MS>(cij, mij, mask, inc, node, U, ed, alpha,
                                                           F, U_low, bounds, sU, tau, P, l, okp,
                                                           g2, fz, e, consts, stream);
   if (consts->dim == 3)
-    return launch_pk3_stream_instance<T, 3, false, DG, ST>(cij, mij, mask, inc, node, U, ed,
+    return launch_pk3_stream_instance<T, 3, false, DG, ST, MS>(cij, mij, mask, inc, node, U, ed,
                                                            alpha, F, U_low, bounds, sU, tau, P, l,
                                                            okp, g2, fz, e, consts, stream);
   return int(cudaErrorInvalidValue);
@@ -298,8 +301,31 @@ bool pk3_stream_tile_ok(const Consts* c) {
          c->smem == pk3_stream_smem<T>(c->dim, c->n_stages, ty, c->halo);
 }
 
-// g2 and fz given: the SEP instances (3D cG, K = 26); both null: the full
-// statics, cG or dG by `inc`.
+// The instances of at most MS stages: g2 and fz given, the SEP instances
+// (3D cG, K = 26); both null, the full statics, cG or dG by `inc`.
+template <typename T, int MS>
+int launch_pk3_stream_stages(const T* cij, const T* mij, const T* mask, const T* inc,
+                             const T* node, const T* U, const T* ed, const T* alpha, const T* F,
+                             const T* U_low, const T* bounds, const T* sU, const T* tau, T* P,
+                             T* l, T* okp, const T* g2, const T* fz, const EqConsts<T>& e,
+                             const Consts* consts, cudaStream_t stream) {
+  if (g2 || fz) {
+    if (!g2 || !fz || inc || consts->dim != 3 || consts->K != 26)
+      return int(cudaErrorInvalidValue);
+    return launch_pk3_stream_route<T, false, SepStatics<T>, MS>(
+        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, g2, fz,
+        e, consts, stream);
+  }
+  if (inc)
+    return launch_pk3_stream_route<T, true, FullStatics<T>, MS>(
+        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, g2, fz,
+        e, consts, stream);
+  return launch_pk3_stream_route<T, false, FullStatics<T>, MS>(
+      cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, g2, fz, e,
+      consts, stream);
+}
+
+// The instances of at most 2 stages, or of MAX_STAGES above 2.
 template <typename T>
 int launch_pk3_stream(const T* cij, const T* mij, const T* mask, const T* inc, const T* node,
                       const T* U, const T* ed, const T* alpha, const T* F, const T* U_low,
@@ -307,21 +333,14 @@ int launch_pk3_stream(const T* cij, const T* mij, const T* mask, const T* inc, c
                       const T* g2, const T* fz, const Consts* consts, cudaStream_t stream) {
   if (consts->K < 2 || consts->K > MAX_K || consts->K % 2 || !pk3_stream_tile_ok<T>(consts))
     return int(cudaErrorInvalidValue);
+  if (consts->n_stages < 0 || consts->n_stages > MAX_STAGES) return int(cudaErrorInvalidValue);
   const EqConsts<T> e = EqConsts<T>::make(*consts);
-  if (g2 || fz) {
-    if (!g2 || !fz || inc || consts->dim != 3 || consts->K != 26)
-      return int(cudaErrorInvalidValue);
-    return launch_pk3_stream_route<T, false, SepStatics<T>>(
-        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, g2, fz,
-        e, consts, stream);
-  }
-  if (inc)
-    return launch_pk3_stream_route<T, true, FullStatics<T>>(
-        cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, g2, fz,
-        e, consts, stream);
-  return launch_pk3_stream_route<T, false, FullStatics<T>>(
-      cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds, sU, tau, P, l, okp, g2, fz, e,
-      consts, stream);
+  if (consts->n_stages > 2)
+    return launch_pk3_stream_stages<T, MAX_STAGES>(cij, mij, mask, inc, node, U, ed, alpha, F,
+                                                   U_low, bounds, sU, tau, P, l, okp, g2, fz, e,
+                                                   consts, stream);
+  return launch_pk3_stream_stages<T, 2>(cij, mij, mask, inc, node, U, ed, alpha, F, U_low, bounds,
+                                        sU, tau, P, l, okp, g2, fz, e, consts, stream);
 }
 
 }  // namespace ryujin

@@ -71,6 +71,10 @@ class Euler:
     def n_comp(self) -> int:
         return 2 + self.dim
 
+    @property
+    def component_names(self):
+        return ["rho"] + [f"m_{i + 1}" for i in range(self.dim)] + ["E"]
+
     # ---- derived quantities --------------------------------------------
     def density(self, U):
         return U[0]
@@ -135,6 +139,13 @@ class Euler:
         p = prim[1 + self.dim]
         E = p / (g - 1.0) + 0.5 * rho * torch.sum(u * u, 0)
         return torch.cat([rho[None], rho[None] * u, E[None]], 0)
+
+    def to_primitive_state(self, U):
+        rho_inv = 1.0 / self.density(U)
+        p = self.pressure(U)
+        return torch.cat(
+            [U[:1], self.momentum(U) * rho_inv[None], p[None]], 0
+        )
 
     # ---- precomputation -------------------------------------------------
     def precompute(self, U):

@@ -59,9 +59,14 @@ _UP = re.compile(
     r"NS_\d+(Full|Sep)Statics"
 )
 # the stacked kernels: pk2 and pk3 with their dG flag, pk1 without one
-_STACKED = re.compile(r"_ZN6ryujin\d+(pk1|pk2|pk3)_kernelI([fd])(?:Lb(\d)E)?E")
+_STACKED = re.compile(
+    r"_ZN6ryujin\d+(pk1|pk2|pk3)_kernelI([fd])(?:Lb(\d)E)?(?:Li\dE)?E")
 _TILE = re.compile(
-    r"_ZN6ryujin\d+(pk2_stream_tile)_kernelI([fd])Li(\d)ELb(\d)ELb(\d)EEEv")
+    r"_ZN6ryujin\d+(pk2_stream_tile)_kernelI([fd])Li(\d)ELb(\d)ELb(\d)E"
+    r"(?:Li\dE)?EEv")
+# the most stage slots of an instance of pk2, pk3, pk2_stream or
+# pk3_stream, its last template argument (none in a tree built before it)
+_SLOTS = re.compile(r"Li(\d)EEEvPK")
 # pk1_stream has no dG flag; its staged tile (full statics only) no
 # statics accessor
 _PK1 = re.compile(
@@ -97,7 +102,19 @@ def _label(name):
                  f"{'' if dg is None else ', dG' if dg == '1' else ', cG'}>")
     else:
         return None
-    return label, kern, int(dim), torch.float32 if t == "f" else torch.float64
+    slots = _SLOTS.search(name) if kern in STAGED else None
+    if slots and slots.group(1) != "2":
+        # the instances of ERK54's 3 and 4 slots: the two-slot ones keep
+        # their labels, so that an older tree's line up with them
+        label = label[:-1] + f", S<={slots.group(1)}>"
+    stages = int(slots.group(1)) if slots else 2
+    return (label, kern, int(dim), torch.float32 if t == "f" else torch.float64,
+            stages)
+
+
+# the kernels whose instances take their most stage slots as a template
+# argument
+STAGED = ("pk2", "pk3", "pk2_stream", "pk2_stream_tile", "pk3_stream")
 
 
 def resources(log: str, tiles):
@@ -105,8 +122,9 @@ def resources(log: str, tiles):
     (pk1_stream, pk1_stream_tile), pk2_stream (pk2_stream,
     pk2_stream_tile), pk3_stream, pk_up (pk_up, pk_up_tile, pk_up_last)
     and stacked pk1, pk2 and pk3 instance in a -Xptxas -v report;
-    tiles(kernel, dim, dtype) gives the instance's (threads a block, shared
-    bytes)."""
+    tiles(kernel, dim, dtype[, stages]) gives the instance's (threads a
+    block, shared bytes), at two stage slots without `stages`, else at
+    the most stage slots the instance takes."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -124,8 +142,10 @@ def resources(log: str, tiles):
         name, regs = None, int(m.group(1))
         if not inst:
             continue
-        label, kern, dim, dtype = inst
-        threads, smem = tiles(kern, dim, dtype)
+        label, kern, dim, dtype, stages = inst
+        # the two-slot instances' launch is tiles()'s default
+        threads, smem = (tiles(kern, dim, dtype) if stages == 2
+                         else tiles(kern, dim, dtype, stages))
         out[label] = {"regs": regs, "stack": stack, "threads": threads,
                       "smem": smem, "warps": resident_warps(regs, threads,
                                                             smem)}
@@ -195,11 +215,12 @@ def resident_warps(regs: int, threads: int, smem: int) -> int:
     return blocks * warps
 
 
-def launch_shape(kern, dim, dtype):
-    """(threads a block, shared bytes) of kernel `kern`'s launch on the
-    main path at two stages: K = 24 in 2D (the stacked pk1, pk2 and pk3:
-    8), 26 in 3D; a kernel without a tile() beside its wrapper launches 128
-    threads a block without shared memory."""
+def launch_shape(kern, dim, dtype, stages=2):
+    """(threads a block, shared bytes) of kernel `kern`'s launch at
+    `stages` stage slots (two on the main path): K = 24 in 2D (the
+    stacked pk1, pk2 and pk3: 8), 26 in 3D; a kernel without a tile()
+    beside its wrapper launches 128 threads a block without shared
+    memory."""
     from .kernels import pk1 as k1
     from .kernels import pk1_stream as k1s
     from .kernels import pk2 as k2
@@ -213,7 +234,7 @@ def launch_shape(kern, dim, dtype):
     mod = {"pk2": k2, "pk2_stream_tile": k2s, "pk3": k3,
            "pk3_stream": k3s}.get(kern)
     if mod is not None and hasattr(mod, "tile"):
-        t = mod.tile(shape, K, dtype, 2)
+        t = mod.tile(shape, K, dtype, stages)
     elif kern in ("pk_up_tile", "pk1_stream_tile") or (
             kern == "pk1" and hasattr(k1, "tile")):
         t = {"pk_up_tile": ku, "pk1_stream_tile": k1s, "pk1": k1}[kern].tile(

@@ -39,6 +39,9 @@ ENTRY_POINTS = {
     "pk1_stream": 10, "pk2_stream": 16, "pk3_stream": 18,
 }
 MAX_K = 48  # lattice offsets a launch can carry (cG Q3: reach 3, K = 48)
+# stage slots a launch can carry (ERK54's last substep: 4); PK2 and PK3
+# launch their instance of at most 2 slots up to 2, of MAX_STAGES above
+MAX_STAGES = 4
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # the probes' entry points -> argtypes (every pointer and the stream void *)
@@ -102,6 +105,9 @@ class Consts(ctypes.Structure):
         ("grid", ctypes.c_int * 3),
         ("smem", ctypes.c_int),
         ("halo", ctypes.c_int),
+        # stage weights 2 and 3, last (csrc/euler.cuh)
+        ("w2", ctypes.c_double),
+        ("w3", ctypes.c_double),
     ]
 
 
@@ -238,8 +244,9 @@ def consts(eq, params, ca, stage_weights=(), half=True) -> Consts:
     weights and the route of the stream kernels: half=True for the
     half-slot pre-scaled wavespeeds, False for the two-direction ones
     (instantiated for 3D canvases only)."""
-    if len(stage_weights) > 2:
-        raise ValueError("the kernels take at most 2 stages")
+    if len(stage_weights) > MAX_STAGES:
+        raise ValueError(f"the kernels take at most {MAX_STAGES} stages, "
+                         f"not {len(stage_weights)}")
     dim = len(ca.shape)
     if ca.K > MAX_K or dim not in (2, 3):
         raise ValueError(
@@ -257,7 +264,7 @@ def consts(eq, params, ca, stage_weights=(), half=True) -> Consts:
     e = 2.0 * g / (g - 1.0)
     er = round(e)
     pow_n = er if abs(e - er) < 1.0e-8 and 1 <= abs(er) <= 16 else 0
-    w = list(stage_weights) + [0.0] * (2 - len(stage_weights))
+    w = list(stage_weights) + [0.0] * (MAX_STAGES - len(stage_weights))
     return Consts(
         gamma=g,
         reference_density=eq.params.reference_density,
@@ -270,6 +277,8 @@ def consts(eq, params, ca, stage_weights=(), half=True) -> Consts:
         weight=1.0 - sum(stage_weights),
         w0=w[0],
         w1=w[1],
+        w2=w[2],
+        w3=w[3],
         newton_iterations=params.limiter_newton_max_iterations,
         pow_n=pow_n,
         n_stages=len(stage_weights),

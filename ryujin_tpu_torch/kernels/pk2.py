@@ -5,6 +5,8 @@ On a dG canvas the kernel also reads the incidence planes g_inc."""
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from ..solver.hyperbolic import d_from_lambda, phase_low_order
@@ -43,7 +45,8 @@ def tile(shape, K: int, dtype, n_stages: int) -> build.Tile:
     cells, one thread a cell; it stages the tile and its halo of one cell,
     pk2_vals + 4 values a staged cell (U and the parts of f(U), alpha_j,
     s_j, per stage the parts of f(sU_s), the 4 half-slot lambda planes),
-    the layout of pk2_stream's tile with the lambda planes after it."""
+    the layout of pk2_stream's tile with the lambda planes after it: at
+    four stages 38 values, 62,016 bytes in f64."""
     D, H, W = build.canvas_dims(shape)
     if len(shape) != 2 or build.reach_of(2, K) != 1:
         raise ValueError(f"pk2 takes the 2D reach-1 lattice, not K = {K} on {shape}")
@@ -55,7 +58,8 @@ def tile(shape, K: int, dtype, n_stages: int) -> build.Tile:
 
 def pk2(eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau):
     """(U_low [C, n], F [C, n], bounds [3, n]).  stage_U [S, C, n] with
-    the static weights stage_weights (S <= 2); tau a 0-d tensor on the
+    the static weights stage_weights (S <= build.MAX_STAGES: the instance
+    of at most 2 slots up to 2, of 4 above); tau a 0-d tensor on the
     device, read by the kernel (no host sync)."""
     if not build.on_card(U):
         return pk2_reference(
@@ -89,7 +93,11 @@ def pk2(eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau):
                         tile(ca.shape, K, U.dtype, len(stage_weights))),
     )
     pk2.launches += 1
+    pk2.stage_launches[len(stage_weights)] += 1
     return U_low, F, bounds
 
 
 pk2.launches = 0
+# launches by the number of stage slots (the instance of at most 2 slots
+# takes 0-2, that of build.MAX_STAGES 3-4)
+pk2.stage_launches = collections.Counter()

@@ -10,6 +10,8 @@ c_ij, the mask and c_ii (_SepTile in _step_slab, :2276-2277, 2340)."""
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from . import build
@@ -93,7 +95,8 @@ def tile(shape, K: int, dtype, n_stages: int) -> build.Tile:
     (U and the parts of f(U), alpha_j, s_j, per stage the parts of
     f(sU_s)).  (TY, TZ): (4, 2) in 3D (2, 2 in f64: 122 KB at two stages,
     183 at (4, 2)), (4, 1) in 2D, the fastest of the tiles timed on the
-    bench cells (PERF.md §6)."""
+    bench cells (PERF.md §6).  The same tile holds four stages: in 3D
+    f64 191,488 bytes, within build.SMEM_MAX."""
     dim = len(shape)
     D, H, W = build.canvas_dims(shape)
     h = build.reach_of(dim, K)
@@ -110,8 +113,9 @@ def pk2_stream(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau,
     """(U_low [C, n], F [C, n], bounds [3, n]).  e is PK1's output on the
     route `half`: pre-scaled [K/2, n] after the boundary-pair fixup, or
     two-direction [K, n]; stage_U [S, C, n] with the static weights
-    stage_weights (S <= 2); tau a 0-d tensor on the device, read by the
-    kernel (no host sync)."""
+    stage_weights (S <= build.MAX_STAGES: the instances of at most 2
+    slots up to 2, of 4 above); tau a 0-d tensor on the device, read by
+    the kernel (no host sync)."""
     if not build.on_card(U):
         return pk2_stream_reference(
             eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau, half
@@ -142,9 +146,13 @@ def pk2_stream(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights, tau,
             alpha, sU, tau, U_low, F, bounds, ca.g_sep2, ca.f_sepz]
     build.launch("pk2_stream", U.dtype, [build.ptr(t) for t in ptrs], c)
     pk2_stream.launches += 1
+    pk2_stream.stage_launches[len(stage_weights)] += 1
     # the SEP instance's own count
     pk2_stream.sep_launches += int(ca.separable)
     return U_low, F, bounds
 
 
 pk2_stream.launches = pk2_stream.sep_launches = 0
+# launches by the number of stage slots (the instances of at most 2 slots
+# take 0-2, those of build.MAX_STAGES 3-4)
+pk2_stream.stage_launches = collections.Counter()

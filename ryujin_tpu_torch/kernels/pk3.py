@@ -6,6 +6,8 @@ planes g_inc."""
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from ..solver.hyperbolic import d_from_lambda, phase_p_l1
@@ -41,7 +43,8 @@ def tile(shape, K: int, dtype, n_stages: int) -> build.Tile:
     offsets of reach 1 at `n_stages` stages: a block owns TY rows of TX
     cells, one thread a cell; it stages the tile and its halo of one cell,
     pk3_vals values a staged cell (U and the parts of f(U), per stage the
-    parts of f(sU_s), F, m_j, alpha_j), the layout of pk3_stream's tile."""
+    parts of f(sU_s), F, m_j, alpha_j), the layout of pk3_stream's tile:
+    at four stages 38 values, 62,016 bytes in f64."""
     D, H, W = build.canvas_dims(shape)
     if len(shape) != 2 or build.reach_of(2, K) != 1:
         raise ValueError(f"pk3 takes the 2D reach-1 lattice, not K = {K} on {shape}")
@@ -89,7 +92,11 @@ def pk3(eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U, stage_weights,
                         tile(ca.shape, K, U.dtype, len(stage_weights))),
     )
     pk3.launches += 1
+    pk3.stage_launches[len(stage_weights)] += 1
     return P, l, okp
 
 
 pk3.launches = 0
+# launches by the number of stage slots (the instance of at most 2 slots
+# takes 0-2, that of build.MAX_STAGES 3-4)
+pk3.stage_launches = collections.Counter()

@@ -10,6 +10,8 @@ and the mask (_SepTile in _step_slab, :2276-2277, 2471)."""
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from . import build
@@ -75,7 +77,8 @@ def tile(shape, K: int, dtype, n_stages: int) -> build.Tile:
     the parts of f(U), per stage the parts of f(sU_s), F, m_j, alpha_j)
     and one flag a tile cell.  (TY, G): (4, 2) in 3D (2, 2 in f64:
     108 KB at two stages, 162 at (4, 2)), (4, 1) in 2D, the fastest of the
-    tiles timed on the bench cells (PERF.md §6)."""
+    tiles timed on the bench cells (PERF.md §6).  The same tile holds four
+    stages: in 3D f64 160,192 bytes, within build.SMEM_MAX."""
     dim = len(shape)
     D, H, W = build.canvas_dims(shape)
     h = build.reach_of(dim, K)
@@ -126,9 +129,13 @@ def pk3_stream(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
             F, U_low, bounds, sU, tau, P, l, okp, ca.g_sep2, ca.f_sepz]
     build.launch("pk3_stream", U.dtype, [build.ptr(t) for t in ptrs], c)
     pk3_stream.launches += 1
+    pk3_stream.stage_launches[len(stage_weights)] += 1
     # the SEP instance's own count
     pk3_stream.sep_launches += int(ca.separable)
     return P, l, okp
 
 
 pk3_stream.launches = pk3_stream.sep_launches = 0
+# launches by the number of stage slots (the instances of at most 2 slots
+# take 0-2, those of build.MAX_STAGES 3-4)
+pk3_stream.stage_launches = collections.Counter()

@@ -13,8 +13,12 @@ SepStatics (the separable statics) is left out of that pairing.  The
 instances it leaves out (dG, SEP) are then paired by their mangled names
 where both libraries have them.  Constant-bank
 addresses of the form c[0x0][0x...] (the launch's parameters) are masked
-before the comparison.  Prints, for each pair, the instruction counts and
-the instructions that still differ.  Needs cuobjdump (the CUDA toolkit's,
+before the comparison.  The stage-taking kernels (STAGED) end their
+template arguments with the most stage slots an instance takes: the
+instance of 2 matches OLD's instance without that argument, in both
+pairings; the instance of 4 (ERK54's) has no match in a library built
+before it.  Prints, for each pair, the instruction counts and the
+instructions that still differ.  Needs cuobjdump (the CUDA toolkit's,
 under $CUDA_HOME/bin).
 """
 
@@ -60,6 +64,12 @@ def functions(lib: str):
     }
 
 
+# kernels whose last template argument is the most stage slots an instance
+# takes (MS in csrc/euler.cuh)
+STAGED = ("pk2_kernel", "pk3_kernel", "pk2_stream_kernel",
+          "pk2_stream_tile_kernel", "pk3_stream_kernel")
+_MS = re.compile(r"Li(\d+)E$")
+
 # the mangled statics accessor argument, ryujin::FullStatics<T> or
 # ryujin::SepStatics<T>, last among the template arguments
 _STATICS = re.compile(r"N(?:S_|6ryujin)\d+(Full|Sep)StaticsI[fd]EE$")
@@ -68,11 +78,18 @@ _STATICS = re.compile(r"N(?:S_|6ryujin)\d+(Full|Sep)StaticsI[fd]EE$")
 def key(name: str):
     """(kernel, template arguments) of a mangled kernel name, with a false
     dG flag and a FullStatics accessor dropped; None for a dG or a SepStatics
-    instance or a name of another form."""
+    instance or a name of another form; an instance of at most 2 stage
+    slots loses that argument, one of 4 gives None."""
     m = re.match(r"_ZN6ryujin\d+(\w+?_kernel)I(.*?)EEvPK", name)
     if not m:
         return None
     kernel, args = m.groups()
+    if kernel in STAGED:
+        ms = _MS.search(args)
+        if ms and ms.group(1) != "2":
+            return None
+        if ms:
+            args = args[: ms.start()]
     st = _STATICS.search(args)
     if st:
         if st.group(1) == "Sep":
@@ -85,6 +102,17 @@ def key(name: str):
     return kernel, args
 
 
+def without_two_slots(name: str) -> str:
+    """A mangled name with the trailing template argument 2 of a STAGED
+    kernel's instance of at most 2 stage slots taken out (the name it had
+    before the kernels took more slots); any other name as it is."""
+    m = re.match(r"_ZN6ryujin\d+(\w+?_kernel)I(.*?)EEvPK", name)
+    if m and m.group(1) in STAGED and m.group(2).endswith("Li2E"):
+        cut = m.end(2) - len("Li2E")
+        return name[:cut] + name[m.end(2):]
+    return name
+
+
 def main():
     if len(sys.argv) != 3:
         sys.exit(__doc__)
@@ -92,6 +120,7 @@ def main():
     old = {key(n): v for n, v in f_old.items() if key(n)}
     new = {key(n): v for n, v in f_new.items() if key(n)}
     # the instances key() leaves out, by mangled name, where both have them
+    f_new = {without_two_slots(n): v for n, v in f_new.items()}
     for n in sorted(f_old):
         if not key(n) and n in f_new:
             old[("=", n)], new[("=", n)] = f_old[n], f_new[n]

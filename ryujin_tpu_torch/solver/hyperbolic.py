@@ -445,7 +445,8 @@ class HyperbolicModule:
         """One forward-Euler IDP substep.
 
         U_old, prec_old: prepared state [C, n] / [2, n].  stage_U [S, C, n]
-        holds the prepared stage states with static weights (S <= 2).
+        holds the prepared stage states with static weights (S <= 4 through
+        the kernels, kernels.build.MAX_STAGES).
         tau and tau_cap are 0-d tensors; with compute_tau the computed
         tau_max replaces tau.  CPU tensors run the phase functions, CUDA
         tensors the CUDA kernels.  Returns (U_new, tau, ok) with tau and

@@ -557,14 +557,28 @@ def _limited_state(sd, hm, ti, U0, dt, smooth=False):
     return U_a, U, prec
 
 
+def _stage_inputs(hm, U_a, U):
+    """(stage states [4, C, n], weight lists): U_a, U and two prepared
+    states between them; ERK33's third, a one-slot and a zero-slot
+    substep, then ERK54's substeps of 3 and 4 slots (the kernels' second
+    instance)."""
+    from ryujin_tpu_torch.solver.integrator import TABLEAUX
+
+    mid = [hm.prepare_state_vector(U_a + (U - U_a) * f, 0.0)[0]
+           for f in (0.5, 0.25)]
+    W = TABLEAUX["erk 54"].W
+    return torch.stack([U_a, U] + mid), (
+        [0.75, -2.0], [0.25], [], list(W[3][:3]), list(W[4]))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("case", ["ragged box", "ragged step", "cylinder"])
 def test_tiled_kernels_bit_equal_on_card(case, dtype):
     """pk1_stream's e, pk2_stream (U_low, F, bounds) and pk3_stream (P, l,
-    okp), each at 2, 1 and 0 stages, and pk_up (U and l' of PK4, U of
-    PK5) bit for bit against their plain twins on the card, and
-    pk1_stream's alpha within PERF.md §2's bar (relative 1e-5 in f32,
+    okp), each at 2, 1 and 0 stages and at ERK54's 3 and 4, and pk_up (U
+    and l' of PK4, U of PK5) bit for bit against their plain twins on
+    the card, and pk1_stream's alpha within PERF.md §2's bar (relative 1e-5 in f32,
     1e-11 in f64, on the real nodes), on the same inputs: on
     canvases with partial tiles on x and y (the ragged box, also on z for
     pk1_stream and pk2_stream, two-direction or half-slot as its module
@@ -611,9 +625,9 @@ def test_tiled_kernels_bit_equal_on_card(case, dtype):
         d = d_from_e(full.mask, lam, full.transpose_edge(lam))
     tau = tau_max_from_d(st, d, 0.9,
                          torch.full((), float("inf"), dtype=dt, device="cuda"))
-    stage_U = torch.stack([U_a, U])
+    stage_U, weights = _stage_inputs(hm, U_a, U)
     limited = 0
-    for w in ([0.75, -2.0], [0.25], []):
+    for w in weights:
         sU = stage_U[: len(w)]
         args2 = (eq, p, ca, U, prec, lam, alpha, sU, w, tau)
         U_low, F, bounds = pk2_stream.pk2_stream_reference(*args2, half=half)
@@ -705,8 +719,8 @@ def test_sublane_gather_exact_on_ragged_width(S):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("ansatz", ["cG Q1", "dG Q1"])
 def test_stacked_pk2_on_ragged_canvas(ansatz, dtype):
-    """The stacked pk2 (U_low, F, bounds at 2, 1 and 0 stages; cG, and dG
-    Q1 with its incidence factor) against its plain twin on the card, on
+    """The stacked pk2 (U_low, F, bounds at 2, 1, 0, 3 and 4 stages; cG,
+    and dG Q1 with its incidence factor) against its plain twin on the card, on
     the same inputs, on the K = 8 canvases with partial tiles on x and y
     of test_stacked_pk3_on_ragged_canvas, within PERF.md §2's bar:
     relative 1e-5 in f32, 1e-11 in f64, on the real nodes."""
@@ -731,9 +745,9 @@ def test_stacked_pk2_on_ragged_canvas(ansatz, dtype):
     full = st.full()
     tau = tau_max_from_d(st, d_from_lambda(full, lam, full.cmax), 0.9,
                          torch.full((), float("inf"), dtype=dt, device="cuda"))
-    stage_U = torch.stack([U_a, U])
+    stage_U, weights = _stage_inputs(hm, U_a, U)
     real = st.node_mask > 0
-    for w in ([0.75, -2.0], [0.25], []):
+    for w in weights:
         args = (eq, p, ca, U, prec, lam, alpha, stage_U[: len(w)], w, tau)
         for name, a, b in zip(("U_low", "F", "bounds"), pk2.pk2(*args),
                               pk2.pk2_reference(*args)):
@@ -748,8 +762,8 @@ def test_stacked_pk2_on_ragged_canvas(ansatz, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("ansatz", ["cG Q1", "dG Q1"])
 def test_stacked_pk3_on_ragged_canvas(ansatz, dtype):
-    """The stacked pk3 (P, l, okp at 2, 1 and 0 stages; cG, and dG Q1 with
-    its incidence factor) against its plain twin on the card, on the same
+    """The stacked pk3 (P, l, okp at 2, 1, 0, 3 and 4 stages; cG, and dG
+    Q1 with its incidence factor) against its plain twin on the card, on the same
     inputs, on K = 8 canvases with partial tiles on x and y (the cG Q1
     step, the dG Q1 rectangle: ragged_case), within PERF.md §2's bars: P
     relative 1e-5 in f32, 1e-11 in f64; l 1e-4 on all but 0.01 % of the
@@ -778,11 +792,11 @@ def test_stacked_pk3_on_ragged_canvas(ansatz, dtype):
     full = st.full()
     tau = tau_max_from_d(st, d_from_lambda(full, lam, full.cmax), 0.9,
                          torch.full((), float("inf"), dtype=dt, device="cuda"))
-    stage_U = torch.stack([U_a, U])
+    stage_U, weights = _stage_inputs(hm, U_a, U)
     live = st.mask > 0
     real = st.node_mask > 0
     limited = 0
-    for w in ([0.75, -2.0], [0.25], []):
+    for w in weights:
         sU = stage_U[: len(w)]
         U_low, F, bounds = pk2.pk2_reference(eq, p, ca, U, prec, lam, alpha,
                                              sU, w, tau)

@@ -19,7 +19,10 @@ from ryujin_tpu.solver.integrator import TimeIntegrator as JTimeIntegrator  # no
 from ryujin_tpu_torch import convert  # noqa: E402
 from ryujin_tpu_torch.kernels import pk1, pk2, pk3, pk_up  # noqa: E402
 from ryujin_tpu_torch.solver.hyperbolic import HyperbolicModule  # noqa: E402
-from ryujin_tpu_torch.solver.integrator import TimeIntegrator  # noqa: E402
+from ryujin_tpu_torch.solver.integrator import (  # noqa: E402
+    TABLEAUX,
+    TimeIntegrator,
+)
 
 from test_torch_fixture import assert_close, modules, step_case, to_torch  # noqa: E402
 
@@ -72,28 +75,36 @@ def test_f32_one_step_matches_pallas_interpret():
     assert int(warns) == int(ref[5]) == 0
 
 
-def test_canvas_stepper_matches_plain_step():
+@pytest.mark.parametrize("scheme", ["erk 33", "erk 54"])
+def test_canvas_stepper_matches_plain_step(scheme):
     """The kernels' orchestration (CanvasStepper: PK1, fixup, d/tau glue,
     PK2, PK3, PK4, PK5), run on CPU tensors where every wrapper takes its
-    reference, against the plain phase-function substep, for the three
-    stage layouts of ERK33; no kernel is launched."""
+    reference, against the plain phase-function substep, for the stage
+    layouts of each substep of ERK33 (0-2 slots) or ERK54 (0-4 slots),
+    each substep's output a stage state of the next; no kernel is
+    launched."""
     _, _, _, U0, _, _, _ = step_case()
     _, hm = modules()
+    tb = TABLEAUX[scheme]
     before = [f.launches for f in (pk1.pk1, pk2.pk2, pk3.pk3, pk_up.pk_up)]
     Ua, preca = hm.prepare_state_vector(to_torch(U0), 0.0)
     cap = torch.tensor(float("inf"), dtype=torch.float64)
     tau = torch.zeros((), dtype=torch.float64)
-    Ub = None
-    for weights in ([], [-1.0], [0.75, -2.0]):
-        stage_U = torch.stack([Ua, Ub][: len(weights)]) if weights else None
-        args = (Ua, preca, stage_U, weights, tau, 0.9, cap, not weights)
+    bufs, widest = [Ua], 0
+    for idx in range(tb.n_sub):
+        active = [s for s in range(tb.S) if tb.W[idx][s] != 0.0]
+        widest = max(widest, len(active))
+        weights = [tb.W[idx][s] for s in active]
+        stage_U = torch.stack([bufs[s] for s in active]) if active else None
+        args = (Ua, preca, stage_U, weights, tau, 0.9, cap, idx == 0)
         U_c, tau_c, ok_c = hm.canvas.step(*args)
         U_p, tau_p, ok_p = hm.plain_step(*args)
         assert_close(U_c, U_p, f"U, stages {weights}")
         assert_close(tau_c, tau_p, f"tau, stages {weights}")
         assert bool(ok_c) and bool(ok_p)
-        if Ub is None:
-            Ub, tau = hm.prepare_state_vector(U_p, 0.0)[0], tau_p
+        bufs.append(hm.prepare_state_vector(U_p, 0.0)[0])
+        tau = tau_p
+    assert widest == tb.S
     after = [f.launches for f in (pk1.pk1, pk2.pk2, pk3.pk3, pk_up.pk_up)]
     assert before == after
 
@@ -110,7 +121,9 @@ def test_step_returns_device_scalars_and_routes_cpu_to_plain():
     assert bool(ok) and float(tau) > 0.0
     assert torch.isfinite(U).all()
     with pytest.raises(NotImplementedError):
-        TimeIntegrator(hm, "ssprk 33")
+        TimeIntegrator(hm, "strang ssprk 33 cn")
+    with pytest.raises(ValueError):
+        TimeIntegrator(hm, "ssprk 44")
     with pytest.raises(NotImplementedError):
         TimeIntegrator(hm, "erk 33", cfl_recovery_strategy="adaptive")
 

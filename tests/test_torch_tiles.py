@@ -67,7 +67,7 @@ def test_pk3_stream_tile_fits_and_covers(dim, K, dtype):
                 for v in o)
     assert len(lattice_offsets(dim, reach)) == K
     item = torch.empty((), dtype=dtype).element_size()
-    for stages in (0, 1, 2):
+    for stages in range(build.MAX_STAGES + 1):
         for shape in SHAPES[dim]:
             t = pk3_stream.tile(shape, K, dtype, stages)
             bx, ty, groups = t.block
@@ -89,7 +89,7 @@ def test_pk3_stream_tile_fits_and_covers(dim, K, dtype):
 def test_pk2_stream_tile_fits_and_covers(dim, K, dtype):
     reach = build.reach_of(dim, K)
     item = torch.empty((), dtype=dtype).element_size()
-    for stages in (0, 1, 2):
+    for stages in range(build.MAX_STAGES + 1):
         for shape in SHAPES[dim]:
             t = pk2_stream.tile(shape, K, dtype, stages)
             bx, ty, tz = t.block
@@ -590,7 +590,7 @@ def test_pk2_tile_fits_and_covers(dtype):
     the 4 half-slot lambda planes, one thread a cell and the halo of one
     cell."""
     item = torch.empty((), dtype=dtype).element_size()
-    for stages in (0, 1, 2):
+    for stages in range(build.MAX_STAGES + 1):
         for shape in SHAPES[2]:
             t = pk2.tile(shape, 8, dtype, stages)
             bx, ty, tz = t.block
@@ -611,7 +611,7 @@ def test_pk3_tile_fits_and_covers(dtype):
     """The stacked pk3 (2D, K = 8): the layout of pk3_stream's tile with
     one thread a cell and no flags."""
     item = torch.empty((), dtype=dtype).element_size()
-    for stages in (0, 1, 2):
+    for stages in range(build.MAX_STAGES + 1):
         for shape in SHAPES[2]:
             t = pk3.tile(shape, 8, dtype, stages)
             bx, ty, groups = t.block
@@ -771,6 +771,37 @@ def test_launch_struct_mirrors_the_c_side():
         params = [p for p in m.group(1).split(",") if p.strip()]
         assert sum("void*" in p for p in params) == n_ptr + 1  # + the stream
         assert "Consts* consts" in params[-2]
+
+
+def test_consts_carry_up_to_four_stage_weights():
+    """build.consts passes 0 to MAX_STAGES (4, csrc/euler.cuh's) static
+    stage weights, zero-filled, with 1 - their sum, and refuses more;
+    every stage-taking launcher refuses n_stages above MAX_STAGES and
+    picks its instance of MAX_STAGES slots above 2."""
+    import types
+
+    from ryujin_tpu_torch.equations.euler import Euler
+    from ryujin_tpu_torch.solver.hyperbolic import HyperbolicModuleParams
+
+    src = (CSRC / "euler.cuh").read_text()
+    assert f"constexpr int MAX_STAGES = {build.MAX_STAGES};" in src
+    assert build.MAX_STAGES == 4
+    ca = types.SimpleNamespace(shape=(16, 32), K=8, measure_inv=0.5,
+                               offsets=lattice_offsets(2, 1))
+    eq, p = Euler(dim=2), HyperbolicModuleParams()
+    for S in range(build.MAX_STAGES + 1):
+        w = [0.5 - s for s in range(S)]
+        c = build.consts(eq, p, ca, w)
+        assert c.n_stages == S
+        assert [c.w0, c.w1, c.w2, c.w3] == w + [0.0] * (4 - S)
+        assert c.weight == 1.0 - sum(w)
+    with pytest.raises(ValueError):
+        build.consts(eq, p, ca, [0.1] * 5)
+    for stem in ("pk2", "pk3", "pk2_stream", "pk3_stream"):
+        text = (CSRC / f"{stem}.cu").read_text()
+        assert ("consts->n_stages < 0 || consts->n_stages > MAX_STAGES"
+                in text), stem
+        assert "MAX_STAGES>(" in text and "consts->n_stages > 2" in text, stem
 
 
 def test_tile_refuses_an_unknown_lattice():
