@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
-It drives the port's five paths, all in f32 with ERK33: step2d and
+It drives the port's five canvas paths and the padded-ELL path (phase
+14), all in f32 with ERK33: step2d and
 q2step2d on the Mach-3 forward-facing step (cG Q1, reach 1, K = 8: pk1,
 pk2, pk3, pk_up; cG Q2, reach 2, K = 24: pk1_stream, pk2_stream,
 pk3_stream, pk_up), box3d, 3D Euler on the Mach-3 box (cG Q1, K = 26:
@@ -131,7 +132,27 @@ any failure exits non-zero):
    the plain path on the card to 1e-9 on each norm.  13c: the vortex in
    f32 at refinement 8 (66,049 dofs), ERK33: finite, admissible, no
    warning, L1 within twice the reference's f32 plateau (2.88e-5), with
-   its wall seconds and steps.
+   its wall seconds and steps;
+14. the padded-ELL path (solver/ell_step.py: ell_pk1, ell_pk2, ell_pk3
+   and ell_pk_up of csrc/ell_step.cu, one thread a row, the two-direction
+   wavespeeds).  14a: each kernel against its plain version (the phase
+   functions on the ELL stencil) on identical inputs, with the bars
+   above: on the Mach-3 step at refinement 3 packed by ell.pack (1.03 M
+   rows, f32, after the 200 warmup steps of 14d; timed, with bounds), and
+   in f32 and f64 on developed states of the 1D shock front at refinement
+   6, the step in dG Q1 at refinement 0, the box3d domain at refinement 1
+   (a blast) and the airfoil at refinement 0 (irregular rows), each also
+   at 3 and 4 stage slots (ERK54's weights).  14b: 3 ERK33 steps in f64
+   through the kernels of each layout on the step at refinement 1: on
+   every vertex ELL equals the canvas within rtol 1e-10 / atol 1e-12,
+   tau within 1e-12.  14c: the rarefaction tube
+   (ryujin_tpu_torch.shocktube) at refinement 6 within 8 % of the
+   reference's L1 (the other three run in python -m
+   ryujin_tpu_torch.shocktube), and the isentropic vortex through ELL
+   (f64, refinement 6, ERK33) within 2 % of the reference's norms, each
+   with its launch counts.  14d: the ELL step at refinement 3, f32: 20 timed ERK33 steps
+   after 14a's state with the gates of phase 3 and the launch counts set
+   to 0 just before, its MQ/s beside phase 3's canvas MQ/s.
 
 pk_up's two launches a substep, PK4 and PK5 (`last`), are timed, bounded
 and counted apart.  The stream PK1's e, the stream PK2's U_low, F and
@@ -229,6 +250,25 @@ VORTEX_PLAIN_REFINEMENT = 5
 VORTEX_PLAIN_SCHEMES = ("erk 11", "erk 43", "erk 54", "ssprk 22")
 VORTEX_PLAIN_BAR = 1e-9
 VORTEX_F32_REFINEMENT = 8
+# phase 14: the padded-ELL path.  14a: each kernel against its plain
+# version on developed states (ERK33 steps through the kernels with
+# bang-bang recovery): the 1D shock front at refinement 6, the step at
+# ELL_REFINEMENT (f32 only: the full size), the step in dG Q1 at
+# refinement 0, the box3d domain at refinement 1 from a blast, the airfoil
+# at refinement 0; 14b: ELL against the canvas on the step at
+# ELL_CANVAS_REFINEMENT, f64, ELL_CANVAS_STEPS steps; 14c: the tubes
+# ELL_TUBES (the other three stay out for the script's time, python -m
+# ryujin_tpu_torch.shocktube runs them: with the shock front the script
+# took 722.3 s on one H100 host, above the 638.8 s it may take) and the
+# ELL vortex against the reference; 14d: the step at ELL_REFINEMENT in
+# f32 through the ELL kernels, ELL_WARMUP + ELL_STEPS timed steps
+ELL_REFINEMENT = 3
+ELL_DEVELOP_STEPS = 30
+ELL_CANVAS_REFINEMENT = 1
+ELL_CANVAS_STEPS = 3
+ELL_WARMUP = 200
+ELL_STEPS = 20
+ELL_TUBES = ("rarefaction",)
 
 # The limiter's l is decided at roundoff where psi is flat at its root,
 # so an ulp of difference in its input state can move one edge by up to
@@ -286,6 +326,34 @@ EDGE_FLOPS = {
         "pk_up_last": (11, 0),
     },
 }
+# The ELL kernels (csrc/ell_step.cu) per live edge: ell_pk1 the flux, the
+# indicator sums, lambda_max on every slot and its scaling; ell_pk2, ell_pk3
+# and ell_pk_up as their canvas counterparts.  1D by the same count: a flux
+# tensor 6, a flux divergence 3 x 2, lambda_max 91, the indicator sums 14,
+# the bounds 34, the limiter 146.
+EDGE_FLOPS[1] = {
+    "ell_pk1": (6 + 14 + 91 + 1, 0), "ell_pk2": (6 + 18 + 34, 6 + 9),
+    "ell_pk3": (6 + 15 + 146, 6 + 9), "ell_pk_up": (7 + 3 + 146, 0),
+    "ell_pk_up_last": (7, 0),
+}
+EDGE_FLOPS[2].update({
+    "ell_pk1": (14 + 22 + 95 + 1, 0), "ell_pk2": EDGE_FLOPS[2]["pk2"],
+    "ell_pk3": EDGE_FLOPS[2]["pk3"], "ell_pk_up": EDGE_FLOPS[2]["pk_up"],
+    "ell_pk_up_last": EDGE_FLOPS[2]["pk_up_last"],
+})
+EDGE_FLOPS[3].update({
+    "ell_pk1": (24 + 30 + 99 + 1, 0), "ell_pk2": EDGE_FLOPS[3]["pk2_stream"],
+    "ell_pk3": EDGE_FLOPS[3]["pk3_stream"], "ell_pk_up": EDGE_FLOPS[3]["pk_up"],
+    "ell_pk_up_last": EDGE_FLOPS[3]["pk_up_last"],
+})
+# The ELL kernels replace no TPU kernel: the JAX package runs the gather
+# path in XLA, its phase functions on the Stencil of hyperbolic.py:65
+ELL_SOURCE = {
+    "ell_pk1": "ryujin_tpu/solver/hyperbolic.py:411",
+    "ell_pk2": "ryujin_tpu/solver/hyperbolic.py:912",
+    "ell_pk3": "ryujin_tpu/solver/hyperbolic.py:994",
+    "ell_pk_up": "ryujin_tpu/solver/hyperbolic.py:1064",
+}
 # (dim, kernel, on a dG canvas) -> the TPU kernel it replaces
 TPU_SOURCE = {
     (2, "pk1", False): "ryujin_tpu/solver/pallas_step.py:2676",
@@ -341,7 +409,7 @@ def time_ms(fn, reps):
 
 
 def bound_ms(name, dim, half, inputs, outputs, mask, live_edges, n_stages,
-             dtype, inc=None):
+             dtype, inc=None, indices=()):
     """(least ms, "bytes" or "operations", least ms with the mask as
     stored) for one launch: every plane the function needs read once and
     every output written once over the memory rate, against the operations
@@ -353,8 +421,12 @@ def bound_ms(name, dim, half, inputs, outputs, mask, live_edges, n_stages,
     PK3 read on a dG canvas, counts the same way where it holds only 0
     and 1 (dG Q1: K bits a cell), else as stored; and one max per live
     edge.  mask=None means separable statics: the mask is among the
-    factors in `inputs`, and the synthesis adds its operations."""
+    factors in `inputs`, and the synthesis adds its operations.
+    `indices`, gather indices held as int64, count 4 bytes an entry: the
+    function needs no more, since the kernels take fewer than 2^31 rows
+    (build.ell_consts)."""
     nbytes = sum(t.numel() * t.element_size() for t in inputs + outputs)
+    nbytes += sum(4 * t.numel() for t in indices)
     per_edge, per_stage = EDGE_FLOPS[dim][name]
     if mask is None:
         mask_bits = mask_stored = 0
@@ -380,6 +452,42 @@ def bound_ms(name, dim, half, inputs, outputs, mask, live_edges, n_stages,
     if by_bytes >= by_ops:
         return by_bytes, "bytes", stored
     return by_ops, "operations", stored
+
+
+def held(name, a, b, where, kind, tol, exact=False):
+    """(good, max |a - b|) of kernel output a against reference b on the
+    entries where `where` (broadcast to their shape) holds, printed: max
+    |a - b| / max |b| against tol["rel"] for kind "rel", max |a - b|
+    against tol[kind] otherwise; kind "l" allows the share tol["l_share"]
+    of entries beyond tol["l"], none beyond tol["l_max"].  With `exact`
+    any difference fails as well."""
+    m = where.expand(b.shape)
+    a, b = a.reshape(b.shape)[m], b[m]
+    diff = (a - b).abs()
+    d = diff.max().item() if diff.numel() else 0.0
+    finite = bool(torch.isfinite(a).all())
+    extra = ""
+    if kind == "rel":
+        val, lim = d / max(b.abs().max().item() if b.numel() else 0.0,
+                           1e-300), tol["rel"]
+        good = val <= lim
+    elif kind == "l":
+        val, lim = d, tol["l"]
+        beyond = int((diff > lim).sum())
+        good = beyond <= tol["l_share"] * diff.numel() and d <= tol["l_max"]
+        extra = (f"  ({beyond} of {diff.numel()} edges beyond tol, "
+                 f"allowed {tol['l_share'] * diff.numel():.0f}; "
+                 f"cap {tol['l_max']:.0e})")
+    else:
+        val, lim = d, tol[kind]
+        good = val <= lim
+    good &= finite
+    if exact:
+        good &= d == 0.0
+        extra += "  (bit-equal required)"
+    print(f"  {name:16s} {a.dtype} {kind}-err {val:.3e}  tol {lim:.1e}  "
+          f"{'ok' if good else 'FAIL'}{extra}", flush=True)
+    return good, d
 
 
 def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
@@ -430,38 +538,9 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     ok = True
 
     def err(name, a, b, where, kind, exact=False):
-        """Error of kernel output a against reference b on the entries
-        where `where` (broadcast to their shape) holds: max |a - b| /
-        max |b| for kind "rel", max |a - b| otherwise; kind "l" allows
-        the share tol["l_share"] of entries beyond tol["l"].  With `exact`
-        any difference fails as well."""
         nonlocal ok
-        m = where.expand(b.shape)
-        a, b = a.reshape(b.shape)[m], b[m]
-        diff = (a - b).abs()
-        d = diff.max().item()
-        finite = bool(torch.isfinite(a).all())
-        extra = ""
-        if kind == "rel":
-            val, lim = d / max(b.abs().max().item(), 1e-300), tol["rel"]
-            good = val <= lim
-        elif kind == "l":
-            val, lim = d, tol["l"]
-            beyond = int((diff > lim).sum())
-            good = beyond <= tol["l_share"] * diff.numel() and d <= tol["l_max"]
-            extra = (f"  ({beyond} of {diff.numel()} edges beyond tol, "
-                     f"allowed {tol['l_share'] * diff.numel():.0f}; "
-                     f"cap {tol['l_max']:.0e})")
-        else:
-            val, lim = d, tol[kind]
-            good = val <= lim
-        good &= finite
-        if exact:
-            good &= d == 0.0
-            extra += "  (bit-equal required)"
+        good, d = held(name, a, b, where, kind, tol, exact)
         ok &= good
-        print(f"  {name:16s} {dt} {kind}-err {val:.3e}  tol {lim:.1e}  "
-              f"{'ok' if good else 'FAIL'}{extra}", flush=True)
         return d
 
     sfx = "_stream" if stream else ""
@@ -688,13 +767,18 @@ def card_vs_plain_f64(ti_kernels, ti_plain, sd, U0, plain_device, steps=3,
     return good
 
 
+# MQ/s of each slice through the kernels, by run_slice's name
+SLICE_MQS = {}
+
+
 def run_slice(name, eq, sd, ti, ti_plain, U0, warmup, steps, plain_steps,
               kernels, want, card, allow_restarts, sep=False):
     """Warmup, then `steps` timed ERK33 steps through the kernels with the
     launch counters set to 0 just before and read just after; the gates;
     then the plain-torch substep timed on the card.  With `sep` the
     counts are the SEP instances' own and must make up every launch;
-    without, no SEP instance may launch.  Returns the launch counts."""
+    without, no SEP instance may launch.  Returns the launch counts; the
+    MQ/s goes to SLICE_MQS[name]."""
     print(f"{name}: slice, {warmup} warmup + {steps} timed ERK33 steps "
           "through the kernels", flush=True)
     U, _, t, _, r0, _ = ti.advance(U0, 0.0, warmup)
@@ -711,6 +795,7 @@ def run_slice(name, eq, sd, ti, ti_plain, U0, warmup, steps, plain_steps,
     other = {k: fn.launches - fn.sep_launches if sep else fn.sep_launches
              for k, fn in kernels.items()}
     mqs = sd.n_nodes * steps * 3 / wall / 1e6
+    SLICE_MQS[name] = mqs
 
     real = torch.as_tensor(sd.node_mask > 0, device=U.device)
     Ur = U[:, real]
@@ -1518,6 +1603,330 @@ def check_vortex(dev, card, stacked):
         fail("the isentropic vortex missed a bar")
     return wide
 
+ELL_KERNELS = ("ell_pk1", "ell_pk2", "ell_pk3", "ell_pk_up")
+
+
+def ell_wrappers():
+    """{name: wrapper} of the four ELL kernels."""
+    from ryujin_tpu_torch.kernels import ell
+
+    return {name: getattr(ell, name) for name in ELL_KERNELS}
+
+
+def reset_ell_counts():
+    for fn in ell_wrappers().values():
+        fn.launches = 0
+        if hasattr(fn, "stage_launches"):
+            fn.stage_launches.clear()
+    ell_wrappers()["ell_pk_up"].last_launches = 0
+
+
+def ell_counts_ok(substeps, label):
+    """Print the ELL launch counts; True if every substep launched ell_pk1,
+    ell_pk2, ell_pk3 once and ell_pk_up twice (PK5 once)."""
+    fns = ell_wrappers()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    last = fns["ell_pk_up"].last_launches
+    good = all(launches[k] == w * substeps
+               for k, w in per_substep(fns).items() if k != "ell_pk_up")
+    good &= launches["ell_pk_up"] == 2 * substeps and last == substeps
+    print(f"  {label}: launches {launches} (PK5 {last}) in {substeps} "
+          f"substeps {'ok' if good else 'FAIL'}", flush=True)
+    return good
+
+
+def compare_ell(hm, U_a, U_b, tol, reps=REPS, records=None, tag="",
+                weights=(0.75, -2.0)):
+    """Each ELL kernel against its plain version on identical inputs, as
+    compare_kernels does for the canvas: U_a the state entering the
+    substep, U_b a second prepared state, the stage states of the third
+    ERK33 substep (or `weights`' count of stage_states).  With `records`,
+    also times each kernel and its plain version and fills records[name +
+    tag] with the JSON fields (pk_up's last launch, PK5, as "ell_pk_up
+    last").  Returns False if any output is off its tolerance."""
+    from ryujin_tpu_torch.kernels import ell
+    from ryujin_tpu_torch.solver.hyperbolic import d_from_e, tau_max_from_d
+
+    eq, p, st = hm.eq, hm.params, hm.stencil
+    dt = U_a.dtype
+    U, prec = hm.prepare_state_vector(U_b, 0.0)
+    weights = list(weights)
+    stage_U = torch.stack(stage_states(hm, U_a, U)[: len(weights)])
+    real = st.node_mask > 0
+    live = st.mask > 0
+    live_edges = int(live.sum())
+    ok = True
+    errs = {}
+
+    def err(name, a, b, where, kind):
+        nonlocal ok
+        good, d = held(name, a, b, where, kind, tol)
+        ok &= good
+        return d
+
+    def run(name, *args):
+        return (getattr(ell, name)(*args),
+                getattr(ell, name + "_reference")(*args))
+
+    args1 = (eq, p, st, U, prec)
+    (e_k, a_k), (e, alpha) = run("ell_pk1", *args1)
+    errs["ell_pk1"] = max(err("ell_pk1 e", e_k, e, live, "rel"),
+                          err("ell_pk1 alpha", a_k, alpha, real, "rel"))
+    d = d_from_e(st.mask, e, st.transpose_edge(e))
+    cap = torch.full((), float("inf"), dtype=dt, device=U.device)
+    tau = tau_max_from_d(st, d, 0.9, cap)
+    args2 = (eq, p, st, U, prec, d, alpha, stage_U, weights, tau)
+    (Ul_k, F_k, b_k), (U_low, F, bounds) = run("ell_pk2", *args2)
+    errs["ell_pk2"] = max(
+        err("ell_pk2 U_low", Ul_k, U_low, real, "rel"),
+        err("ell_pk2 F", F_k, F, real, "rel"),
+        err("ell_pk2 bounds", b_k, bounds, real, "rel"),
+    )
+    args3 = (eq, p, st, U, d, alpha, F, U_low, bounds, stage_U, weights, tau)
+    (P_k, l_k, okp_k), (P, l, okp) = run("ell_pk3", *args3)
+    errs["ell_pk3"] = max(err("ell_pk3 P", P_k, P, live, "rel"),
+                          err("ell_pk3 l", l_k, l, live, "l"))
+    n_ok = int((okp_k[real] != okp[real]).sum())
+    print(f"  ell_pk3 okp {dt} rows differing: {n_ok}", flush=True)
+    ok &= n_ok == 0
+    args4 = (eq, p, st, U_low, bounds, P, l, False)
+    (U4_k, l4_k), (U4, l4) = run("ell_pk_up", *args4)
+    args5 = (eq, p, st, U4, bounds, P, l4, True)
+    (U5_k, _), (U5, _) = run("ell_pk_up", *args5)
+    errs["ell_pk_up"] = max(err("ell_pk4 U", U4_k, U4, real, "U"),
+                            err("ell_pk4 l'", l4_k, l4, live, "l"))
+    errs["ell_pk_up last"] = err("ell_pk5 U", U5_k, U5, real, "U")
+    if records is None:
+        return ok
+
+    # the planes each launch reads and writes, for its bound: the statics,
+    # of the node planes (m_i, 1/m_i, n_nbrs, node_mask) PK1 reads m_i and
+    # node_mask, PK2 m_i and 1/m_i, PK3 all four, the update n_nbrs; of
+    # prec = (s, eta) PK1 reads eta, PK2 s; and the gather indices (cols;
+    # trans in the update), at 4 bytes an entry
+    node = st.node
+    traffic = {
+        "ell_pk1": ([st.cij, node[[0, 3]], U, prec[1:]], [e_k, a_k]),
+        "ell_pk2": ([st.cij, st.cii, node[:2], U, prec[:1], d, alpha,
+                     stage_U, tau], [Ul_k, F_k, b_k]),
+        "ell_pk3": ([st.cij, st.mij, node, U, d, alpha, F, U_low, bounds,
+                     stage_U, tau], [P_k, l_k, okp_k]),
+        "ell_pk_up": ([node[2:3], U_low, bounds, P, l], [U4_k, l4_k]),
+        "ell_pk_up last": ([node[2:3], U4, P, l4], [U5_k]),
+    }
+    calls = {"ell_pk1": args1, "ell_pk2": args2, "ell_pk3": args3,
+             "ell_pk_up": args4, "ell_pk_up last": args5}
+    dim = st.dim
+    for name, a in calls.items():
+        base = name.split(" ")[0]
+        fk = getattr(ell, base)
+        fr = getattr(ell, base + "_reference")
+        ms = time_ms(lambda: fk(*a), reps)
+        plain = time_ms(lambda: fr(*a), max(reps // 4, 2))
+        pk23 = base in ("ell_pk2", "ell_pk3")
+        least, by, stored = bound_ms(
+            name.replace(" ", "_"), dim, False, *traffic[name], st.mask,
+            live_edges, len(weights) if pk23 else 0, dt,
+            st.incidence if pk23 else None,
+            indices=[st.trans if base == "ell_pk_up" else st.cols])
+        records[name + tag] = {
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": least, "bound_by": by,
+            "bound_ms_mask_as_stored": stored,
+            "source": "ryujin_tpu_torch/csrc/ell_step.cu",
+            "replaces": ELL_SOURCE[base],
+        }
+        print(f"  {name + tag:24s} kernel {ms:.4f} ms   plain {plain:.4f} ms"
+              f"   bound {least:.4f} ms ({by}; {stored:.4f} ms with the mask"
+              f" as stored)   {100 * least / ms:.1f} % of bound", flush=True)
+    return ok
+
+
+def ell_meshes(dtype, dev):
+    """(label, eq, hm, ti, U0) of phase 14a's small ELL cases
+    (bench.ell_case), each through the ELL kernels: the 1D shock front at
+    refinement 6, the step in dG Q1 at refinement 0 (a bump), the box3d
+    domain at refinement 1 (a blast), and the airfoil at refinement 0 (a
+    bump)."""
+    from ryujin_tpu_torch.bench import ell_case
+
+    for name, refinement, label, bump in (
+            ("1D", 6, "1D shock front, refinement 6", None),
+            ("2D dG Q1", 0, "2D dG Q1 step, refinement 0", False),
+            ("3D", 1, "3D box, refinement 1, blast", True),
+            ("airfoil", 0, "airfoil, refinement 0", False)):
+        eq, packed, hm, ti, U0 = ell_case(name, refinement, dtype, dev)
+        if bump is not None:
+            U0 = bumped(packed, U0, blast=bump)
+        yield label, eq, hm, ti, U0
+
+
+def ell_developed(label, eq, hm, ti, U0, steps):
+    """(U_a, U_b): the state after `steps` steps through the kernels and
+    one more; fails the run unless both are finite and admissible."""
+    U_a, _, t_a, _, restarts, warns = ti.advance(U0, 0.0, steps)
+    U_b = ti.advance(U_a, t_a, 1)[0]
+    st = hm.stencil
+    real = st.node_mask > 0
+    K = st.K
+    good = all(bool(torch.isfinite(U[:, real]).all())
+               and bool(eq.is_admissible(U[:, real]).all())
+               for U in (U_a, U_b))
+    print(f"  {label}: {int(real.sum())} rows, K = {K}, dG "
+          f"{st.incidence is not None}, {U0.dtype}, t = {t_a.item():.4e} "
+          f"after {steps} steps, restarts {int(restarts)}, warnings "
+          f"{int(warns)}", flush=True)
+    if not good:
+        fail(f"{label}: the developed state is not admissible")
+    return U_a, U_b
+
+
+def check_ell(dev, card, records, mqs_canvas):
+    """Phase 14, the padded-ELL path; fills `records` with the ELL kernels'
+    JSON records (times on the full-size step, launches of 14d's run);
+    fails the run on any error."""
+    from ryujin_tpu_torch import shocktube
+    from ryujin_tpu_torch.bench import build_ell, build_step2d
+    from ryujin_tpu_torch.offline import geometry
+    from ryujin_tpu_torch.solver.integrator import TABLEAUX
+    from ryujin_tpu_torch.vortex import BASELINES, drive_vortex
+
+    ok = True
+    # ---- 14a: the full-size step (f32), its state that of 14d's warmup ----
+    print(f"phase 14a: the ELL kernels against their plain versions; the "
+          f"step at refinement {ELL_REFINEMENT} packed by ell.pack, f32, "
+          f"{ELL_WARMUP} ERK33 steps through the ELL kernels", flush=True)
+    t0 = time.perf_counter()
+    step = geometry.step(refinement=ELL_REFINEMENT)
+    eq, sd, hm, ti, U0 = build_ell(step, torch.float32, dev, recovery="none")
+    print(f"  setup {time.perf_counter() - t0:.1f} s: {sd.n_nodes} real "
+          f"rows of {sd.n_pad}, K = {sd.max_degree}, "
+          f"{int((hm.stencil.mask > 0).sum())} live edges, route "
+          f"{'half-slot' if hm.half else 'two-direction'}", flush=True)
+    if hm.ell is None or hm.half:
+        fail("the step packed by ell.pack did not take the ELL stepper")
+    U_w = ti.advance(U0, 0.0, ELL_WARMUP)
+    U_a, t_a = U_w[0], U_w[2]
+    U_b = ti.advance(U_a, t_a, 1)[0]
+    torch.cuda.synchronize()
+    ell_records = {}
+    ok &= compare_ell(hm, U_a, U_b, TOL_F32, REPS, ell_records,
+                      tag="[2D step]")
+    del U_b
+
+    for dt, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+        for label, eq_s, hm_s, ti_s, U0_s in ell_meshes(dt, dev):
+            U_sa, U_sb = ell_developed(label, eq_s, hm_s, ti_s, U0_s,
+                                       ELL_DEVELOP_STEPS)
+            ok &= compare_ell(hm_s, U_sa, U_sb, tol)
+            # ERK54's substeps pass 3 and 4 stage slots
+            for slots in WIDE_SLOTS:
+                ok &= compare_ell(hm_s, U_sa, U_sb, tol,
+                                  weights=erk54_weights(slots))
+            del hm_s, ti_s
+    if not ok:
+        fail("an ELL kernel disagrees with its plain version")
+
+    # ---- 14b: ELL against the canvas on the same mesh ----------------------
+    print(f"phase 14b: ELL against the canvas, the step at refinement "
+          f"{ELL_CANVAS_REFINEMENT}, f64, {ELL_CANVAS_STEPS} ERK33 steps "
+          "through the kernels of each layout", flush=True)
+    out = {}
+    step = geometry.step(refinement=ELL_CANVAS_REFINEMENT)
+    for layout, built in (
+            ("canvas", build_step2d(ELL_CANVAS_REFINEMENT, torch.float64,
+                                    dev)),
+            ("ell", build_ell(step, torch.float64, dev, recovery="none"))):
+        _, sd_l, hm_l, ti_l, U0_l = built
+        res = ti_l.advance(bumped(sd_l, U0_l), 0.0, ELL_CANVAS_STEPS)
+        out[layout] = (sd_l, res[0], res[3])
+    (sd_c, U_c, tau_c), (sd_e, U_e, tau_e) = out["canvas"], out["ell"]
+    Uc = U_c[:, torch.as_tensor(sd_c.vertex_to_node, device=dev)]
+    Ue = U_e[:, torch.as_tensor(sd_e.vertex_to_node, device=dev)]
+    excess = ((Ue - Uc).abs() - (1e-12 + 1e-10 * Uc.abs())).max().item()
+    tau_rel = abs(tau_e.item() / tau_c.item() - 1.0)
+    good = excess <= 0.0 and tau_rel <= 1e-12
+    ok &= good
+    print(f"  {Uc.shape[1]} vertices: max |U_ell - U_canvas| "
+          f"{(Ue - Uc).abs().max().item():.3e}, beyond rtol 1e-10 / atol "
+          f"1e-12 by {excess:.3e}; tau {tau_e.item():.15e} against "
+          f"{tau_c.item():.15e}, rel {tau_rel:.3e} (tol 1e-12) "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    del out, U_c, U_e, Uc, Ue
+
+    # ---- 14c: the shock tubes and the vortex through ELL --------------------
+    for name in ELL_TUBES:
+        case = shocktube.CASES[name]
+        print(f"phase 14c: the {name} shock tube through the ELL kernels, "
+              f"f64, refinement {shocktube.REFINEMENT}, against the "
+              f"reference's L1 (within {100 * case.bar:.0f} %)", flush=True)
+        reset_ell_counts()
+        run = shocktube.drive(case, shocktube.REFINEMENT, torch.float64, dev)
+        good = (run.rel(case) <= case.bar and run.warnings == 0
+                and run.t == case.t_final)
+        good &= ell_counts_ok(3 * run.requested, name)
+        ok &= good
+        print(f"  Linf {run.norms[0]:.6e}  L1 {run.norms[1]:.6e}  L2 "
+              f"{run.norms[2]:.6e}; reference L1 {case.l1:.6e}: "
+              f"{100 * (run.norms[1] / case.l1 - 1.0):+.3f} %; {run.steps} "
+              f"steps, {run.warnings} warnings, {run.seconds:.2f} s wall on "
+              f"{card} {'ok' if good else 'FAIL'}", flush=True)
+    print(f"phase 14c: the isentropic vortex through the ELL kernels, f64, "
+          f"refinement {VORTEX_REFINEMENT}, ERK33, against the reference's "
+          f"baselines (within {100 * VORTEX_BAR:.0f} %)", flush=True)
+    reset_ell_counts()
+    run = drive_vortex(VORTEX_REFINEMENT, "erk 33", torch.float64, dev,
+                       layout="ell")
+    good = run.hm.ell is not None and run.warnings == 0
+    good &= ell_counts_ok(TABLEAUX["erk 33"].n_sub * run.requested, "vortex")
+    for kind, got, ref in zip(("Linf", "L1", "L2"), run.norms,
+                              BASELINES["erk 33"]):
+        rel = abs(got / ref - 1.0)
+        good &= rel <= VORTEX_BAR
+        print(f"    {kind} {got:.6e} against the reference's {ref:.6e}: "
+              f"{100 * rel:.3f} %", flush=True)
+    print(f"  {run.steps} steps, {run.seconds:.2f} s wall "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    ok &= good
+    del run
+    if not ok:
+        fail("the ELL path missed a bar")
+
+    # ---- 14d: the full-size ELL step through the kernels ------------------
+    print(f"phase 14d: the step at refinement {ELL_REFINEMENT} packed by "
+          f"ell.pack, f32, {ELL_STEPS} timed ERK33 steps through the ELL "
+          "kernels", flush=True)
+    torch.cuda.synchronize()
+    reset_ell_counts()
+    t0 = time.perf_counter()
+    U, _, t, tau, restarts, warns = ti.advance(U_a, t_a, ELL_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mqs = sd.n_nodes * ELL_STEPS * 3 / wall / 1e6
+    launches = {k: fn.launches for k, fn in ell_wrappers().items()}
+    last = ell_wrappers()["ell_pk_up"].last_launches
+    real = torch.as_tensor(sd.node_mask > 0, device=dev)
+    Ur = U[:, real]
+    good = bool(torch.isfinite(Ur).all()) and bool(eq.is_admissible(Ur).all())
+    good &= tau.item() > 0.0 and int(warns) == 0 and int(restarts) == 0
+    good &= ell_counts_ok(3 * ELL_STEPS, "14d")
+    print(f"  t = {t.item():.4e}, tau = {tau.item():.4e}, warnings "
+          f"{int(warns)}, finite and admissible {good}", flush=True)
+    print(f"  ELL kernels: {mqs:.3f} MQ/s ({wall:.3f} s for {ELL_STEPS} "
+          f"steps); the canvas kernels on the same mesh (phase 3): "
+          f"{mqs_canvas:.3f} MQ/s; on {card}", flush=True)
+    if not good:
+        fail("the ELL step missed a gate")
+    for name, rec in ell_records.items():
+        base = name.split("[")[0]
+        if base == "ell_pk_up last":
+            rec["launches"] = last
+        elif base == "ell_pk_up":
+            rec["launches"] = launches["ell_pk_up"] - last
+        else:
+            rec["launches"] = launches[base]
+    records.update(ell_records)
+
 
 def per_substep(fns):
     """Launches per substep of each wrapper in `fns`: PK1-PK3 once,
@@ -1826,6 +2235,9 @@ def main():
     for name, by_slots in check_vortex(dev, card, stacked).items():
         for slots in WIDE_SLOTS:
             records[f"{name}[S={slots} step2d]"]["launches"] = by_slots[slots]
+
+    # ---- phase 14: the padded-ELL path ---------------------------------------
+    check_ell(dev, card, records, SLICE_MQS["phase 3, step2d"])
     print(f"chip_smoke: every phase passed, {time.perf_counter() - t_start:.1f}"
           " s in all", flush=True)
 

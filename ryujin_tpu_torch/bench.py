@@ -59,7 +59,7 @@ import time
 
 import torch
 
-from .offline import assembly, geometry, structured
+from .offline import assembly, ell, geometry, structured
 from .offline.mesh import Boundary
 
 from .equations.euler import Euler
@@ -125,7 +125,20 @@ def build_box3d(refinement: int, dtype, device, subdiv=(31, 16, 16),
     with z and y margins of 2, bang-bang recovery.  (The JAX bench packs
     with the TPU kernels' margin gate, which is not carried over.)"""
     eq = Euler(dim=3)
-    mesh = geometry.rectangular_domain(
+    mesh = box3d_mesh(refinement, subdiv)
+    sd = structured.pack_structured(
+        assembly.assemble(mesh, ansatz=ansatz), mesh, margin=(2, 2)
+    )
+    init = make_initial_state(eq, "uniform", primitive_state=(1.4, 3.0, 1.0))
+    return (eq, sd) + _modules(eq, sd, init, dtype, device,
+                               "bang bang control", separable)
+
+
+def box3d_mesh(refinement: int, subdiv=(31, 16, 16)):
+    """The box3d domain: [0, 3] x [0, 1] x [0, 1] with `subdiv` cells
+    before `refinement`; inflow dirichlet, outflow do_nothing, slip
+    walls."""
+    return geometry.rectangular_domain(
         [0.0, 0.0, 0.0], [3.0, 1.0, 1.0], list(subdiv),
         refinement=refinement,
         boundary_conditions=[
@@ -134,12 +147,6 @@ def build_box3d(refinement: int, dtype, device, subdiv=(31, 16, 16),
         ],
         dim=3,
     )
-    sd = structured.pack_structured(
-        assembly.assemble(mesh, ansatz=ansatz), mesh, margin=(2, 2)
-    )
-    init = make_initial_state(eq, "uniform", primitive_state=(1.4, 3.0, 1.0))
-    return (eq, sd) + _modules(eq, sd, init, dtype, device,
-                               "bang bang control", separable)
 
 
 def build_dg1box3d(refinement: int, dtype, device, subdiv=(31, 16, 16),
@@ -171,6 +178,51 @@ def build_cylinder3d(refinement: int, dtype, device, pad_minor: int = 128,
     )
     return (eq, sd) + _modules(eq, sd, init, dtype, device,
                                "bang bang control", separable)
+
+
+def build_ell(mesh, dtype, device, ansatz: str = "cG Q1",
+              recovery: str = "bang bang control", speed: float = 3.0):
+    """(eq, packed, hm, ti, U0) of `mesh` assembled in `ansatz` and packed
+    as padded ELL (offline/ell.pack: the gather path, solver/ell_step.py),
+    the uniform inflow of density 1.4, velocity `speed` along x and
+    pressure 1, ERK33 at CFL 0.9 / 0.45 with `recovery`."""
+    eq = Euler(dim=mesh.dim)
+    packed = ell.pack(assembly.assemble(mesh, ansatz=ansatz))
+    init = make_initial_state(eq, "uniform",
+                              primitive_state=(1.4, speed, 1.0))
+    return (eq, packed) + _modules(eq, packed, init, dtype, device, recovery,
+                                   False)
+
+
+def ell_case(name: str, refinement: int, dtype, device,
+             subdiv=(31, 16, 16)):
+    """(eq, packed, hm, ti, U0) of a padded-ELL case, ERK33 at CFL 0.9 /
+    0.45 with bang-bang recovery: "1D" the shock front's tube
+    (shocktube.build_case, K = 2), "2D dG Q1" the Mach-3 step in dG Q1,
+    "3D" the box3d domain with `subdiv` cells (K = 26), "airfoil" the
+    airfoil (irregular rows) with its far field dirichlet, since the
+    dynamic boundary is not ported, and an inflow at speed 0.8."""
+    if name == "1D":
+        from . import shocktube
+
+        eq, _, packed, init, hm = shocktube.build_case(
+            shocktube.CASES["shock front"], refinement, dtype, device)
+        ti = TimeIntegrator(hm, "erk 33", cfl_min=0.45, cfl_max=0.9,
+                            cfl_recovery_strategy="bang bang control")
+        U0 = interpolate_nodal(init, packed, eq, 0.0, dtype, device)
+        return eq, packed, hm, ti, U0
+    if name == "2D dG Q1":
+        return build_ell(geometry.step(refinement=refinement), dtype, device,
+                         ansatz="dG Q1")
+    if name == "3D":
+        return build_ell(box3d_mesh(refinement, subdiv), dtype, device)
+    if name == "airfoil":
+        mesh = geometry.airfoil(refinement=refinement)
+        mesh.boundary_ids[mesh.boundary_ids == Boundary.dynamic] = (
+            Boundary.dirichlet)
+        return build_ell(mesh, dtype, device, speed=0.8)
+    raise ValueError(f"ELL case {name!r}: expected '1D', '2D dG Q1', '3D' "
+                     "or 'airfoil'")
 
 
 # case -> (build_case, default refinement, default warmup steps, metric)

@@ -73,6 +73,8 @@ class Euler:
 
     @property
     def component_names(self):
+        if self.dim == 1:
+            return ["rho", "m", "E"]
         return ["rho"] + [f"m_{i + 1}" for i in range(self.dim)] + ["E"]
 
     # ---- derived quantities --------------------------------------------

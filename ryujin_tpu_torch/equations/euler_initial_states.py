@@ -29,11 +29,10 @@ def galilei_wrap(state_fn, direction, position, dim):
     points are rotated so `direction` maps onto the x-axis around
     `position`, and the momentum is rotated back.  In 3D the rotation in
     the x-z plane comes first for points and last for the momentum, as in
-    ryujin_tpu/equations/euler_initial_states.py:29-75."""
-    if dim not in (2, 3):
-        raise NotImplementedError(
-            "the torch initial states are ported for dim 2 and 3"
-        )
+    ryujin_tpu/equations/euler_initial_states.py:29-75.  In 1D the points
+    are only shifted by `position`: there is nothing to rotate."""
+    if dim not in (1, 2, 3):
+        raise ValueError(f"no initial states in dim {dim}")
     direction = np.asarray(direction, dtype=np.float64)
     direction = tuple(float(v) for v in direction / np.linalg.norm(direction))
     position = np.asarray(position, dtype=np.float64)
@@ -45,7 +44,7 @@ def galilei_wrap(state_fn, direction, position, dim):
         norm = math.sqrt(n_a * n_a + n_b * n_b)
         return (n_a / norm, n_b / norm) if norm > 1e-14 else None
 
-    xy = plane(0, 1)
+    xy = plane(0, 1) if dim >= 2 else None
     xz = plane(0, 2) if dim == 3 else None
 
     def rotate(v, rot, b, back=False):
@@ -102,6 +101,8 @@ def isentropic_vortex(eq, mach_number=2.0, beta=5.0):
     """(euler/initial_state_isentropic_vortex.h:53-91)."""
     gamma = eq.params.gamma
     dim = eq.dim
+    if dim < 2:
+        raise ValueError("isentropic vortex requires dim >= 2")
 
     def fn(points, t):
         x = points[0] - mach_number * t
@@ -442,6 +443,8 @@ def four_state_contrast(
     primitive_top_right=(1.4, 0.0, 0.0, 1.0),
 ):
     """2D Riemann quadrant data (initial_state_four_state_contrast.h)."""
+    if eq.dim < 2:
+        raise ValueError("four state contrast requires dim >= 2")
     BL = uniform(eq, primitive_bottom_left)
     BR = uniform(eq, primitive_bottom_right)
     TL = uniform(eq, primitive_top_left)
@@ -464,8 +467,10 @@ def astro_jet(eq, jet_width=0.05, primitive_jet_state=(5.0, 30.0, 0.4127),
     ambient = uniform(eq, primitive_ambient_right)
 
     def fn(points, t):
-        sel = ((points[0] < 1.0e-12)
-               & (torch.abs(points[1]) <= jet_width))[None]
+        # in 1D the JAX package's points[1] reads points[0] (an index past
+        # the end clamps there), and so does this one
+        y = points[min(1, points.shape[0] - 1)]
+        sel = ((points[0] < 1.0e-12) & (torch.abs(y) <= jet_width))[None]
         return torch.where(sel, jet(points, t), ambient(points, t))
 
     return fn

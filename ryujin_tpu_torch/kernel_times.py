@@ -11,12 +11,17 @@ ERK33 steps through the kernels), box3d (refinement 2, 150 steps through
 the kernels from a blast), dg1box3d (box3d's flow with dG Q1 at
 refinement 1, 150 steps from a blast) or cylinder3d (refinement 3, 300
 steps from the inflow; the kernels with the full statics, then the SEP
-instances on the same state); without one, step2d and q2step2d.  Prints
+instances on the same state) or ell (the step at refinement 3 packed by
+ell.pack, 200 ERK33 steps through the ELL kernels, as chip_smoke.py
+phases 14a and 14d develop it; ell_pk1 .. ell_pk_up timed with
+chip_smoke.compare_ell, no digests); without one, step2d and q2step2d.
+Prints
 one JSON line {"card", "ms": {kernel: ms}, "resources": {instance:
 {regs, stack, threads, smem, warps}}, "digests": {kernel: {"in", "out"}}}:
 the registers and stack bytes of every pk1_stream (pk1_stream_tile),
 pk2_stream (pk2_stream_tile), pk3_stream, pk_up and stacked pk1, pk2 and
-pk3 instance from nvcc's -Xptxas -v report of the build, the block and the
+pk3 instance (and of every ELL kernel instance) from nvcc's -Xptxas -v
+report of the build, the block and the
 shared bytes of its launch (at two stages), and the warps an
 SM holds at once by the occupancy rules of the H100 (65,536 registers in
 256-register steps a warp, 228 KB of shared memory less 1 KB a block, 64
@@ -67,6 +72,11 @@ _TILE = re.compile(
 # the most stage slots of an instance of pk2, pk3, pk2_stream or
 # pk3_stream, its last template argument (none in a tree built before it)
 _SLOTS = re.compile(r"Li(\d)EEEvPK")
+# the ELL kernels (csrc/ell_step.cu): type and DIM, for ell_pk2 and ell_pk3
+# also the dG flag and the most stage slots
+_ELL = re.compile(
+    r"_ZN6ryujin\d+(ell_pk1|ell_pk2|ell_pk3|ell_pk_up)_kernelI([fd])Li(\d)E"
+    r"(?:Lb(\d)ELi(\d)E)?")
 # pk1_stream has no dG flag; its staged tile (full statics only) no
 # statics accessor
 _PK1 = re.compile(
@@ -95,6 +105,13 @@ def _label(name):
         st = st or "Full"
         label = (f"{kern}<{'f32' if t == 'f' else 'f64'}, {dim}D, "
                  f"{'half-slot' if half == '1' else 'two-direction'}, {st}>")
+    elif _ELL.match(name):
+        kern, t, dim, dg, ms = _ELL.match(name).groups()
+        label = (f"{kern}<{'f32' if t == 'f' else 'f64'}, {dim}D"
+                 + ("" if dg is None else
+                    f", {'dG' if dg == '1' else 'cG'}, S<={ms}") + ">")
+        return (label, kern, int(dim),
+                torch.float32 if t == "f" else torch.float64, 2)
     elif _STACKED.match(name):
         kern, t, dg = _STACKED.match(name).groups()
         dim = "2"
@@ -249,8 +266,9 @@ def main():
         sys.exit("ryujin_tpu_torch.kernel_times needs a CUDA device")
     import chip_smoke as cs
 
-    from .bench import build_q2step2d, build_step2d
+    from .bench import build_ell, build_q2step2d, build_step2d
     from .kernels import build
+    from .offline import geometry
     from .solver.hyperbolic import HyperbolicModule
     from .solver.integrator import TimeIntegrator
 
@@ -312,6 +330,17 @@ def main():
                                   separable=True)
         timed("cylinder3d", hm_sep, U_a, U_b, "cyl SEP ")
         del hm, hm_sep, ti, U_a, U_b, U0
+    if "ell" in cases:
+        step = geometry.step(refinement=cs.ELL_REFINEMENT)
+        _, _, hm, ti, U0 = build_ell(step, torch.float32, dev,
+                                     recovery="none")
+        U_a, _, t_a, _, _, _ = ti.advance(U0, 0.0, cs.ELL_WARMUP)
+        U_b = ti.advance(U_a, t_a, 1)[0]
+        records = {}
+        if not cs.compare_ell(hm, U_a, U_b, cs.TOL_F32, cs.REPS, records):
+            sys.exit("an ELL kernel disagrees with its plain version")
+        ms.update(("ELL " + name, rec["ms"]) for name, rec in records.items())
+        del hm, ti, U_a, U_b, U0
     log = so.with_suffix(".so.log")
     res = resources(log.read_text(), launch_shape) if log.exists() else {}
     print(json.dumps({"card": cs.smi_line(), "ms": ms, "resources": res,

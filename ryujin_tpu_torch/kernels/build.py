@@ -37,6 +37,8 @@ GENCODE = "arch=compute_90a,code=sm_90a"
 ENTRY_POINTS = {
     "pk1": 7, "pk2": 15, "pk3": 17, "pk_up": 10,
     "pk1_stream": 10, "pk2_stream": 16, "pk3_stream": 18,
+    # the padded-ELL substep (csrc/ell_step.cu); cols and trans are int64
+    "ell_pk1": 8, "ell_pk2": 15, "ell_pk3": 17, "ell_pk_up": 9,
 }
 MAX_K = 48  # lattice offsets a launch can carry (cG Q3: reach 3, K = 48)
 # stage slots a launch can carry (ERK54's last substep: 4); PK2 and PK3
@@ -238,15 +240,44 @@ def library() -> ctypes.CDLL:
         return _LIB
 
 
+def _equation_fields(eq, params, measure_inv, stage_weights) -> dict:
+    """The Consts fields of the equation, the module parameters, the mesh
+    measure and the (static) stage weights."""
+    if len(stage_weights) > MAX_STAGES:
+        raise ValueError(f"the kernels take at most {MAX_STAGES} stages, "
+                         f"not {len(stage_weights)}")
+    g = eq.params.gamma
+    e = 2.0 * g / (g - 1.0)
+    er = round(e)
+    pow_n = er if abs(e - er) < 1.0e-8 and 1 <= abs(er) <= 16 else 0
+    w = list(stage_weights) + [0.0] * (MAX_STAGES - len(stage_weights))
+    return dict(
+        gamma=g,
+        reference_density=eq.params.reference_density,
+        vacuum_small=eq.params.vacuum_state_relaxation_small,
+        vacuum_large=eq.params.vacuum_state_relaxation_large,
+        evc_factor=params.evc_factor,
+        relaxation_factor=params.limiter_relaxation_factor,
+        newton_tol=params.limiter_newton_tolerance,
+        measure_inv=measure_inv,
+        weight=1.0 - sum(stage_weights),
+        w0=w[0],
+        w1=w[1],
+        w2=w[2],
+        w3=w[3],
+        newton_iterations=params.limiter_newton_max_iterations,
+        pow_n=pow_n,
+        n_stages=len(stage_weights),
+    )
+
+
 def consts(eq, params, ca, stage_weights=(), half=True) -> Consts:
     """The scalars every kernel takes, from the equation, the module
     parameters, the canvas (2D [H, W] or 3D [D, H, W]), the (static) stage
     weights and the route of the stream kernels: half=True for the
     half-slot pre-scaled wavespeeds, False for the two-direction ones
     (instantiated for 3D canvases only)."""
-    if len(stage_weights) > MAX_STAGES:
-        raise ValueError(f"the kernels take at most {MAX_STAGES} stages, "
-                         f"not {len(stage_weights)}")
+    fields = _equation_fields(eq, params, ca.measure_inv, stage_weights)
     dim = len(ca.shape)
     if ca.K > MAX_K or dim not in (2, 3):
         raise ValueError(
@@ -260,28 +291,8 @@ def consts(eq, params, ca, stage_weights=(), half=True) -> Consts:
         )
     D, H, W = canvas_dims(ca.shape)
     offsets = [(0,) * (3 - dim) + tuple(o) for o in ca.offsets]
-    g = eq.params.gamma
-    e = 2.0 * g / (g - 1.0)
-    er = round(e)
-    pow_n = er if abs(e - er) < 1.0e-8 and 1 <= abs(er) <= 16 else 0
-    w = list(stage_weights) + [0.0] * (MAX_STAGES - len(stage_weights))
     return Consts(
-        gamma=g,
-        reference_density=eq.params.reference_density,
-        vacuum_small=eq.params.vacuum_state_relaxation_small,
-        vacuum_large=eq.params.vacuum_state_relaxation_large,
-        evc_factor=params.evc_factor,
-        relaxation_factor=params.limiter_relaxation_factor,
-        newton_tol=params.limiter_newton_tolerance,
-        measure_inv=ca.measure_inv,
-        weight=1.0 - sum(stage_weights),
-        w0=w[0],
-        w1=w[1],
-        w2=w[2],
-        w3=w[3],
-        newton_iterations=params.limiter_newton_max_iterations,
-        pow_n=pow_n,
-        n_stages=len(stage_weights),
+        **fields,
         D=D,
         H=H,
         W=W,
@@ -291,6 +302,19 @@ def consts(eq, params, ca, stage_weights=(), half=True) -> Consts:
         dz=(ctypes.c_int * MAX_K)(*(o[0] for o in offsets)),
         dy=(ctypes.c_int * MAX_K)(*(o[1] for o in offsets)),
         dx=(ctypes.c_int * MAX_K)(*(o[2] for o in offsets)),
+    )
+
+
+def ell_consts(eq, params, st, stage_weights=()) -> Consts:
+    """The scalars of an ELL kernel (csrc/ell_step.cu) on the stencil `st`
+    (solver/stencil.EllStencil): the rows n in W (D = H = 1), the space
+    dimension and K, the slots a row."""
+    if st.dim not in (1, 2, 3) or st.n >= 2 ** 31:
+        raise ValueError(f"the ELL kernels take 1D-3D meshes of fewer than "
+                         f"2^31 rows, not {st.n} rows in {st.dim}D")
+    return Consts(
+        **_equation_fields(eq, params, st.measure_inv, stage_weights),
+        D=1, H=1, W=st.n, dim=st.dim, half=0, K=st.K,
     )
 
 

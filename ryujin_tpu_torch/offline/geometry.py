@@ -1,7 +1,7 @@
 """The port's own copy of ryujin_tpu/offline/geometry.py (plain numpy; the port imports
-nothing of ryujin_tpu).  The airfoil generator is left out:
-it needs utils/cubic_spline.py and offline/airfoil_profiles.py, which are
-not copied yet.  The original header follows.
+nothing of ryujin_tpu), the airfoil generator with its profiles
+(offline/airfoil_profiles.py) and splines (utils/cubic_spline.py)
+included.  The original header follows.
 
 Parameter-driven mesh generator library.
 
@@ -16,6 +16,7 @@ TPU-friendly host-side NumPy mesh construction:
   * ``disk``                (geometry_disk.h)
   * ``wall``                (geometry_wall.h)
   * ``wave tank``           (geometry_tank.h)
+  * ``airfoil``             (geometry_airfoil.h)
 
 Each generator returns a :class:`ryujin_tpu_torch.offline.mesh.Mesh`.
 """
@@ -1062,3 +1063,413 @@ def annulus(
     mesh.boundary_ids[:] = Boundary.slip
     attach(mesh)
     return mesh.refine_global(refinement)
+
+
+def _naca_4digit_profile(serial: str, n: int):
+    """NACA 4-digit profile (x_up, y_up, x_lo, y_lo) on the unit chord —
+    the camber-line + perpendicular-thickness construction with zeroed
+    leading/trailing y (naca_4digit_points, geometry_airfoil.h:297-354);
+    cosine x clustering for spline accuracy at the nose."""
+    if len(serial) != 4 or not serial.isdigit():
+        raise ValueError(f"invalid NACA 4 digit serial number '{serial}'")
+    m = int(serial[0]) / 100.0
+    p = int(serial[1]) / 10.0
+    t = int(serial[2:]) / 100.0
+    if t <= 0:
+        raise ValueError(f"invalid NACA serial '{serial}' (zero thickness)")
+    xs = 0.5 * (1.0 - np.cos(np.linspace(0.0, np.pi, n)))
+    yt = 5.0 * t * (
+        0.2969 * np.sqrt(xs) - 0.1260 * xs - 0.3516 * xs**2
+        + 0.2843 * xs**3 - 0.1036 * xs**4
+    )
+    if m > 0.0 and p > 0.0:
+        yc = np.where(
+            xs < p,
+            m / p**2 * (2 * p * xs - xs**2),
+            m / (1 - p) ** 2 * ((1 - 2 * p) + 2 * p * xs - xs**2),
+        )
+        dyc = np.where(
+            xs < p, 2 * m / p**2 * (p - xs),
+            2 * m / (1 - p) ** 2 * (p - xs),
+        )
+    else:
+        yc = dyc = np.zeros_like(xs)
+    th = np.arctan(dyc)
+    x_up, y_up = xs - yt * np.sin(th), yc + yt * np.cos(th)
+    x_lo, y_lo = xs + yt * np.sin(th), yc - yt * np.cos(th)
+    for arr in (x_up, x_lo):
+        arr[0], arr[-1] = 0.0, 1.0
+    for arr in (y_up, y_lo):
+        arr[0] = arr[-1] = 0.0  # sharp trailing edge (reference :348-351)
+    return x_up, y_up, x_lo, y_lo
+
+
+def _create_psi(profile, x_center: float, scaling: float):
+    """Build the (psi_front, psi_upper, psi_lower) parameterization from a
+    unit-chord profile table — the analog of the reference's create_psi
+    (geometry_airfoil.h:642-770): cubic splines for the upper/lower
+    surfaces behind `x_center` plus a polar spline (around (x_center, 0),
+    scaled by `scaling`) for the front.
+
+    psi_upper/psi_lower(x_hat): surface y at scaled distance x_hat behind
+    the center; psi_front(phi): polar radius of the front part, with
+    psi_front(0) = the scaled back length by convention.
+    """
+    from ..utils.cubic_spline import CubicSpline
+
+    x_upper, y_upper, x_lower, y_lower = [
+        np.asarray(v, np.float64) for v in profile
+    ]
+
+    def dedup(x, y):
+        keep = np.concatenate([[True], np.diff(x) > 0])
+        return x[keep], y[keep]
+
+    x_upper, y_upper = dedup(x_upper, y_upper)
+    x_lower, y_lower = dedup(x_lower, y_lower)
+    upper = CubicSpline(x_upper, y_upper)
+    lower = CubicSpline(x_lower, y_lower)
+
+    def psi_upper(x_hat):
+        x = np.minimum(np.asarray(x_hat) / scaling, 1.0 - x_center)
+        return scaling * upper(x + x_center)
+
+    def psi_lower(x_hat):
+        x = np.minimum(np.asarray(x_hat) / scaling, 1.0 - x_center)
+        return scaling * lower(x + x_center)
+
+    # polar spline of the front part around (x_center, 0), with extra
+    # samples past the junction for a smooth blend (reference :715-741):
+    xs, ys = [], []
+    for xi, yi in zip(x_upper, y_upper):
+        if xi >= x_center:
+            break
+        xs.append(xi)
+        ys.append(yi)
+    for xi in (x_center, x_center + 0.01, x_center + 0.02):
+        xs.append(xi)
+        ys.append(float(upper(xi)))
+    xs.reverse()
+    ys.reverse()
+    xs.pop()
+    ys.pop()
+    for xi, yi in zip(x_lower, y_lower):
+        if xi >= x_center:
+            break
+        xs.append(xi)
+        ys.append(yi)
+    for xi in (x_center, x_center + 0.01, x_center + 0.02):
+        xs.append(xi)
+        ys.append(float(lower(xi)))
+    phis, rhos = [], []
+    for xi, yi in zip(xs, ys):
+        dx, dy = xi - x_center, yi
+        phi = np.arctan2(dy, dx)
+        if phi < 0:
+            phi += 2.0 * np.pi
+        phis.append(phi)
+        rhos.append(np.hypot(dx, dy))
+    if phis[-1] == 0.0:
+        phis[-1] = 2.0 * np.pi
+    front = CubicSpline(np.asarray(phis), np.asarray(rhos))
+
+    back_length = scaling * (1.0 - x_center)
+
+    def psi_front(phi):
+        phi = np.asarray(phi, np.float64)
+        out = scaling * front(np.clip(phi, phis[0], phis[-1]))
+        return np.where(phi == 0.0, back_length, out)
+
+    return psi_front, psi_upper, psi_lower
+
+
+def _grade01(t, g: float, eps: float):
+    """The reference's epsilon-regularized power grading mapped to [0, 1]
+    (GradingManifold, geometry_airfoil.h:151-235): cluster at t = 0."""
+    e = eps ** (1.0 / g)
+    span = (1.0 + eps) ** (1.0 / g) - e
+    return (np.asarray(t) * span + e) ** g - eps
+
+
+def _coons_block(W, F, L, R):
+    """Vertices and cells of the four-sided transfinite (Coons) patch.
+
+    W [ns+1, 2] / F [ns+1, 2]: wall (t = 0) and far (t = 1) edge point
+    sets; L [nt+1, 2] / R [nt+1, 2]: side edges at s = 0 / s = 1.  Corners
+    must agree (L[0] == W[0], R[-1] == F[-1], ...).  The blend runs over
+    UNIFORM dyadic (s, t) — any grading lives in the edge sampling, which
+    is exactly the semantics of the reference's per-coarse-cell
+    TransfiniteInterpolationManifold: refinement midpoints pull back to
+    dyadic chart coordinates and push forward through the four (curved,
+    possibly graded) edge manifolds
+    (transfinite_interpolation.template.h; geometry_airfoil.h:1120-1220).
+    For straight, uniformly-parameterized side edges the side terms
+    cancel against the corner terms and the patch reduces to the ruled
+    surface — which is why only blocks with a graded side edge (the wake
+    blocks: graded left edge shared with the center block, uniform
+    outflow edge) need the full four-sided formula."""
+    ns, nt = len(W) - 1, len(L) - 1
+    s = (np.arange(ns + 1) / ns)[:, None, None]
+    t = (np.arange(nt + 1) / nt)[None, :, None]
+    P = (
+        (1.0 - t) * W[:, None] + t * F[:, None]
+        + (1.0 - s) * L[None, :] + s * R[None, :]
+        - (
+            (1.0 - s) * (1.0 - t) * W[0]
+            + s * (1.0 - t) * W[-1]
+            + (1.0 - s) * t * F[0]
+            + s * t * F[-1]
+        )
+    )
+    idx = np.arange((ns + 1) * (nt + 1)).reshape(ns + 1, nt + 1)
+    cells = np.stack(
+        [
+            idx[:-1, :-1].ravel(), idx[1:, :-1].ravel(),
+            idx[:-1, 1:].ravel(), idx[1:, 1:].ravel(),
+        ],
+        axis=1,
+    )
+    return P.reshape(-1, 2), cells
+
+
+def _ruled_block(wall, far, t):
+    """Vertices and cells of a ruled block between the `wall` [ns+1, 2]
+    and `far` [ns+1, 2] curves with cross parameters t [nt+1] (0 = wall).
+
+    Equal to the four-sided Coons patch (_coons_block) whenever both
+    side edges are straight and share the cross parameterization t —
+    which is the case for all graded airfoil blocks: the reference warps
+    the whole chart through the GradingManifold, so the ruled surface at
+    graded t IS its transfinite chart evaluated at dyadic parameters."""
+    ns = len(wall) - 1
+    P = (1.0 - t[None, :, None]) * wall[:, None] + t[
+        None, :, None
+    ] * far[:, None]
+    nt = len(t) - 1
+    idx = np.arange((ns + 1) * (nt + 1)).reshape(ns + 1, nt + 1)
+    cells = np.stack(
+        [
+            idx[:-1, :-1].ravel(), idx[1:, :-1].ravel(),
+            idx[:-1, 1:].ravel(), idx[1:, 1:].ravel(),
+        ],
+        axis=1,
+    )
+    return P.reshape(-1, 2), cells
+
+
+def airfoil(
+    airfoil_type: str = "NASA SC(2) 0714",
+    airfoil_length: float = 2.0,
+    airfoil_center: Sequence[float] = (-0.5, 0.0),
+    psi_center: float = 0.05,
+    psi_ratio: float = 0.30,
+    height: float = 6.0,
+    grading_exponent: float = 5.5,
+    grading_epsilon: float = 0.02,
+    grading_epsilon_trailing: float = 0.01,
+    anisotropic_pre_refinement_airfoil: int = 1,
+    anisotropic_pre_refinement_trailing: int = 3,
+    psi_samples: int = 64,
+    refinement: int = 0,
+    dim: int = 2,
+    width: float = 1.0,
+    subdivisions_z: int = 2,
+) -> Mesh:
+    """2D airfoil in a circular farfield (geometry_airfoil.h:823-1416).
+
+    dim=3 extrudes the C-mesh along z over `width` with periodic z
+    boundaries — `subdivisions_z` base layers doubled per refinement
+    level, mirroring the reference's extrude-then-globally-refine order
+    (geometry_airfoil.h:1278-1296,1385-1396).
+
+    The reference's C-type blocking evaluated directly: six (sharp
+    trailing edge) or seven (blunt) transfinite blocks — two polar front
+    blocks, two graded center blocks along the airfoil surfaces, and the
+    trailing wake blocks — generated by ruled/Coons evaluation of the
+    spline surface parameterization (_create_psi) with the reference's
+    epsilon-regularized power grading in the wall-normal direction and
+    its anisotropic pre-refinement counts.  Boundary conditions: no_slip
+    on the airfoil, dynamic on the whole outer boundary
+    (geometry_airfoil.h:1366-1375).
+
+    Airfoil types: tabulated "NASA SC(2) 0714", "ONERA OAT15a",
+    "BELL 10" (offline/airfoil_profiles.py) or generated "NACA dddd".
+
+    Chart semantics: the reference refines each coarse block cell
+    through a (graded) TransfiniteInterpolationManifold — refinement
+    midpoints pull back to dyadic chart coordinates and push forward
+    through the four-sided Coons blend of the block's edge curves
+    (transfinite_interpolation.template.h; geometry_airfoil.h:1120-1220).
+    Here each block's point grid is evaluated in the same chart in
+    closed form: graded blocks reduce to the ruled surface at graded
+    cross parameters (straight side edges cancel the Coons side terms),
+    and the wake blocks — whose left edge is graded but whose outflow
+    edge is uniform — use the full four-sided _coons_block formula.
+    """
+    from .airfoil_profiles import PROFILES
+
+    if airfoil_type in PROFILES:
+        profile = PROFILES[airfoil_type]
+    elif airfoil_type.startswith("NACA "):
+        profile = _naca_4digit_profile(
+            airfoil_type[5:], max(psi_samples, 32)
+        )
+    else:
+        raise ValueError(f"unknown airfoil type '{airfoil_type}'")
+
+    L = airfoil_length
+    ac = np.asarray(airfoil_center, np.float64)
+    psi_front, psi_upper, psi_lower = _create_psi(profile, psi_center, L)
+    R = 0.5 * height
+    bl = float(psi_front(0.0))  # back length
+    te_lo = float(psi_lower(bl))
+    te_up = float(psi_upper(bl))
+    sharp = abs(te_up - te_lo) < 1.0e-10
+    if not sharp and abs(te_up - te_lo) <= 0.001 * bl:
+        raise ValueError("blunt trailing edge thinner than 0.1% back length")
+    # chart slope of the back parts (AirfoilManifold ratio_):
+    ratio = psi_ratio * float(psi_front(0.0)) / float(psi_front(np.pi))
+
+    r = refinement
+    na = anisotropic_pre_refinement_airfoil
+    ntr = 0 if sharp else anisotropic_pre_refinement_trailing
+    n_t = 2 ** (r + ntr)  # wall-normal count (all blocks)
+    n_front = 2 ** (r + ntr)  # front blocks, tangential
+    n_center = 2 ** (r + ntr + na)  # center blocks, tangential
+    n_wake = 2 ** (r + ntr)  # trailing blocks, streamwise
+    n_te = 2**r  # blunt trailing-center, across the wake
+
+    t_g = _grade01(np.arange(n_t + 1) / n_t, grading_exponent,
+                   grading_epsilon)
+    t_u = np.arange(n_t + 1) / n_t
+
+    # key points (reference :963-976):
+    v2 = np.array([-0.5 * R, -np.sqrt(3.0) / 2.0 * R])
+    v3 = np.array([0.5 * R, -np.sqrt(3.0) / 2.0 * R])
+    v7 = np.array([-0.5 * R, np.sqrt(3.0) / 2.0 * R])
+    v8 = np.array([0.5 * R, np.sqrt(3.0) / 2.0 * R])
+    te_l = ac + np.array([bl, te_lo])
+    te_u_pt = ac + np.array([bl, te_up])
+
+    def surface(side, x_hat):
+        psi = psi_upper if side == "upper" else psi_lower
+        return np.stack(
+            [ac[0] + x_hat, ac[1] + psi(x_hat)], axis=-1
+        )
+
+    def front_arc(omega):
+        """Airfoil wall by chart pseudo-angle: polar for
+        phi in [pi/2, 3pi/2], linear continuation onto the back surfaces
+        (AirfoilManifold chart, geometry_airfoil.h:68-90)."""
+        omega = np.asarray(omega, np.float64)
+        pts = np.empty(omega.shape + (2,))
+        polar = (omega >= 0.5 * np.pi) & (omega <= 1.5 * np.pi)
+        rho = psi_front(np.clip(omega, 0.5 * np.pi, 1.5 * np.pi))
+        pts[polar] = (
+            ac
+            + rho[polar, None]
+            * np.stack([np.cos(omega[polar]), np.sin(omega[polar])], -1)
+        )
+        up = omega < 0.5 * np.pi
+        x_hat = (0.5 * np.pi - omega[up]) / ratio
+        pts[up] = surface("upper", x_hat)
+        lo = omega > 1.5 * np.pi
+        x_hat = (omega[lo] - 1.5 * np.pi) / ratio
+        pts[lo] = surface("lower", x_hat)
+        return pts
+
+    def circle_arc(a0, a1, n):
+        ang = np.linspace(a0, a1, n + 1)
+        return R * np.stack([np.cos(ang), np.sin(ang)], axis=1)
+
+    x0_hat = -ac[0]  # surface x_hat at mesh x = 0
+    blocks = []
+
+    # center bottom: lower surface [x0_hat, bl] -> straight v2 - v3
+    s = np.arange(n_center + 1) / n_center
+    wall = surface("lower", x0_hat + s * (bl - x0_hat))
+    far = v2[None] + s[:, None] * (v3 - v2)[None]
+    blocks.append(_ruled_block(wall, far, t_g))
+    # center top: upper surface -> straight v7 - v8
+    wall = surface("upper", x0_hat + s * (bl - x0_hat))
+    far = v7[None] + s[:, None] * (v8 - v7)[None]
+    blocks.append(_ruled_block(wall, far, t_g))
+    # front bottom: wall omega [pi, 1.5 pi + ratio * x0_hat] -> circle
+    # arc from v0 (pi) to v2 (4 pi / 3):
+    om = np.linspace(np.pi, 1.5 * np.pi + ratio * x0_hat, n_front + 1)
+    blocks.append(
+        _ruled_block(front_arc(om),
+                     circle_arc(np.pi, 4.0 * np.pi / 3.0, n_front), t_g)
+    )
+    # front top: wall omega [pi/2 - ratio * x0_hat, pi] -> circle arc
+    # from v7 (2 pi / 3) to v0 (pi):
+    om = np.linspace(0.5 * np.pi - ratio * x0_hat, np.pi, n_front + 1)
+    blocks.append(
+        _ruled_block(front_arc(om[::-1]),
+                     circle_arc(np.pi, 2.0 * np.pi / 3.0, n_front), t_g)
+    )
+    # trailing blocks: wake line(s) -> outer straight edges, graded on the
+    # shared left edge, uniform at the outflow:
+    s_w = np.arange(n_wake + 1) / n_wake
+    def lerp(a, b, t):
+        return a[None] + t[:, None] * (b - a)[None]
+
+    if sharp:
+        out_b, out_m, out_t = (
+            np.array([R, -0.5 * R]), np.array([R, 0.0]),
+            np.array([R, 0.5 * R]),
+        )
+        wake = te_l[None] + s_w[:, None] * (out_m - te_l)[None]
+        bot = v3[None] + s_w[:, None] * (out_b - v3)[None]
+        top = v8[None] + s_w[:, None] * (out_t - v8)[None]
+        # wake blocks: full Coons patch — graded left edge (conforming
+        # with the center block), uniform outflow edge:
+        blocks.append(_coons_block(
+            wake, bot, lerp(te_l, v3, t_g), lerp(out_m, out_b, t_u)
+        ))
+        blocks.append(_coons_block(
+            wake, top, lerp(te_l, v8, t_g), lerp(out_m, out_t, t_u)
+        ))
+    else:
+        h_t = 0.5 / (0.5 + 2.0**na) * 0.5 * R
+        out_b, out_t = np.array([R, -0.5 * R]), np.array([R, 0.5 * R])
+        out_ml, out_mu = np.array([R, -h_t]), np.array([R, h_t])
+        # streamwise clustering toward the TE on the wake lines
+        # (GradingManifold center (1, 0), direction -x, eps trailing);
+        # the upper/lower trailing blocks sample their wake edge with the
+        # SAME clustered parameter so the seams conform, blending to a
+        # uniform distribution at the outer boundary:
+        s_c = _grade01(s_w, grading_exponent, grading_epsilon_trailing)
+        wake_l = te_l[None] + s_c[:, None] * (out_ml - te_l)[None]
+        wake_u = te_u_pt[None] + s_c[:, None] * (out_mu - te_u_pt)[None]
+        bot = v3[None] + s_w[:, None] * (out_b - v3)[None]
+        top = v8[None] + s_w[:, None] * (out_t - v8)[None]
+        blocks.append(_coons_block(
+            wake_l, bot, lerp(te_l, v3, t_g), lerp(out_ml, out_b, t_u)
+        ))
+        blocks.append(_coons_block(
+            wake_u, top, lerp(te_u_pt, v8, t_g), lerp(out_mu, out_t, t_u)
+        ))
+        t_c = np.arange(n_te + 1) / n_te
+        blocks.append(_ruled_block(wake_l, wake_u, t_c))
+
+    verts = np.concatenate([b[0] for b in blocks], axis=0)
+    cells = []
+    off = 0
+    for b in blocks:
+        cells.append(b[1] + off)
+        off += len(b[0])
+    mesh = _finalize_quads(verts, np.concatenate(cells, axis=0), height)
+
+    fc = mesh.vertices[mesh.boundary_faces].mean(axis=1)
+    on_far = (np.linalg.norm(fc, axis=1) > R - 1e-8) | (
+        fc[:, 0] > R - 1e-8
+    )
+    mesh.boundary_ids[:] = Boundary.no_slip
+    mesh.boundary_ids[on_far] = Boundary.dynamic
+    if dim == 3:
+        return extrude(
+            mesh, 0.0, width, subdivisions_z * 2**refinement,
+            bc_minus=Boundary.periodic, bc_plus=Boundary.periodic,
+        )
+    return mesh

@@ -1,7 +1,10 @@
 """The hyperbolic module in PyTorch: graph-viscosity IDP substep with
 convex limiting (ryujin_tpu/solver/hyperbolic.py).
 
-Scope: the Euler equations on a single-block structured canvas, 2D of
+Scope: the Euler equations on the padded-ELL gather stencil (offline/
+ell.py: 1D, 2D and 3D, any mesh, cG or dG; the two-direction wavespeeds on
+every slot, no boundary-pair fixup, scatter boundary conditions, as the
+JAX package runs ELL), or on a single-block structured canvas, 2D of
 any lattice reach (the Mach-3 step of bench cases step2d, cG Q1 with K =
 8, and q2step2d, cG Q2 with K = 24) or 3D of reach 1 (the Mach-3 box of
 bench cases box3d, cG Q1 with K = 26, and dg1box3d, dG Q1 with K = 26),
@@ -13,9 +16,9 @@ statics as separable factors.  The Riemann wavespeeds take the symmetric
 half-slot evaluation with the coupling-boundary-pair fixup, or, above
 the JAX package's cut-off on the size of that pair set, the
 two-direction evaluation on every slot.  The phase functions are plain
-tensor code on full canvases; `HyperbolicModule.step` runs them for CPU
-tensors and the hand-written CUDA kernels (solver/canvas_step.py) for
-CUDA tensors.
+tensor code on full canvases or the ELL stencil; `HyperbolicModule.step`
+runs them for CPU tensors and the hand-written CUDA kernels
+(solver/canvas_step.py, solver/ell_step.py) for CUDA tensors.
 
 Differences from the JAX signatures: stage weights are static Python
 floats (the JAX lax.cond on a zero weight becomes a Python `if`), and the
@@ -31,6 +34,7 @@ from typing import Callable, List, Sequence
 import numpy as np
 import torch
 
+from ..offline.ell import EllData
 from ..offline.mesh import Boundary
 from ..offline.structured import StructuredData
 
@@ -320,18 +324,20 @@ _PORTED_BCS = (
 class HyperbolicModule:
     """Owns the stencil and boundary data and provides prepare/step.
 
+    `sd` is a StructuredData canvas or an EllData padded stencil.
     `initial_state_fn(positions [dim, k], t) -> states [C, k]` supplies
     the Dirichlet data.  All arrays are allocated on `device`: the card
     unless the caller names another (the CPU tests pass "cpu").
     `separable=True` keeps the statics of a 3D cG canvas that is an
     extrusion along z as z-profiles x 2D fields, never allocating the
     full static canvases (the JAX package's RYUJIN_SEP=1); it raises on
-    any other canvas."""
+    any other canvas.  `canvas` is the CanvasStepper of a canvas, `ell`
+    the EllStepper of an ELL stencil (None otherwise)."""
 
     def __init__(
         self,
         equation,
-        sd: StructuredData,
+        sd,
         initial_state_fn: Callable,
         params: HyperbolicModuleParams = HyperbolicModuleParams(),
         dtype=torch.float64,
@@ -373,6 +379,20 @@ class HyperbolicModule:
                     position=torch.as_tensor(g.position.T[:, o], dtype=dtype,
                                              device=self.device),
                 ))
+
+        self.canvas = self.ell = None
+        if isinstance(sd, EllData):
+            # ELL keeps the two-direction evaluation (the generic transpose
+            # is an arbitrary permutation, hyperbolic.py:1276-1278)
+            if separable:
+                raise ValueError("separable statics take a 3D cG canvas, "
+                                 "not an ELL stencil")
+            from .ell_step import EllStepper
+
+            self.half, self._bp = False, None
+            self.ell = EllStepper(equation, params, sd, dtype, self.device)
+            self.stencil = self.ell.stencil
+            return
 
         # The Riemann route, decided once (hyperbolic.py:1297-1320): the
         # symmetric half-slot evaluation, where the coupling boundary pairs
@@ -449,10 +469,10 @@ class HyperbolicModule:
         the kernels, kernels.build.MAX_STAGES).
         tau and tau_cap are 0-d tensors; with compute_tau the computed
         tau_max replaces tau.  CPU tensors run the phase functions, CUDA
-        tensors the CUDA kernels.  Returns (U_new, tau, ok) with tau and
-        ok 0-d tensors on the device."""
+        tensors the CUDA kernels (of the canvas or of ELL).  Returns
+        (U_new, tau, ok) with tau and ok 0-d tensors on the device."""
         if U_old.is_cuda:
-            return self.canvas.step(
+            return (self.canvas or self.ell).step(
                 U_old, prec_old, stage_U, stage_weights, tau, cfl, tau_cap,
                 compute_tau,
             )
@@ -466,8 +486,9 @@ class HyperbolicModule:
     def plain_step(self, U_old, prec_old, stage_U, stage_weights, tau, cfl,
                    tau_cap, compute_tau):
         """The substep as plain tensor code (the phase functions on full
-        canvases), on whatever device the tensors are on; with separable
-        statics on the stacks synthesized for this call."""
+        canvases or on the ELL stencil), on whatever device the tensors
+        are on; with separable statics on the stacks synthesized for this
+        call."""
         eq, p, st = self.eq, self.params, self.stencil.full()
         U_j = st.nbr(U_old)
         prec_j = st.nbr(prec_old)

@@ -167,6 +167,11 @@ class TimeIntegrator:
             )
         # steps of the last advance toward a finite t_final that ran
         self.steps_taken = None
+        # restarts and warnings of every step() so far, host integers, as
+        # the JAX package keeps them (ryujin_tpu/solver/integrator.py:
+        # 181-182); advance() returns its own counts and adds nothing here
+        self.n_restarts = 0
+        self.n_warnings = 0
 
     @property
     def efficiency(self) -> float:
@@ -208,8 +213,12 @@ class TimeIntegrator:
 
     def step(self, U, t, t_final=float("inf")):
         """One scheme step from the (possibly unprepared) state U.
-        Returns (U_prepared, tau_total, ok) as device tensors."""
-        U2, _, _, tau, _, warns = self.advance(U, t, 1, t_final)
+        Returns (U_prepared, tau_total, ok) as device tensors, and adds the
+        step's restarts and warnings to n_restarts / n_warnings (one host
+        read, as the JAX package's step() syncs them, :200-212)."""
+        U2, _, _, tau, restarts, warns = self.advance(U, t, 1, t_final)
+        self.n_restarts += int(restarts)
+        self.n_warnings += int(warns)
         return U2, tau, warns == 0
 
     def advance(self, U, t, n_steps: int, t_final=float("inf")):

@@ -16,6 +16,14 @@ stacks or, with separable statics (a 3D canvas that is an extrusion along z,
 offline/separable.py), synthesizes the plane as a z-profile times a 2D
 field, f[p](z) * g[q](y, x): the torch form of _SepTile and _sep_full /
 _sep_cmax_full (ryujin_tpu/solver/pallas_step.py:1092-1164, 2022-2053).
+
+The padded-ELL stencil (`EllStencil`, built by `stencil_from_ell`) is the
+torch form of the JAX package's generic gather stencil (Stencil and
+_stencil_from_ell, ryujin_tpu/solver/hyperbolic.py:65-130): every node
+carries K neighbour slots, neighbour j of slot k is cols[k, i], and the
+transposed edge is a flat index into the [K, n] edge layout.  It carries
+1D, irregular meshes and any ansatz; the phase functions of
+solver/hyperbolic.py run on it unchanged.
 """
 
 from __future__ import annotations
@@ -23,8 +31,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..offline.ell import EllData
 from ..offline.structured import StructuredData
 
 
@@ -222,3 +232,95 @@ class StructuredStencil:
             kax,
         )
         return out.reshape(E.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class EllStencil:
+    """Padded-ELL stencil on the device, node axis last (the JAX Stencil,
+    hyperbolic.py:65-102).  cols [K, n] and trans [K, n] are int64 gather
+    indices; trans is flat over [K, n]: the edge (j -> i) of slot k at
+    node i sits at k_rev * n + j.  Masked slots (padding) point at their
+    own node with zero coefficients."""
+
+    cols: torch.Tensor  # [K, n] int64
+    trans: torch.Tensor  # [K, n] int64, flat over [K, n]
+    cij: torch.Tensor  # [dim, K, n]
+    mij: torch.Tensor  # [K, n]
+    mask: torch.Tensor  # [K, n]
+    cii: torch.Tensor  # [dim, n]
+    m_lumped: torch.Tensor  # [n]
+    m_lumped_inv: torch.Tensor  # [n]
+    n_nbrs: torch.Tensor  # [n]
+    node_mask: torch.Tensor  # [n]
+    measure_inv: float
+    # dG incidence beta_ij [K, n]; None for a continuous ansatz
+    incidence: Optional[torch.Tensor] = None
+    # the node planes [4, n] (m_i, 1/m_i, n_nbrs, node_mask) that the ELL
+    # kernels read; the four node arrays above are its rows
+    node: Optional[torch.Tensor] = None
+
+    @property
+    def K(self) -> int:
+        return self.cols.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.cols.shape[1]
+
+    @property
+    def dim(self) -> int:
+        return self.cij.shape[0]
+
+    def nbr(self, X: torch.Tensor) -> torch.Tensor:
+        """Gather neighbour values: [..., n] -> [..., K, n]."""
+        return X[..., self.cols]
+
+    def transpose_edge(self, E: torch.Tensor) -> torch.Tensor:
+        """Transposed-edge gather: out[..., k, i] = E at the (j -> i) edge."""
+        flat = E.reshape(E.shape[:-2] + (self.K * self.n,))
+        return flat[..., self.trans]
+
+    def live_k(self, k: int) -> torch.Tensor:
+        """The live edges of slot k [n], bool."""
+        return self.mask[k] > 0
+
+    def full(self) -> "EllStencil":
+        """Itself: every static array is stored (the canvas stencil's
+        interface for the plain substep)."""
+        return self
+
+
+def stencil_from_ell(ell: EllData, dtype, device) -> EllStencil:
+    """The host ELL arrays in the node-last device layout
+    (_stencil_from_ell, hyperbolic.py:105-130): ell.trans holds flat
+    indices into the row-major [n, K] edge numbering, the device layout
+    flattens [K, n], so (j, k_rev) -> k_rev * n + j."""
+    K, n = ell.max_degree, ell.n_pad
+    j = ell.trans.astype(np.int64) // K
+    k_rev = ell.trans.astype(np.int64) % K
+
+    def f(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+
+    def idx(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int64,
+                               device=device)
+
+    node = f(np.stack([ell.lumped_mass, 1.0 / ell.lumped_mass, ell.n_nbrs,
+                       ell.node_mask]))
+    return EllStencil(
+        cols=idx(ell.cols.T),
+        trans=idx((k_rev * n + j).T),
+        cij=f(np.transpose(ell.cij, (2, 1, 0))),
+        mij=f(ell.mij.T),
+        mask=f(ell.mask.T),
+        cii=f(ell.cii.T),
+        m_lumped=node[0],
+        m_lumped_inv=node[1],
+        n_nbrs=node[2],
+        node_mask=node[3],
+        measure_inv=float(1.0 / ell.measure_of_omega),
+        incidence=None if ell.incidence is None else f(ell.incidence.T),
+        node=node,
+    )

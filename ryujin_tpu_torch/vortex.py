@@ -6,9 +6,11 @@ isentropic vortex moving along (1, 1) from (-1, -1) at Mach 1 with
 beta 5, cG Q1, CFL 0.2, recovery "none", up to t = 2; the error norms
 (L-inf, L1, L2, each normalized and summed over rho, m_1, m_2 and E) of
 compute_error.  The JAX test packs the mesh as padded ELL; here it is
-packed onto the structured canvas (K = 8, half-slot route), so on a
-CUDA device the substeps run pk1, pk2, pk3 and pk_up.  chip_smoke.py
-(phase 13) runs it on the card, tests/test_torch_vortex.py on the CPU.
+packed onto the structured canvas by default (K = 8, half-slot route), so
+on a CUDA device the substeps run pk1, pk2, pk3 and pk_up, or, with
+layout="ell", as the JAX test packs it (K = 8, two-direction route), so
+they run ell_pk1, ell_pk2, ell_pk3 and ell_pk_up.  chip_smoke.py (phases
+13 and 14c) runs it on the card, tests/test_torch_vortex.py on the CPU.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from .equations.euler import Euler
 from .equations.euler_initial_states import make_initial_state
-from .offline import assembly, geometry, structured
+from .offline import assembly, ell, geometry, structured
 from .offline.mesh import Boundary
 from .postprocess.error import compute_error, interpolate_nodal
 from .solver.hyperbolic import HyperbolicModule
@@ -45,17 +47,26 @@ BASELINES = {
 F32_PLATEAU_L1 = 2.88e-5
 
 
-def build_vortex(refinement: int, dtype, device):
+LAYOUTS = ("canvas", "ell")
+
+
+def build_vortex(refinement: int, dtype, device, layout: str = "canvas"):
     """(eq, mesh, sd, init, hm) of the vortex at `refinement`: the
     [-5, 5]^2 square of 2^refinement cells a side, packed onto a canvas
-    whose minor axis is a multiple of PAD_MINOR."""
+    whose minor axis is a multiple of PAD_MINOR (layout "canvas"), or as
+    padded ELL (layout "ell"; sd is then the EllData)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r} is not one of {LAYOUTS}")
     eq = Euler(dim=2)
     mesh = geometry.rectangular_domain(
         [-5.0, -5.0], [5.0, 5.0], [1, 1], refinement=refinement,
         boundary_conditions=[Boundary.dirichlet] * 4,
     )
-    sd = structured.pack_structured(assembly.assemble(mesh), mesh,
-                                    pad_minor=PAD_MINOR)
+    data = assembly.assemble(mesh)
+    if layout == "ell":
+        sd = ell.pack(data)
+    else:
+        sd = structured.pack_structured(data, mesh, pad_minor=PAD_MINOR)
     init = make_initial_state(eq, "isentropic vortex", direction=[1, 1],
                               position=[-1, -1], mach_number=1.0, beta=5.0)
     hm = HyperbolicModule(eq, sd, init, dtype=dtype, device=device)
@@ -77,14 +88,14 @@ class VortexRun:
     t: float
     seconds: float
     U: torch.Tensor
-    sd: structured.StructuredData
+    sd: object  # the StructuredData or the EllData
     hm: HyperbolicModule
 
 
 def drive_vortex(refinement: int, scheme: str = "erk 33",
                  dtype=torch.float64, device="cuda",
                  steps_of: Optional[Callable] = None,
-                 built=None) -> VortexRun:
+                 built=None, layout: str = "canvas") -> VortexRun:
     """The vortex up to T_FINAL through TimeIntegrator.advance in chunks
     of at most CHUNK steps, with t and tau read on the host between
     chunks: a chunk asks for one step more than the remaining time over
@@ -92,8 +103,9 @@ def drive_vortex(refinement: int, scheme: str = "erk 33",
     chunk (TimeIntegrator.advance).
     `steps_of(hm)` may give the integrator another stepper of the same
     module (the plain substep on the card); `built` a build_vortex result
-    to reuse."""
-    eq, mesh, sd, init, hm = built or build_vortex(refinement, dtype, device)
+    to reuse; `layout` the packing of a new one (build_vortex)."""
+    eq, mesh, sd, init, hm = built or build_vortex(refinement, dtype, device,
+                                                   layout)
     ti = TimeIntegrator(steps_of(hm) if steps_of else hm, scheme,
                         cfl_min=CFL, cfl_max=CFL,
                         cfl_recovery_strategy="none")

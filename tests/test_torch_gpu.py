@@ -22,7 +22,10 @@ the 3 x 2 x 2 box (half-slot route), the plain path on the CPU in the same
 separable mode; and the measurement probes' kernels (csrc/probe_*.cu) on
 small shapes against their plain versions on the card, each at its bar,
 the ELL gather-sum, moveaxis, pk1_shape and the lane gather also at every
-launch of their sweeps.
+launch of their sweeps; and the padded-ELL kernels (ell_pk1, ell_pk2,
+ell_pk3, ell_pk_up) on the 1D tube, the dG Q1 step, a small box and the
+airfoil: three ERK33 steps against the plain path on the CPU, and each
+kernel against its plain version at every stage-slot count.
 """
 
 import functools
@@ -811,4 +814,127 @@ def test_stacked_pk3_on_ragged_canvas(ansatz, dtype):
         assert torch.equal(okp_k[real], okp[real]), len(w)
         assert bool(torch.isfinite(P_k).all() and torch.isfinite(l_k).all())
         limited += int((l[live] < 1).sum())
+    assert limited > 0
+
+
+def ell_case(name):
+    """bench.ell_case as a build_case: (refinement, dtype, device) ->
+    (eq, packed, hm, ti, U0); "1D" the shock front's tube (K = 2), "2D dG
+    Q1" the step in dG Q1, "3D" the 3 x 2 x 2 box (K = 26), the airfoil
+    (irregular rows)."""
+    from ryujin_tpu_torch import bench
+
+    return functools.partial(bench.ell_case, name, subdiv=(3, 2, 2))
+
+
+ELL_CASES = {"1D": 2, "2D dG Q1": 0, "3D": 0, "airfoil": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(ELL_CASES))
+def test_ell_kernels_on_card_match_plain_cpu(name):
+    """Three ERK33 steps through ell_pk1, ell_pk2, ell_pk3 and ell_pk_up on
+    the card against the plain path on the CPU, float64, with the launch
+    counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ryujin_tpu_torch.kernels import ell
+
+    _three_steps_card_vs_cpu(
+        ell_case(name), (ell.ell_pk1, ell.ell_pk2, ell.ell_pk3, ell.ell_pk_up),
+        [3, 3, 3, 6], refinement=ELL_CASES[name])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", sorted(ELL_CASES))
+def test_ell_kernels_each_against_plain(name, dtype):
+    """Each ELL kernel against its plain version on the card, on identical
+    inputs from a state with a blast, at every stage-slot count (ERK33's
+    third substep, one and no slot, ERK54's 3 and 4), at PERF.md section 2's
+    bars: relative 1e-5 (f32) / 1e-11 (f64) on e, alpha, U_low, F, the
+    bounds and P; absolute 1e-5 / 1e-11 on U after PK4 and PK5; in f32 l
+    and l' 5e-3 on every live edge and 1e-4 on all but 0.01 % of them; in
+    f64 l 1e-8 on every live edge, and l' 1e-8 on every live edge but at
+    most 0.01 % of them, each of which must lie within what one ulp of one
+    entry of U_next moves the plain l' there.  The kernels' pow (built
+    with -fmad=false) and torch.pow round otherwise on a few arguments, and
+    where psi is flat at its root that ulp of rho^gamma moves l' far: on
+    this blast one edge of the 2D dG Q1 step's l' by 3.8e-8, where one ulp
+    of U_next moves the plain l' by 1.8e-5 (PERF.md section 7,
+    python -m ryujin_tpu_torch.limiter_rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ryujin_tpu_torch import limiter_rounding
+    from ryujin_tpu_torch.kernels import ell
+    from ryujin_tpu_torch.solver.hyperbolic import d_from_e, tau_max_from_d
+
+    dt = getattr(torch, dtype)
+    f32 = dt == torch.float32
+    rel = 1e-5 if f32 else 1e-11
+    _, packed, hm, ti, U0 = ell_case(name)(ELL_CASES[name], dt, "cuda")
+    eq, p, st = hm.eq, hm.params, hm.stencil
+    U_a, U, prec = _limited_state(packed, hm, ti, U0, dt)
+    live, real = st.mask > 0, st.node_mask > 0
+
+    def close(a, b, where, what):
+        scale = b[..., where].abs().max().item()
+        d = (a - b)[..., where].abs().max().item()
+        assert d <= rel * max(scale, 1e-300), (what, d, scale)
+
+    def l_close(a, b, what, spread=None):
+        """l within its bar on the live edges; an edge beyond it (at most
+        0.01 % of them) within 5e-3 in f32, in f64 within spread(k, i)
+        where one is given, else nowhere."""
+        diff = (a - b).abs() * live
+        beyond = (diff > (1e-4 if f32 else 1e-8)).nonzero().tolist()
+        assert len(beyond) <= 1e-4 * int(live.sum()), (what, len(beyond))
+        for k, i in beyond:
+            cap = 5e-3 if f32 else spread(k, i) if spread else 0.0
+            assert diff[k, i].item() <= cap, (what, k, i, diff[k, i].item())
+
+    def ulp_spread(U_next, bounds, P, l):
+        """spread(k, i): how far one ulp of one entry of U_next[:, i] moves
+        the plain l' of slot k at row i."""
+        l_T = st.transpose_edge(l)
+
+        def spread(k, i):
+            rest = 1.0 - torch.minimum(l[k, i], l_T[k, i])
+            return limiter_rounding.ulp_spread(eq, p, bounds[:, i],
+                                               U_next[:, i], rest, P[:, k, i])
+        return spread
+
+    args = (eq, p, st, U, prec)
+    (e_k, a_k), (e, alpha) = ell.ell_pk1(*args), ell.ell_pk1_reference(*args)
+    close(e_k, e, live, "e")
+    close(a_k, alpha, real, "alpha")
+    d = d_from_e(st.mask, e, st.transpose_edge(e))
+    tau = tau_max_from_d(st, d, 0.9, torch.full((), float("inf"), dtype=dt,
+                                                device="cuda"))
+    stage_U, weights = _stage_inputs(hm, U_a, U)
+    limited = 0
+    for w in weights:
+        sU = stage_U[: len(w)]
+        args = (eq, p, st, U, prec, d, alpha, sU, w, tau)
+        got, want = ell.ell_pk2(*args), ell.ell_pk2_reference(*args)
+        for a, b, what in zip(got, want, ("U_low", "F", "bounds")):
+            close(a, b, real, (what, len(w)))
+        U_low, F, bounds = want
+        args = (eq, p, st, U, d, alpha, F, U_low, bounds, sU, w, tau)
+        (P_k, l_k, okp_k), (P, l, okp) = (ell.ell_pk3(*args),
+                                          ell.ell_pk3_reference(*args))
+        close(P_k, P, live, ("P", len(w)))
+        l_close(l_k, l, ("l", len(w)))
+        assert torch.equal(okp_k[real], okp[real]), len(w)
+        limited += int((l[live] < 1).sum())
+    for last in (False, True):
+        args = (eq, p, st, U_low, bounds, P, l, last)
+        (U_k, lk), (U_r, lr) = (ell.ell_pk_up(*args),
+                                ell.ell_pk_up_reference(*args))
+        d_U = (U_k - U_r)[:, real].abs().max().item()
+        assert d_U <= (1e-5 if f32 else 1e-11), (last, d_U)
+        if last:
+            assert lk is None and lr is None
+        else:
+            l_close(lk, lr, "l'", ulp_spread(U_r, bounds, P, l))
     assert limited > 0

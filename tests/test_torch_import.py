@@ -46,6 +46,33 @@ def test_import_leaves_out_jax_and_triton():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_ell_slice_modules_import_alone():
+    """The modules of the padded-ELL slice import in a process of their
+    own without jax, triton or the JAX package, and read no RYUJIN_
+    variable."""
+    names = ["ryujin_tpu_torch.offline.ell", "ryujin_tpu_torch.offline.reader",
+             "ryujin_tpu_torch.offline.airfoil_profiles",
+             "ryujin_tpu_torch.utils.cubic_spline",
+             "ryujin_tpu_torch.solver.ell_step", "ryujin_tpu_torch.kernels.ell",
+             "ryujin_tpu_torch.shocktube",
+             "ryujin_tpu_torch.limiter_rounding"]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'triton', 'ryujin_tpu'))\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    reads = re.compile(r"(environ|getenv)\W[^\n]*RYUJIN_")
+    for name in names:
+        path = REPO / (name.replace(".", "/") + ".py")
+        assert not reads.search(path.read_text()), name
+
+
 def test_no_source_imports_the_jax_package():
     """No file of the port, and not chip_smoke.py, has an import statement
     of ryujin_tpu (docstrings and comments may name the counterpart)."""
@@ -82,7 +109,7 @@ def test_nvcc_command_targets_sm90a():
     assert {s.name for s in srcs} == {
         "pk1.cu", "pk2.cu", "pk3.cu", "pk_up.cu", "pk1_stream.cu",
         "pk2_stream.cu", "pk3_stream.cu", "probe_pow.cu", "probe_gather.cu",
-        "probe_layout3d.cu",
+        "probe_layout3d.cu", "ell_step.cu",
     }
     for src in srcs:
         cmd = build.compile_command(src, Path("out.o"))
@@ -92,8 +119,15 @@ def test_nvcc_command_targets_sm90a():
     link = build.link_command([Path("a.o"), Path("b.o")], Path("out.so"))
     assert link[link.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     assert "-shared" in link and link[-2:] == ["a.o", "b.o"]
-    solver = {s.stem for s in srcs if not s.stem.startswith("probe_")}
-    assert set(build.ENTRY_POINTS) == solver
+    # every solver entry point is defined, f32 and f64, by its own source
+    # (the ELL kernels' four by csrc/ell_step.cu)
+    defined = set()
+    for src in srcs:
+        if not src.stem.startswith("probe_"):
+            defined |= set(re.findall(r'extern "C" int ryujin_(\w+)_##SUFFIX\(',
+                                      src.read_text()))
+    assert set(build.ENTRY_POINTS) == defined
+    assert {"ell_pk1", "ell_pk2", "ell_pk3", "ell_pk_up"} <= defined
     for src in srcs:
         if src.stem.startswith("probe_"):
             names = re.findall(r'extern "C" int (ryujin_probe_\w+)\(',

@@ -764,8 +764,10 @@ def test_launch_struct_mirrors_the_c_side():
         params = [p.split()[-1] for p in m.group(1).split(",")]
         assert params[-7:-1] == list(probe_layout3d.LayoutShape._fields)
         assert len(params) == len(args)
+    # an entry point's source: csrc/<name>.cu, the ELL kernels' ell_step.cu
+    texts = [src.read_text() for src in build.sources()]
     for stem, n_ptr in build.ENTRY_POINTS.items():
-        text = (CSRC / f"{stem}.cu").read_text()
+        text = next(t for t in texts if f"int ryujin_{stem}_##SUFFIX(" in t)
         m = re.search(r'extern "C" int ryujin_' + stem + r"_##SUFFIX\((.*?)\)",
                       text, re.S)
         params = [p for p in m.group(1).split(",") if p.strip()]
