@@ -1729,16 +1729,23 @@ def compare_ell(hm, U_a, U_b, tol, reps=REPS, records=None, tag="",
             live_edges, len(weights) if pk23 else 0, dt,
             st.incidence if pk23 else None,
             indices=[st.trans if base == "ell_pk_up" else st.cols])
+        # the operations bound alone: the live edges' operations (EDGE_FLOPS)
+        # over the peak rate, whichever of the two binds
+        per_edge, per_stage = EDGE_FLOPS[dim][name.replace(" ", "_")]
+        ops = live_edges * (per_edge + int(pk23 and st.incidence is not None)
+                            + (len(weights) if pk23 else 0) * per_stage)
+        ops_ms = ops / PEAK_FLOPS[dt] * 1e3
         records[name + tag] = {
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": least, "bound_by": by,
-            "bound_ms_mask_as_stored": stored,
+            "bound_ms_mask_as_stored": stored, "ops_bound_ms": ops_ms,
             "source": "ryujin_tpu_torch/csrc/ell_step.cu",
             "replaces": ELL_SOURCE[base],
         }
         print(f"  {name + tag:24s} kernel {ms:.4f} ms   plain {plain:.4f} ms"
               f"   bound {least:.4f} ms ({by}; {stored:.4f} ms with the mask"
-              f" as stored)   {100 * least / ms:.1f} % of bound", flush=True)
+              f" as stored; operations {ops_ms:.4f} ms)   "
+              f"{100 * least / ms:.1f} % of bound", flush=True)
     return ok
 
 
@@ -1746,15 +1753,17 @@ def ell_meshes(dtype, dev):
     """(label, eq, hm, ti, U0) of phase 14a's small ELL cases
     (bench.ell_case), each through the ELL kernels: the 1D shock front at
     refinement 6, the step in dG Q1 at refinement 0 (a bump), the box3d
-    domain at refinement 1 (a blast), and the airfoil at refinement 0 (a
-    bump)."""
+    domain at refinement 1 (a blast), the airfoil at refinement 0 (a
+    bump), and the step in cG Q1 at refinement 0 unpadded (a bump; its
+    16,449 rows leave the last block of ell_pk2 and ell_pk3 ragged)."""
     from ryujin_tpu_torch.bench import ell_case
 
     for name, refinement, label, bump in (
             ("1D", 6, "1D shock front, refinement 6", None),
             ("2D dG Q1", 0, "2D dG Q1 step, refinement 0", False),
             ("3D", 1, "3D box, refinement 1, blast", True),
-            ("airfoil", 0, "airfoil, refinement 0", False)):
+            ("airfoil", 0, "airfoil, refinement 0", False),
+            ("ragged", 0, "2D step, refinement 0, unpadded", False)):
         eq, packed, hm, ti, U0 = ell_case(name, refinement, dtype, dev)
         if bump is not None:
             U0 = bumped(packed, U0, blast=bump)
@@ -1772,7 +1781,11 @@ def ell_developed(label, eq, hm, ti, U0, steps):
     good = all(bool(torch.isfinite(U[:, real]).all())
                and bool(eq.is_admissible(U[:, real]).all())
                for U in (U_a, U_b))
-    print(f"  {label}: {int(real.sum())} rows, K = {K}, dG "
+    from ryujin_tpu_torch.kernels.ell import ell_step_shape
+
+    rows = ell_step_shape("ell_pk3", st.dim, K, U0.dtype, 2, st.n).rows
+    print(f"  {label}: {int(real.sum())} real of {st.n} rows (ell_pk3's "
+          f"blocks of {rows}: {st.n % rows} in the last), K = {K}, dG "
           f"{st.incidence is not None}, {U0.dtype}, t = {t_a.item():.4e} "
           f"after {steps} steps, restarts {int(restarts)}, warnings "
           f"{int(warns)}", flush=True)
@@ -1815,6 +1828,7 @@ def check_ell(dev, card, records, mqs_canvas):
     del U_b
 
     for dt, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+        t0 = time.perf_counter()
         for label, eq_s, hm_s, ti_s, U0_s in ell_meshes(dt, dev):
             U_sa, U_sb = ell_developed(label, eq_s, hm_s, ti_s, U0_s,
                                        ELL_DEVELOP_STEPS)
@@ -1824,6 +1838,9 @@ def check_ell(dev, card, records, mqs_canvas):
                 ok &= compare_ell(hm_s, U_sa, U_sb, tol,
                                   weights=erk54_weights(slots))
             del hm_s, ti_s
+            print(f"  {label}, {dt}: {time.perf_counter() - t0:.1f} s with "
+                  "the setup", flush=True)
+            t0 = time.perf_counter()
     if not ok:
         fail("an ELL kernel disagrees with its plain version")
 

@@ -181,13 +181,15 @@ def build_cylinder3d(refinement: int, dtype, device, pad_minor: int = 128,
 
 
 def build_ell(mesh, dtype, device, ansatz: str = "cG Q1",
-              recovery: str = "bang bang control", speed: float = 3.0):
+              recovery: str = "bang bang control", speed: float = 3.0,
+              pad_to: int = 8):
     """(eq, packed, hm, ti, U0) of `mesh` assembled in `ansatz` and packed
-    as padded ELL (offline/ell.pack: the gather path, solver/ell_step.py),
-    the uniform inflow of density 1.4, velocity `speed` along x and
-    pressure 1, ERK33 at CFL 0.9 / 0.45 with `recovery`."""
+    as padded ELL (offline/ell.pack with `pad_to`: the gather path,
+    solver/ell_step.py), the uniform inflow of density 1.4, velocity
+    `speed` along x and pressure 1, ERK33 at CFL 0.9 / 0.45 with
+    `recovery`."""
     eq = Euler(dim=mesh.dim)
-    packed = ell.pack(assembly.assemble(mesh, ansatz=ansatz))
+    packed = ell.pack(assembly.assemble(mesh, ansatz=ansatz), pad_to=pad_to)
     init = make_initial_state(eq, "uniform",
                               primitive_state=(1.4, speed, 1.0))
     return (eq, packed) + _modules(eq, packed, init, dtype, device, recovery,
@@ -201,7 +203,9 @@ def ell_case(name: str, refinement: int, dtype, device,
     (shocktube.build_case, K = 2), "2D dG Q1" the Mach-3 step in dG Q1,
     "3D" the box3d domain with `subdiv` cells (K = 26), "airfoil" the
     airfoil (irregular rows) with its far field dirichlet, since the
-    dynamic boundary is not ported, and an inflow at speed 0.8."""
+    dynamic boundary is not ported, and an inflow at speed 0.8, "ragged"
+    the Mach-3 step in cG Q1 packed without padding (at refinement 0,
+    16,449 rows: no multiple of a block's rows)."""
     if name == "1D":
         from . import shocktube
 
@@ -216,13 +220,16 @@ def ell_case(name: str, refinement: int, dtype, device,
                          ansatz="dG Q1")
     if name == "3D":
         return build_ell(box3d_mesh(refinement, subdiv), dtype, device)
+    if name == "ragged":
+        return build_ell(geometry.step(refinement=refinement), dtype, device,
+                         pad_to=1)
     if name == "airfoil":
         mesh = geometry.airfoil(refinement=refinement)
         mesh.boundary_ids[mesh.boundary_ids == Boundary.dynamic] = (
             Boundary.dirichlet)
         return build_ell(mesh, dtype, device, speed=0.8)
-    raise ValueError(f"ELL case {name!r}: expected '1D', '2D dG Q1', '3D' "
-                     "or 'airfoil'")
+    raise ValueError(f"ELL case {name!r}: expected '1D', '2D dG Q1', '3D', "
+                     "'airfoil' or 'ragged'")
 
 
 # case -> (build_case, default refinement, default warmup steps, metric)

@@ -1,4 +1,4 @@
-// The substep on the padded-ELL stencil: four kernels, one thread a row.
+// The substep on the padded-ELL stencil: four kernels.
 //
 // Replaces: no TPU kernel.  The JAX package runs this path in XLA: the
 // gather stencil (Stencil, _stencil_from_ell, ryujin_tpu/solver/
@@ -18,22 +18,33 @@
 //
 // Layout: node axis last, n rows (the padded node count; the launch puts
 // n in Consts W, with D = H = 1).  Neighbour j of slot k is cols[k * n +
-// i] (int64); the transposed edge of slot k at row i is the flat index
-// trans[k * n + i] into the [K, n] edge arrays.  Statics: c_ij [DIM, K,
+// i] (int64 for ell_pk1, int32 for ell_pk2 and ell_pk3: n < 2^31); the
+// transposed edge of slot k at row i is the flat index trans[k * n + i]
+// into the [K, n] edge arrays.  Statics: c_ij [DIM, K,
 // n], m_ij [K, n], the mask [K, n] (1 live, 0 padding), c_ii [DIM, n],
 // the dG incidence [K, n] (null for a continuous ansatz) and the node
 // planes [4, n]: m_i, 1/m_i, n_nbrs, node_mask.  K is the launch's
 // (Consts K): the mesh's largest row, 2 in 1D Q1, more at the irregular
 // vertices of an unstructured mesh.
 //
-// Design: one thread a row, 128 threads a block, the loop over k not
-// unrolled, U_j and the other neighbour values gathered from device
-// memory at every live slot: the one-thread-a-cell form of the canvas
-// kernels' first ports (pk1_stream.cu, pk2_stream.cu, `_kernel`).  Each
-// kernel is a template on DIM (1, 2, 3; C = DIM + 2 components), PK2 and
-// PK3 also on the dG flag (the incidence raises the high-order viscosity
-// factor to beta_ij) and on MS, the most stage slots an instance takes (2,
-// or MAX_STAGES for ERK54's 3 and 4), chosen at launch by n_stages.
+// Design: ell_pk1 and ell_pk_up one thread a row, 128 threads a block,
+// the loop over k not unrolled, U_j and the other neighbour values
+// gathered from device memory at every live slot: the one-thread-a-cell
+// form of the canvas kernels' first ports.  ell_pk2 and ell_pk3 (see "the
+// launch of ell_pk2 and ell_pk3" below) stage each block's row values in
+// shared memory, so their registers hold no row state the slots only read
+// and their stacks nothing; ell_pk3 spreads a row's slots over threads.
+// The neighbour values are gathered at every live slot: a block's columns
+// span 1,000-6,500 rows on the meshes at size, more than shared memory
+// holds (PERF.md section 6).  What bounds them on the H100: not
+// their bytes (24-34 % of that bound in the one-thread-a-row form) nor the
+// gathers, but the latency of each slot's chain of gathers, divisions,
+// pows and the limiter's Newton steps, which the warps an SM holds hide
+// only in part.  Each kernel is a template on DIM (1, 2, 3; C = DIM + 2
+// components), PK2 and PK3 also on the dG flag (the incidence raises the
+// high-order viscosity factor to beta_ij) and on MS, the most stage slots
+// an instance takes (2, or MAX_STAGES for ERK54's 3 and 4), chosen at
+// launch by n_stages.
 //
 // Arithmetic: each per-edge value (e, P, l, l') is formed by the
 // operations of the plain phase function in their order (FMA contraction
@@ -44,7 +55,7 @@
 // relative 1e-5 in f32, 1e-11 in f64).  The update sums l_sym P in slot
 // order, as its plain version (kernels/ell.py) does.  Every output entry
 // is written: 0 on masked slots, alpha 0 on padded rows.
-#include "euler.cuh"
+#include "staged.cuh"
 
 namespace ryujin {
 
@@ -159,52 +170,148 @@ ell_pk1_kernel(const int64_t* __restrict__ cols, const T* __restrict__ cij,
   alpha[i] = a;
 }
 
+// ---- the launch of ell_pk2 and ell_pk3 -----------------------------------------
+//
+// A block (B, KY) owns B = block.x consecutive rows and stages in shared
+// memory, as arrays of B rows, the values that depend on the row alone,
+// each formed once: U and the parts of its flux, each stage state's flux
+// parts, and the kernel's other row values.  A slot rebuilds the row's flux
+// from its parts (staged.cuh: the multiplies flux() forms it with, so bit
+// for bit), reads the other row values where it needs them, and forms its
+// neighbour's flux from the state it gathers; the stage loops run over the
+// instance's MS, so no array is indexed at run time and nothing goes to the
+// stack.  ell_pk3 spreads the slots over KY threads a row: thread (m, ky)
+// takes the edges (k, i0 + m) of the slots k = ky, ky + KY, ... < K, and a
+// warp covers consecutive rows of one slot, so the per-edge planes (cols,
+// c_ij, m_ij, d, the mask, the incidence) are read, and P and l written,
+// coalesced.  ell_pk2 sums over the slots in order and keeps one thread a
+// row (KY = 1; spreading its slots lost, PERF.md section 6).
+// ell_step_shape() (kernels/ell.py) mirrors the layout; the launchers refuse
+// any other.
+constexpr int ELL_THREADS = 128;  // the most threads a block; mirrored by ELL_THREADS in kernels/ell.py
+// The launch bound of the f32 instances in 1D and 2D: the blocks of
+// ELL_THREADS an SM must hold, so at most 72 registers a thread for
+// ell_pk2, 48 for ell_pk3 of at most two stage slots and 56 for its
+// MAX_STAGES instance (more warps resident, with no stack; fewer spill;
+// the other instances are left to the compiler)
+constexpr int ELL_PK2_BLOCKS = 7, ELL_PK3_BLOCKS = 10, ELL_PK3_WIDE_BLOCKS = 9;
+template <typename T, int DIM>
+__host__ __device__ constexpr int ell_min_blocks(int blocks) {
+  return sizeof(T) == 4 && DIM <= 2 ? blocks : 1;
+}
+
+// Row values of ell_pk3: U and its flux parts, U_low, F, the bounds, psi0,
+// alpha_i, 1/m_i, pfac and the node mask, then each stage state's flux parts;
+// of ell_pk2 staged.cuh's pk2_vals (U and its flux parts, s_i, alpha_i, the
+// stages' flux parts), then the row's sums of each stage's flux
+// divergences, which its thread alone reads and writes.
+__host__ __device__ constexpr int ell_pk3_row_vals(int dim, int stages) {
+  return 4 * dim + 19 + stages * stage_vals(dim);
+}
+
+inline int64_t ell_step_smem(bool pk3, int dim, int stages, int rows, int size) {
+  const int vals = pk3 ? ell_pk3_row_vals(dim, stages) : pk2_vals(dim, stages) + stages * (dim + 2);
+  return int64_t(vals) * rows * size;
+}
+
+namespace {
+
+// The parts of a state's flux, m, v = m (1/rho), p and E + p (staged.cuh):
+// flux_div over them forms each flux entry where it is summed, with the
+// multiplies flux() forms it with, so no flux tensor is held.
+template <typename T, int DIM>
+struct Parts {
+  T m[DIM], v[DIM], p, Ep;
+};
+
+template <typename T, int NC>
+__device__ __forceinline__ Parts<T, NC - 2> state_parts(const EqConsts<T>& e, const T (&u)[NC]) {
+  Parts<T, NC - 2> f;
+#pragma unroll
+  for (int d = 0; d < NC - 2; ++d) f.m[d] = u[1 + d];
+  flux_parts(e, u, f.v, f.p, f.Ep);
+  return f;
+}
+
+// The parts staged for row r: m at values am .., v at av .., p and E + p
+// after v (U's: am = 1, av = NC; a stage state's: av = am + DIM).
+template <typename T, int DIM>
+__device__ __forceinline__ Parts<T, DIM> staged_parts(const T* sm, int ns, int r, int am, int av) {
+  Parts<T, DIM> f;
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) {
+    f.m[d] = sm[(am + d) * ns + r];
+    f.v[d] = sm[(av + d) * ns + r];
+  }
+  f.p = sm[(av + DIM) * ns + r];
+  f.Ep = sm[(av + DIM + 1) * ns + r];
+  return f;
+}
+
+// Entry d of row q of the flux tensor of parts f (flux_from_parts').
+template <typename T, int DIM>
+__device__ __forceinline__ T flux_entry(const Parts<T, DIM>& f, int q, int d) {
+  if (q == 0) return f.m[d];
+  if (q == DIM + 1) return f.v[d] * f.Ep;
+  return q - 1 == d ? f.m[q - 1] * f.v[d] + f.p : f.m[q - 1] * f.v[d];
+}
+
+// -(f_a + f_b) . c for component q, as flux_div forms it.
+template <typename T, int DIM>
+__device__ __forceinline__ T flux_div(const Parts<T, DIM>& a, const Parts<T, DIM>& b, int q,
+                                      const T (&cv)[DIM]) {
+  T s = (flux_entry(a, q, 0) + flux_entry(b, q, 0)) * cv[0];
+#pragma unroll
+  for (int d = 1; d < DIM; ++d) s = s + (flux_entry(a, q, d) + flux_entry(b, q, d)) * cv[d];
+  return -s;
+}
+
+}  // namespace
+
 // ---- ell_pk2: U_low, F and the limiter bounds -----------------------------------
+//
+// One thread a row, its slots in order k = 0 .. K-1 as the one-thread-a-row
+// form sums them; the row's values (U and its flux parts, s_i, alpha_i, each
+// stage state's flux parts) and its sums of the stages' flux divergences in
+// shared memory, for the thread alone (no barrier), so that the thread fits
+// the launch bound's registers with nothing on the stack.
 template <typename T, int DIM, bool DG, int MS>
-__global__ void __launch_bounds__(128)
-ell_pk2_kernel(const int64_t* __restrict__ cols, const T* __restrict__ cij,
+__global__ void __launch_bounds__(ELL_THREADS, ell_min_blocks<T, DIM>(ELL_PK2_BLOCKS))
+ell_pk2_kernel(const int32_t* __restrict__ cols, const T* __restrict__ cij,
                const T* __restrict__ mask, const T* __restrict__ inc, const T* __restrict__ cii,
                const T* __restrict__ node, const T* __restrict__ U, const T* __restrict__ prec,
                const T* __restrict__ d_in, const T* __restrict__ alpha,
                const T* __restrict__ sU, const T* __restrict__ tau_ptr, T* __restrict__ U_low,
                T* __restrict__ F_out, T* __restrict__ bounds,
                const __grid_constant__ EqConsts<T> e) {
-  constexpr int NC = DIM + 2;
-  const int64_t n = int64_t(e.D) * e.H * e.W;
-  int64_t i;
-  if (!this_row(n, i)) return;
-  const int K = e.K;
-  const int S = e.n_stages;
+  constexpr int NC = DIM + 2, SV = stage_vals(DIM);
+  constexpr int SI = u_vals(DIM), AL = SI + 1, SG = SI + 2;  // s_i, alpha_i, stages
+  extern __shared__ __align__(16) unsigned char ell_smem[];
+  T* const rv = reinterpret_cast<T*>(ell_smem);
+  const int B = blockDim.x, m = threadIdx.x;
+  const int64_t n = e.W;
+  const int K = e.K, S = e.n_stages;
+  const int64_t i = int64_t(blockIdx.x) * B + m;
+  if (i >= n) return;
 
-  T ui[NC];
-  load_state(U, i, n, ui);
-  const T s_i = prec[i];
-  const T alpha_i = alpha[i];
-  const T tau = *tau_ptr;
-
-  T fi[NC][DIM];
-  flux(e, ui, fi);
-  T cvi[DIM];
+  stage_state<T, DIM>(e, U, i, n, rv, B, m);
+  rv[SI * B + m] = prec[i];
+  rv[AL * B + m] = alpha[i];
 #pragma unroll
-  for (int d = 0; d < DIM; ++d) cvi[d] = cii[int64_t(d) * n + i];
+  for (int s = 0; s < MS; ++s)
+    if (s < S) stage_stage<T, DIM>(e, sU + int64_t(s) * NC * n, i, n, rv, B, m, SG + s * SV);
 
-  T fs_i[MS][NC][DIM];
-  for (int s = 0; s < S; ++s) {
-    T us[NC];
-    load_state(sU + int64_t(s) * NC * n, i, n, us);
-    flux(e, us, fs_i[s]);
-  }
-
-  // the running sums over the slots: the low-order and F terms, and per
-  // stage its flux divergences; the bounds' accumulators
-  T low_acc[NC], F_acc[NC], Fs_acc[MS][NC];
+  T low_acc[NC], F_acc[NC];
+  T* const Fs_acc = rv + (SG + S * SV) * B + m;  // the stage sums, value s NC + q
 #pragma unroll
   for (int q = 0; q < NC; ++q) low_acc[q] = F_acc[q] = T(0);
 #pragma unroll
   for (int s = 0; s < MS; ++s)
 #pragma unroll
-    for (int q = 0; q < NC; ++q) Fs_acc[s][q] = T(0);
-  T rho_min = ui[0], rho_max = ui[0], s_min = s_i, s_interp_max = s_i;
+    for (int q = 0; q < NC; ++q)
+      if (s < S) Fs_acc[(s * NC + q) * B] = T(0);
+  const T u0 = rv[m], s_i = rv[SI * B + m];
+  T rho_min = u0, rho_max = u0, s_min = s_i, s_interp_max = s_i;
   T relax_sum = T(0), k_count = T(0);
 
 #pragma unroll 1
@@ -216,26 +323,32 @@ ell_pk2_kernel(const int64_t* __restrict__ cols, const T* __restrict__ cij,
     T cv[DIM];
 #pragma unroll
     for (int dd = 0; dd < DIM; ++dd) cv[dd] = cij[(int64_t(dd) * K + k) * n + i];
-    T uj[NC];
+    T ui[NC], uj[NC];
+    staged_u(rv, B, m, ui);
     load_state(U, j, n, uj);
-    T fj[NC][DIM];
-    flux(e, uj, fj);
-    T factor = T(0.5) * (alpha_i + alpha[j]);
+    T factor = T(0.5) * (rv[AL * B + m] + alpha[j]);
     if constexpr (DG) factor = mx(factor, inc[k * n + i]);
     const T d_H = d * factor;
+    {
+      const Parts<T, DIM> fi = staged_parts<T, DIM>(rv, B, m, 1, NC), fj = state_parts(e, uj);
 #pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      const T flux_ij = flux_div(fi, fj, q, cv);
-      const T dU = uj[q] - ui[q];
-      low_acc[q] += flux_ij + d * dU;
-      F_acc[q] += d_H * dU + e.weight * flux_ij;
+      for (int q = 0; q < NC; ++q) {
+        const T flux_ij = flux_div(fi, fj, q, cv);
+        const T dU = uj[q] - ui[q];
+        low_acc[q] += flux_ij + d * dU;
+        F_acc[q] += d_H * dU + e.weight * flux_ij;
+      }
     }
-    for (int s = 0; s < S; ++s) {
-      T usj[NC], fsj[NC][DIM];
-      load_state(sU + int64_t(s) * NC * n, j, n, usj);
-      flux(e, usj, fsj);
 #pragma unroll
-      for (int q = 0; q < NC; ++q) Fs_acc[s][q] += flux_div(fs_i[s], fsj, q, cv);
+    for (int s = 0; s < MS; ++s) {
+      if (s < S) {
+        T usj[NC];
+        load_state(sU + int64_t(s) * NC * n, j, n, usj);
+        const Parts<T, DIM> fsi = staged_parts<T, DIM>(rv, B, m, SG + s * SV, SG + s * SV + DIM);
+        const Parts<T, DIM> fsj = state_parts(e, usj);
+#pragma unroll
+        for (int q = 0; q < NC; ++q) Fs_acc[(s * NC + q) * B] += flux_div(fsi, fsj, q, cv);
+      }
     }
 
     // limiter_bounds (euler/limiter.h:255-363)
@@ -256,29 +369,38 @@ ell_pk2_kernel(const int64_t* __restrict__ cols, const T* __restrict__ cij,
   }
 
   const T m_inv = node[n + i];
+  const T tau = *tau_ptr;
+  T cvi[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) cvi[d] = cii[int64_t(d) * n + i];
+  const Parts<T, DIM> fi = staged_parts<T, DIM>(rv, B, m, 1, NC);
 #pragma unroll
   for (int q = 0; q < NC; ++q) {
     const T flux_ii = flux_div(fi, fi, q, cvi);
-    U_low[q * n + i] = ui[q] + (tau * m_inv) * (low_acc[q] + flux_ii);
+    U_low[q * n + i] = rv[q * B + m] + (tau * m_inv) * (low_acc[q] + flux_ii);
     T F = F_acc[q] + e.weight * flux_ii;
     // the stage increments sum_s w_s (sum_k hof_s + hof_s_ii), summed
     // over the stages apart and added last, as _stage_terms does; a zero
     // weight adds nothing there
     T F_inc = T(0);
     bool have = false;
-    for (int s = 0; s < S; ++s) {
-      const T w_s = stage_weight<MS>(e, s);
-      if (w_s == T(0)) continue;
-      const T inc_s = w_s * (Fs_acc[s][q] + flux_div(fs_i[s], fs_i[s], q, cvi));
-      F_inc = have ? F_inc + inc_s : inc_s;
-      have = true;
+#pragma unroll
+    for (int s = 0; s < MS; ++s) {
+      if (s < S) {
+        const T w_s = stage_weight<MS>(e, s);
+        if (w_s == T(0)) continue;
+        const Parts<T, DIM> fsi = staged_parts<T, DIM>(rv, B, m, SG + s * SV, SG + s * SV + DIM);
+        const T inc_s = w_s * (Fs_acc[(s * NC + q) * B] + flux_div(fsi, fsi, q, cvi));
+        F_inc = have ? F_inc + inc_s : inc_s;
+        have = true;
+      }
     }
     F_out[q * n + i] = have ? F + F_inc : F;
   }
 
   const T hd_i = node[i] * e.measure_inv;
   const T r_i = relax_radius<DIM>(hd_i) * e.relax_factor;
-  const T relax_num = relax_sum + T(2) * ui[0];
+  const T relax_num = relax_sum + T(2) * u0;
   const T rho_relaxation = fabs(relax_num) / (fabs(k_count + T(1)) + e.eps);
   const T relaxation = e.two_relax_factor * rho_relaxation;
   rho_min = mx((T(1) - r_i) * rho_min, rho_min - relaxation);
@@ -291,103 +413,136 @@ ell_pk2_kernel(const int64_t* __restrict__ cols, const T* __restrict__ cij,
 }
 
 // ---- ell_pk3: P, the first limiter pass and okp --------------------------------
+//
+// Each edge writes its P and l; the row's task writes okp = 1 before the
+// barrier, and an edge of a real row that fails the limiter writes 0 after
+// it (every writer the same value).
 template <typename T, int DIM, bool DG, int MS>
-__global__ void __launch_bounds__(128)
-ell_pk3_kernel(const int64_t* __restrict__ cols, const T* __restrict__ cij,
+__global__ void __launch_bounds__(ELL_THREADS, ell_min_blocks<T, DIM>(MS == 2 ? ELL_PK3_BLOCKS
+                                                                     : ELL_PK3_WIDE_BLOCKS))
+ell_pk3_kernel(const int32_t* __restrict__ cols, const T* __restrict__ cij,
                const T* __restrict__ mij, const T* __restrict__ mask, const T* __restrict__ inc,
                const T* __restrict__ node, const T* __restrict__ U, const T* __restrict__ d_in,
                const T* __restrict__ alpha, const T* __restrict__ F, const T* __restrict__ U_low,
                const T* __restrict__ bounds, const T* __restrict__ sU,
                const T* __restrict__ tau_ptr, T* __restrict__ P_out, T* __restrict__ l_out,
                T* __restrict__ okp, const __grid_constant__ EqConsts<T> e) {
-  constexpr int NC = DIM + 2;
-  const int64_t n = int64_t(e.D) * e.H * e.W;
-  int64_t i;
-  if (!this_row(n, i)) return;
-  const int K = e.K;
-  const int S = e.n_stages;
+  constexpr int NC = DIM + 2, SV = stage_vals(DIM);
+  // U_low, F_i, the bounds, psi0, alpha_i, 1/m_i, pfac, node mask, stages
+  constexpr int UL = u_vals(DIM), FI = UL + NC, BN = FI + NC, PS = BN + 3, AL = PS + 4,
+                MI = AL + 1, PF = AL + 2, RE = AL + 3, SG = AL + 4;
+  extern __shared__ __align__(16) unsigned char ell_smem[];
+  T* const rv = reinterpret_cast<T*>(ell_smem);
+  const int B = blockDim.x, KY = blockDim.y, m = threadIdx.x, ky = threadIdx.y;
+  const int64_t n = e.W;
+  const int K = e.K, S = e.n_stages;
+  const int64_t i = int64_t(blockIdx.x) * B + m;
 
-  T ui[NC], ul[NC], Fi[NC];
-  load_state(U, i, n, ui);
-  load_state(U_low, i, n, ul);
-  load_state(F, i, n, Fi);
-  const T bnd[3] = {bounds[i], bounds[n + i], bounds[2 * n + i]};
-  const T alpha_i = alpha[i];
-  const T m_inv = node[n + i];
-  const T tau = *tau_ptr;
-  const T pfac = tau * m_inv * node[2 * n + i];
-  const bool real = node[3 * n + i] > T(0);
-  T psi0[4];
-  limiter_psi0(e, bnd[2], ul, psi0);
-  T fi[NC][DIM];
-  flux(e, ui, fi);
-  T fs_i[MS][NC][DIM];
-  for (int s = 0; s < S; ++s) {
-    T us[NC];
-    load_state(sU + int64_t(s) * NC * n, i, n, us);
-    flux(e, us, fs_i[s]);
-  }
-
-  bool ok = true;
-#pragma unroll 1
-  for (int k = 0; k < K; ++k) {
-    if (!(mask[k * n + i] > T(0))) {
+  // the row values, a task a thread: 0 U and its flux parts; 1 U_low, the
+  // bounds and psi0, and okp = 1; 2 F_i, alpha_i, 1/m_i, pfac and the node
+  // mask; 3 + s stage s
+  if (i < n) {
+    for (int t = ky; t < 3 + S; t += KY) {
+      if (t == 0) {
+        stage_state<T, DIM>(e, U, i, n, rv, B, m);
+      } else if (t == 1) {
+        T ul[NC], psi0[4];
+        load_state(U_low, i, n, ul);
+        const T bnd[3] = {bounds[i], bounds[n + i], bounds[2 * n + i]};
+        limiter_psi0(e, bnd[2], ul, psi0);
 #pragma unroll
-      for (int q = 0; q < NC; ++q) P_out[(int64_t(q) * K + k) * n + i] = T(0);
-      l_out[k * n + i] = T(0);
-      continue;
-    }
-    const int64_t j = cols[k * n + i];
-    const T d = d_in[k * n + i];
-    T cv[DIM];
+        for (int q = 0; q < NC; ++q) rv[(UL + q) * B + m] = ul[q];
 #pragma unroll
-    for (int dd = 0; dd < DIM; ++dd) cv[dd] = cij[(int64_t(dd) * K + k) * n + i];
-    T factor = T(0.5) * (alpha_i + alpha[j]);
-    if constexpr (DG) factor = mx(factor, inc[k * n + i]);
-    const T d_H = d * factor;
-    T uj[NC];
-    load_state(U, j, n, uj);
-    T P[NC];
-    {
-      T fj[NC][DIM];
-      flux(e, uj, fj);
+        for (int b = 0; b < 3; ++b) rv[(BN + b) * B + m] = bnd[b];
 #pragma unroll
-      for (int q = 0; q < NC; ++q) {
-        const T flux_ij = flux_div(fi, fj, q, cv);
-        P[q] = -flux_ij + e.weight * flux_ij + (d_H - d) * (uj[q] - ui[q]);
+        for (int b = 0; b < 4; ++b) rv[(PS + b) * B + m] = psi0[b];
+        okp[i] = T(1);
+      } else if (t == 2) {
+#pragma unroll
+        for (int q = 0; q < NC; ++q) rv[(FI + q) * B + m] = F[q * n + i];
+        const T m_inv = node[n + i];
+        rv[AL * B + m] = alpha[i];
+        rv[MI * B + m] = m_inv;
+        rv[PF * B + m] = *tau_ptr * m_inv * node[2 * n + i];
+        rv[RE * B + m] = node[3 * n + i];
+      } else {
+        stage_stage<T, DIM>(e, sU + int64_t(t - 3) * NC * n, i, n, rv, B, m, SG + (t - 3) * SV);
       }
     }
-    // sum_s w_s hof_s over the stages of nonzero weight, added at once
-    T P_inc[NC];
-    bool have = false;
-    for (int s = 0; s < S; ++s) {
-      const T w_s = stage_weight<MS>(e, s);
-      if (w_s == T(0)) continue;
-      T usj[NC], fsj[NC][DIM];
-      load_state(sU + int64_t(s) * NC * n, j, n, usj);
-      flux(e, usj, fsj);
+  }
+  __syncthreads();
+
+  if (i < n) {
+    for (int k = ky; k < K; k += KY) {
+      if (!(mask[k * n + i] > T(0))) {
+#pragma unroll
+        for (int q = 0; q < NC; ++q) P_out[(int64_t(q) * K + k) * n + i] = T(0);
+        l_out[k * n + i] = T(0);
+        continue;
+      }
+      const int64_t j = cols[k * n + i];
+      const T d = d_in[k * n + i];
+      T cv[DIM];
+#pragma unroll
+      for (int dd = 0; dd < DIM; ++dd) cv[dd] = cij[(int64_t(dd) * K + k) * n + i];
+      T factor = T(0.5) * (rv[AL * B + m] + alpha[j]);
+      if constexpr (DG) factor = mx(factor, inc[k * n + i]);
+      const T d_H = d * factor;
+      T ui[NC], uj[NC];
+      staged_u(rv, B, m, ui);
+      load_state(U, j, n, uj);
+      T P[NC];
+      {
+        const Parts<T, DIM> fi = staged_parts<T, DIM>(rv, B, m, 1, NC), fj = state_parts(e, uj);
+#pragma unroll
+        for (int q = 0; q < NC; ++q) {
+          const T flux_ij = flux_div(fi, fj, q, cv);
+          P[q] = -flux_ij + e.weight * flux_ij + (d_H - d) * (uj[q] - ui[q]);
+        }
+      }
+      // sum_s w_s hof_s over the stages of nonzero weight, added at once
+      T P_inc[NC];
+      bool have = false;
+#pragma unroll
+      for (int s = 0; s < MS; ++s) {
+        if (s < S) {
+          const T w_s = stage_weight<MS>(e, s);
+          if (w_s == T(0)) continue;
+          T usj[NC];
+          load_state(sU + int64_t(s) * NC * n, j, n, usj);
+          const Parts<T, DIM> fsi = staged_parts<T, DIM>(rv, B, m, SG + s * SV, SG + s * SV + DIM);
+          const Parts<T, DIM> fsj = state_parts(e, usj);
+#pragma unroll
+          for (int q = 0; q < NC; ++q) {
+            const T term = w_s * flux_div(fsi, fsj, q, cv);
+            P_inc[q] = have ? P_inc[q] + term : term;
+          }
+          have = true;
+        }
+      }
+      const T m_ij = mij[k * n + i];
+      const T b_ij = -m_ij / node[j];
+      const T b_ji = -m_ij * rv[MI * B + m];
+      const T pfac = rv[PF * B + m];
 #pragma unroll
       for (int q = 0; q < NC; ++q) {
-        const T term = w_s * flux_div(fs_i[s], fsj, q, cv);
-        P_inc[q] = have ? P_inc[q] + term : term;
+        T p = have ? P[q] + P_inc[q] : P[q];
+        p = p + b_ij * F[q * n + j] - b_ji * rv[(FI + q) * B + m];
+        P[q] = p * pfac;
+        P_out[(int64_t(q) * K + k) * n + i] = P[q];
       }
-      have = true;
-    }
-    const T m_ij = mij[k * n + i];
-    const T b_ij = -m_ij / node[j];
-    const T b_ji = -m_ij * m_inv;
+      T ul[NC], bnd[3], psi0[4];
 #pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      T p = have ? P[q] + P_inc[q] : P[q];
-      p = p + b_ij * F[q * n + j] - b_ji * Fi[q];
-      P[q] = p * pfac;
-      P_out[(int64_t(q) * K + k) * n + i] = P[q];
+      for (int q = 0; q < NC; ++q) ul[q] = rv[(UL + q) * B + m];
+#pragma unroll
+      for (int b = 0; b < 3; ++b) bnd[b] = rv[(BN + b) * B + m];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) psi0[b] = rv[(PS + b) * B + m];
+      bool success;
+      l_out[k * n + i] = limiter_limit(e, bnd, ul, psi0, P, success);
+      if (rv[RE * B + m] > T(0) && !success) okp[i] = T(0);
     }
-    bool success;
-    l_out[k * n + i] = limiter_limit(e, bnd, ul, psi0, P, success);
-    if (real && !success) ok = false;
   }
-  okp[i] = ok ? T(1) : T(0);
 }
 
 // ---- ell_pk_up: PK4 (l_new given) and PK5 (l_new null) -------------------------
@@ -453,6 +608,18 @@ bool ell_ok(const Consts* c) {
 
 inline dim3 row_grid(const Consts* c) { return dim3((unsigned(c->W) + 127) / 128); }
 
+// The launch ell_step_shape() gives ell_pk2 (pk3 false) or ell_pk3: a block
+// (B, KY, 1) of at most ELL_THREADS threads with KY <= K (KY = 1 for
+// ell_pk2), ceil(n / B) blocks, and the shared bytes of the layout.
+template <typename T>
+bool ell_step_launch_ok(const Consts* c, bool pk3) {
+  const int B = c->block[0], KY = c->block[1];
+  if (B < 1 || KY < 1 || KY > c->K || c->block[2] != 1 || B * KY > ELL_THREADS) return false;
+  if (!pk3 && KY != 1) return false;
+  if (c->grid[0] != (int64_t(c->W) + B - 1) / B || c->grid[1] != 1 || c->grid[2] != 1) return false;
+  return c->smem == ell_step_smem(pk3, c->dim, c->n_stages, B, int(sizeof(T)));
+}
+
 }  // namespace
 
 template <typename T>
@@ -472,31 +639,39 @@ int launch_ell_pk1(const int64_t* cols, const T* cij, const T* mask, const T* no
 }
 
 template <typename T, bool DG, int MS>
-int launch_ell_pk2_instance(const int64_t* cols, const T* cij, const T* mask, const T* inc,
+int launch_ell_pk2_instance(const int32_t* cols, const T* cij, const T* mask, const T* inc,
                             const T* cii, const T* node, const T* U, const T* prec, const T* d,
                             const T* alpha, const T* sU, const T* tau, T* U_low, T* F, T* bounds,
                             const EqConsts<T>& e, const Consts* c, cudaStream_t stream) {
-  const dim3 grid = row_grid(c), block(128);
-  if (c->dim == 1)
-    ell_pk2_kernel<T, 1, DG, MS><<<grid, block, 0, stream>>>(
-        cols, cij, mask, inc, cii, node, U, prec, d, alpha, sU, tau, U_low, F, bounds, e);
-  else if (c->dim == 2)
-    ell_pk2_kernel<T, 2, DG, MS><<<grid, block, 0, stream>>>(
-        cols, cij, mask, inc, cii, node, U, prec, d, alpha, sU, tau, U_low, F, bounds, e);
-  else
-    ell_pk2_kernel<T, 3, DG, MS><<<grid, block, 0, stream>>>(
-        cols, cij, mask, inc, cii, node, U, prec, d, alpha, sU, tau, U_low, F, bounds, e);
+  const dim3 grid(c->grid[0]), block(c->block[0], c->block[1]);
+  const int smem = c->smem;
+  if (c->dim == 1) {
+    auto* kernel = ell_pk2_kernel<T, 1, DG, MS>;
+    if (const int rc = allow_smem(kernel, smem)) return rc;
+    kernel<<<grid, block, smem, stream>>>(cols, cij, mask, inc, cii, node, U, prec, d, alpha, sU,
+                                          tau, U_low, F, bounds, e);
+  } else if (c->dim == 2) {
+    auto* kernel = ell_pk2_kernel<T, 2, DG, MS>;
+    if (const int rc = allow_smem(kernel, smem)) return rc;
+    kernel<<<grid, block, smem, stream>>>(cols, cij, mask, inc, cii, node, U, prec, d, alpha, sU,
+                                          tau, U_low, F, bounds, e);
+  } else {
+    auto* kernel = ell_pk2_kernel<T, 3, DG, MS>;
+    if (const int rc = allow_smem(kernel, smem)) return rc;
+    kernel<<<grid, block, smem, stream>>>(cols, cij, mask, inc, cii, node, U, prec, d, alpha, sU,
+                                          tau, U_low, F, bounds, e);
+  }
   return int(cudaGetLastError());
 }
 
 // `inc` given: the dG instances; each takes its instance of at most 2
 // stages, or of MAX_STAGES above 2.
 template <typename T>
-int launch_ell_pk2(const int64_t* cols, const T* cij, const T* mask, const T* inc, const T* cii,
+int launch_ell_pk2(const int32_t* cols, const T* cij, const T* mask, const T* inc, const T* cii,
                    const T* node, const T* U, const T* prec, const T* d, const T* alpha,
                    const T* sU, const T* tau, T* U_low, T* F, T* bounds, const Consts* c,
                    cudaStream_t stream) {
-  if (!ell_ok(c)) return int(cudaErrorInvalidValue);
+  if (!ell_ok(c) || !ell_step_launch_ok<T>(c, false)) return int(cudaErrorInvalidValue);
   if (c->W == 0) return int(cudaSuccess);
   const EqConsts<T> e = EqConsts<T>::make(*c);
   const bool wide = c->n_stages > 2;
@@ -516,30 +691,38 @@ int launch_ell_pk2(const int64_t* cols, const T* cij, const T* mask, const T* in
 }
 
 template <typename T, bool DG, int MS>
-int launch_ell_pk3_instance(const int64_t* cols, const T* cij, const T* mij, const T* mask,
+int launch_ell_pk3_instance(const int32_t* cols, const T* cij, const T* mij, const T* mask,
                             const T* inc, const T* node, const T* U, const T* d, const T* alpha,
                             const T* F, const T* U_low, const T* bounds, const T* sU,
                             const T* tau, T* P, T* l, T* okp, const EqConsts<T>& e,
                             const Consts* c, cudaStream_t stream) {
-  const dim3 grid = row_grid(c), block(128);
-  if (c->dim == 1)
-    ell_pk3_kernel<T, 1, DG, MS><<<grid, block, 0, stream>>>(
-        cols, cij, mij, mask, inc, node, U, d, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
-  else if (c->dim == 2)
-    ell_pk3_kernel<T, 2, DG, MS><<<grid, block, 0, stream>>>(
-        cols, cij, mij, mask, inc, node, U, d, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
-  else
-    ell_pk3_kernel<T, 3, DG, MS><<<grid, block, 0, stream>>>(
-        cols, cij, mij, mask, inc, node, U, d, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+  const dim3 grid(c->grid[0]), block(c->block[0], c->block[1]);
+  const int smem = c->smem;
+  if (c->dim == 1) {
+    auto* kernel = ell_pk3_kernel<T, 1, DG, MS>;
+    if (const int rc = allow_smem(kernel, smem)) return rc;
+    kernel<<<grid, block, smem, stream>>>(cols, cij, mij, mask, inc, node, U, d, alpha, F, U_low,
+                                          bounds, sU, tau, P, l, okp, e);
+  } else if (c->dim == 2) {
+    auto* kernel = ell_pk3_kernel<T, 2, DG, MS>;
+    if (const int rc = allow_smem(kernel, smem)) return rc;
+    kernel<<<grid, block, smem, stream>>>(cols, cij, mij, mask, inc, node, U, d, alpha, F, U_low,
+                                          bounds, sU, tau, P, l, okp, e);
+  } else {
+    auto* kernel = ell_pk3_kernel<T, 3, DG, MS>;
+    if (const int rc = allow_smem(kernel, smem)) return rc;
+    kernel<<<grid, block, smem, stream>>>(cols, cij, mij, mask, inc, node, U, d, alpha, F, U_low,
+                                          bounds, sU, tau, P, l, okp, e);
+  }
   return int(cudaGetLastError());
 }
 
 template <typename T>
-int launch_ell_pk3(const int64_t* cols, const T* cij, const T* mij, const T* mask, const T* inc,
+int launch_ell_pk3(const int32_t* cols, const T* cij, const T* mij, const T* mask, const T* inc,
                    const T* node, const T* U, const T* d, const T* alpha, const T* F,
                    const T* U_low, const T* bounds, const T* sU, const T* tau, T* P, T* l, T* okp,
                    const Consts* c, cudaStream_t stream) {
-  if (!ell_ok(c)) return int(cudaErrorInvalidValue);
+  if (!ell_ok(c) || !ell_step_launch_ok<T>(c, true)) return int(cudaErrorInvalidValue);
   if (c->W == 0) return int(cudaSuccess);
   const EqConsts<T> e = EqConsts<T>::make(*c);
   const bool wide = c->n_stages > 2;
@@ -594,7 +777,7 @@ int launch_ell_pk_up(const int64_t* trans, const T* mask, const T* node, const T
       const void* node, const void* U, const void* prec, const void* d, const void* alpha,     \
       const void* sU, const void* tau, void* U_low, void* F, void* bounds,                     \
       const ryujin::Consts* consts, void* stream) {                                            \
-    return ryujin::launch_ell_pk2<T>((const int64_t*)cols, (const T*)cij, (const T*)mask,      \
+    return ryujin::launch_ell_pk2<T>((const int32_t*)cols, (const T*)cij, (const T*)mask,      \
                                      (const T*)inc, (const T*)cii, (const T*)node, (const T*)U, \
                                      (const T*)prec, (const T*)d, (const T*)alpha,             \
                                      (const T*)sU, (const T*)tau, (T*)U_low, (T*)F,             \
@@ -605,7 +788,7 @@ int launch_ell_pk_up(const int64_t* trans, const T* mask, const T* node, const T
       const void* node, const void* U, const void* d, const void* alpha, const void* F,        \
       const void* U_low, const void* bounds, const void* sU, const void* tau, void* P,         \
       void* l, void* okp, const ryujin::Consts* consts, void* stream) {                        \
-    return ryujin::launch_ell_pk3<T>((const int64_t*)cols, (const T*)cij, (const T*)mij,       \
+    return ryujin::launch_ell_pk3<T>((const int32_t*)cols, (const T*)cij, (const T*)mij,       \
                                      (const T*)mask, (const T*)inc, (const T*)node,            \
                                      (const T*)U, (const T*)d, (const T*)alpha, (const T*)F,   \
                                      (const T*)U_low, (const T*)bounds, (const T*)sU,          \

@@ -111,7 +111,8 @@ def _label(name):
                  + ("" if dg is None else
                     f", {'dG' if dg == '1' else 'cG'}, S<={ms}") + ">")
         return (label, kern, int(dim),
-                torch.float32 if t == "f" else torch.float64, 2)
+                torch.float32 if t == "f" else torch.float64,
+                int(ms) if ms else 2)
     elif _STACKED.match(name):
         kern, t, dg = _STACKED.match(name).groups()
         dim = "2"
@@ -235,9 +236,10 @@ def resident_warps(regs: int, threads: int, smem: int) -> int:
 def launch_shape(kern, dim, dtype, stages=2):
     """(threads a block, shared bytes) of kernel `kern`'s launch at
     `stages` stage slots (two on the main path): K = 24 in 2D (the
-    stacked pk1, pk2 and pk3: 8), 26 in 3D; a kernel without a tile()
-    beside its wrapper launches 128 threads a block without shared
-    memory."""
+    stacked pk1, pk2 and pk3: 8), 26 in 3D; ell_pk2 and ell_pk3 from
+    ell_step_shape() at K = 2 in 1D, 8 in 2D, 26 in 3D; a kernel without
+    a tile() beside its wrapper launches 128 threads a block without
+    shared memory."""
     from .kernels import pk1 as k1
     from .kernels import pk1_stream as k1s
     from .kernels import pk2 as k2
@@ -246,6 +248,12 @@ def launch_shape(kern, dim, dtype, stages=2):
     from .kernels import pk3_stream as k3s
     from .kernels import pk_up as ku
 
+    from .kernels import ell
+
+    if kern in ("ell_pk2", "ell_pk3") and hasattr(ell, "ell_step_shape"):
+        sh = ell.ell_step_shape(kern, dim, {1: 2, 2: 8, 3: 26}[dim], dtype,
+                                stages, 1)
+        return sh.threads, sh.smem
     K = 8 if kern in ("pk1", "pk2", "pk3") else (24 if dim == 2 else 26)
     shape = (64, 64) if dim == 2 else (8, 64, 64)
     mod = {"pk2": k2, "pk2_stream_tile": k2s, "pk3": k3,

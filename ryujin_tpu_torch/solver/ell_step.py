@@ -16,17 +16,20 @@ tensors, so the same orchestration is testable on the CPU.
 
 from __future__ import annotations
 
+import dataclasses
+
 from ..kernels.ell import ell_pk1, ell_pk2, ell_pk3, ell_pk_up
 from ..offline.ell import EllData
 from .hyperbolic import d_from_e, tau_max_from_d
-from .stencil import stencil_from_ell
+from .stencil import int32_columns, stencil_from_ell
 
 
 class EllStepper:
     """Runs HyperbolicModule.step through the ELL kernels for the Euler
     equations in 1D, 2D or 3D, on a continuous or a discontinuous ansatz
     (the dG instances of ell_pk2 and ell_pk3 read the incidence); owns the
-    stencil's device statics."""
+    stencil's device statics, with the int32 columns of ell_pk2 and ell_pk3
+    (4 K n bytes beside the int64 ones of ell_pk1)."""
 
     def __init__(self, eq, params, ell: EllData, dtype, device):
         if getattr(eq, "name", None) != "euler" or ell.dim not in (1, 2, 3):
@@ -36,7 +39,8 @@ class EllStepper:
             raise ValueError(f"a {eq.dim}D equation on a {ell.dim}D mesh")
         self.eq = eq
         self.params = params
-        self.stencil = stencil_from_ell(ell, dtype, device)
+        st = stencil_from_ell(ell, dtype, device)
+        self.stencil = dataclasses.replace(st, cols32=int32_columns(st.cols))
 
     def step(self, U, prec, stage_U, stage_weights, tau, cfl, tau_cap,
              compute_tau):

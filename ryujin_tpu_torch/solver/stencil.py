@@ -258,6 +258,9 @@ class EllStencil:
     # the node planes [4, n] (m_i, 1/m_i, n_nbrs, node_mask) that the ELL
     # kernels read; the four node arrays above are its rows
     node: Optional[torch.Tensor] = None
+    # cols as int32, which ell_pk2 and ell_pk3 read (int32_columns; set by
+    # solver/ell_step.EllStepper)
+    cols32: Optional[torch.Tensor] = None
 
     @property
     def K(self) -> int:
@@ -288,6 +291,20 @@ class EllStencil:
         """Itself: every static array is stored (the canvas stencil's
         interface for the plain substep)."""
         return self
+
+
+def check_int32_rows(n: int) -> None:
+    """Raise ValueError unless n rows can be addressed by int32 columns
+    (n < 2^31)."""
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rows: int32 columns address fewer than 2^31")
+
+
+def int32_columns(cols: torch.Tensor) -> torch.Tensor:
+    """The gather columns [K, n] as int32, on cols' device; raises at n >=
+    2^31."""
+    check_int32_rows(cols.shape[-1])
+    return cols.to(torch.int32).contiguous()
 
 
 def stencil_from_ell(ell: EllData, dtype, device) -> EllStencil:

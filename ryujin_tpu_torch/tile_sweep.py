@@ -48,7 +48,17 @@ exactly, timed the same way; this checkout only), or gather-turns
 gather at P = 8, W = 2048, digests of out and chained ms), moveaxis-turns
 (moveaxis_turn: both MOV, digests of out and check) or pk1-shape-turns
 (pk1_shape_turn: digests of out and check, chained and single ms), each
-in turns as pow-turns; without one, all but the turns.  For
+in turns as pow-turns; or ell-step (ell_pk2 and ell_pk3 on the step at
+chip_smoke.ELL_REFINEMENT, f32, after chip_smoke.ELL_WARMUP ERK33 steps,
+over the launches of ELL_STEP_CANDIDATES and at the default launch, each
+bit-equal to the default launch, chip_smoke.time_ms; this checkout only),
+or ell-step-turns (ell_step_turn: ell_pk2 and ell_pk3 on the inputs
+ell_step_inputs saves, the same step timed, f64 on phase 14a's 3D box and
+airfoil at 2 and 4 stage slots; digests of every output, in turns as
+pow-turns), or ell-cuts (no card: the copies of ELL_CUTS of this
+checkout and of each --tree, written under _checkout/, as --trees of
+ell-step-turns); without one,
+all but the turns and the ELL cases.  For
 each launch of the solver kernels it
 times, with CUDA events (chip_smoke.time_ms, mean of 20 launches after
 a warm one), this checkout's kernel at the tile its wrapper chooses and
@@ -102,6 +112,9 @@ POW_CANDIDATES = {
 # ell_shape): nodes a block, threads, stages and blocks an SM
 ELL_CANDIDATES = {"nodes": (512, 1024, 2048, 4096), "threads": (256, 512),
                   "stages": (2, 3), "per_sm": (1, 2, 3, 4)}
+# candidate launches of ell_pk2 and ell_pk3 (kernels/ell.py
+# ell_step_shape): rows a block and threads
+ELL_STEP_CANDIDATES = {"rows": (16, 32, 64, 128), "threads": (32, 64, 128)}
 # candidate launches of the layout kernels (kernels/probe_layout3d.py
 # layout_shape): tile widths, stages and z segments, for the full-window
 # kernels and the slide
@@ -277,6 +290,231 @@ def pk1_shape_turn():
     res["ms"]["pk1_shape single"] = probes.time_ms(case.kernel, case.reps,
                                                    False)
     return res
+
+
+def ell_step_turn(path):
+    """One turn of `ell-step-turns`, run in a checkout's own process:
+    ell_pk2 and ell_pk3 of that checkout at their default launch on the
+    inputs ell_step_inputs saved (torch.save, the file `path`), a
+    digest of each output's bytes (U_low, F, bounds; P, l, okp) for every
+    call, and the mean ms of 20 calls back to back after 100 warm ones
+    (probes.time_ms) for the calls of a case marked timed.  Uses only what
+    every checkout since the padded-ELL path has.  Returns {"ms": {entry:
+    ms}, "digest": {entry: hex}}."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from ryujin_tpu_torch import probes
+    from ryujin_tpu_torch.equations.euler import Euler
+    from ryujin_tpu_torch.kernels import ell
+    from ryujin_tpu_torch.solver.hyperbolic import HyperbolicModuleParams
+    from ryujin_tpu_torch.solver.stencil import EllStencil
+
+    cases = torch.load(path, map_location="cuda")
+    fields = {f.name for f in dataclasses.fields(EllStencil)}
+    p = HyperbolicModuleParams()
+    res = {"ms": {}, "digest": {}}
+    for case, c in cases.items():
+        st = EllStencil(**{k: v for k, v in c["stencil"].items()
+                           if k in fields})
+        eq = Euler(dim=st.dim)
+        U, d, alpha, tau = c["U"], c["d"], c["alpha"], c["tau"]
+        for w, sU, F, U_low, bounds in c["calls"]:
+            w = list(w)
+            calls = {
+                "ell_pk2": (eq, p, st, U, c["prec"], d, alpha, sU, w, tau),
+                "ell_pk3": (eq, p, st, U, d, alpha, F, U_low, bounds, sU, w,
+                            tau),
+            }
+            for kern, args in calls.items():
+                fn = getattr(ell, kern)
+                out = fn(*args)
+                torch.cuda.synchronize()
+                names = (("U_low", "F", "bounds") if kern == "ell_pk2"
+                         else ("P", "l", "okp"))
+                for part, t in zip(names, out):
+                    res["digest"][f"{kern} {case} S={len(w)} {part}"] = (
+                        hashlib.sha256(t.cpu().numpy().tobytes())
+                        .hexdigest()[:16])
+                del out
+                if c["timed"]:
+                    for _ in range(100):  # the card at its clocks first
+                        fn(*args)
+                    res["ms"][f"{kern} {case} S={len(w)}"] = probes.time_ms(
+                        lambda: fn(*args), 20, False)
+    return res
+
+
+def ell_step_launches(res, dev):
+    """ell_pk2 and ell_pk3 on ell_step_inputs' "step" over
+    ELL_STEP_CANDIDATES and at the default launch, each held bit for bit
+    against the default launch, timed with CUDA events (chip_smoke.time_ms,
+    mean of 20 calls back to back), into res["ms"]."""
+    import itertools
+
+    import chip_smoke as cs
+
+    from .equations.euler import Euler
+    from .kernels import ell
+    from .solver.hyperbolic import HyperbolicModuleParams
+    from .solver.stencil import EllStencil
+
+    c = ell_step_inputs(dev, ("step",))["step"]
+    st = EllStencil(**c["stencil"])
+    eq, p = Euler(dim=st.dim), HyperbolicModuleParams()
+    (w, sU, F, U_low, bounds), = c["calls"]
+    U, d, alpha, tau = c["U"], c["d"], c["alpha"], c["tau"]
+    args = {"ell_pk2": (eq, p, st, U, c["prec"], d, alpha, sU, list(w), tau),
+            "ell_pk3": (eq, p, st, U, d, alpha, F, U_low, bounds, sU,
+                        list(w), tau)}
+    for kern, a in args.items():
+        fn = getattr(ell, kern)
+        want = fn(*a)
+        default = ell.ell_step_shape(kern, st.dim, st.K, U.dtype, len(w), st.n)
+        shapes = {default: "default"}
+        for rows, threads in itertools.product(*ELL_STEP_CANDIDATES.values()):
+            try:
+                shapes.setdefault(ell.ell_step_shape(
+                    kern, st.dim, st.K, U.dtype, len(w), st.n, rows,
+                    threads), "")
+            except ValueError:  # fewer threads than rows
+                continue
+        for shape, tag in shapes.items():
+            ok = all(torch.equal(x, y) for x, y in zip(fn(*a, shape=shape),
+                                                         want))
+            key = (f"{kern} {tuple(shape)}{' ' + tag if tag else ''}"
+                   f"{'' if ok else ' WRONG'}")
+            res["ms"][key] = cs.time_ms(lambda: fn(*a, shape=shape), cs.REPS)
+            print(f"  {key}: {res['ms'][key]:.4f} ms", flush=True)
+
+
+def ell_step_inputs(dev, names=("step", "3D", "airfoil")):
+    """{case: inputs} of ell-step-turns, through this checkout's kernels:
+    "step" the step at chip_smoke.ELL_REFINEMENT packed by ell.pack, f32,
+    chip_smoke.ELL_WARMUP ERK33 steps, the inputs of the third substep
+    (two stage slots, as chip_smoke.compare_ell takes them), timed; "3D"
+    and "airfoil" chip_smoke phase 14a's 3D box and airfoil in f64,
+    developed as there, at two stage slots and ERK54's four.  ell_pk3's
+    F, U_low and bounds are this checkout's ell_pk2's; `names` those of
+    the three to build.  Prints each mesh's band table (kernels/ell.py
+    band_table)."""
+    import dataclasses
+
+    import chip_smoke as cs
+
+    from .bench import build_ell, ell_case
+    from .kernels import ell
+    from .offline import geometry
+    from .solver.hyperbolic import d_from_e, tau_max_from_d
+
+    built = {}
+    if "step" in names:
+        built["step"] = build_ell(geometry.step(
+            refinement=cs.ELL_REFINEMENT), torch.float32, dev,
+            recovery="none")
+    for name, refinement in (("3D", 1), ("airfoil", 0)):
+        if name not in names:
+            continue
+        eq, packed, hm, ti, U0 = ell_case(name, refinement, torch.float64,
+                                          dev)
+        built[name] = (eq, packed, hm, ti,
+                       cs.bumped(packed, U0, blast=name == "3D"))
+    cases = {}
+    for case, (eq, _, hm, ti, U0) in built.items():
+        p, st = hm.params, hm.stencil
+        if case == "step":
+            U_a, _, t_a, _, _, _ = ti.advance(U0, 0.0, cs.ELL_WARMUP)
+            U_b = ti.advance(U_a, t_a, 1)[0]
+        else:
+            U_a, U_b = cs.ell_developed(case, eq, hm, ti, U0,
+                                        cs.ELL_DEVELOP_STEPS)
+        U, prec = hm.prepare_state_vector(U_b, 0.0)
+        e, alpha = ell.ell_pk1(eq, p, st, U, prec)
+        d = d_from_e(st.mask, e, st.transpose_edge(e))
+        tau = tau_max_from_d(st, d, 0.9, torch.full(
+            (), float("inf"), dtype=U.dtype, device=dev))
+        stages = torch.stack(cs.stage_states(hm, U_a, U))
+        weights = ([(0.75, -2.0)] if case == "step"
+                   else [(0.75, -2.0), tuple(cs.erk54_weights(4))])
+        calls = []
+        for w in weights:
+            sU = stages[: len(w)].contiguous()
+            out = ell.ell_pk2(eq, p, st, U, prec, d, alpha, sU, list(w), tau)
+            calls.append((w, sU) + tuple(out))
+        cases[case] = {
+            "stencil": {f.name: getattr(st, f.name)
+                        for f in dataclasses.fields(st)},
+            "U": U, "prec": prec, "d": d, "alpha": alpha, "tau": tau,
+            "calls": calls, "timed": case == "step"}
+        table = ell.band_table(st.cols.cpu(), st.mask.cpu(), st.dim,
+                               U.element_size())
+        print(f"  {case}: {st.n} rows, K = {st.K}, {U.dtype}; band width "
+              "(quantiles 0.5 / 0.9 / 0.99 / 1) and shared bytes a block "
+              f"would stage at two stage slots: {json.dumps(table)}",
+              flush=True)
+    return cases
+
+
+# the cut copies of `ell-cuts`: name -> [(text in the ell_pk2 and ell_pk3
+# kernels of a checkout's csrc/ell_step.cu, replacement, times it must
+# occur there)]; a cut is made of each checkout where every text occurs so
+# often, and timed as a --tree of ell-step-turns.  The first three are
+# step 0's, of the one-thread-a-row kernels (coalesced and compute also
+# apply to the redesign); nodiv forms each neighbour's flux and b_ij
+# without a division (the flux's parts m, m, rho, E; m_ij m_j) where the
+# kernels form flux(U_j) whole
+ELL_CUTS = {
+    # every neighbour read at i: the columns are still read, never used
+    "coalesced": [("const int64_t j = cols[k * n + i];",
+                   "const int64_t j = i + (cols[k * n + i] == -1);", 2)],
+    # the per-edge solves gone: the limiter a constant, the entropy u_half[0]
+    "compute": [("l_out[k * n + i] = limiter_limit(e, bnd, ul, psi0, P, "
+                 "success);",
+                 "l_out[k * n + i] = T(0.5) + T(0) * P[0];\n    success = true;",
+                 1),
+                ("specific_entropy(e, u_half)", "u_half[0]", 1)],
+    # the stage loops unrolled over the instance's MS, nothing else
+    "unrolled": [("for (int s = 0; s < S; ++s) {",
+                  "_Pragma(\"unroll\") for (int s = 0; s < MS; ++s) "
+                  "if (s < S) {", 5)],
+    "nodiv": [("flux(e, uj, fj);",
+               "{ T m_[DIM]; for (int d_ = 0; d_ < DIM; ++d_) m_[d_] = "
+               "uj[1 + d_]; flux_from_parts(m_, m_, uj[0], uj[NC - 1], fj); }",
+               2),
+              ("flux(e, usj, fsj);",
+               "{ T m_[DIM]; for (int d_ = 0; d_ < DIM; ++d_) m_[d_] = "
+               "usj[1 + d_]; flux_from_parts(m_, m_, usj[0], usj[NC - 1], "
+               "fsj); }", 2),
+              ("const T b_ij = -m_ij / node[j];",
+               "const T b_ij = -m_ij * node[j];", 1)],
+}
+
+
+def make_ell_cuts(root: Path, out: Path, prefix=""):
+    """Write the copies of ELL_CUTS that apply to the checkout at `root`
+    (its package, csrc/ell_step.cu patched) under `out`/<prefix><name>."""
+    import shutil
+
+    src = (root / "ryujin_tpu_torch" / "csrc" / "ell_step.cu").read_text()
+    a = src.index("// ---- ell_pk2")
+    b = src.index("// ---- ell_pk_up")
+    for name, edits in ELL_CUTS.items():
+        text = src[a:b]
+        if any(text.count(old) != count for old, _, count in edits):
+            print(f"  {root}: cut {name} does not apply", flush=True)
+            continue
+        for old, new, _ in edits:
+            text = text.replace(old, new)
+        dest = out / (prefix + name)
+        shutil.rmtree(dest, ignore_errors=True)
+        shutil.copytree(root / "ryujin_tpu_torch", dest / "ryujin_tpu_torch",
+                        ignore=shutil.ignore_patterns("_build", "_cache",
+                                                      "__pycache__"))
+        (dest / "ryujin_tpu_torch" / "csrc" / "ell_step.cu").write_text(
+            src[:a] + text + src[b:])
+        print(f"  {dest}: cut {name}", flush=True)
 
 
 def ell_launches(res, dev):
@@ -459,6 +697,15 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", default=[],
                     metavar="NAME=ROOT")
     args = ap.parse_args(argv)
+    if args.cases == ["ell-cuts"]:  # no card needed
+        from .kernels import build
+
+        here = build.PACKAGE.parent
+        make_ell_cuts(here, here / "_checkout")
+        for tree in args.tree:
+            name, root = tree.split("=", 1)
+            make_ell_cuts(Path(root), here / "_checkout", name + "-")
+        return 0
     if not torch.cuda.is_available():
         print("tile_sweep: no CUDA device", flush=True)
         return 1
@@ -492,7 +739,8 @@ def main(argv=None) -> int:
             k: v for k, v in kernel_times.resources(
                 so.with_suffix(".so.log").read_text(),
                 kernel_times.launch_shape).items()
-            if k.startswith(("pk1_stream", "pk1<", "pk2<"))}
+            if k.startswith(("pk1_stream", "pk1<", "pk2<", "ell_pk2",
+                             "ell_pk3"))}
         build._LIB = None
         build.CSRC = trees[name] / "ryujin_tpu_torch" / "csrc"
         build.BUILD_DIR = trees[name] / "ryujin_tpu_torch" / "_build"
@@ -666,13 +914,13 @@ def main(argv=None) -> int:
                    lambda: kl.window_sum(h, layout, TD, shape))
             gm(f"layouts {layout} torch", library[layout])
 
-    def turns_of(case, turn):
-        """`turn` (pow_turn, gather_turn, moveaxis_turn) in each
-        checkout's own process, in turns: the others, this, this, the
-        others reversed (P C C P with one other); each entry's digest
-        against this checkout's."""
-        src = (inspect.getsource(turn)
-               + f"\nimport json\nprint('TURN', json.dumps({turn.__name__}()))")
+    def turns_of(case, turn, args=""):
+        """`turn` (pow_turn, gather_turn, moveaxis_turn, ...) called with
+        `args` (source text) in each checkout's own process, in turns: the
+        others, this, this, the others reversed (P C C P with one other);
+        each entry's digest against this checkout's."""
+        src = (inspect.getsource(turn) + "\nimport json\n"
+               f"print('TURN', json.dumps({turn.__name__}({args})))")
         digests = {}
         for n, tree in enumerate(others + ["this", "this"] + others[::-1]):
             root = str(trees[tree])
@@ -702,14 +950,25 @@ def main(argv=None) -> int:
         print(f"{case}:", flush=True)
         turn = {"pow-turns": pow_turn, "gather-turns": gather_turn,
                 "moveaxis-turns": moveaxis_turn,
-                "pk1-shape-turns": pk1_shape_turn}.get(case)
+                "pk1-shape-turns": pk1_shape_turn,
+                "ell-step-turns": ell_step_turn}.get(case)
+        if turn is ell_step_turn:
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as tmp:
+                path = str(Path(tmp) / "inputs.pt")
+                torch.save(ell_step_inputs(dev), path)
+                torch.cuda.empty_cache()
+                turns_of(case, turn, repr(path))
+            continue
         if turn is not None:
             turns_of(case, turn)
             continue
-        if case in ("pow", "ell", "moveaxis", "pk1-shape"):
+        if case in ("pow", "ell", "moveaxis", "pk1-shape", "ell-step"):
             {"pow": pow_launches, "ell": ell_launches,
              "moveaxis": moveaxis_launches,
-             "pk1-shape": pk1_shape_launches}[case](res, dev)
+             "pk1-shape": pk1_shape_launches,
+             "ell-step": ell_step_launches}[case](res, dev)
             continue
         if case == "gather":
             gather_groups()

@@ -821,13 +821,14 @@ def ell_case(name):
     """bench.ell_case as a build_case: (refinement, dtype, device) ->
     (eq, packed, hm, ti, U0); "1D" the shock front's tube (K = 2), "2D dG
     Q1" the step in dG Q1, "3D" the 3 x 2 x 2 box (K = 26), the airfoil
-    (irregular rows)."""
+    (irregular rows), "ragged" the cG Q1 step unpadded (16,449 rows: the
+    last block of ell_pk2 and ell_pk3 ragged)."""
     from ryujin_tpu_torch import bench
 
     return functools.partial(bench.ell_case, name, subdiv=(3, 2, 2))
 
 
-ELL_CASES = {"1D": 2, "2D dG Q1": 0, "3D": 0, "airfoil": 0}
+ELL_CASES = {"1D": 2, "2D dG Q1": 0, "3D": 0, "airfoil": 0, "ragged": 0}
 
 
 @pytest.mark.gpu
@@ -938,3 +939,52 @@ def test_ell_kernels_each_against_plain(name, dtype):
         else:
             l_close(lk, lr, "l'", ulp_spread(U_r, bounds, P, l))
     assert limited > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["3D", "airfoil", "ragged"])
+def test_ell_step_launches_bit_equal(name, dtype):
+    """ell_pk2 (U_low, F, bounds) and ell_pk3 (P, l, okp) at every launch
+    of tile_sweep.ELL_STEP_CANDIDATES (rows and threads of a block; fewer
+    rows where the shared bytes need) bit for bit against their default
+    launch, at every stage-slot count, on a state with a blast."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import itertools
+
+    from ryujin_tpu_torch.kernels import ell
+    from ryujin_tpu_torch.solver.hyperbolic import d_from_e, tau_max_from_d
+    from ryujin_tpu_torch.tile_sweep import ELL_STEP_CANDIDATES
+
+    dt = getattr(torch, dtype)
+    _, packed, hm, ti, U0 = ell_case(name)(ELL_CASES[name], dt, "cuda")
+    eq, p, st = hm.eq, hm.params, hm.stencil
+    U_a, U, prec = _limited_state(packed, hm, ti, U0, dt)
+    e, alpha = ell.ell_pk1(eq, p, st, U, prec)
+    d = d_from_e(st.mask, e, st.transpose_edge(e))
+    tau = tau_max_from_d(st, d, 0.9, torch.full((), float("inf"), dtype=dt,
+                                                device="cuda"))
+    stage_U, weights = _stage_inputs(hm, U_a, U)
+    launches = 0
+    for w in weights:
+        sU = stage_U[: len(w)]
+        args2 = (eq, p, st, U, prec, d, alpha, sU, w, tau)
+        U_low, F, bounds = want2 = ell.ell_pk2(*args2)
+        args3 = (eq, p, st, U, d, alpha, F, U_low, bounds, sU, w, tau)
+        want3 = ell.ell_pk3(*args3)
+        for kern, args, want in (("ell_pk2", args2, want2),
+                                 ("ell_pk3", args3, want3)):
+            for rows, threads in itertools.product(
+                    *ELL_STEP_CANDIDATES.values()):
+                try:
+                    shape = ell.ell_step_shape(kern, st.dim, st.K, dt, len(w),
+                                               st.n, rows, threads)
+                except ValueError:  # fewer threads than rows, or too large
+                    continue
+                got = getattr(ell, kern)(*args, shape=shape)
+                launches += 1
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (kern, len(w), shape)
+    assert launches >= 2 * len(weights)
+
