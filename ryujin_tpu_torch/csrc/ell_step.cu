@@ -18,33 +18,30 @@
 //
 // Layout: node axis last, n rows (the padded node count; the launch puts
 // n in Consts W, with D = H = 1).  Neighbour j of slot k is cols[k * n +
-// i] (int64 for ell_pk1, int32 for ell_pk2 and ell_pk3: n < 2^31); the
-// transposed edge of slot k at row i is the flat index trans[k * n + i]
-// into the [K, n] edge arrays.  Statics: c_ij [DIM, K,
-// n], m_ij [K, n], the mask [K, n] (1 live, 0 padding), c_ii [DIM, n],
-// the dG incidence [K, n] (null for a continuous ansatz) and the node
-// planes [4, n]: m_i, 1/m_i, n_nbrs, node_mask.  K is the launch's
-// (Consts K): the mesh's largest row, 2 in 1D Q1, more at the irregular
-// vertices of an unstructured mesh.
+// i], int32 (n < 2^31); the transposed edge of slot k at row i is the flat
+// index trans[k * n + i] into the [K, n] edge arrays, int32 (K n < 2^31).
+// Statics: c_ij [DIM, K, n], m_ij [K, n], the mask [K, n] (1 live, 0
+// padding), c_ii [DIM, n], the dG incidence [K, n] (null for a continuous
+// ansatz) and the node planes [4, n]: m_i, 1/m_i, n_nbrs, node_mask.  K is
+// the launch's (Consts K): the mesh's largest row, 2 in 1D Q1, more at the
+// irregular vertices of an unstructured mesh.
 //
-// Design: ell_pk1 and ell_pk_up one thread a row, 128 threads a block,
-// the loop over k not unrolled, U_j and the other neighbour values
-// gathered from device memory at every live slot: the one-thread-a-cell
-// form of the canvas kernels' first ports.  ell_pk2 and ell_pk3 (see "the
-// launch of ell_pk2 and ell_pk3" below) stage each block's row values in
-// shared memory, so their registers hold no row state the slots only read
-// and their stacks nothing; ell_pk3 spreads a row's slots over threads.
-// The neighbour values are gathered at every live slot: a block's columns
-// span 1,000-6,500 rows on the meshes at size, more than shared memory
-// holds (PERF.md section 6).  What bounds them on the H100: not
-// their bytes (24-34 % of that bound in the one-thread-a-row form) nor the
-// gathers, but the latency of each slot's chain of gathers, divisions,
-// pows and the limiter's Newton steps, which the warps an SM holds hide
-// only in part.  Each kernel is a template on DIM (1, 2, 3; C = DIM + 2
-// components), PK2 and PK3 also on the dG flag (the incidence raises the
-// high-order viscosity factor to beta_ij) and on MS, the most stage slots
-// an instance takes (2, or MAX_STAGES for ERK54's 3 and 4), chosen at
-// launch by n_stages.
+// Design (see "the launch of the four kernels" below): ell_pk2, ell_pk3 and
+// ell_pk_up stage their blocks' row values in shared memory, so their
+// registers hold no row state the slots only read; ell_pk3 and ell_pk_up
+// spread a row's slots over threads, ell_pk1 and ell_pk2 keep one thread a
+// row, ell_pk1 with its row values in registers and each slot's reads
+// started a slot ahead.  The neighbour values are gathered at every live
+// slot: a block's columns span 1,000-6,500 rows on the meshes at size, more
+// than shared memory holds (PERF.md section 6).  What bounds them on the
+// H100: not their bytes (24-34 % of that bound in the one-thread-a-row
+// form) nor the gathers, but the latency of each slot's chain of gathers,
+// divisions, pows and the limiter's Newton steps, which the warps an SM
+// holds hide only in part.  Each kernel is a template
+// on DIM (1, 2, 3; C = DIM + 2 components), PK2 and PK3 also on the dG flag
+// (the incidence raises the high-order viscosity factor to beta_ij) and on
+// MS, the most stage slots an instance takes (2, or MAX_STAGES for ERK54's
+// 3 and 4), chosen at launch by n_stages, ell_pk_up on LAST (PK5).
 //
 // Arithmetic: each per-edge value (e, P, l, l') is formed by the
 // operations of the plain phase function in their order (FMA contraction
@@ -60,11 +57,6 @@
 namespace ryujin {
 
 namespace {
-
-__device__ __forceinline__ bool this_row(int64_t n, int64_t& i) {
-  i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  return i < n;
-}
 
 // The relaxation r_i = (h^d_i)^(3 / (2 DIM)) of the limiter bounds
 // (euler/limiter.h:330-363; the port's Euler._relax_bounds).
@@ -83,122 +75,43 @@ __device__ __forceinline__ T relax_radius(T hd_i) {
 
 }  // namespace
 
-// ---- ell_pk1: e on every slot and alpha --------------------------------------
-template <typename T, int DIM>
-__global__ void __launch_bounds__(128)
-ell_pk1_kernel(const int64_t* __restrict__ cols, const T* __restrict__ cij,
-               const T* __restrict__ mask, const T* __restrict__ node, const T* __restrict__ U,
-               const T* __restrict__ prec, T* __restrict__ e_out, T* __restrict__ alpha,
-               const __grid_constant__ EqConsts<T> e) {
-  constexpr int NC = DIM + 2;
-  const int64_t n = int64_t(e.D) * e.H * e.W;
-  int64_t i;
-  if (!this_row(n, i)) return;
-  const int K = e.K;
-
-  T ui[NC];
-  load_state(U, i, n, ui);
-  T pa_i[5];
-  riemann_precompute(e, ui, pa_i);
-
-  // indicator_init
-  const T eta_i = prec[n + i];
-  const T rho_i_inv = T(1) / ui[0];
-  T d_eta[NC];
-  {
-    const T rho_rho_e = ui[0] * ui[NC - 1] - T(0.5) * mdot(ui, ui);
-    const T factor = e.inv_gp1 * pow(rho_rho_e, e.harten_deriv_exp);
-    d_eta[0] = factor * ui[NC - 1] - eta_i * rho_i_inv;
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) d_eta[1 + d] = -factor * ui[1 + d];
-    d_eta[NC - 1] = factor * ui[0];
-  }
-  T fi[NC][DIM];
-  flux(e, ui, fi);
-  T left = T(0), right[NC];
-#pragma unroll
-  for (int q = 0; q < NC; ++q) right[q] = T(0);
-
-#pragma unroll 1
-  for (int k = 0; k < K; ++k) {
-    T e_k = T(0);
-    if (mask[k * n + i] > T(0)) {
-      const int64_t j = cols[k * n + i];
-      T uj[NC];
-      load_state(U, j, n, uj);
-      T cv[DIM];
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) cv[d] = cij[(int64_t(d) * K + k) * n + i];
-      const T norm = sqrt(vdot(cv, cv));
-      const T nn = mx(norm, e.tiny);
-      T nv[DIM];
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) nv[d] = cv[d] / nn;
-      T pa_j[5];
-      riemann_precompute(e, uj, pa_j);
-      e_k = norm * lambda_max(e, ui, pa_i, uj, pa_j, nv);
-
-      // indicator_accum
-      const T eta_j = prec[n + j];
-      left += (eta_j / uj[0] - eta_i * rho_i_inv) * mproj(uj, cv);
-      T fj[NC][DIM];
-      flux(e, uj, fj);
-#pragma unroll
-      for (int q = 0; q < NC; ++q) {
-        T r = (fj[q][0] - fi[q][0]) * cv[0];
-#pragma unroll
-        for (int d = 1; d < DIM; ++d) r = r + (fj[q][d] - fi[q][d]) * cv[d];
-        right[q] += r;
-      }
-    }
-    e_out[k * n + i] = e_k;
-  }
-
-  // indicator_finalize
-  T a = T(0);
-  if (node[3 * n + i] > T(0)) {
-    T dot = T(0), dot_abs = T(0);
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      dot += d_eta[q] * right[q];
-      dot_abs += fabs(d_eta[q] * right[q]);
-    }
-    const T hd_i = node[i] * e.measure_inv;
-    const T quotient = fabs(left - dot) / (fabs(left) + dot_abs + hd_i * fabs(eta_i));
-    a = mn(T(1), e.evc_factor * quotient);
-  }
-  alpha[i] = a;
-}
-
-// ---- the launch of ell_pk2 and ell_pk3 -----------------------------------------
+// ---- the launch of the four kernels ----------------------------------------------
 //
-// A block (B, KY) owns B = block.x consecutive rows and stages in shared
-// memory, as arrays of B rows, the values that depend on the row alone,
-// each formed once: U and the parts of its flux, each stage state's flux
+// A block (B, KY) owns B = block.x consecutive rows; ell_pk2, ell_pk3 and
+// ell_pk_up stage in shared memory, as arrays of B rows, the values that
+// depend on the row alone, each formed once: U and the parts of its flux, each stage state's flux
 // parts, and the kernel's other row values.  A slot rebuilds the row's flux
 // from its parts (staged.cuh: the multiplies flux() forms it with, so bit
 // for bit), reads the other row values where it needs them, and forms its
 // neighbour's flux from the state it gathers; the stage loops run over the
 // instance's MS, so no array is indexed at run time and nothing goes to the
-// stack.  ell_pk3 spreads the slots over KY threads a row: thread (m, ky)
-// takes the edges (k, i0 + m) of the slots k = ky, ky + KY, ... < K, and a
-// warp covers consecutive rows of one slot, so the per-edge planes (cols,
-// c_ij, m_ij, d, the mask, the incidence) are read, and P and l written,
-// coalesced.  ell_pk2 sums over the slots in order and keeps one thread a
-// row (KY = 1; spreading its slots lost, PERF.md section 6).
-// ell_step_shape() (kernels/ell.py) mirrors the layout; the launchers refuse
-// any other.
+// stack.  ell_pk3 and ell_pk_up spread the slots over KY threads a row:
+// thread (m, ky) takes the edges (k, i0 + m) of the slots k = ky, ky + KY,
+// ... < K, and a warp covers consecutive rows of one slot, so the per-edge
+// planes (cols, c_ij, m_ij, d, the mask, the incidence, P, l) are read, and
+// P, l and l' written, coalesced; the update's sums of l_sym P over the
+// slots run k = 0 .. K-1 in order, a thread a component, over each edge's
+// l_sym and P staged in shared memory after a barrier (a masked slot's are
+// +0, which leaves a sum from +0 as it was).  ell_pk1 and ell_pk2 sum as
+// they go and keep one thread a row (KY = 1; spreading their slots lost,
+// PERF.md section 6).  ell_step_shape() (kernels/ell.py) mirrors the
+// layout; the launchers refuse any other.
 constexpr int ELL_THREADS = 128;  // the most threads a block; mirrored by ELL_THREADS in kernels/ell.py
 // The launch bound of the f32 instances in 1D and 2D: the blocks of
 // ELL_THREADS an SM must hold, so at most 72 registers a thread for
-// ell_pk2, 48 for ell_pk3 of at most two stage slots and 56 for its
-// MAX_STAGES instance (more warps resident, with no stack; fewer spill;
-// the other instances are left to the compiler)
+// ell_pk1 and ell_pk2, 48 for ell_pk3 of at most two stage slots and 56
+// for its MAX_STAGES instance, 48 for PK4 and 32 for PK5 (more warps
+// resident, with no stack; fewer spill; the other instances are left to
+// the compiler)
 constexpr int ELL_PK2_BLOCKS = 7, ELL_PK3_BLOCKS = 10, ELL_PK3_WIDE_BLOCKS = 9;
+constexpr int ELL_PK1_BLOCKS = 7, ELL_PK4_BLOCKS = 10, ELL_PK5_BLOCKS = 16;
 template <typename T, int DIM>
 __host__ __device__ constexpr int ell_min_blocks(int blocks) {
   return sizeof(T) == 4 && DIM <= 2 ? blocks : 1;
 }
+
+// The kernels, as the launch tells them apart (PK5: ell_pk_up with l_new null).
+enum EllKernel { ELL_PK1, ELL_PK2, ELL_PK3, ELL_PK4, ELL_PK5 };
 
 // Row values of ell_pk3: U and its flux parts, U_low, F, the bounds, psi0,
 // alpha_i, 1/m_i, pfac and the node mask, then each stage state's flux parts;
@@ -208,9 +121,17 @@ __host__ __device__ constexpr int ell_min_blocks(int blocks) {
 __host__ __device__ constexpr int ell_pk3_row_vals(int dim, int stages) {
   return 4 * dim + 19 + stages * stage_vals(dim);
 }
+// ell_pk1 stages nothing.  Of PK4 and PK5: each slot's l_sym and P (NC),
+// then (PK4) U_next, the bounds and psi0.
+__host__ __device__ constexpr int ell_pk_up_row_vals(int dim, int K, bool last) {
+  return K * (dim + 3) + (last ? 0 : dim + 9);
+}
 
-inline int64_t ell_step_smem(bool pk3, int dim, int stages, int rows, int size) {
-  const int vals = pk3 ? ell_pk3_row_vals(dim, stages) : pk2_vals(dim, stages) + stages * (dim + 2);
+inline int64_t ell_step_smem(int kern, int dim, int stages, int K, int rows, int size) {
+  const int vals = kern == ELL_PK3   ? ell_pk3_row_vals(dim, stages)
+                   : kern == ELL_PK2 ? pk2_vals(dim, stages) + stages * (dim + 2)
+                   : kern == ELL_PK1 ? 0
+                                     : ell_pk_up_row_vals(dim, K, kern == ELL_PK5);
   return int64_t(vals) * rows * size;
 }
 
@@ -267,6 +188,91 @@ __device__ __forceinline__ T flux_div(const Parts<T, DIM>& a, const Parts<T, DIM
 }
 
 }  // namespace
+
+// ---- ell_pk1: e on every slot and alpha --------------------------------------
+//
+// One thread a row, its slots in order k = 0 .. K-1 as the indicator sums
+// them, the row's values in registers, as the one-thread-a-row form; the
+// reads of a slot (its mask, column, c_ij, and the neighbour's state and
+// eta) are started a slot ahead, so that they are in flight while the slot
+// before is solved.  Masked slots point at their own row (EllStencil), so
+// the reads ahead stay in bounds.
+template <typename T, int DIM>
+__global__ void __launch_bounds__(ELL_THREADS, ell_min_blocks<T, DIM>(ELL_PK1_BLOCKS))
+ell_pk1_kernel(const int32_t* __restrict__ cols, const T* __restrict__ cij,
+               const T* __restrict__ mask, const T* __restrict__ node, const T* __restrict__ U,
+               const T* __restrict__ prec, T* __restrict__ e_out, T* __restrict__ alpha,
+               const __grid_constant__ EqConsts<T> e) {
+  constexpr int NC = DIM + 2;
+  const int B = blockDim.x, m = threadIdx.x;
+  const int64_t n = e.W;
+  const int K = e.K;
+  const int64_t i = int64_t(blockIdx.x) * B + m;
+  if (i >= n) return;
+
+  T ui[NC];
+  load_state(U, i, n, ui);
+  T pa_i[5];
+  riemann_precompute(e, ui, pa_i);
+  const T eta_i = prec[n + i];
+  const T rho_i_inv = T(1) / ui[0];
+  const Parts<T, DIM> fi = state_parts(e, ui);
+  T left = T(0), right[NC];
+#pragma unroll
+  for (int q = 0; q < NC; ++q) right[q] = T(0);
+
+  // slot k's reads, and slot k + 1's started before slot k is solved
+  T mk = mask[i], uj[NC], eta_j, cv[DIM];
+  {
+    const int64_t j = cols[i];
+    load_state(U, j, n, uj);
+    eta_j = prec[n + j];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) cv[d] = cij[int64_t(d) * K * n + i];
+  }
+#pragma unroll 1
+  for (int k = 0; k < K; ++k) {
+    const T mk_k = mk, eta_k = eta_j;
+    T uk[NC], ck[DIM];
+#pragma unroll
+    for (int q = 0; q < NC; ++q) uk[q] = uj[q];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) ck[d] = cv[d];
+    if (k + 1 < K) {
+      mk = mask[(k + 1) * n + i];
+      const int64_t j = cols[(k + 1) * n + i];
+      load_state(U, j, n, uj);
+      eta_j = prec[n + j];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) cv[d] = cij[(int64_t(d) * K + k + 1) * n + i];
+    }
+    T e_k = T(0);
+    if (mk_k > T(0)) {
+      const T norm = sqrt(vdot(ck, ck));
+      const T nn = mx(norm, e.tiny);
+      T nv[DIM];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) nv[d] = ck[d] / nn;
+      T pa_j[5];
+      riemann_precompute(e, uk, pa_j);
+      e_k = norm * lambda_max(e, ui, pa_i, uk, pa_j, nv);
+
+      // indicator_accum
+      left += (eta_k / uk[0] - eta_i * rho_i_inv) * mproj(uk, ck);
+      const Parts<T, DIM> fj = state_parts(e, uk);
+#pragma unroll
+      for (int q = 0; q < NC; ++q) {
+        T r = (flux_entry(fj, q, 0) - flux_entry(fi, q, 0)) * ck[0];
+#pragma unroll
+        for (int d = 1; d < DIM; ++d) r = r + (flux_entry(fj, q, d) - flux_entry(fi, q, d)) * ck[d];
+        right[q] += r;
+      }
+    }
+    e_out[k * n + i] = e_k;
+  }
+
+  alpha[i] = pk1_alpha(e, node, i, n, ui, eta_i, rho_i_inv, left, right);
+}
 
 // ---- ell_pk2: U_low, F and the limiter bounds -----------------------------------
 //
@@ -546,54 +552,95 @@ ell_pk3_kernel(const int32_t* __restrict__ cols, const T* __restrict__ cij,
 }
 
 // ---- ell_pk_up: PK4 (l_new given) and PK5 (l_new null) -------------------------
-template <typename T, int DIM>
-__global__ void __launch_bounds__(128)
-ell_pk_up_kernel(const int64_t* __restrict__ trans, const T* __restrict__ mask,
+//
+// Thread (m, ky) stages l_sym and P of its edges; after a barrier thread
+// (m, ky) sums l_sym P of the components q = ky, ky + KY, ... < NC over k = 0
+// .. K-1 in order and writes U_next.  PK4 (LAST false) then stages U_next,
+// the bounds and psi0 of the row and re-limits each edge on the thread that
+// staged it, by the operations of the one-thread-a-row loop.
+template <typename T, int DIM, bool LAST>
+__global__ void __launch_bounds__(ELL_THREADS,
+                                  ell_min_blocks<T, DIM>(LAST ? ELL_PK5_BLOCKS : ELL_PK4_BLOCKS))
+ell_pk_up_kernel(const int32_t* __restrict__ trans, const T* __restrict__ mask,
                  const T* __restrict__ node, const T* __restrict__ U,
                  const T* __restrict__ bounds, const T* __restrict__ P,
                  const T* __restrict__ l, T* __restrict__ U_next, T* __restrict__ l_new,
                  const __grid_constant__ EqConsts<T> e) {
-  constexpr int NC = DIM + 2;
-  const int64_t n = int64_t(e.D) * e.H * e.W;
-  int64_t i;
-  if (!this_row(n, i)) return;
+  constexpr int NC = DIM + 2, NT = NC + 1;  // l_sym and P of a slot
+  extern __shared__ __align__(16) unsigned char ell_smem[];
+  T* const rv = reinterpret_cast<T*>(ell_smem);
+  const int B = blockDim.x, KY = blockDim.y, m = threadIdx.x, ky = threadIdx.y;
+  const int64_t n = e.W;
   const int K = e.K;
+  const int64_t i = int64_t(blockIdx.x) * B + m;
+  // U_next, the bounds, psi0 (PK4)
+  const int UN = K * NT, BN = UN + NC, PS = BN + 3;
 
-  T acc[NC];
+  if (i < n) {
+    for (int k = ky; k < K; k += KY) {
+      T* const t = rv + k * NT * B + m;
+      if (mask[k * n + i] > T(0)) {
+        t[0] = mn(l[k * n + i], l[trans[k * n + i]]);
 #pragma unroll
-  for (int q = 0; q < NC; ++q) acc[q] = T(0);
-#pragma unroll 1
-  for (int k = 0; k < K; ++k) {
-    if (!(mask[k * n + i] > T(0))) continue;
-    const T l_sym = mn(l[k * n + i], l[trans[k * n + i]]);
+        for (int q = 0; q < NC; ++q) t[(1 + q) * B] = P[(int64_t(q) * K + k) * n + i];
+      } else {
 #pragma unroll
-    for (int q = 0; q < NC; ++q) acc[q] = acc[q] + l_sym * P[(int64_t(q) * K + k) * n + i];
-  }
-  const T lam_i = T(1) / node[2 * n + i];
-  T un[NC];
-#pragma unroll
-  for (int q = 0; q < NC; ++q) {
-    un[q] = U[q * n + i] + lam_i * acc[q];
-    U_next[q * n + i] = un[q];
-  }
-  if (l_new == nullptr) return;
-
-  const T bnd[3] = {bounds[i], bounds[n + i], bounds[2 * n + i]};
-  T psi0[4];
-  limiter_psi0(e, bnd[2], un, psi0);
-#pragma unroll 1
-  for (int k = 0; k < K; ++k) {
-    T out = T(0);
-    if (mask[k * n + i] > T(0)) {
-      const T l_sym = mn(l[k * n + i], l[trans[k * n + i]]);
-      const T rest = T(1) - l_sym;
-      T Pr[NC];
-#pragma unroll
-      for (int q = 0; q < NC; ++q) Pr[q] = rest * P[(int64_t(q) * K + k) * n + i];
-      bool success;
-      out = rest * limiter_limit(e, bnd, un, psi0, Pr, success);
+        for (int c = 0; c < NT; ++c) t[c * B] = T(0);
+      }
     }
-    l_new[k * n + i] = out;
+    if (!LAST && ky == KY - 1) {
+#pragma unroll
+      for (int b = 0; b < 3; ++b) rv[(BN + b) * B + m] = bounds[b * n + i];
+    }
+  }
+  __syncthreads();
+
+  if (i < n && ky < NC) {
+    const T lam_i = T(1) / node[2 * n + i];
+    for (int q = ky; q < NC; q += KY) {
+      T acc = T(0);
+#pragma unroll 1
+      for (int k = 0; k < K; ++k) {
+        const T* const t = rv + k * NT * B + m;
+        acc = acc + t[0] * t[(1 + q) * B];
+      }
+      const T un = U[q * n + i] + lam_i * acc;
+      U_next[q * n + i] = un;
+      if (!LAST) rv[(UN + q) * B + m] = un;
+    }
+  }
+  if constexpr (!LAST) {
+    __syncthreads();
+    if (i < n && ky == 0) {
+      T un[NC], psi0[4];
+      staged_u(rv + UN * B, B, m, un);
+      limiter_psi0(e, rv[(BN + 2) * B + m], un, psi0);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) rv[(PS + b) * B + m] = psi0[b];
+    }
+    __syncthreads();
+
+    if (i < n) {
+      T un[NC], bnd[3], psi0[4];
+      staged_u(rv + UN * B, B, m, un);
+#pragma unroll
+      for (int b = 0; b < 3; ++b) bnd[b] = rv[(BN + b) * B + m];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) psi0[b] = rv[(PS + b) * B + m];
+      for (int k = ky; k < K; k += KY) {
+        T out = T(0);
+        if (mask[k * n + i] > T(0)) {
+          const T* const t = rv + k * NT * B + m;
+          const T rest = T(1) - t[0];
+          T Pr[NC];
+#pragma unroll
+          for (int q = 0; q < NC; ++q) Pr[q] = rest * t[(1 + q) * B];
+          bool success;
+          out = rest * limiter_limit(e, bnd, un, psi0, Pr, success);
+        }
+        l_new[k * n + i] = out;
+      }
+    }
   }
 }
 
@@ -606,36 +653,42 @@ bool ell_ok(const Consts* c) {
          c->n_stages >= 0 && c->n_stages <= MAX_STAGES;
 }
 
-inline dim3 row_grid(const Consts* c) { return dim3((unsigned(c->W) + 127) / 128); }
-
-// The launch ell_step_shape() gives ell_pk2 (pk3 false) or ell_pk3: a block
-// (B, KY, 1) of at most ELL_THREADS threads with KY <= K (KY = 1 for
-// ell_pk2), ceil(n / B) blocks, and the shared bytes of the layout.
+// The launch ell_step_shape() gives kernel `kern`: a block (B, KY, 1) of at
+// most ELL_THREADS threads with KY <= K (KY = 1 for ell_pk1 and ell_pk2),
+// ceil(n / B) blocks, and the shared bytes of the layout.
 template <typename T>
-bool ell_step_launch_ok(const Consts* c, bool pk3) {
+bool ell_step_launch_ok(const Consts* c, int kern) {
   const int B = c->block[0], KY = c->block[1];
   if (B < 1 || KY < 1 || KY > c->K || c->block[2] != 1 || B * KY > ELL_THREADS) return false;
-  if (!pk3 && KY != 1) return false;
+  if ((kern == ELL_PK1 || kern == ELL_PK2) && KY != 1) return false;
   if (c->grid[0] != (int64_t(c->W) + B - 1) / B || c->grid[1] != 1 || c->grid[2] != 1) return false;
-  return c->smem == ell_step_smem(pk3, c->dim, c->n_stages, B, int(sizeof(T)));
+  return c->smem == ell_step_smem(kern, c->dim, c->n_stages, c->K, B, int(sizeof(T)));
+}
+
+// Launch `kernel` at the launch's shape, its shared bytes allowed.
+template <typename F, typename... A>
+int ell_launch(F* kernel, const Consts* c, cudaStream_t stream, A... args) {
+  if (const int rc = allow_smem(kernel, c->smem)) return rc;
+  kernel<<<dim3(c->grid[0]), dim3(c->block[0], c->block[1]), c->smem, stream>>>(args...);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
 template <typename T>
-int launch_ell_pk1(const int64_t* cols, const T* cij, const T* mask, const T* node, const T* U,
+int launch_ell_pk1(const int32_t* cols, const T* cij, const T* mask, const T* node, const T* U,
                    const T* prec, T* e_out, T* alpha, const Consts* c, cudaStream_t stream) {
-  if (!ell_ok(c)) return int(cudaErrorInvalidValue);
+  if (!ell_ok(c) || !ell_step_launch_ok<T>(c, ELL_PK1)) return int(cudaErrorInvalidValue);
   if (c->W == 0) return int(cudaSuccess);
   const EqConsts<T> e = EqConsts<T>::make(*c);
-  const dim3 grid = row_grid(c), block(128);
   if (c->dim == 1)
-    ell_pk1_kernel<T, 1><<<grid, block, 0, stream>>>(cols, cij, mask, node, U, prec, e_out, alpha, e);
-  else if (c->dim == 2)
-    ell_pk1_kernel<T, 2><<<grid, block, 0, stream>>>(cols, cij, mask, node, U, prec, e_out, alpha, e);
-  else
-    ell_pk1_kernel<T, 3><<<grid, block, 0, stream>>>(cols, cij, mask, node, U, prec, e_out, alpha, e);
-  return int(cudaGetLastError());
+    return ell_launch(ell_pk1_kernel<T, 1>, c, stream, cols, cij, mask, node, U, prec, e_out,
+                      alpha, e);
+  if (c->dim == 2)
+    return ell_launch(ell_pk1_kernel<T, 2>, c, stream, cols, cij, mask, node, U, prec, e_out,
+                      alpha, e);
+  return ell_launch(ell_pk1_kernel<T, 3>, c, stream, cols, cij, mask, node, U, prec, e_out, alpha,
+                    e);
 }
 
 template <typename T, bool DG, int MS>
@@ -643,25 +696,14 @@ int launch_ell_pk2_instance(const int32_t* cols, const T* cij, const T* mask, co
                             const T* cii, const T* node, const T* U, const T* prec, const T* d,
                             const T* alpha, const T* sU, const T* tau, T* U_low, T* F, T* bounds,
                             const EqConsts<T>& e, const Consts* c, cudaStream_t stream) {
-  const dim3 grid(c->grid[0]), block(c->block[0], c->block[1]);
-  const int smem = c->smem;
-  if (c->dim == 1) {
-    auto* kernel = ell_pk2_kernel<T, 1, DG, MS>;
-    if (const int rc = allow_smem(kernel, smem)) return rc;
-    kernel<<<grid, block, smem, stream>>>(cols, cij, mask, inc, cii, node, U, prec, d, alpha, sU,
-                                          tau, U_low, F, bounds, e);
-  } else if (c->dim == 2) {
-    auto* kernel = ell_pk2_kernel<T, 2, DG, MS>;
-    if (const int rc = allow_smem(kernel, smem)) return rc;
-    kernel<<<grid, block, smem, stream>>>(cols, cij, mask, inc, cii, node, U, prec, d, alpha, sU,
-                                          tau, U_low, F, bounds, e);
-  } else {
-    auto* kernel = ell_pk2_kernel<T, 3, DG, MS>;
-    if (const int rc = allow_smem(kernel, smem)) return rc;
-    kernel<<<grid, block, smem, stream>>>(cols, cij, mask, inc, cii, node, U, prec, d, alpha, sU,
-                                          tau, U_low, F, bounds, e);
-  }
-  return int(cudaGetLastError());
+  if (c->dim == 1)
+    return ell_launch(ell_pk2_kernel<T, 1, DG, MS>, c, stream, cols, cij, mask, inc, cii, node, U,
+                      prec, d, alpha, sU, tau, U_low, F, bounds, e);
+  if (c->dim == 2)
+    return ell_launch(ell_pk2_kernel<T, 2, DG, MS>, c, stream, cols, cij, mask, inc, cii, node, U,
+                      prec, d, alpha, sU, tau, U_low, F, bounds, e);
+  return ell_launch(ell_pk2_kernel<T, 3, DG, MS>, c, stream, cols, cij, mask, inc, cii, node, U,
+                    prec, d, alpha, sU, tau, U_low, F, bounds, e);
 }
 
 // `inc` given: the dG instances; each takes its instance of at most 2
@@ -671,7 +713,7 @@ int launch_ell_pk2(const int32_t* cols, const T* cij, const T* mask, const T* in
                    const T* node, const T* U, const T* prec, const T* d, const T* alpha,
                    const T* sU, const T* tau, T* U_low, T* F, T* bounds, const Consts* c,
                    cudaStream_t stream) {
-  if (!ell_ok(c) || !ell_step_launch_ok<T>(c, false)) return int(cudaErrorInvalidValue);
+  if (!ell_ok(c) || !ell_step_launch_ok<T>(c, ELL_PK2)) return int(cudaErrorInvalidValue);
   if (c->W == 0) return int(cudaSuccess);
   const EqConsts<T> e = EqConsts<T>::make(*c);
   const bool wide = c->n_stages > 2;
@@ -696,25 +738,14 @@ int launch_ell_pk3_instance(const int32_t* cols, const T* cij, const T* mij, con
                             const T* F, const T* U_low, const T* bounds, const T* sU,
                             const T* tau, T* P, T* l, T* okp, const EqConsts<T>& e,
                             const Consts* c, cudaStream_t stream) {
-  const dim3 grid(c->grid[0]), block(c->block[0], c->block[1]);
-  const int smem = c->smem;
-  if (c->dim == 1) {
-    auto* kernel = ell_pk3_kernel<T, 1, DG, MS>;
-    if (const int rc = allow_smem(kernel, smem)) return rc;
-    kernel<<<grid, block, smem, stream>>>(cols, cij, mij, mask, inc, node, U, d, alpha, F, U_low,
-                                          bounds, sU, tau, P, l, okp, e);
-  } else if (c->dim == 2) {
-    auto* kernel = ell_pk3_kernel<T, 2, DG, MS>;
-    if (const int rc = allow_smem(kernel, smem)) return rc;
-    kernel<<<grid, block, smem, stream>>>(cols, cij, mij, mask, inc, node, U, d, alpha, F, U_low,
-                                          bounds, sU, tau, P, l, okp, e);
-  } else {
-    auto* kernel = ell_pk3_kernel<T, 3, DG, MS>;
-    if (const int rc = allow_smem(kernel, smem)) return rc;
-    kernel<<<grid, block, smem, stream>>>(cols, cij, mij, mask, inc, node, U, d, alpha, F, U_low,
-                                          bounds, sU, tau, P, l, okp, e);
-  }
-  return int(cudaGetLastError());
+  if (c->dim == 1)
+    return ell_launch(ell_pk3_kernel<T, 1, DG, MS>, c, stream, cols, cij, mij, mask, inc, node, U,
+                      d, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+  if (c->dim == 2)
+    return ell_launch(ell_pk3_kernel<T, 2, DG, MS>, c, stream, cols, cij, mij, mask, inc, node, U,
+                      d, alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
+  return ell_launch(ell_pk3_kernel<T, 3, DG, MS>, c, stream, cols, cij, mij, mask, inc, node, U, d,
+                    alpha, F, U_low, bounds, sU, tau, P, l, okp, e);
 }
 
 template <typename T>
@@ -722,7 +753,7 @@ int launch_ell_pk3(const int32_t* cols, const T* cij, const T* mij, const T* mas
                    const T* node, const T* U, const T* d, const T* alpha, const T* F,
                    const T* U_low, const T* bounds, const T* sU, const T* tau, T* P, T* l, T* okp,
                    const Consts* c, cudaStream_t stream) {
-  if (!ell_ok(c) || !ell_step_launch_ok<T>(c, true)) return int(cudaErrorInvalidValue);
+  if (!ell_ok(c) || !ell_step_launch_ok<T>(c, ELL_PK3)) return int(cudaErrorInvalidValue);
   if (c->W == 0) return int(cudaSuccess);
   const EqConsts<T> e = EqConsts<T>::make(*c);
   const bool wide = c->n_stages > 2;
@@ -741,24 +772,35 @@ int launch_ell_pk3(const int32_t* cols, const T* cij, const T* mij, const T* mas
                                               U_low, bounds, sU, tau, P, l, okp, e, c, stream);
 }
 
+template <typename T, bool LAST>
+int launch_ell_pk_up_instance(const int32_t* trans, const T* mask, const T* node, const T* U,
+                              const T* bounds, const T* P, const T* l, T* U_next, T* l_new,
+                              const EqConsts<T>& e, const Consts* c, cudaStream_t stream) {
+  if (c->dim == 1)
+    return ell_launch(ell_pk_up_kernel<T, 1, LAST>, c, stream, trans, mask, node, U, bounds, P, l,
+                      U_next, l_new, e);
+  if (c->dim == 2)
+    return ell_launch(ell_pk_up_kernel<T, 2, LAST>, c, stream, trans, mask, node, U, bounds, P, l,
+                      U_next, l_new, e);
+  return ell_launch(ell_pk_up_kernel<T, 3, LAST>, c, stream, trans, mask, node, U, bounds, P, l,
+                    U_next, l_new, e);
+}
+
+// l_new null: PK5, the last, which does not re-limit.
 template <typename T>
-int launch_ell_pk_up(const int64_t* trans, const T* mask, const T* node, const T* U,
+int launch_ell_pk_up(const int32_t* trans, const T* mask, const T* node, const T* U,
                      const T* bounds, const T* P, const T* l, T* U_next, T* l_new,
                      const Consts* c, cudaStream_t stream) {
-  if (!ell_ok(c)) return int(cudaErrorInvalidValue);
+  const bool last = l_new == nullptr;
+  if (!ell_ok(c) || !ell_step_launch_ok<T>(c, last ? ELL_PK5 : ELL_PK4))
+    return int(cudaErrorInvalidValue);
   if (c->W == 0) return int(cudaSuccess);
   const EqConsts<T> e = EqConsts<T>::make(*c);
-  const dim3 grid = row_grid(c), block(128);
-  if (c->dim == 1)
-    ell_pk_up_kernel<T, 1><<<grid, block, 0, stream>>>(trans, mask, node, U, bounds, P, l, U_next,
-                                                       l_new, e);
-  else if (c->dim == 2)
-    ell_pk_up_kernel<T, 2><<<grid, block, 0, stream>>>(trans, mask, node, U, bounds, P, l, U_next,
-                                                       l_new, e);
-  else
-    ell_pk_up_kernel<T, 3><<<grid, block, 0, stream>>>(trans, mask, node, U, bounds, P, l, U_next,
-                                                       l_new, e);
-  return int(cudaGetLastError());
+  if (last)
+    return launch_ell_pk_up_instance<T, true>(trans, mask, node, U, bounds, P, l, U_next, l_new, e,
+                                              c, stream);
+  return launch_ell_pk_up_instance<T, false>(trans, mask, node, U, bounds, P, l, U_next, l_new, e,
+                                             c, stream);
 }
 
 }  // namespace ryujin
@@ -768,7 +810,7 @@ int launch_ell_pk_up(const int64_t* trans, const T* mask, const T* node, const T
                                          const void* node, const void* U, const void* prec,    \
                                          void* e_out, void* alpha,                             \
                                          const ryujin::Consts* consts, void* stream) {         \
-    return ryujin::launch_ell_pk1<T>((const int64_t*)cols, (const T*)cij, (const T*)mask,      \
+    return ryujin::launch_ell_pk1<T>((const int32_t*)cols, (const T*)cij, (const T*)mask,      \
                                      (const T*)node, (const T*)U, (const T*)prec, (T*)e_out,   \
                                      (T*)alpha, consts, (cudaStream_t)stream);                 \
   }                                                                                            \
@@ -799,7 +841,7 @@ int launch_ell_pk_up(const int64_t* trans, const T* mask, const T* node, const T
       const void* trans, const void* mask, const void* node, const void* U,                    \
       const void* bounds, const void* P, const void* l, void* U_next, void* l_new,             \
       const ryujin::Consts* consts, void* stream) {                                            \
-    return ryujin::launch_ell_pk_up<T>((const int64_t*)trans, (const T*)mask, (const T*)node,  \
+    return ryujin::launch_ell_pk_up<T>((const int32_t*)trans, (const T*)mask, (const T*)node,  \
                                        (const T*)U, (const T*)bounds, (const T*)P,             \
                                        (const T*)l, (T*)U_next, (T*)l_new, consts,             \
                                        (cudaStream_t)stream);                                  \

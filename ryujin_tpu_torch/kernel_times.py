@@ -73,10 +73,12 @@ _TILE = re.compile(
 # pk3_stream, its last template argument (none in a tree built before it)
 _SLOTS = re.compile(r"Li(\d)EEEvPK")
 # the ELL kernels (csrc/ell_step.cu): type and DIM, for ell_pk2 and ell_pk3
-# also the dG flag and the most stage slots
+# also the dG flag and the most stage slots, for ell_pk_up LAST (PK5; none
+# in a tree of one thread a row, whose ell_pk1 and ell_pk_up take int64
+# indices: "EvPKl")
 _ELL = re.compile(
     r"_ZN6ryujin\d+(ell_pk1|ell_pk2|ell_pk3|ell_pk_up)_kernelI([fd])Li(\d)E"
-    r"(?:Lb(\d)ELi(\d)E)?")
+    r"(?:Lb(\d)E(?:Li(\d)E)?)?")
 # pk1_stream has no dG flag; its staged tile (full statics only) no
 # statics accessor
 _PK1 = re.compile(
@@ -109,7 +111,12 @@ def _label(name):
         kern, t, dim, dg, ms = _ELL.match(name).groups()
         label = (f"{kern}<{'f32' if t == 'f' else 'f64'}, {dim}D"
                  + ("" if dg is None else
+                    f", {'PK5' if dg == '1' else 'PK4'}" if ms is None else
                     f", {'dG' if dg == '1' else 'cG'}, S<={ms}") + ">")
+        if kern in ("ell_pk1", "ell_pk_up") and "EvPKl" in name:
+            kern += " row"  # one thread a row, 128 a block
+        elif kern == "ell_pk_up" and dg == "1":
+            kern += " last"
         return (label, kern, int(dim),
                 torch.float32 if t == "f" else torch.float64,
                 int(ms) if ms else 2)
@@ -236,10 +243,11 @@ def resident_warps(regs: int, threads: int, smem: int) -> int:
 def launch_shape(kern, dim, dtype, stages=2):
     """(threads a block, shared bytes) of kernel `kern`'s launch at
     `stages` stage slots (two on the main path): K = 24 in 2D (the
-    stacked pk1, pk2 and pk3: 8), 26 in 3D; ell_pk2 and ell_pk3 from
-    ell_step_shape() at K = 2 in 1D, 8 in 2D, 26 in 3D; a kernel without
-    a tile() beside its wrapper launches 128 threads a block without
-    shared memory."""
+    stacked pk1, pk2 and pk3: 8), 26 in 3D; the ELL kernels from
+    ell_step_shape() at K = 2 in 1D, 8 in 2D, 26 in 3D ("ell_pk_up last":
+    PK5's); a kernel without a tile() beside its wrapper, and the ELL
+    kernels of one thread a row (" row"), launch 128 threads a block
+    without shared memory."""
     from .kernels import pk1 as k1
     from .kernels import pk1_stream as k1s
     from .kernels import pk2 as k2
@@ -250,9 +258,11 @@ def launch_shape(kern, dim, dtype, stages=2):
 
     from .kernels import ell
 
-    if kern in ("ell_pk2", "ell_pk3") and hasattr(ell, "ell_step_shape"):
-        sh = ell.ell_step_shape(kern, dim, {1: 2, 2: 8, 3: 26}[dim], dtype,
-                                stages, 1)
+    if (kern.startswith("ell_") and not kern.endswith(" row")
+            and hasattr(ell, "ell_step_shape")):
+        sh = ell.ell_step_shape(kern.split()[0], dim, {1: 2, 2: 8, 3: 26}[dim],
+                                dtype, stages, 1,
+                                last=kern.endswith(" last"))
         return sh.threads, sh.smem
     K = 8 if kern in ("pk1", "pk2", "pk3") else (24 if dim == 2 else 26)
     shape = (64, 64) if dim == 2 else (8, 64, 64)

@@ -1,10 +1,11 @@
 """The padded-ELL substep's four kernels (CUDA, csrc/ell_step.cu):
-ell_pk1 (e on every slot and alpha) and ell_pk_up (the limited update;
-PK4 re-limits, PK5 is the last), one thread a row; ell_pk2 (U_low, F and
-the limiter bounds, one thread a row) and ell_pk3 (P, the first limiter
-pass and okp, threads over a row's slots), blocks of rows that stage the
-rows' values in shared memory, their launch from ell_step_shape().
-There is no TPU kernel behind them: the JAX package runs this path in XLA
+ell_pk1 (e on every slot and alpha), ell_pk2 (U_low, F and the limiter
+bounds), ell_pk3 (P, the first limiter pass and okp) and ell_pk_up (the
+limited update; PK4 re-limits, PK5 is the last), blocks of rows that stage
+the rows' values in shared memory, ell_pk3 and ell_pk_up a row's slots
+over threads, ell_pk1 and ell_pk2 one thread a row; their launch from
+ell_step_shape().  There is no TPU kernel
+behind them: the JAX package runs this path in XLA
 (ryujin_tpu/solver/hyperbolic.py:65-130, 411-1104).
 
 Each wrapper takes the stencil `st` (solver/stencil.EllStencil) and runs
@@ -14,9 +15,9 @@ functions of solver/hyperbolic.py on the stencil, the update a loop over
 the slots in the kernel's order (as pk_up_reference is).  Each wrapper
 counts its launches in `.launches`; ell_pk2 and ell_pk3 also by the number
 of stage slots (`.stage_launches`), ell_pk_up its last launches (PK5,
-`.last_launches`).  ell_pk2 and ell_pk3 read the int32 columns
-`st.cols32` (solver/stencil.int32_columns), ell_pk1 `st.cols` and ell_pk_up
-`st.trans` as int64.
+`.last_launches`).  ell_pk1, ell_pk2 and ell_pk3 read the int32 columns
+`st.cols32` (solver/stencil.int32_columns), ell_pk_up the int32
+transposed edges `st.trans32` (solver/stencil.int32_edges).
 """
 
 from __future__ import annotations
@@ -107,21 +108,26 @@ def ell_pk_up_reference(eq, p, st, U_cur, bounds, P, l, last):
     return U_next, l_new
 
 
-# ---- the launch of ell_pk2 and ell_pk3 ------------------------------------------
+# ---- the launch of the four kernels ---------------------------------------------
 
 ELL_THREADS = 128  # the most threads a block (csrc/ell_step.cu ELL_THREADS)
-# the default launch, (rows, threads) a block, the fastest of tile_sweep's
-# ell-step on the step at refinement 3 (PERF.md section 6); fewer
-# rows where the shared bytes need
-ELL_DEFAULT = {"ell_pk2": (128, 128), "ell_pk3": (32, 64)}
+KERNELS = ("ell_pk1", "ell_pk2", "ell_pk3", "ell_pk_up")
+# the default launch, (rows, threads) a block, of each kernel and of PK5
+# ("ell_pk_up last"), the fastest of tile_sweep's ell-step on the step at
+# refinement 3 (PERF.md section 6); fewer rows where the shared bytes need
+ELL_DEFAULT = {"ell_pk1": (128, 128), "ell_pk2": (128, 128),
+               "ell_pk3": (32, 64), "ell_pk_up": (32, 64),
+               "ell_pk_up last": (32, 64)}
+# the kernels of one thread a row (threads = rows)
+ROW_KERNELS = ("ell_pk1", "ell_pk2")
 
 
 class EllStepShape(NamedTuple):
-    """Launch of ell_pk2 or ell_pk3: a block owns `rows` consecutive rows
-    and every slot of them, thread (m, ky) of the block (rows, slots) the
-    slots ky, ky + slots, ... of row m (ell_pk2: one thread a row, slots
-    1); `blocks` blocks cover the n rows; `smem` shared bytes a block
-    (dynamic)."""
+    """Launch of an ELL kernel: a block owns `rows` consecutive rows and
+    every slot of them, thread (m, ky) of the block (rows, slots) the
+    slots ky, ky + slots, ... of row m (ell_pk1 and ell_pk2: one thread a
+    row, slots 1); `blocks` blocks cover the n rows; `smem` shared bytes a
+    block (dynamic)."""
 
     rows: int
     slots: int
@@ -137,41 +143,51 @@ def ell_pk3_row_vals(dim: int, stages: int) -> int:
     return 4 * dim + 19 + stages * (2 * dim + 2)
 
 
+def ell_pk_up_row_vals(dim: int, K: int, last: bool) -> int:
+    """ell_pk_up's row values: each slot's l_sym and P, then (PK4) U_next,
+    the bounds and psi0."""
+    return K * (dim + 3) + (0 if last else dim + 9)
+
+
 def ell_step_smem(kernel: str, dim: int, stages: int, rows: int,
-                  itemsize: int) -> int:
+                  itemsize: int, K: int = 0, last: bool = False) -> int:
     """Shared bytes of a block of `rows` rows (csrc/ell_step.cu
-    ell_step_smem): the row values, ell_pk3_row_vals, or pk2_vals and the
-    row's sums of each stage's flux divergences."""
-    vals = (ell_pk3_row_vals(dim, stages) if kernel == "ell_pk3"
-            else pk2_vals(dim, stages) + stages * (dim + 2))
+    ell_step_smem): the row values of `kernel`, for ell_pk2 pk2_vals and
+    the row's sums of each stage's flux divergences; ell_pk1 stages
+    nothing."""
+    vals = {"ell_pk3": lambda: ell_pk3_row_vals(dim, stages),
+            "ell_pk2": lambda: pk2_vals(dim, stages) + stages * (dim + 2),
+            "ell_pk1": lambda: 0,
+            "ell_pk_up": lambda: ell_pk_up_row_vals(dim, K, last)}[kernel]()
     return vals * rows * itemsize
 
 
 def ell_step_shape(kernel: str, dim: int, K: int, dtype, n_stages: int,
-                   n: int, rows=None, threads=None) -> EllStepShape:
-    """The launch of `kernel` ("ell_pk2" or "ell_pk3") on n rows of K
-    slots: blocks of `rows` rows and rows * min(K, threads // rows)
-    threads (ell_pk2: threads = rows); by default ELL_DEFAULT's, the rows
-    halved until the shared bytes fit build.SMEM_MAX.  Raises ValueError
-    for a shape that cannot launch."""
-    if kernel not in ("ell_pk2", "ell_pk3"):
+                   n: int, rows=None, threads=None,
+                   last: bool = False) -> EllStepShape:
+    """The launch of `kernel` (one of KERNELS; `last` PK5's launch of
+    ell_pk_up) on n rows of K slots: blocks of `rows` rows and rows *
+    min(K, threads // rows) threads (ROW_KERNELS: threads = rows); by default
+    ELL_DEFAULT's, the rows halved until the shared bytes fit
+    build.SMEM_MAX.  Raises ValueError for a shape that cannot launch."""
+    if kernel not in KERNELS:
         raise ValueError(f"no launch shape for {kernel!r}")
     if not (1 <= dim <= 3 and K >= 1 and 0 <= n_stages <= build.MAX_STAGES
             and n >= 0):
         raise ValueError(f"no ELL launch for dim {dim}, K {K}, "
                          f"{n_stages} stage slots, n {n}")
     itemsize = torch.empty((), dtype=dtype).element_size()
-    rows0, threads0 = ELL_DEFAULT[kernel]
+    rows0, threads0 = ELL_DEFAULT[kernel + (" last" if last else "")]
     candidates = [rows] if rows is not None else [
         rows0 >> h for h in range(rows0.bit_length())]
     for b in candidates:
-        smem = ell_step_smem(kernel, dim, n_stages, b, itemsize)
+        smem = ell_step_smem(kernel, dim, n_stages, b, itemsize, K, last)
         if smem <= build.SMEM_MAX or b == candidates[-1]:
             break
     if threads is None:
-        threads = b if kernel == "ell_pk2" else threads0
+        threads = b if kernel in ROW_KERNELS else threads0
     if (not (1 <= b <= threads <= ELL_THREADS) or smem > build.SMEM_MAX
-            or (kernel == "ell_pk2" and threads != b)):
+            or (kernel in ROW_KERNELS and threads != b)):
         raise ValueError(f"{kernel}: no block of {rows or 'any'} rows and "
                          f"{threads} threads fits (K {K}, {dim}D, {dtype}, "
                          f"{n_stages} stage slots: {smem} shared bytes)")
@@ -182,46 +198,44 @@ def ell_step_shape(kernel: str, dim: int, K: int, dtype, n_stages: int,
 # ---- the wrappers ---------------------------------------------------------------
 
 
-def _check(st, U, tensors, cols32=False):
+def _check(st, U, tensors, index="cols32"):
     """Raise unless the stencil's statics and `tensors` (name -> (tensor,
     shape)) lie on U's device in U's dtype, contiguous, and the gather
-    indices are int64 there (with cols32, the columns int32 st.cols32)."""
-    names = ("cols32",) if cols32 else ("cols", "trans")
-    for name in names:
-        t = getattr(st, name, None)
-        want = torch.int32 if cols32 else torch.int64
-        if (t is None or t.device != U.device or t.dtype != want
-                or tuple(t.shape) != (st.K, st.n) or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous {want} [K, n] on "
-                             f"{U.device} (solver/ell_step.EllStepper)")
+    indices `index` (st.cols32 or st.trans32) are contiguous int32 [K, n]
+    there."""
+    t = getattr(st, index, None)
+    if (t is None or t.device != U.device or t.dtype != torch.int32
+            or tuple(t.shape) != (st.K, st.n) or not t.is_contiguous()):
+        raise ValueError(f"{index} must be contiguous int32 [K, n] on "
+                         f"{U.device} (solver/ell_step.EllStepper)")
     statics = {name: (getattr(st, name), getattr(st, name).shape)
                for name in ("cij", "mij", "mask", "cii", "node", "incidence")
                if getattr(st, name) is not None}
     build.check(U.device, U.dtype, {**statics, **tensors})
 
 
-def _launch(name, U, pointers, st, eq, p, stage_weights=(), shape=None):
+def _launch(name, U, pointers, st, eq, p, stage_weights=(), shape=None,
+            last=False):
     c = build.ell_consts(eq, p, st, stage_weights)
-    if name in ("ell_pk2", "ell_pk3"):
-        sh = shape or ell_step_shape(name, st.dim, st.K, U.dtype,
-                                     len(stage_weights), st.n)
-        c = build.with_tile(c, build.Tile((sh.rows, sh.slots, 1), 0, sh.smem,
-                                          (sh.blocks, 1, 1)))
+    sh = shape or ell_step_shape(name, st.dim, st.K, U.dtype,
+                                 len(stage_weights), st.n, last=last)
+    c = build.with_tile(c, build.Tile((sh.rows, sh.slots, 1), 0, sh.smem,
+                                      (sh.blocks, 1, 1)))
     build.launch(name, U.dtype, [build.ptr(t) for t in pointers], c)
 
 
-def ell_pk1(eq, p, st, U, prec):
+def ell_pk1(eq, p, st, U, prec, shape=None):
     """(e [K, n], alpha [n]) of the prepared state U [C, n] and its
     precomputed values prec [2, n].  e is 0 on masked slots, alpha 0 on
-    padded rows."""
+    padded rows; `shape` an ell_step_shape() other than the default."""
     if not build.on_card(U):
         return ell_pk1_reference(eq, p, st, U, prec)
     K, n, C = st.K, st.n, eq.n_comp
     _check(st, U, {"U": (U, (C, n)), "prec": (prec, (eq.n_precomputed, n))})
     e = torch.empty((K, n), dtype=U.dtype, device=U.device)
     alpha = torch.empty((n,), dtype=U.dtype, device=U.device)
-    _launch("ell_pk1", U, [st.cols, st.cij, st.mask, st.node, U, prec, e,
-                           alpha], st, eq, p)
+    _launch("ell_pk1", U, [st.cols32, st.cij, st.mask, st.node, U, prec, e,
+                           alpha], st, eq, p, shape=shape)
     ell_pk1.launches += 1
     return e, alpha
 
@@ -242,7 +256,7 @@ def ell_pk2(eq, p, st, U, prec, d, alpha, stage_U, stage_weights, tau,
                "d": (d, (K, n)), "alpha": (alpha, (n,)), "tau": (tau, ())}
     if sU is not None:
         tensors["stage_U"] = (sU, sU.shape)
-    _check(st, U, tensors, cols32=True)
+    _check(st, U, tensors)
     kw = dict(dtype=U.dtype, device=U.device)
     U_low = torch.empty((C, n), **kw)
     F = torch.empty((C, n), **kw)
@@ -269,7 +283,7 @@ def ell_pk3(eq, p, st, U, d, alpha, F, U_low, bounds, stage_U, stage_weights,
                "bounds": (bounds, (eq.n_bounds, n)), "tau": (tau, ())}
     if sU is not None:
         tensors["stage_U"] = (sU, sU.shape)
-    _check(st, U, tensors, cols32=True)
+    _check(st, U, tensors)
     kw = dict(dtype=U.dtype, device=U.device)
     P = torch.empty((C, K, n), **kw)
     l = torch.empty((K, n), **kw)
@@ -282,19 +296,21 @@ def ell_pk3(eq, p, st, U, d, alpha, F, U_low, bounds, stage_U, stage_weights,
     return P, l, okp
 
 
-def ell_pk_up(eq, p, st, U_cur, bounds, P, l, last: bool):
-    """(U_next [C, n], l' [K, n] or None when `last`)."""
+def ell_pk_up(eq, p, st, U_cur, bounds, P, l, last: bool, shape=None):
+    """(U_next [C, n], l' [K, n] or None when `last`); `shape` an
+    ell_step_shape() (with `last`) other than the default."""
     if not build.on_card(U_cur):
         return ell_pk_up_reference(eq, p, st, U_cur, bounds, P, l, last)
     K, n, C = st.K, st.n, eq.n_comp
     _check(st, U_cur, {"U_cur": (U_cur, (C, n)),
                        "bounds": (bounds, (eq.n_bounds, n)),
-                       "P": (P, (C, K, n)), "l": (l, (K, n))})
+                       "P": (P, (C, K, n)), "l": (l, (K, n))}, "trans32")
     kw = dict(dtype=U_cur.dtype, device=U_cur.device)
     U_next = torch.empty((C, n), **kw)
     l_new = None if last else torch.empty((K, n), **kw)
-    _launch("ell_pk_up", U_cur, [st.trans, st.mask, st.node, U_cur, bounds,
-                                 P, l, U_next, l_new], st, eq, p)
+    _launch("ell_pk_up", U_cur, [st.trans32, st.mask, st.node, U_cur, bounds,
+                                 P, l, U_next, l_new], st, eq, p,
+            shape=shape, last=last)
     ell_pk_up.launches += 1
     ell_pk_up.last_launches += int(last)
     return U_next, l_new

@@ -21,15 +21,17 @@ import dataclasses
 from ..kernels.ell import ell_pk1, ell_pk2, ell_pk3, ell_pk_up
 from ..offline.ell import EllData
 from .hyperbolic import d_from_e, tau_max_from_d
-from .stencil import int32_columns, stencil_from_ell
+from .stencil import int32_columns, int32_edges, stencil_from_ell
 
 
 class EllStepper:
     """Runs HyperbolicModule.step through the ELL kernels for the Euler
     equations in 1D, 2D or 3D, on a continuous or a discontinuous ansatz
     (the dG instances of ell_pk2 and ell_pk3 read the incidence); owns the
-    stencil's device statics, with the int32 columns of ell_pk2 and ell_pk3
-    (4 K n bytes beside the int64 ones of ell_pk1)."""
+    stencil's device statics, with the int32 columns of ell_pk1, ell_pk2
+    and ell_pk3 and the int32 transposed edges of ell_pk_up (4 K n bytes
+    each beside the int64 ones, which the torch glue and the plain versions
+    read)."""
 
     def __init__(self, eq, params, ell: EllData, dtype, device):
         if getattr(eq, "name", None) != "euler" or ell.dim not in (1, 2, 3):
@@ -40,7 +42,8 @@ class EllStepper:
         self.eq = eq
         self.params = params
         st = stencil_from_ell(ell, dtype, device)
-        self.stencil = dataclasses.replace(st, cols32=int32_columns(st.cols))
+        self.stencil = dataclasses.replace(
+            st, cols32=int32_columns(st.cols), trans32=int32_edges(st.trans))
 
     def step(self, U, prec, stage_U, stage_weights, tau, cfl, tau_cap,
              compute_tau):

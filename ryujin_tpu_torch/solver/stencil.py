@@ -258,9 +258,11 @@ class EllStencil:
     # the node planes [4, n] (m_i, 1/m_i, n_nbrs, node_mask) that the ELL
     # kernels read; the four node arrays above are its rows
     node: Optional[torch.Tensor] = None
-    # cols as int32, which ell_pk2 and ell_pk3 read (int32_columns; set by
-    # solver/ell_step.EllStepper)
+    # cols as int32, which ell_pk1, ell_pk2 and ell_pk3 read
+    # (int32_columns), and trans as int32, which ell_pk_up reads
+    # (int32_edges); set by solver/ell_step.EllStepper
     cols32: Optional[torch.Tensor] = None
+    trans32: Optional[torch.Tensor] = None
 
     @property
     def K(self) -> int:
@@ -305,6 +307,21 @@ def int32_columns(cols: torch.Tensor) -> torch.Tensor:
     2^31."""
     check_int32_rows(cols.shape[-1])
     return cols.to(torch.int32).contiguous()
+
+
+def check_int32_edges(K: int, n: int) -> None:
+    """Raise ValueError unless the K n edges of [K, n] edge arrays can be
+    addressed by int32 flat indices (K n < 2^31)."""
+    if K * n >= 2 ** 31:
+        raise ValueError(f"{K} x {n} edges: int32 flat indices address "
+                         "fewer than 2^31")
+
+
+def int32_edges(trans: torch.Tensor) -> torch.Tensor:
+    """The transposed-edge indices [K, n], flat over [K, n], as int32 on
+    trans' device; raises at K n >= 2^31."""
+    check_int32_edges(*trans.shape)
+    return trans.to(torch.int32).contiguous()
 
 
 def stencil_from_ell(ell: EllData, dtype, device) -> EllStencil:

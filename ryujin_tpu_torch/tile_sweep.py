@@ -48,15 +48,17 @@ exactly, timed the same way; this checkout only), or gather-turns
 gather at P = 8, W = 2048, digests of out and chained ms), moveaxis-turns
 (moveaxis_turn: both MOV, digests of out and check) or pk1-shape-turns
 (pk1_shape_turn: digests of out and check, chained and single ms), each
-in turns as pow-turns; or ell-step (ell_pk2 and ell_pk3 on the step at
-chip_smoke.ELL_REFINEMENT, f32, after chip_smoke.ELL_WARMUP ERK33 steps,
-over the launches of ELL_STEP_CANDIDATES and at the default launch, each
-bit-equal to the default launch, chip_smoke.time_ms; this checkout only),
-or ell-step-turns (ell_step_turn: ell_pk2 and ell_pk3 on the inputs
+in turns as pow-turns; or ell-step (ell_pk1, ell_pk2, ell_pk3, PK4 and
+PK5 on the step at chip_smoke.ELL_REFINEMENT, f32, after
+chip_smoke.ELL_WARMUP ERK33 steps, over the launches of
+ELL_STEP_CANDIDATES and at the default launch, each bit-equal to the
+default launch, chip_smoke.time_ms; this checkout only), or
+ell-step-turns (ell_step_turn: the same five on the inputs
 ell_step_inputs saves, the same step timed, f64 on phase 14a's 3D box and
 airfoil at 2 and 4 stage slots; digests of every output, in turns as
 pow-turns), or ell-cuts (no card: the copies of ELL_CUTS of this
-checkout and of each --tree, written under _checkout/, as --trees of
+checkout and of each --tree, and with --blocks this checkout's with
+other launch bounds, written under _checkout/, as --trees of
 ell-step-turns); without one,
 all but the turns and the ELL cases.  For
 each launch of the solver kernels it
@@ -81,6 +83,7 @@ import functools
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -293,14 +296,17 @@ def pk1_shape_turn():
 
 
 def ell_step_turn(path):
-    """One turn of `ell-step-turns`, run in a checkout's own process:
-    ell_pk2 and ell_pk3 of that checkout at their default launch on the
-    inputs ell_step_inputs saved (torch.save, the file `path`), a
-    digest of each output's bytes (U_low, F, bounds; P, l, okp) for every
-    call, and the mean ms of 20 calls back to back after 100 warm ones
-    (probes.time_ms) for the calls of a case marked timed.  Uses only what
-    every checkout since the padded-ELL path has.  Returns {"ms": {entry:
-    ms}, "digest": {entry: hex}}."""
+    """One turn of `ell-step-turns`, run in a checkout's own process: the
+    five ELL launches of a substep of that checkout at their default
+    launch on the inputs ell_step_inputs saved (torch.save, the file
+    `path`): ell_pk1 (e, alpha) once a case, and for every call ell_pk2
+    (U_low, F, bounds), ell_pk3 (P, l, okp), PK4 (ell_pk_up re-limiting:
+    U_next, l') and PK5 (ell_pk_up, last: U_next), each on the inputs this
+    checkout's kernels made, so that a kernel that differs moves no other's
+    digest; a digest of each output's bytes, and the mean ms of 20 calls
+    back to back after 100 warm ones (probes.time_ms) for the calls of a
+    case marked timed.  Uses only what every checkout since the padded-ELL
+    path has.  Returns {"ms": {entry: ms}, "digest": {entry: hex}}."""
     import dataclasses
     import hashlib
 
@@ -316,42 +322,52 @@ def ell_step_turn(path):
     fields = {f.name for f in dataclasses.fields(EllStencil)}
     p = HyperbolicModuleParams()
     res = {"ms": {}, "digest": {}}
+
+    def entry(key, fn, args, names, timed):
+        out = fn(*args)
+        torch.cuda.synchronize()
+        for part, t in zip(names, out):
+            if t is not None:
+                res["digest"][f"{key} {part}"] = hashlib.sha256(
+                    t.cpu().numpy().tobytes()).hexdigest()[:16]
+        del out
+        if timed:
+            for _ in range(100):  # the card at its clocks first
+                fn(*args)
+            res["ms"][key] = probes.time_ms(lambda: fn(*args), 20, False)
+
     for case, c in cases.items():
         st = EllStencil(**{k: v for k, v in c["stencil"].items()
                            if k in fields})
         eq = Euler(dim=st.dim)
         U, d, alpha, tau = c["U"], c["d"], c["alpha"], c["tau"]
-        for w, sU, F, U_low, bounds in c["calls"]:
+        entry(f"ell_pk1 {case}", ell.ell_pk1, (eq, p, st, U, c["prec"]),
+              ("e", "alpha"), c["timed"])
+        for w, sU, F, U_low, bounds, P, l, U4, l4 in c["calls"]:
             w = list(w)
             calls = {
-                "ell_pk2": (eq, p, st, U, c["prec"], d, alpha, sU, w, tau),
-                "ell_pk3": (eq, p, st, U, d, alpha, F, U_low, bounds, sU, w,
-                            tau),
+                "ell_pk2": ((eq, p, st, U, c["prec"], d, alpha, sU, w, tau),
+                            ("U_low", "F", "bounds")),
+                "ell_pk3": ((eq, p, st, U, d, alpha, F, U_low, bounds, sU, w,
+                             tau), ("P", "l", "okp")),
+                "PK4": ((eq, p, st, U_low, bounds, P, l, False),
+                        ("U_next", "l'")),
+                "PK5": ((eq, p, st, U4, bounds, P, l4, True), ("U_next",)),
             }
-            for kern, args in calls.items():
-                fn = getattr(ell, kern)
-                out = fn(*args)
-                torch.cuda.synchronize()
-                names = (("U_low", "F", "bounds") if kern == "ell_pk2"
-                         else ("P", "l", "okp"))
-                for part, t in zip(names, out):
-                    res["digest"][f"{kern} {case} S={len(w)} {part}"] = (
-                        hashlib.sha256(t.cpu().numpy().tobytes())
-                        .hexdigest()[:16])
-                del out
-                if c["timed"]:
-                    for _ in range(100):  # the card at its clocks first
-                        fn(*args)
-                    res["ms"][f"{kern} {case} S={len(w)}"] = probes.time_ms(
-                        lambda: fn(*args), 20, False)
+            for kern, (args, names) in calls.items():
+                fn = getattr(ell, {"PK4": "ell_pk_up", "PK5": "ell_pk_up"}
+                             .get(kern, kern))
+                entry(f"{kern} {case} S={len(w)}", fn, args, names,
+                      c["timed"])
     return res
 
 
 def ell_step_launches(res, dev):
-    """ell_pk2 and ell_pk3 on ell_step_inputs' "step" over
-    ELL_STEP_CANDIDATES and at the default launch, each held bit for bit
-    against the default launch, timed with CUDA events (chip_smoke.time_ms,
-    mean of 20 calls back to back), into res["ms"]."""
+    """ell_pk1, ell_pk2, ell_pk3 and ell_pk_up (PK4 and PK5) on
+    ell_step_inputs' "step" over ELL_STEP_CANDIDATES and at the default
+    launch, each held bit for bit against the default launch, timed with
+    CUDA events (chip_smoke.time_ms, mean of 20 calls back to back), into
+    res["ms"]."""
     import itertools
 
     import chip_smoke as cs
@@ -364,27 +380,33 @@ def ell_step_launches(res, dev):
     c = ell_step_inputs(dev, ("step",))["step"]
     st = EllStencil(**c["stencil"])
     eq, p = Euler(dim=st.dim), HyperbolicModuleParams()
-    (w, sU, F, U_low, bounds), = c["calls"]
+    (w, sU, F, U_low, bounds, P, l, U4, l4), = c["calls"]
     U, d, alpha, tau = c["U"], c["d"], c["alpha"], c["tau"]
-    args = {"ell_pk2": (eq, p, st, U, c["prec"], d, alpha, sU, list(w), tau),
-            "ell_pk3": (eq, p, st, U, d, alpha, F, U_low, bounds, sU,
-                        list(w), tau)}
-    for kern, a in args.items():
+    args = {"ell_pk1": ("ell_pk1", (eq, p, st, U, c["prec"]), 0),
+            "ell_pk2": ("ell_pk2", (eq, p, st, U, c["prec"], d, alpha, sU,
+                                    list(w), tau), len(w)),
+            "ell_pk3": ("ell_pk3", (eq, p, st, U, d, alpha, F, U_low, bounds,
+                                    sU, list(w), tau), len(w)),
+            "PK4": ("ell_pk_up", (eq, p, st, U_low, bounds, P, l, False), 0),
+            "PK5": ("ell_pk_up", (eq, p, st, U4, bounds, P, l4, True), 0)}
+    for label, (kern, a, S) in args.items():
         fn = getattr(ell, kern)
+        last = label == "PK5"
         want = fn(*a)
-        default = ell.ell_step_shape(kern, st.dim, st.K, U.dtype, len(w), st.n)
+        default = ell.ell_step_shape(kern, st.dim, st.K, U.dtype, S, st.n,
+                                     last=last)
         shapes = {default: "default"}
         for rows, threads in itertools.product(*ELL_STEP_CANDIDATES.values()):
             try:
                 shapes.setdefault(ell.ell_step_shape(
-                    kern, st.dim, st.K, U.dtype, len(w), st.n, rows,
-                    threads), "")
+                    kern, st.dim, st.K, U.dtype, S, st.n, rows, threads,
+                    last=last), "")
             except ValueError:  # fewer threads than rows
                 continue
         for shape, tag in shapes.items():
-            ok = all(torch.equal(x, y) for x, y in zip(fn(*a, shape=shape),
-                                                         want))
-            key = (f"{kern} {tuple(shape)}{' ' + tag if tag else ''}"
+            ok = all((x is None and y is None) or torch.equal(x, y)
+                     for x, y in zip(fn(*a, shape=shape), want))
+            key = (f"{label} {tuple(shape)}{' ' + tag if tag else ''}"
                    f"{'' if ok else ' WRONG'}")
             res["ms"][key] = cs.time_ms(lambda: fn(*a, shape=shape), cs.REPS)
             print(f"  {key}: {res['ms'][key]:.4f} ms", flush=True)
@@ -397,8 +419,9 @@ def ell_step_inputs(dev, names=("step", "3D", "airfoil")):
     (two stage slots, as chip_smoke.compare_ell takes them), timed; "3D"
     and "airfoil" chip_smoke phase 14a's 3D box and airfoil in f64,
     developed as there, at two stage slots and ERK54's four.  ell_pk3's
-    F, U_low and bounds are this checkout's ell_pk2's; `names` those of
-    the three to build.  Prints each mesh's band table (kernels/ell.py
+    F, U_low and bounds are this checkout's ell_pk2's, PK4's P and l its
+    ell_pk3's, PK5's U and l' its PK4's; `names` those of the three to
+    build.  Prints each mesh's band table (kernels/ell.py
     band_table)."""
     import dataclasses
 
@@ -441,8 +464,12 @@ def ell_step_inputs(dev, names=("step", "3D", "airfoil")):
         calls = []
         for w in weights:
             sU = stages[: len(w)].contiguous()
-            out = ell.ell_pk2(eq, p, st, U, prec, d, alpha, sU, list(w), tau)
-            calls.append((w, sU) + tuple(out))
+            U_low, F, bounds = ell.ell_pk2(eq, p, st, U, prec, d, alpha, sU,
+                                           list(w), tau)
+            P, l, _ = ell.ell_pk3(eq, p, st, U, d, alpha, F, U_low, bounds,
+                                  sU, list(w), tau)
+            U4, l4 = ell.ell_pk_up(eq, p, st, U_low, bounds, P, l, False)
+            calls.append((w, sU, F, U_low, bounds, P, l, U4, l4))
         cases[case] = {
             "stencil": {f.name: getattr(st, f.name)
                         for f in dataclasses.fields(st)},
@@ -457,50 +484,95 @@ def ell_step_inputs(dev, names=("step", "3D", "airfoil")):
     return cases
 
 
-# the cut copies of `ell-cuts`: name -> [(text in the ell_pk2 and ell_pk3
-# kernels of a checkout's csrc/ell_step.cu, replacement, times it must
-# occur there)]; a cut is made of each checkout where every text occurs so
-# often, and timed as a --tree of ell-step-turns.  The first three are
-# step 0's, of the one-thread-a-row kernels (coalesced and compute also
-# apply to the redesign); nodiv forms each neighbour's flux and b_ij
-# without a division (the flux's parts m, m, rho, E; m_ij m_j) where the
-# kernels form flux(U_j) whole
+# the cut copies of `ell-cuts`: name -> (start, end, [(text in the part of
+# a checkout's csrc/ell_step.cu from the heading `start` to the heading `end`
+# (None: the next heading), replacement, times it must occur there)]); a cut
+# is made of each checkout where every text occurs so often, and timed as a
+# --tree of ell-step-turns.  coalesced, compute, unrolled and nodiv cut the
+# ell_pk2 and ell_pk3 kernels: coalesced, compute and unrolled step 0's of
+# their one-thread-a-row forms (coalesced and compute also apply to the
+# redesign), nodiv forms each neighbour's flux and b_ij without a division
+# (the flux's parts m, m, rho, E; m_ij m_j) where the kernels form flux(U_j)
+# whole.  The pk1- and pk4- cuts are those of ell_pk1 and ell_pk_up
+_PK23 = ("// ---- ell_pk2", "// ---- ell_pk_up")
+_PK1 = ("// ---- ell_pk1", None)
+_UP = ("// ---- ell_pk_up", None)
 ELL_CUTS = {
     # every neighbour read at i: the columns are still read, never used
-    "coalesced": [("const int64_t j = cols[k * n + i];",
-                   "const int64_t j = i + (cols[k * n + i] == -1);", 2)],
+    "coalesced": _PK23 + ([("const int64_t j = cols[k * n + i];",
+                            "const int64_t j = i + (cols[k * n + i] == -1);",
+                            2)],),
     # the per-edge solves gone: the limiter a constant, the entropy u_half[0]
-    "compute": [("l_out[k * n + i] = limiter_limit(e, bnd, ul, psi0, P, "
-                 "success);",
-                 "l_out[k * n + i] = T(0.5) + T(0) * P[0];\n    success = true;",
-                 1),
-                ("specific_entropy(e, u_half)", "u_half[0]", 1)],
+    "compute": _PK23 + ([("l_out[k * n + i] = limiter_limit(e, bnd, ul, psi0, "
+                          "P, success);",
+                          "l_out[k * n + i] = T(0.5) + T(0) * P[0];\n    "
+                          "success = true;", 1),
+                         ("specific_entropy(e, u_half)", "u_half[0]", 1)],),
     # the stage loops unrolled over the instance's MS, nothing else
-    "unrolled": [("for (int s = 0; s < S; ++s) {",
-                  "_Pragma(\"unroll\") for (int s = 0; s < MS; ++s) "
-                  "if (s < S) {", 5)],
-    "nodiv": [("flux(e, uj, fj);",
-               "{ T m_[DIM]; for (int d_ = 0; d_ < DIM; ++d_) m_[d_] = "
-               "uj[1 + d_]; flux_from_parts(m_, m_, uj[0], uj[NC - 1], fj); }",
-               2),
-              ("flux(e, usj, fsj);",
-               "{ T m_[DIM]; for (int d_ = 0; d_ < DIM; ++d_) m_[d_] = "
-               "usj[1 + d_]; flux_from_parts(m_, m_, usj[0], usj[NC - 1], "
-               "fsj); }", 2),
-              ("const T b_ij = -m_ij / node[j];",
-               "const T b_ij = -m_ij * node[j];", 1)],
+    "unrolled": _PK23 + ([("for (int s = 0; s < S; ++s) {",
+                           "_Pragma(\"unroll\") for (int s = 0; s < MS; ++s) "
+                           "if (s < S) {", 5)],),
+    "nodiv": _PK23 + ([
+        ("flux(e, uj, fj);",
+         "{ T m_[DIM]; for (int d_ = 0; d_ < DIM; ++d_) m_[d_] = "
+         "uj[1 + d_]; flux_from_parts(m_, m_, uj[0], uj[NC - 1], fj); }", 2),
+        ("flux(e, usj, fsj);",
+         "{ T m_[DIM]; for (int d_ = 0; d_ < DIM; ++d_) m_[d_] = "
+         "usj[1 + d_]; flux_from_parts(m_, m_, usj[0], usj[NC - 1], "
+         "fsj); }", 2),
+        ("const T b_ij = -m_ij / node[j];",
+         "const T b_ij = -m_ij * node[j];", 1)],),
+    # ell_pk1's lambda_max a constant; the precomputes it reads are still
+    # formed and read
+    "pk1-lambda": _PK1 + ([(
+        "e_k = norm * lambda_max(e, ui, pa_i, uj, pa_j, nv);",
+        "e_k = norm * (T(1) + T(0) * (pa_i[1] + pa_i[3] + pa_j[0] + pa_j[1] "
+        "+ pa_j[3] + pa_j[4] + nv[0]));", 1)],),
+    # ell_pk1's neighbour read at i: the columns are still read, never used
+    "pk1-coalesced": _PK1 + ([("const int64_t j = cols[k * n + i];",
+                               "const int64_t j = i + (cols[k * n + i] == -1);",
+                               1)],),
+    # PK4's re-limit a constant (PK5 does not re-limit)
+    "pk4-limiter": _UP + ([(
+        "out = rest * limiter_limit(e, bnd, un, psi0, Pr, success);",
+        "out = rest * (T(0.5) + T(0) * Pr[0]);", 1)],),
+    # l at the transposed edge read at the edge itself (PK4 and PK5): trans
+    # is still read, never used
+    "pk4-trans": _UP + ([("l[trans[k * n + i]]",
+                          "l[k * n + i + (trans[k * n + i] == -1)]", 2)],),
 }
+# the launch-bound constants of csrc/ell_step.cu that `ell-cuts --blocks
+# PK1=8,PK4=10` sets in a copy named blocks-PK1=8,PK4=10 (the f32 1D and 2D
+# instances' blocks of ELL_THREADS an SM must hold)
+_BLOCKS = re.compile(r"\b(ELL_(PK\d|PK3_WIDE)_BLOCKS = )\d+")
 
 
-def make_ell_cuts(root: Path, out: Path, prefix=""):
+def _ell_part(src, start, end):
+    """(a, b): the part of `src` from the heading `start` to the heading
+    `end`, or to the next heading ("// ---- ") after it."""
+    a = src.index(start)
+    b = src.index(end) if end else src.index("\n// ---- ", a + 1) + 1
+    return a, b
+
+
+def make_ell_cuts(root: Path, out: Path, prefix="", blocks=()):
     """Write the copies of ELL_CUTS that apply to the checkout at `root`
-    (its package, csrc/ell_step.cu patched) under `out`/<prefix><name>."""
+    (its package, csrc/ell_step.cu patched) under `out`/<prefix><name>,
+    and for each of `blocks` ("PK1=8,PK4=10": ELL_PK1_BLOCKS 8,
+    ELL_PK4_BLOCKS 10) a copy with those launch bounds, blocks-<it>."""
     import shutil
 
     src = (root / "ryujin_tpu_torch" / "csrc" / "ell_step.cu").read_text()
-    a = src.index("// ---- ell_pk2")
-    b = src.index("// ---- ell_pk_up")
-    for name, edits in ELL_CUTS.items():
+    variants = {name: (_ell_part(src, start, end), edits)
+                for name, (start, end, edits) in ELL_CUTS.items()}
+    for spec in blocks:
+        want = dict(kv.split("=") for kv in spec.split(","))
+        a = src.index("constexpr int ELL_PK2_BLOCKS")
+        b = src.index("\n", src.index("ELL_PK1_BLOCKS", a)) + 1
+        variants["blocks-" + spec] = ((a, b), [
+            (m.group(0), m.group(1) + want[m.group(2)], 1)
+            for m in _BLOCKS.finditer(src[a:b]) if m.group(2) in want])
+    for name, ((a, b), edits) in variants.items():
         text = src[a:b]
         if any(text.count(old) != count for old, _, count in edits):
             print(f"  {root}: cut {name} does not apply", flush=True)
@@ -696,12 +768,15 @@ def main(argv=None) -> int:
                              "pk1-shape"])
     ap.add_argument("--tree", action="append", default=[],
                     metavar="NAME=ROOT")
+    ap.add_argument("--blocks", action="append", default=[],
+                    metavar="PK1=8,PK4=10",
+                    help="ell-cuts: also a copy with these launch bounds")
     args = ap.parse_args(argv)
     if args.cases == ["ell-cuts"]:  # no card needed
         from .kernels import build
 
         here = build.PACKAGE.parent
-        make_ell_cuts(here, here / "_checkout")
+        make_ell_cuts(here, here / "_checkout", blocks=args.blocks)
         for tree in args.tree:
             name, root = tree.split("=", 1)
             make_ell_cuts(Path(root), here / "_checkout", name + "-")
@@ -739,8 +814,7 @@ def main(argv=None) -> int:
             k: v for k, v in kernel_times.resources(
                 so.with_suffix(".so.log").read_text(),
                 kernel_times.launch_shape).items()
-            if k.startswith(("pk1_stream", "pk1<", "pk2<", "ell_pk2",
-                             "ell_pk3"))}
+            if k.startswith(("pk1_stream", "pk1<", "pk2<", "ell_"))}
         build._LIB = None
         build.CSRC = trees[name] / "ryujin_tpu_torch" / "csrc"
         build.BUILD_DIR = trees[name] / "ryujin_tpu_torch" / "_build"

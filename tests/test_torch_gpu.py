@@ -28,8 +28,8 @@ airfoil: three ERK33 steps against the plain path on the CPU, and each
 kernel against its plain version at every stage-slot count.
 """
 
+import collections
 import functools
-
 
 import pytest
 
@@ -945,10 +945,12 @@ def test_ell_kernels_each_against_plain(name, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("name", ["3D", "airfoil", "ragged"])
 def test_ell_step_launches_bit_equal(name, dtype):
-    """ell_pk2 (U_low, F, bounds) and ell_pk3 (P, l, okp) at every launch
-    of tile_sweep.ELL_STEP_CANDIDATES (rows and threads of a block; fewer
-    rows where the shared bytes need) bit for bit against their default
-    launch, at every stage-slot count, on a state with a blast."""
+    """ell_pk1 (e, alpha), ell_pk2 (U_low, F, bounds), ell_pk3 (P, l, okp)
+    and ell_pk_up (PK4: U_next, l'; PK5: U_next) at every launch of
+    tile_sweep.ELL_STEP_CANDIDATES (rows and threads of a block; fewer rows
+    where the shared bytes need) bit for bit against their default launch,
+    ell_pk2 and ell_pk3 at every stage-slot count, on a state with a
+    blast."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import itertools
@@ -961,30 +963,38 @@ def test_ell_step_launches_bit_equal(name, dtype):
     _, packed, hm, ti, U0 = ell_case(name)(ELL_CASES[name], dt, "cuda")
     eq, p, st = hm.eq, hm.params, hm.stencil
     U_a, U, prec = _limited_state(packed, hm, ti, U0, dt)
-    e, alpha = ell.ell_pk1(eq, p, st, U, prec)
+    e, alpha = want1 = ell.ell_pk1(eq, p, st, U, prec)
     d = d_from_e(st.mask, e, st.transpose_edge(e))
     tau = tau_max_from_d(st, d, 0.9, torch.full((), float("inf"), dtype=dt,
                                                 device="cuda"))
     stage_U, weights = _stage_inputs(hm, U_a, U)
-    launches = 0
+    calls = [("ell_pk1", 0, False, (eq, p, st, U, prec), want1)]
     for w in weights:
         sU = stage_U[: len(w)]
         args2 = (eq, p, st, U, prec, d, alpha, sU, w, tau)
         U_low, F, bounds = want2 = ell.ell_pk2(*args2)
         args3 = (eq, p, st, U, d, alpha, F, U_low, bounds, sU, w, tau)
-        want3 = ell.ell_pk3(*args3)
-        for kern, args, want in (("ell_pk2", args2, want2),
-                                 ("ell_pk3", args3, want3)):
-            for rows, threads in itertools.product(
-                    *ELL_STEP_CANDIDATES.values()):
-                try:
-                    shape = ell.ell_step_shape(kern, st.dim, st.K, dt, len(w),
-                                               st.n, rows, threads)
-                except ValueError:  # fewer threads than rows, or too large
-                    continue
-                got = getattr(ell, kern)(*args, shape=shape)
-                launches += 1
-                for a, b in zip(got, want):
-                    assert torch.equal(a, b), (kern, len(w), shape)
-    assert launches >= 2 * len(weights)
+        P, l, _ = want3 = ell.ell_pk3(*args3)
+        calls += [("ell_pk2", len(w), False, args2, want2),
+                  ("ell_pk3", len(w), False, args3, want3)]
+    args4 = (eq, p, st, U_low, bounds, P, l, False)
+    U4, l4 = want4 = ell.ell_pk_up(*args4)
+    assert bool((l4[st.mask > 0] > 0).any())
+    args5 = (eq, p, st, U4, bounds, P, l4, True)
+    calls += [("ell_pk_up", 0, False, args4, want4),
+              ("ell_pk_up", 0, True, args5, ell.ell_pk_up(*args5))]
+    launches = collections.Counter()
+    for kern, S, last, args, want in calls:
+        for rows, threads in itertools.product(*ELL_STEP_CANDIDATES.values()):
+            try:
+                shape = ell.ell_step_shape(kern, st.dim, st.K, dt, S, st.n,
+                                           rows, threads, last=last)
+            except ValueError:  # fewer threads than rows, or too large
+                continue
+            got = getattr(ell, kern)(*args, shape=shape)
+            launches[kern, last] += 1
+            for a, b in zip(got, want):
+                assert (a is None and b is None) or torch.equal(a, b), (
+                    kern, S, last, shape)
+    assert min(launches.values()) >= 2 and len(launches) == 5, launches
 
