@@ -61,9 +61,12 @@ any failure exits non-zero):
    sd.mask's, and the device memory each mode's module holds;
 7. the box3d slice (CFL 0.9 / 0.45, bang-bang recovery), with the gates of
    phase 5;
-8. dg1box3d, refinement 1 (507,904 dofs on the (72, 72, 128) canvas,
-   K = 26, two-direction route; its route and boundary-pair slot count
-   printed): the four kernels of the path against their plain-torch
+8. the dG Q1 box: dg1box3d's flow, domain and route at 31 x 8 x 8 cells
+   before refinement 1 (DG_BOX_SUBDIV: 126,976 dofs on the (40, 40, 128)
+   canvas, K = 26, two-direction route, where dg1box3d itself is 31 x 16
+   x 16, 507,904 dofs on (72, 72, 128); its route and boundary-pair slot
+   count printed; its kernel records carry the size under "case"): the
+   four kernels of the path against their plain-torch
    references on a state developed through the kernels from a blast, in
    f32 with times and bounds and in f64; 8b: small dG boxes on both
    routes (refinement 1); 8c: the 2D dG instances (dG Q1, K = 8, stacked;
@@ -71,8 +74,8 @@ any failure exits non-zero):
    f64; 8d: three ERK33 steps with bang-bang recovery, kernels vs the
    plain path on the card in f64, on each of those four small canvases,
    with the launch counts;
-9. the dg1box3d slice (CFL 0.9 / 0.45, bang-bang recovery), with the gates
-   of phase 5;
+9. the slice on phase 8's dG Q1 box (CFL 0.9 / 0.45, bang-bang
+   recovery), with the gates of phase 5;
 10. cylinder3d, refinement 3 (the (72, 40, 128) canvas, its periodic
    angle exactly the minor axis, two-direction route; setup, route and the
    device memory of each mode printed): the four kernels with the full
@@ -118,7 +121,7 @@ any failure exits non-zero):
 13. four stage slots and the isentropic vortex.  13a: the instances of
    PK2 and PK3 that take 3 and 4 stage slots (ERK54's fourth and fifth
    substeps; pk2 and pk3 on step2d's canvas, pk2_stream and pk3_stream
-   on those of q2step2d, box3d, dg1box3d and cylinder3d with separable
+   on those of q2step2d, box3d, the dG Q1 box and cylinder3d with separable
    statics) against their plain versions at the sizes and on the states
    of phases 2-10 in f32, with times and bounds, then on the small
    canvases of phases 2c, 4c, 6c, 8d and 10c in f64, each followed by
@@ -152,7 +155,38 @@ any failure exits non-zero):
    (f64, refinement 6, ERK33) within 2 % of the reference's norms, each
    with its launch counts.  14d: the ELL step at refinement 3, f32: 20 timed ERK33 steps
    after 14a's state with the gates of phase 3 and the launch counts set
-   to 0 just before, its MQ/s beside phase 3's canvas MQ/s.
+   to 0 just before, its MQ/s beside phase 3's canvas MQ/s;
+15. canvases with ghost rows and cG Q3 (K = 48).  15a, f64, on small
+   canvases (each asserted to carry its layout): the fully periodic
+   isentropic vortex at refinement 4 (a y ghost band, minor_wrap (16,
+   128)), the o-grid cylinder at refinement 2 (minor_wrap (64, 128)),
+   cylinder3d at refinement 1 with separable statics (minor_wrap (32,
+   128): the SEP instances), a periodic 3D box at refinement 1, the step
+   at refinement 0 in 2 and 4 slabs, cG Q3 on the step at refinement 0,
+   periodic cG Q2 and dG Q1 on a 2 x 1 rectangle: each kernel against
+   its plain version on the refreshed inputs, then 3 ERK33 steps through
+   the canvas kernels against the ELL kernels on the same mesh, every
+   real vertex within rtol 5e-11 (1e-10 for the higher-order ansatze) /
+   atol 1e-12 and tau within 1e-12; on the slab canvases also with NaN
+   in every cell no refresh makes valid (value_mask 0) after each
+   refresh and in each kernel output (every real node equal to the run
+   without), and slabs 2 and 4 against the plain canvas at rtol 1e-12.
+   15b: the periodic vortex at refinement 10 (1,048,576 nodes on a
+   (1040, 1024) canvas: a y ghost band of 8 rows, the x period the
+   canvas's own), 200 ERK33 steps through the kernels in f32, finite,
+   admissible, no warning, each conserved total within 1e-5, MQ/s and
+   the launches and ghost refreshes a substep; then its four stacked
+   kernels against their plain versions at that width in f64 (the bars
+   of the other f64 phases) on the state the f32 run reached and the
+   state one f64 step later, and, as an account with no gate, where on
+   the canvas the f32 pk1's alpha and pk2's F differ from their plain
+   versions and from the plain f64 values (rows next to the y seam,
+   columns next to the x wrap, elsewhere; seam_report); the step at
+   refinement 3 in 4 slabs against 1 after 20 steps, f32; cG Q3 on the
+   step at refinement 1, f32: its four kernels against their plain
+   versions (timed, pk_up's K = 48 instance among them), then 20 timed
+   steps.
+Each phase prints its seconds ("[seconds]" lines).
 
 pk_up's two launches a substep, PK4 and PK5 (`last`), are timed, bounded
 and counted apart.  The stream PK1's e, the stream PK2's U_low, F and
@@ -175,12 +209,61 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 
 def fail(msg: str):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+class Clock:
+    """Seconds of each phase and in all, printed as each phase ends."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.laps = {}
+
+    def lap(self, label: str):
+        now = time.perf_counter()
+        self.laps[label] = now - self.last
+        print(f"  [seconds] {label}: {now - self.last:.1f} s (in all "
+              f"{now - self.start:.1f} s)", flush=True)
+        self.last = now
+
+
+def cache_assembly():
+    """Memoize offline.assembly.assemble for the rest of the run, keyed on
+    the mesh's arrays and the ansatz: the script assembles the same meshes
+    in several phases (the step at refinement 3 in phases 2, 14a and 15b,
+    the dG Q1 step in 8c and in 14a in each precision, the small canvases
+    of 2c-10c again in 13a), and the numpy assembly of an identical mesh
+    is host time that checks nothing new.  The packers only read the
+    assembled data."""
+    import hashlib
+
+    from ryujin_tpu_torch.offline import assembly
+
+    assemble, cache = assembly.assemble, {}
+
+    def cached(mesh, order_nodes=True, ansatz="cG Q1"):
+        h = hashlib.blake2b(digest_size=16)
+        for a in (mesh.vertices, mesh.cells, mesh.boundary_faces,
+                  mesh.boundary_ids, mesh.periodic_pairs,
+                  mesh.structured_index):
+            if a is not None:
+                h.update(repr(a.shape).encode())
+                h.update(np.ascontiguousarray(a).tobytes())
+        h.update(repr((mesh.dim, mesh.structured_shape, order_nodes,
+                       ansatz)).encode())
+        key = h.hexdigest()
+        if key not in cache:
+            cache[key] = assemble(mesh, order_nodes=order_nodes,
+                                  ansatz=ansatz)
+        return cache[key]
+
+    assembly.assemble = cached
 
 
 def smi_line() -> str:
@@ -221,6 +304,12 @@ SMALL_BOX_STEPS = 5
 # and 8d (subdivisions at refinement 1) with their Riemann routes; the 2D
 # dG ansatze of phase 8c, on the step at refinement 0
 DG_BOX_REFINEMENT = 1
+# the dG box is box3d's domain with 31 x 8 x 8 cells before refinement
+# (the (40, 40, 128) canvas, 126,976 dofs; still the two-direction route):
+# the numpy dG assembly of the bench's 31 x 16 x 16 took 107.6 s of the
+# script's time
+DG_BOX_SUBDIV = (31, 8, 8)
+DG_BOX_LABEL = "dG Q1 box " + "x".join(map(str, DG_BOX_SUBDIV))
 SMALL_DG_BOXES = (((3, 2, 2), True), ((6, 3, 3), False))
 DG_STEP_ANSATZE = ("dG Q1", "dG Q2")
 # cylinder3d: refinement, steps through the kernels before the
@@ -246,7 +335,7 @@ WIDE_DEVELOP_STEPS = 5
 VORTEX_REFINEMENT = 6
 VORTEX_SCHEMES = ("erk 33", "erk 22", "ssprk 33")
 VORTEX_BAR = 0.02
-VORTEX_PLAIN_REFINEMENT = 5
+VORTEX_PLAIN_REFINEMENT = 4
 VORTEX_PLAIN_SCHEMES = ("erk 11", "erk 43", "erk 54", "ssprk 22")
 VORTEX_PLAIN_BAR = 1e-9
 VORTEX_F32_REFINEMENT = 8
@@ -269,6 +358,28 @@ ELL_CANVAS_STEPS = 3
 ELL_WARMUP = 200
 ELL_STEPS = 20
 ELL_TUBES = ("rarefaction",)
+# phase 15: ghost rows and K = 48.  15a: the small f64 canvases
+# (GHOST_CASES) after GHOST_DEVELOP_STEPS steps through the kernels, each
+# kernel against its plain version, GHOST_STEPS steps through the canvas
+# kernels against the ELL kernels on the same mesh; 15b: the periodic
+# vortex at PERIODIC_VORTEX_REFINEMENT in f32 for PERIODIC_VORTEX_STEPS
+# steps (each conserved total within CONSERVATION_BAR), the step at
+# SLAB_REFINEMENT in 4 slabs against 1 for SLAB_STEPS steps, cG Q3 at
+# Q3_REFINEMENT: its kernels on a state after Q3_DEVELOP_STEPS steps, then
+# Q3_STEPS timed steps
+GHOST_CASES = ("periodic vortex", "cylinder", "SEP cylinder3d",
+               "periodic box", "slabs 2", "slabs 4", "q3 step",
+               "periodic cG Q2", "periodic dG Q1")
+GHOST_DEVELOP_STEPS = 5
+GHOST_STEPS = 3
+PERIODIC_VORTEX_REFINEMENT = 10
+PERIODIC_VORTEX_STEPS = 200
+CONSERVATION_BAR = 1e-5
+SLAB_REFINEMENT = 3
+SLAB_STEPS = 20
+Q3_REFINEMENT = 1
+Q3_DEVELOP_STEPS = 30
+Q3_STEPS = 20
 
 # The limiter's l is decided at roundoff where psi is flat at its root,
 # so an ulp of difference in its input state can move one edge by up to
@@ -490,9 +601,78 @@ def held(name, a, b, where, kind, tol, exact=False):
     return good, d
 
 
+def alpha_condition(hm, U, prec):
+    """kappa_i [n], f64: the condition of the indicator alpha_i =
+    |left - sum_c deta_c right_c| / (|left| + sum_c |deta_c right_c| +
+    hd_i |eta_i|) (equations/euler.indicator_alpha) in its inputs' rounding:
+    S_i over that denominator, S_i the sum of the magnitudes that each of
+    its roundings scales, sum_k (|eta_j / rho_j| + |eta_i / rho_i|)
+    sum_d |m_j,d c_k,d| + sum_c D_c sum_k sum_d (|f|_j + |f|_i)_c,d
+    |c_k,d| over the live slots, where |f| is the flux with every term
+    taken in magnitude and p as (gamma - 1)(E + |m|^2 / 2 rho), and D_c
+    |deta_c| (|deta_0| + |eta_i / rho_i| for the first).  A smooth flow
+    cancels the sums (sum_k c_k = 0), so kappa grows as the mesh is
+    refined.  Two evaluations of alpha that each round once an operation
+    differ by at most alpha_roundings(K) eps kappa_i to first order."""
+    eq, st = hm.eq, hm.canvas.stencil.full()
+    g = eq.params.gamma
+    U, prec = U.double(), prec.double()
+    c, on = st.cij.double(), st.mask > 0
+
+    def fabs(U):
+        rho_inv = 1.0 / eq.density(U)
+        m = eq.momentum(U).abs()
+        v = m * rho_inv[None]
+        p = (g - 1.0) * (eq.total_energy(U)
+                         + 0.5 * torch.sum(m * m, 0) * rho_inv)
+        rows = [m]
+        for a in range(eq.dim):
+            comps = [m[a] * v[b] for b in range(eq.dim)]
+            comps[a] = comps[a] + p
+            rows.append(torch.stack(comps, 0))
+        rows.append(v * (eq.total_energy(U).abs() + p)[None])
+        return torch.stack(rows, 0)
+
+    U_j, prec_j = st.nbr(U), st.nbr(prec)
+    s_i = (prec[1] / eq.density(U)).abs()
+    s_j = (prec_j[1] / eq.density(U_j)).abs()
+    mc = torch.sum(eq.momentum(U_j).abs() * c.abs(), 0)
+    left_s = torch.sum(torch.where(on, (s_j + s_i[None]) * mc, 0.0), 0)
+    fa_i, fa_j = fabs(U), fabs(U_j)
+    right_s = torch.sum(torch.where(
+        on[None], torch.sum((fa_j + fa_i[:, :, None]) * c.abs()[None], 1),
+        0.0), 1)
+    d_eta = eq.harten_entropy_derivative(U)
+    D = d_eta.abs()
+    D[0] = D[0] + s_i
+    S = left_s + torch.sum(D * right_s, 0)
+    hd = (st.m_lumped * st.measure_inv).double()
+    # the denominator, as indicator_alpha forms it
+    d_eta = torch.cat([(d_eta[0] - prec[1] / eq.density(U))[None],
+                       d_eta[1:]], 0)
+    f_i, f_j = eq.f(U), eq.f(U_j)
+    left = torch.sum(torch.where(on, (prec_j[1] / eq.density(U_j)
+                                      - (prec[1] / eq.density(U))[None])
+                                 * torch.sum(eq.momentum(U_j) * c, 0), 0.0),
+                     0)
+    right = torch.sum(torch.where(on[None], torch.sum(
+        (f_j - f_i[:, :, None]) * c[None], 1), 0.0), 1)
+    den = (left.abs() + torch.sum((d_eta * right).abs(), 0)
+           + hd * prec[1].abs())
+    return S / den
+
+
+def alpha_roundings(K, dim=2, n_comp=4):
+    """The roundings a first-order error bound of alpha counts, for each of
+    two evaluations: the K-term slot sums, the dim-term dot products, the
+    component sum and a few more in each term (the entropy and flux
+    quotients, the entropy derivative's pow)."""
+    return 2 * (K + dim + n_comp + 8)
+
+
 def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
                     tag="", up_tag="", exact_l64=True, weights=(0.75, -2.0),
-                    timed=None):
+                    timed=None, alpha_kappa=False):
     """Each kernel of the substep against its reference on identical
     inputs.  U_a is the state entering the substep, U_b a second prepared
     state; the stage inputs are those of the third ERK33 substep (weights
@@ -513,13 +693,19 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     pass False).  On a dG canvas PK2 and PK3 take their dG instances, which
     read the incidence planes; with separable statics every kernel takes
     its SEP instance, held against the plain version that synthesizes the
-    same planes.  Returns False if any output is off its tolerance."""
+    same planes.  With `alpha_kappa` PK1's alpha is held on every real
+    node to its first-order rounding bound, alpha_roundings(K) eps kappa_i
+    (alpha_condition), in place of the relative bar: on a smooth flow its
+    sums cancel, so its relative error grows with the mesh.  Returns False
+    if any output is off its tolerance."""
     from ryujin_tpu_torch.kernels import (
         pk1, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
     )
     from ryujin_tpu_torch.solver.hyperbolic import (
         d_from_e, d_from_lambda, tau_max_from_d,
     )
+
+    from ryujin_tpu_torch.solver.canvas_step import refresh
 
     eq, p, ca = hm.eq, hm.params, hm.canvas.arrays
     if stream is None:
@@ -532,8 +718,13 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     U, prec = hm.prepare_state_vector(U_b, 0.0)
     weights = list(weights)
     stage_U = torch.stack(stage_states(hm, U_a, U)[: len(weights)])
+    # the ghost rows of every input a kernel reads at its neighbours, as
+    # CanvasStepper refreshes them (a no-op on a canvas without ghosts)
+    refresh(st, U, prec, stage_U)
     real = st.node_mask > 0
-    live = torch.stack([st.live_k(k) for k in range(K)])
+    # the live edges of the real nodes: ghost rows repeat them, and the
+    # rows no refresh makes valid may hold anything
+    live = torch.stack([st.live_k(k) for k in range(K)]) & real[None]
     live_edges = int(live.sum())
     ok = True
 
@@ -570,10 +761,26 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     args1 = (eq, p, ca, U, prec)
     (lam_k, alpha_k), (lam, alpha) = run(n1, *args1)
     e_live = live[: lam.shape[0]]
+    if alpha_kappa:
+        kappa = alpha_condition(hm, U, prec)
+        bound = (alpha_roundings(K, dim, eq.n_comp) * torch.finfo(dt).eps
+                 * kappa)
+        diff = (alpha_k - alpha).abs().double()
+        units = (diff / bound)[real].max().item()
+        good = units <= 1.0 and bool(torch.isfinite(alpha_k).all())
+        print(f"  {n1} alpha    {dt} within {units:.3e} of its rounding "
+              f"bound {alpha_roundings(K, dim, eq.n_comp)} eps kappa_i "
+              f"(kappa_i up to {kappa[real].max().item():.3e}; max |d "
+              f"alpha| {diff[real].max().item():.3e})  "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+        e_alpha = diff[real].max().item()
+    else:
+        e_alpha = err(f"{n1} alpha", alpha_k, alpha, real, "rel")
     errs[n1] = max(
         err(f"{n1} {'e' if stream else 'lambda'}", lam_k, lam, e_live, "rel",
             exact=stream),
-        err(f"{n1} alpha", alpha_k, alpha, real, "rel"),
+        e_alpha,
     )
     full = st.full()  # the glue's d on stacks (synthesized if separable)
     if stream and not half:
@@ -582,6 +789,7 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
         lam = hm._lambda_fixup(lam, U, prescaled=stream)
         d = d_from_lambda(full, lam, None if stream else full.cmax)
     del full
+    refresh(st, lam, alpha)
     cap = torch.full((), float("inf"), dtype=dt, device=U.device)
     tau = tau_max_from_d(st, d, 0.9, cap)
 
@@ -592,6 +800,7 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
         err(f"{n2} F", F_k, F, real, "rel", exact=stream),
         err(f"{n2} bounds", b_k, bounds, real, "rel", exact=stream),
     )
+    refresh(st, F)
     args3 = (eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U, weights, tau)
     (P_k, l_k, okp_k), (P, l, okp) = run(n3, *args3)
     errs[n3] = max(
@@ -602,14 +811,16 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     print(f"  {n3} okp {dt} nodes differing: {n_ok}", flush=True)
     ok &= n_ok == 0
 
+    refresh(st, l)
     args4 = (eq, p, ca, U_low, bounds, P, l, False)
     (U4_k, l4_k), (U4, l4) = run("pk_up", *args4)
-    args5 = (eq, p, ca, U4, bounds, P, l4, True)
-    (U5_k, _), (U5, _) = run("pk_up", *args5)
     errs[nu] = max(
         err("pk4 U", U4_k, U4, real, "U", exact=True),
         err("pk4 l'", l4_k, l4, live, "l", exact=exact_l),
     )
+    refresh(st, l4)
+    args5 = (eq, p, ca, U4, bounds, P, l4, True)
+    (U5_k, _), (U5, _) = run("pk_up", *args5)
     errs[nu5] = err("pk5 U", U5_k, U5, real, "U", exact=True)
     if records is None:
         return ok
@@ -769,6 +980,9 @@ def card_vs_plain_f64(ti_kernels, ti_plain, sd, U0, plain_device, steps=3,
 
 # MQ/s of each slice through the kernels, by run_slice's name
 SLICE_MQS = {}
+# phase 8c's 2D dG steps, by ansatz, for phase 13a: (canvas, f64 module,
+# f64 inflow state, the f32 states it developed through the kernels)
+DG_STEP_STATES = {}
 
 
 def run_slice(name, eq, sd, ti, ti_plain, U0, warmup, steps, plain_steps,
@@ -849,9 +1063,9 @@ def up_launches(records, name, launches):
 def check_dg(dev, card, streamed, stacked, kept):
     """Phases 8 and 9, the dG path: the dG instances of PK2 and PK3 (the
     incidence beta_ij in the high-order viscosity factor) against their
-    plain versions, and the dg1box3d slice.  Returns the kernels' records
-    and keeps the f32 module and states of phase 8 in `kept` for phase 13;
-    fails the run on any error."""
+    plain versions, and the slice on the dG Q1 box.  Returns the kernels'
+    records and keeps the f32 module and states of phase 8 in `kept` for
+    phase 13; fails the run on any error."""
     from ryujin_tpu_torch.bench import build_dg1box3d, build_q2step2d
     from ryujin_tpu_torch.solver.hyperbolic import (
         HyperbolicModule, _boundary_pair_data,
@@ -866,12 +1080,14 @@ def check_dg(dev, card, streamed, stacked, kept):
         return HyperbolicModule(hm.eq, sd, hm.initial_state_fn,
                                 dtype=torch.float64, device=dev)
 
-    # ---- phase 8: dg1box3d kernels against their references -----------------
-    print(f"phase 8: dg1box3d (dG Q1), refinement {DG_BOX_REFINEMENT}, f32, "
+    # ---- phase 8: the dG Q1 box's kernels against their references ---------
+    print(f"phase 8: the dG Q1 box (dg1box3d's flow at {DG_BOX_SUBDIV} "
+          f"cells), refinement {DG_BOX_REFINEMENT}, f32, "
           f"{BOX_DEVELOP_STEPS} ERK33 steps through the kernels from a blast "
           "contrast", flush=True)
     t0 = time.perf_counter()
-    eq, sd, hm, ti, U0 = build_dg1box3d(DG_BOX_REFINEMENT, torch.float32, dev)
+    eq, sd, hm, ti, U0 = build_dg1box3d(DG_BOX_REFINEMENT, torch.float32, dev,
+                                        subdiv=DG_BOX_SUBDIV)
     setup = time.perf_counter() - t0
     slots = len(_boundary_pair_data(sd, torch.float32, "cpu")["k"])
     print(f"  setup {setup:.1f} s: canvas {sd.shape}, {sd.n_nodes} real "
@@ -880,7 +1096,7 @@ def check_dg(dev, card, streamed, stacked, kept):
           f"boundary-pair slots against the cut-off "
           f"{max(1024, sd.n_pad // 16)})", flush=True)
     if hm.half or not hm.canvas.stream or hm.canvas.arrays.g_inc is None:
-        fail("dg1box3d did not choose the dG stream kernels on the "
+        fail("the dG Q1 box did not choose the dG stream kernels on the "
              "two-direction route")
     U_a, _, t_a, _, restarts, warns = ti.advance(bumped(sd, U0, blast=True),
                                                  0.0, BOX_DEVELOP_STEPS)
@@ -890,12 +1106,16 @@ def check_dg(dev, card, streamed, stacked, kept):
     print(f"  t = {t_a.item():.4e}, restarts {int(restarts)}, warnings "
           f"{int(warns)}", flush=True)
     if not bool(eq.is_admissible(U_a[:, real]).all()):
-        fail("dg1box3d: the developed state is not admissible")
+        fail("the dG Q1 box: the developed state is not admissible")
     records = {}
     ok = compare_kernels(hm, U_a, U_b, TOL_F32, REPS, records,
                          tag="[3D dG two-direction]", up_tag=" dG")
-    kept["dg1box3d"] = (hm, U_a, U_b)
-    print("phase 8a: dg1box3d kernels in f64", flush=True)
+    case = (f"dG Q1 box {DG_BOX_SUBDIV} at refinement {DG_BOX_REFINEMENT}: "
+            f"canvas {sd.shape}, {sd.n_nodes} dofs")
+    for rec in records.values():
+        rec["case"] = case
+    kept[DG_BOX_LABEL] = (hm, U_a, U_b)
+    print("phase 8a: the dG Q1 box's kernels in f64", flush=True)
     hm64 = in_f64(hm, sd)
     # torch's f64 limiter differs from the kernels' l by 3.1e-15 here
     ok &= compare_kernels(hm64, U_a.double(), U_b.double(), TOL_F64, REPS,
@@ -954,6 +1174,9 @@ def check_dg(dev, card, streamed, stacked, kept):
         ok &= compare_kernels(hm64, Ua_s.double(), Ub_s.double(), TOL_F64,
                               REPS, exact_l64=not name.startswith("dG Q2"))
         small.append((name, sd_s, hm64, U0_s.double(), fns, dg_names, got))
+        if name.startswith("dG Q"):
+            DG_STEP_STATES[name[: len("dG Q1")]] = (
+                sd_s, hm64, U0_s.double(), Ua_s.double(), Ub_s.double())
     del cases, hm_s, ti_s
     torch.cuda.empty_cache()
 
@@ -972,9 +1195,9 @@ def check_dg(dev, card, streamed, stacked, kept):
     if not ok:
         fail("a dG kernel disagrees with its plain-torch reference")
 
-    # ---- phase 9: the dg1box3d slice ------------------------------------------
+    # ---- phase 9: the slice on the dG Q1 box --------------------------------
     launches = run_slice(
-        "phase 9, dg1box3d", eq, sd, ti, bang_bang(PlainSteps(hm)), U0, BOX_WARMUP, BOX_STEPS, BOX_PLAIN_TIMED_STEPS, streamed,
+        f"phase 9, the dG Q1 box {DG_BOX_SUBDIV}", eq, sd, ti, bang_bang(PlainSteps(hm)), U0, BOX_WARMUP, BOX_STEPS, BOX_PLAIN_TIMED_STEPS, streamed,
         per_substep(streamed), card, allow_restarts=True,
     )
     for name in ("pk1_stream", "pk2_stream", "pk3_stream"):
@@ -1419,12 +1642,13 @@ def check_stages(dev, streamed, stacked, kept):
         small.append((f"box {subdiv}", None if half else "box3d",
                       build_box3d(1, f64, dev, subdiv=subdiv), streamed))
     for subdiv, half in SMALL_DG_BOXES:
-        small.append((f"dG box {subdiv}", None if half else "dg1box3d",
+        small.append((f"dG box {subdiv}", None if half else DG_BOX_LABEL,
                        build_dg1box3d(1, f64, dev, subdiv=subdiv), streamed))
     for ansatz in DG_STEP_ANSATZE:
-        built = build_q2step2d(0, f64, dev, ansatz=ansatz)
-        small.append((f"{ansatz} step", None, built,
-                      streamed if built[2].canvas.stream else stacked))
+        # phase 8c's f64 module on its canvas
+        sd_s, hm64, U0_s = DG_STEP_STATES[ansatz][:3]
+        small.append((f"{ansatz} step", None, (None, sd_s, hm64, None, U0_s),
+                      streamed if hm64.canvas.stream else stacked))
     small.append(("SEP box (3, 2, 2)", None,
                   build_box3d(1, f64, dev, subdiv=(3, 2, 2), separable=True),
                   streamed))
@@ -1435,11 +1659,8 @@ def check_stages(dev, streamed, stacked, kept):
         _, sd_s, hm_s, _, U0_s = built
         sep = hm_s.canvas.arrays.separable
         if name.startswith("dG Q"):
-            ansatz = name[: len("dG Q1")]
-            Ua_s, Ub_s = developed(
-                build_q2step2d(0, torch.float32, dev, ansatz=ansatz),
-                Q2_DEVELOP_STEPS)
-            Ua_s, Ub_s = Ua_s.double(), Ub_s.double()
+            # the f32 states phase 8c developed
+            Ua_s, Ub_s = DG_STEP_STATES[name[: len("dG Q1")]][3:]
         else:
             Ua_s, Ub_s = developed(built, WIDE_DEVELOP_STEPS)
         for slots in WIDE_SLOTS:
@@ -1945,6 +2166,497 @@ def check_ell(dev, card, records, mqs_canvas):
     records.update(ell_records)
 
 
+def ghost_case(name, dtype, dev):
+    """Case `name` of phase 15a on the canvas and on the ELL layout of the
+    same assembly: {"sd", "hm", "ti", "U0", "ell", "hm_e", "ti_e", "U0_e",
+    "cols", "rtol", "layout"}, cols the ELL rows of the canvas's real nodes
+    in node_to_vertex order, rtol the bar of the canvas against ELL (the
+    JAX tests': 5e-11, 1e-10 for the higher-order ansatze), layout what the
+    canvas must carry."""
+    from ryujin_tpu_torch import bench
+    from ryujin_tpu_torch.offline.mesh import Boundary
+    from ryujin_tpu_torch.offline.separable import separate_z
+
+    G, P = bench.geometry, Boundary.periodic
+    eq = bench.Euler(dim=2)
+    ansatz, kw, cfl, recovery, bump = "cG Q1", {}, 0.9, "bang bang control", True
+    uniform = {"primitive_state": (1.4, 3.0, 1.0)}
+    init = None
+    if name == "periodic vortex":
+        # tests/test_pallas.py:24-41
+        mesh = G.rectangular_domain([-5, -5], [5, 5], [1, 1], refinement=4,
+                                    boundary_conditions=[P] * 4)
+        init = bench.make_initial_state(
+            eq, "isentropic vortex", direction=[1, 1], position=[0, 0],
+            mach_number=1.0, beta=5.0)
+        cfl, recovery, bump = 0.3, "none", False
+        layout = (((8, 16), None), None, (16, 128))
+    elif name == "cylinder":
+        # tests/test_pallas.py:184-219
+        mesh = G.cylinder(refinement=2)
+        init = bench.make_initial_state(eq, "uniform", direction=[1, 0],
+                                        position=[1, 0], **uniform)
+        cfl, recovery = 0.6, "none"
+        layout = ((None, None), None, (64, 128))
+    elif name == "SEP cylinder3d":
+        # bench.build_cylinder3d at refinement 1 with the default pad_minor,
+        # separable statics: the SEP instances read the ghost columns'
+        # synthesized statics
+        eq = bench.Euler(dim=3)
+        mesh = G.cylinder(refinement=1, dim=3)
+        kw = {"margin": (2, 2)}
+        init = bench.make_initial_state(eq, "uniform", direction=[1, 0, 0],
+                                        position=[1, 0, 0], **uniform)
+        layout = ((None, None, None), None, (32, 128))
+    elif name == "periodic box":
+        eq = bench.Euler(dim=3)
+        mesh = G.rectangular_domain([0.0] * 3, [1.0] * 3, [2, 2, 2],
+                                    refinement=1, boundary_conditions=[P] * 6,
+                                    dim=3)
+        kw = {"margin": (2, 2)}
+        init = bench.make_initial_state(eq, "uniform",
+                                        direction=[1.0, 0.5, 0.25],
+                                        primitive_state=(1.4, 1.0, 1.0))
+        layout = (((2, 4), (2, 4), None), None, (4, 128))
+    elif name.startswith("slabs"):
+        # bench.build_step2d's flow, as the plain canvas it is held to
+        mesh = G.step(refinement=0)
+        slabs = int(name.split()[1])
+        kw, recovery = {"slabs": slabs}, "none"
+        layout = ((None, None), (slabs, 96 // slabs, 8), None)
+    elif name == "q3 step":
+        mesh, ansatz = G.step(refinement=0), "cG Q3"
+        layout = ((None, None), None, None)
+    else:
+        # tests/test_ansatz_canvas.py:28-34, 57-65
+        mesh = G.rectangular_domain([0, 0], [2, 1], [2, 1], 2,
+                                    boundary_conditions=[P] * 4)
+        ansatz = name.split(maxsplit=1)[1]
+        cfl, recovery, bump = 0.3, "none", False
+
+        def init(x, t):
+            rho = 1.0 + 0.1 * torch.sin(2 * torch.pi * x[0]) * torch.cos(
+                torch.pi * x[1])
+            return torch.stack([rho, 0.2 * rho, -0.1 * rho,
+                                1.0 / 0.4 + 0.5 * 0.05 * rho], 0)
+
+        layout = None  # ghost bands and a minor wrap: checked below
+    if init is None:
+        init = bench.make_initial_state(eq, "uniform", **uniform)
+    data = bench.assembly.assemble(mesh, ansatz=ansatz)
+    sd = bench.structured.pack_structured(data, mesh, **kw)
+    packed = bench.ell.pack(data)
+    got = (tuple(sd.ghosts), sd.slab_spec, sd.minor_wrap)
+    if layout is None:
+        good = sd.ghosts[0] is not None and sd.minor_wrap is not None
+    else:
+        good = got == layout
+    if not good:
+        fail(f"phase 15a {name}: canvas layout {got}, expected {layout}")
+    if name.startswith("SEP") and not separate_z(sd):
+        fail(f"phase 15a {name}: the statics do not factor")
+    out = {"sd": sd, "ell": packed, "layout": got,
+           "rtol": 5e-11 if ansatz == "cG Q1" else 1e-10}
+    for key, packing in (("", sd), ("_e", packed)):
+        hm = bench.HyperbolicModule(eq, packing, init, dtype=dtype,
+                                    device=dev,
+                                    separable=(name.startswith("SEP")
+                                               and not key))
+        ti = bench.TimeIntegrator(hm, "erk 33", cfl_min=min(cfl, 0.45),
+                                  cfl_max=cfl,
+                                  cfl_recovery_strategy=recovery)
+        U0 = bench.interpolate_nodal(init, packing, eq, 0.0, dtype, dev)
+        if bump:
+            U0 = bumped(packing, U0)
+        out.update({"hm" + key: hm, "ti" + key: ti, "U0" + key: U0})
+    real = np.flatnonzero(sd.node_to_vertex >= 0)
+    out["real"] = real
+    out["cols"] = packed.vertex_to_node[sd.node_to_vertex[real]]
+    return out
+
+
+class poisoned_rows:
+    """Within the block, NaN at every cell of hm's canvas whose value_mask
+    is 0 (the pad rows and the outermost slab bands, which no refresh
+    makes valid) in every array after each ghost refresh and in every
+    kernel output but PK3's okp (the kernels write it on every cell, 1 off
+    the real nodes): the canvas kernels' inputs carry NaN in the rows no
+    real node reads through a live slot."""
+
+    NAMES = ("pk1", "pk2", "pk3", "pk_up", "pk1_stream", "pk2_stream",
+             "pk3_stream")
+
+    def __init__(self, hm):
+        self.dead = hm.canvas.arrays.g_node[4].reshape(-1) == 0
+
+    def __enter__(self):
+        from ryujin_tpu_torch.solver import canvas_step
+
+        self.saved = {name: getattr(canvas_step, name)
+                      for name in self.NAMES + ("refresh",)}
+        dead, saved = self.dead, self.saved
+
+        def refresh(st, *arrays):
+            saved["refresh"](st, *arrays)
+            for X in arrays:
+                if X is not None:
+                    X[..., dead] = float("nan")
+
+        def wrap(name):
+            fn = saved[name]
+
+            def wrapped(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                for i, t in enumerate(out if isinstance(out, tuple)
+                                      else (out,)):
+                    if (torch.is_tensor(t) and t.ndim
+                            and t.shape[-1] == dead.numel()
+                            and not (name.startswith("pk3") and i == 2)):
+                        t[..., dead] = float("nan")
+                return out
+
+            return wrapped
+
+        refresh.launches = saved["refresh"].launches
+        for name in self.NAMES:
+            setattr(canvas_step, name, wrap(name))
+        canvas_step.refresh = refresh
+        return self
+
+    def __exit__(self, *exc):
+        from ryujin_tpu_torch.solver import canvas_step
+
+        self.saved["refresh"].launches = canvas_step.refresh.launches
+        for name, fn in self.saved.items():
+            setattr(canvas_step, name, fn)
+        return False
+
+
+def canvas_vs_ell(c, steps, poison=False):
+    """(good, U by vertex, tau): `steps` ERK33 steps through the canvas
+    kernels and through the ELL kernels from the same state, every real
+    vertex within c["rtol"] / 1e-12 and tau within 1e-12."""
+    sd = c["sd"]
+    if poison:
+        with poisoned_rows(c["hm"]):
+            out = c["ti"].advance(c["U0"], 0.0, steps)
+    else:
+        out = c["ti"].advance(c["U0"], 0.0, steps)
+    out_e = c["ti_e"].advance(c["U0_e"], 0.0, steps)
+    U = out[0][:, torch.as_tensor(c["real"], device=out[0].device)].cpu()
+    U_e = out_e[0][:, torch.as_tensor(c["cols"], device=out[0].device)].cpu()
+    finite = bool(torch.isfinite(U).all())
+    good = finite and torch.allclose(U, U_e, rtol=c["rtol"], atol=1e-12)
+    d = (U - U_e).abs().max().item()
+    tau_rel = abs(out[3].item() / out_e[3].item() - 1.0)
+    good &= tau_rel < 1e-12 and int(out[5]) == int(out_e[5])
+    order = np.argsort(sd.node_to_vertex[c["real"]], kind="stable")
+    print(f"  {steps} ERK33 steps, canvas kernels{' (NaN rows)' if poison else ''}"
+          f" vs ELL kernels: max |dU| {d:.3e} (rtol {c['rtol']:.0e}, atol "
+          f"1e-12), tau rel-err {tau_rel:.3e}, warnings {int(out[5])}, "
+          f"finite {finite}  {'ok' if good else 'FAIL'}", flush=True)
+    return good, U[:, order], out[3].item()
+
+
+def seam_report(hm, U_a, U_b, hm64=None):
+    """Where on the periodic vortex's canvas the stacked PK1's alpha and
+    PK2's F differ from their plain versions, in hm's precision: an
+    account, not a gate.  For each it prints the largest difference,
+    relative to the largest |value| of each component, on the real rows
+    within the reach of the y seam (they read the ghost band), on the
+    other real nodes within the reach of the x wrap, and on the rest; for
+    alpha also in units of its rounding bound (alpha_roundings(K) eps
+    kappa_i, alpha_condition) and the largest kappa_i of each region; and
+    the canvas cell of the largest difference.  With hm64 (f64 statics of
+    the same canvas) also the kernel's and the plain version's distance
+    from the plain version in f64 on the same inputs, upcast.  U_a and U_b
+    are states as compare_kernels takes them."""
+    from ryujin_tpu_torch.kernels import pk1, pk2
+    from ryujin_tpu_torch.solver.canvas_step import refresh
+    from ryujin_tpu_torch.solver.hyperbolic import (
+        d_from_lambda, tau_max_from_d,
+    )
+
+    eq, p, ca = hm.eq, hm.params, hm.canvas.arrays
+    st = ca.stencil
+    (H, W), r, K = ca.shape, st.reach, ca.K
+    g, P = ca.ghosts[0]
+    weights = [0.75, -2.0]
+    U, prec = hm.prepare_state_vector(U_b, 0.0)
+    stage_U = torch.stack(stage_states(hm, U_a, U)[:2])
+    refresh(st, U, prec, stage_U)
+    lam_k, alpha_k = pk1.pk1(eq, p, ca, U, prec)
+    out = {"pk1 alpha": [alpha_k, pk1.pk1_reference(eq, p, ca, U, prec)[1]]}
+    lam = hm._lambda_fixup(lam_k, U)
+    full = st.full()
+    d = d_from_lambda(full, lam, full.cmax)
+    refresh(st, lam, alpha_k)
+    cap = torch.full((), float("inf"), dtype=U.dtype, device=U.device)
+    tau = tau_max_from_d(st, d, 0.9, cap)
+    args = (U, prec, lam, alpha_k, stage_U, weights, tau)
+    out["pk2 F"] = [pk2.pk2(eq, p, ca, *args)[1],
+                    pk2.pk2_reference(eq, p, ca, *args)[1]]
+    if hm64 is not None:
+        ca64 = hm64.canvas.arrays
+        up = [x.double() if torch.is_tensor(x) else x for x in args]
+        out["pk1 alpha"].append(
+            pk1.pk1_reference(eq, p, ca64, up[0], up[1])[1])
+        out["pk2 F"].append(pk2.pk2_reference(eq, p, ca64, *up)[1])
+    kappa = alpha_condition(hm, U, prec).reshape(H, W)
+    bound = (alpha_roundings(K, 2, eq.n_comp) * torch.finfo(U.dtype).eps
+             * kappa)
+    real = (st.node_mask > 0).reshape(H, W)
+    rows = torch.arange(H, device=U.device)[:, None]
+    cols = torch.arange(W, device=U.device)[None, :]
+    seam = real & ((rows < g + r) | (rows >= g + P - r))
+    Px = ca.minor_wrap[0] if ca.minor_wrap is not None else W
+    wrap = real & ~seam & ((cols < r) | ((cols >= Px - r) & (cols < Px)))
+    regions = (("y seam", seam), ("x wrap", wrap),
+               ("elsewhere", real & ~seam & ~wrap))
+
+    def by_region(x, fmt=".3e"):
+        return ", ".join(f"{rn} {x[m].max().item():{fmt}}"
+                         for rn, m in regions)
+
+    print(f"  {U.dtype}, real rows {g}..{g + P - 1}, reach {r}: kappa_i "
+          f"{by_region(kappa)}", flush=True)
+    for name, vals in out.items():
+        vals = [x.double().reshape(-1, H, W) for x in vals]
+        scale = vals[-1].abs().amax(dim=(1, 2), keepdim=True).clamp_min(
+            1e-300)
+        pairs = [("kernel-plain", vals[0], vals[1])]
+        if len(vals) == 3:
+            pairs += [("kernel-f64", vals[0], vals[2]),
+                      ("plain-f64", vals[1], vals[2])]
+        parts = []
+        for label, a, b in pairs:
+            parts.append(f"{label}: " + by_region(
+                ((a - b).abs() / scale).amax(0)))
+            if name == "pk1 alpha":
+                parts.append(f"{label} in rounding bounds: " + by_region(
+                    (a - b).abs()[0] / bound))
+        dm = ((vals[0] - vals[1]).abs() / scale).amax(0).masked_fill(~real, 0)
+        row, col = divmod(int(dm.argmax()), W)
+        print(f"  {name} {U.dtype}, where it differs: " + "; ".join(parts)
+              + f"; the largest kernel-plain at canvas cell ({row}, {col})",
+              flush=True)
+
+
+def check_periodic_vortex(dev, card, stacked, clock):
+    """Phase 15b's periodic vortex at PERIODIC_VORTEX_REFINEMENT: the f32
+    run through the kernels with its gates, then the kernels against their
+    plain versions at that width in f64 and seam_report's account; fails
+    the run on any error."""
+    from ryujin_tpu_torch import bench
+    from ryujin_tpu_torch.solver import canvas_step
+    from ryujin_tpu_torch.solver.integrator import TimeIntegrator
+
+    f64, f32 = torch.float64, torch.float32
+    print(f"phase 15b: the periodic vortex at refinement "
+          f"{PERIODIC_VORTEX_REFINEMENT}, f32, {PERIODIC_VORTEX_STEPS} ERK33 "
+          "steps through the kernels", flush=True)
+    t0 = time.perf_counter()
+    eq, sd, hm, ti, U0 = bench.build_periodic_vortex(
+        PERIODIC_VORTEX_REFINEMENT, f32, dev)
+    print(f"  setup {time.perf_counter() - t0:.1f} s: canvas {sd.shape}, "
+          f"{sd.n_nodes} real nodes, ghosts {sd.ghosts}, minor_wrap "
+          f"{sd.minor_wrap}", flush=True)
+    if sd.ghosts[0] is None:
+        fail("phase 15b: the periodic vortex has no y ghost band")
+    real = torch.as_tensor(sd.node_mask > 0, device=dev)
+    m_i = hm.canvas.arrays.g_node[0].reshape(-1)[real].double()
+
+    def totals(U):
+        return (U[:, real].double() * m_i).sum(1)
+
+    for fn in stacked.values():
+        fn.launches = 0
+    stacked["pk_up"].last_launches = 0
+    canvas_step.refresh.launches = 0
+    T0 = totals(hm.prepare_state_vector(U0, 0.0)[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U, _, t, tau, restarts, warns = ti.advance(U0, 0.0, PERIODIC_VORTEX_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in stacked.items()}
+    launches["pk_up last"] = stacked["pk_up"].last_launches
+    refreshes = canvas_step.refresh.launches
+    substeps = 3 * PERIODIC_VORTEX_STEPS
+    T1 = totals(U)
+    drift = ((T1 - T0).abs() / T0.abs()).max().item()
+    Ur = U[:, real]
+    finite = bool(torch.isfinite(Ur).all())
+    admissible = bool(eq.is_admissible(Ur).all())
+    mqs = sd.n_nodes * substeps / wall / 1e6
+    print(f"  t = {t.item():.4e}, tau = {tau.item():.4e}, warnings "
+          f"{int(warns)}, restarts {int(restarts)}, finite {finite}, "
+          f"admissible {admissible}; conserved totals' largest relative "
+          f"change {drift:.3e} (bar {CONSERVATION_BAR:.0e})", flush=True)
+    print(f"  kernels: {mqs:.3f} MQ/s ({wall:.3f} s for "
+          f"{PERIODIC_VORTEX_STEPS} steps) on {card}; launches a substep: "
+          f"{ {k: v / substeps for k, v in launches.items()} }, ghost "
+          f"refreshes {refreshes / substeps:.3f}", flush=True)
+    want = {"pk1": 1, "pk2": 1, "pk3": 1, "pk_up": 2}
+    if not (finite and admissible) or int(warns) or int(restarts):
+        fail("phase 15b: the periodic vortex left the admissible set or "
+             "warned")
+    if drift > CONSERVATION_BAR:
+        fail(f"phase 15b: a conserved total moved by {drift:.3e}")
+    if any(launches[k] != w * substeps for k, w in want.items()):
+        fail(f"phase 15b: launch counts {launches} in {substeps} substeps")
+    if not refreshes:
+        fail("phase 15b: no ghost refresh on the periodic vortex")
+    # the stacked kernels against their plain versions on this canvas (a y
+    # ghost band, the x period native to the canvas), in f64 on the state
+    # the f32 run reached and the state one f64 step later
+    print("phase 15b: the periodic vortex's kernels against their plain "
+          f"versions at refinement {PERIODIC_VORTEX_REFINEMENT}, f64, on the "
+          f"state after the {PERIODIC_VORTEX_STEPS} steps", flush=True)
+    hm64 = bench.HyperbolicModule(eq, sd, hm.initial_state_fn, dtype=f64,
+                                  device=dev)
+    ti64 = TimeIntegrator(hm64, "erk 33", cfl_min=0.3, cfl_max=0.3,
+                          cfl_recovery_strategy="none")
+    U_a = U.double()
+    U_b = ti64.advance(U_a, t.double(), 1)[0]
+    seam_report(hm, U_a.float(), U_b.float(), hm64)
+    seam_report(hm64, U_a, U_b)
+    if not compare_kernels(hm64, U_a, U_b, TOL_F64, 2, exact_l64=False,
+                           alpha_kappa=True):
+        fail("phase 15b: a kernel disagrees with its plain version on the "
+             "periodic vortex at full width")
+    del hm, hm64, ti, ti64, U, U0, U_a, U_b
+    torch.cuda.empty_cache()
+    clock.lap("phase 15b, the periodic vortex")
+
+
+
+def check_ghosts(dev, card, records, streamed, stacked, clock):
+    """Phase 15: canvases with ghost rows (periodic ghost bands, the padded
+    periodic minor axis, slabs of canvas axis 0) and cG Q3 (K = 48) through
+    the canvas kernels.  Fills `records` with the K = 48 instances; fails
+    the run on any error."""
+    from ryujin_tpu_torch import bench
+    from ryujin_tpu_torch.solver.integrator import TimeIntegrator
+
+    f64, f32 = torch.float64, torch.float32
+    ok = True
+    print("phase 15a: canvases with ghost rows and cG Q3, f64: each kernel "
+          "against its plain version on the refreshed inputs, then "
+          f"{GHOST_STEPS} ERK33 steps through the canvas kernels against the "
+          "ELL kernels on the same mesh", flush=True)
+    slab_runs = {}
+    for name in GHOST_CASES:
+        t0 = time.perf_counter()
+        c = ghost_case(name, f64, dev)
+        sd, hm, ti = c["sd"], c["hm"], c["ti"]
+        print(f"  {name}: canvas {sd.shape}, {sd.n_nodes} real nodes, K = "
+              f"{sd.max_degree}, (ghosts, slab_spec, minor_wrap) "
+              f"{c['layout']}, {'stream' if hm.canvas.stream else 'stacked'} "
+              f"kernels, route {'half-slot' if hm.half else 'two-direction'}"
+              f", setup {time.perf_counter() - t0:.1f} s", flush=True)
+        poison = name.startswith("slabs")
+        U_a, _, t_a, _, _, _ = ti.advance(c["U0"], 0.0, GHOST_DEVELOP_STEPS)
+        U_b = ti.advance(U_a, t_a, 1)[0]
+        if poison:
+            with poisoned_rows(hm):
+                ok &= compare_kernels(hm, U_a, U_b, TOL_F64, 2,
+                                      exact_l64=False)
+        else:
+            ok &= compare_kernels(hm, U_a, U_b, TOL_F64, 2, exact_l64=False)
+        good, U, tau = canvas_vs_ell(c, GHOST_STEPS)
+        ok &= good
+        if poison:
+            good_p, U_p, tau_p = canvas_vs_ell(c, GHOST_STEPS, poison=True)
+            same = torch.equal(U_p, U) and tau_p == tau
+            print(f"  NaN in the never-refreshed rows: every real node equal "
+                  f"to the run without  {'ok' if same else 'FAIL'}",
+                  flush=True)
+            ok &= good_p and same
+            slab_runs[name] = (U, tau)
+    # slabs 2 and 4 against the plain canvas (tests/test_pallas.py:304-310)
+    _, sd1, hm1, ti1, U01 = bench.build_step2d(0, f64, dev)
+    out1 = ti1.advance(bumped(sd1, U01), 0.0, GHOST_STEPS)
+    real1 = np.flatnonzero(sd1.node_to_vertex >= 0)
+    order1 = real1[np.argsort(sd1.node_to_vertex[real1], kind="stable")]
+    U1 = out1[0][:, torch.as_tensor(order1, device=dev)].cpu()
+    for name, (U, tau) in slab_runs.items():
+        d = (U - U1).abs().max().item()
+        good = torch.allclose(U, U1, rtol=1e-12, atol=0)
+        good &= abs(tau / out1[3].item() - 1.0) <= 1e-12
+        print(f"  {name} against slabs 1: max |dU| {d:.3e} (rtol 1e-12; "
+              f"{'bit-equal' if d == 0 else 'not bit-equal'})  "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok &= good
+    if not ok:
+        fail("phase 15a: a canvas with ghost rows or at K = 48 disagrees")
+    clock.lap("phase 15a")
+
+    check_periodic_vortex(dev, card, stacked, clock)
+
+    print(f"phase 15b: the step at refinement {SLAB_REFINEMENT} in 4 slabs "
+          f"against 1, f32, {SLAB_STEPS} ERK33 steps through the kernels",
+          flush=True)
+    mesh = bench.geometry.step(refinement=SLAB_REFINEMENT)
+    data = bench.assembly.assemble(mesh)
+    eq = bench.Euler(dim=2)
+    init = bench.make_initial_state(eq, "uniform",
+                                    primitive_state=(1.4, 3.0, 1.0))
+    by_vertex = {}
+    for slabs in (1, 4):
+        sd = bench.structured.pack_structured(data, mesh, slabs=slabs)
+        hm = bench.HyperbolicModule(eq, sd, init, dtype=f32, device=dev)
+        ti = bench.TimeIntegrator(hm, "erk 33", cfl_min=0.9, cfl_max=0.9,
+                                  cfl_recovery_strategy="none")
+        U0 = bench.interpolate_nodal(init, sd, eq, 0.0, f32, dev)
+        out = ti.advance(U0, 0.0, SLAB_STEPS)
+        realv = np.flatnonzero(sd.node_to_vertex >= 0)
+        order = realv[np.argsort(sd.node_to_vertex[realv], kind="stable")]
+        by_vertex[slabs] = (out[0][:, torch.as_tensor(order, device=dev)],
+                            out[3].item(), int(out[5]), sd.shape,
+                            sd.slab_spec)
+    (U1, tau1, w1, s1, _), (U4, tau4, w4, s4, spec) = (by_vertex[1],
+                                                      by_vertex[4])
+    d = (U4 - U1).abs().max().item()
+    good = (bool(torch.isfinite(U4).all()) and tau4 == tau1 and w1 == w4 == 0
+            and d <= 1e-12 * U1.abs().max().item())
+    print(f"  canvas {s1} and {s4} (slab_spec {spec}): max |dU| {d:.3e} "
+          f"(relative bar 1e-12; {'bit-equal' if d == 0 else 'not bit-equal'}"
+          f"), tau {tau4:.6e} vs {tau1:.6e}  {'ok' if good else 'FAIL'}",
+          flush=True)
+    if not good:
+        fail("phase 15b: 4 slabs disagree with 1")
+    del by_vertex, U1, U4, hm, ti, data
+    torch.cuda.empty_cache()
+    clock.lap("phase 15b, slabs")
+
+    print(f"phase 15b: cG Q3 (K = 48) on the step at refinement "
+          f"{Q3_REFINEMENT}, f32, {Q3_DEVELOP_STEPS} ERK33 steps through the "
+          "kernels", flush=True)
+    t0 = time.perf_counter()
+    eq, sd, hm, ti, U0 = bench.build_q3step2d(Q3_REFINEMENT, f32, dev)
+    print(f"  setup {time.perf_counter() - t0:.1f} s: canvas {sd.shape}, "
+          f"{sd.n_nodes} dofs, K = {sd.max_degree}, route "
+          f"{'half-slot' if hm.half else 'two-direction'}", flush=True)
+    if sd.max_degree != 48 or not hm.canvas.stream:
+        fail("phase 15b: cG Q3 did not take the K = 48 stream path")
+    U_a, _, t_a, _, _, _ = ti.advance(U0, 0.0, Q3_DEVELOP_STEPS)
+    U_b = ti.advance(U_a, t_a, 1)[0]
+    recs = {}
+    if not compare_kernels(hm, U_a, U_b, TOL_F32, REPS, recs, tag="[K=48]"):
+        fail("phase 15b: a K = 48 kernel disagrees with its plain version")
+    want = {"pk1_stream": 1, "pk2_stream": 1, "pk3_stream": 1, "pk_up": 2}
+    launches = run_slice(
+        "phase 15b, q3step2d", eq, sd, ti,
+        TimeIntegrator(PlainSteps(hm), "erk 33", cfl_min=0.45, cfl_max=0.9,
+                       cfl_recovery_strategy="bang bang control"),
+        U_a, 1, Q3_STEPS, 1, streamed, want, card, allow_restarts=True)
+    for name in ("pk1_stream", "pk2_stream", "pk3_stream"):
+        recs[name + "[K=48]"]["launches"] = launches[name]
+    up_launches(recs, "pk_up[K=48]", launches)
+    records.update(recs)
+
+
 def per_substep(fns):
     """Launches per substep of each wrapper in `fns`: PK1-PK3 once,
     pk_up twice."""
@@ -1966,6 +2678,8 @@ def main():
     from ryujin_tpu_torch.solver.integrator import TimeIntegrator
 
     t_start = time.perf_counter()
+    clock = Clock()
+    cache_assembly()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2004,6 +2718,8 @@ def main():
               f"stack, {r['threads']} threads, {r['smem']} B shared, "
               f"{r['warps']} resident warps an SM", flush=True)
 
+    clock.lap("phase 1, card and build")
+
     # ---- phase 2: step2d kernels against their references ------------------
     print(f"phase 2: step2d, refinement {REFINEMENT}, f32, "
           f"{PLAIN_STEPS} plain ERK33 steps", flush=True)
@@ -2040,6 +2756,8 @@ def main():
     if not ok:
         fail("a step2d kernel disagrees with its plain-torch reference")
 
+    clock.lap("phase 2")
+
     # ---- phase 3: the step2d slice -------------------------------------------
     stacked = {"pk1": pk1.pk1, "pk2": pk2.pk2, "pk3": pk3.pk3,
                "pk_up": pk_up.pk_up}
@@ -2052,6 +2770,8 @@ def main():
     up_launches(records, "pk_up[K=8]", launches)
     del hm, ti, ti_plain, U_a, U_b, U0
     torch.cuda.empty_cache()
+
+    clock.lap("phase 3")
 
     # ---- phase 4: q2step2d kernels against their references ------------------
     print(f"phase 4: q2step2d (cG Q2), refinement {Q2_REFINEMENT}, f32, "
@@ -2107,6 +2827,8 @@ def main():
     if not ok:
         fail("a q2step2d kernel disagrees with its plain-torch reference")
 
+    clock.lap("phase 4")
+
     # ---- phase 5: the q2step2d slice -------------------------------------------
     launches = run_slice(
         "phase 5, q2step2d", eq, sd, ti,
@@ -2119,6 +2841,8 @@ def main():
     records.update(records_q2)
     del hm, ti, U_a, U_b, U0
     torch.cuda.empty_cache()
+
+    clock.lap("phase 5")
 
     # ---- phase 6: box3d kernels against their references ---------------------
     # The box3d flow is uniform and stays so (a steady state of its
@@ -2218,6 +2942,8 @@ def main():
     if not ok:
         fail("a 3D kernel disagrees with its plain-torch reference")
 
+    clock.lap("phase 6")
+
     # ---- phase 7: the box3d slice ----------------------------------------------
     launches = run_slice(
         "phase 7, box3d", eq, sd, ti,
@@ -2231,9 +2957,12 @@ def main():
     del hm, ti, U0
     torch.cuda.empty_cache()
 
+    clock.lap("phase 7")
     records.update(check_dg(dev, card, streamed, stacked, kept))
+    clock.lap("phases 8-9")
     cyl_records, launches = check_cylinder(dev, card, streamed, kept)
     records.update(cyl_records)
+    clock.lap("phases 10-11")
     # the SEP instances' launches on the main path: the separable
     # cylinder3d slice (the box3d-size records are the same instances)
     for name, rec in records.items():
@@ -2244,9 +2973,11 @@ def main():
 
     # ---- phase 12: the measurement probes (rows 11-14) ------------------------
     records.update(check_probes())
+    clock.lap("phase 12")
 
     # ---- phase 13: four stage slots, and the isentropic vortex -------------
     records.update(check_stages(dev, streamed, stacked, kept))
+    clock.lap("phase 13a")
     # the stacked PK2 and PK3 at 3 and 4 slots: launches of the vortex's
     # ERK54 run, the path of this phase
     for name, by_slots in check_vortex(dev, card, stacked).items():
@@ -2254,7 +2985,16 @@ def main():
             records[f"{name}[S={slots} step2d]"]["launches"] = by_slots[slots]
 
     # ---- phase 14: the padded-ELL path ---------------------------------------
+    clock.lap("phases 13b-13c")
     check_ell(dev, card, records, SLICE_MQS["phase 3, step2d"])
+    clock.lap("phase 14")
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 15: ghost rows and K = 48 --------------------------------------
+    check_ghosts(dev, card, records, streamed, stacked, clock)
+    clock.lap("phase 15b, cG Q3")
     print(f"chip_smoke: every phase passed, {time.perf_counter() - t_start:.1f}"
           " s in all", flush=True)
 

@@ -117,6 +117,66 @@ def build_q2step2d(refinement: int, dtype, device, ansatz: str = "cG Q2",
                        separable)
 
 
+def build_q3step2d(refinement: int, dtype, device, separable: bool = False):
+    """(eq, sd, hm, ti, U0) of the step in cG Q3 (reach 3, K = 48: the
+    slot-streaming kernels and pk_up's K = 48 instance) with bang-bang
+    recovery, as build_q2step2d."""
+    return _build_step(refinement, dtype, device, "cG Q3",
+                       "bang bang control", separable)
+
+
+def build_periodic_vortex(refinement: int, dtype, device,
+                          separable: bool = False):
+    """(eq, sd, hm, ti, U0) of the fully periodic isentropic vortex of the
+    JAX package's ghost-canvas test (tests/test_pallas.py:24-41): [-5, 5]^2
+    periodic on all four sides, the vortex moving along (1, 1) from
+    (0, 0), Mach 1, beta 5, cG Q1 packed with pack_structured's defaults
+    (a y ghost band of 8 rows; the x period 2^refinement padded to 128
+    with a minor wrap below refinement 7), ERK33 at CFL 0.3 with recovery
+    "none"."""
+    eq = Euler(dim=2)
+    mesh = geometry.rectangular_domain(
+        [-5.0, -5.0], [5.0, 5.0], [1, 1], refinement=refinement,
+        boundary_conditions=[Boundary.periodic] * 4,
+    )
+    sd = structured.pack_structured(assembly.assemble(mesh), mesh)
+    init = make_initial_state(eq, "isentropic vortex", direction=[1, 1],
+                              position=[0, 0], mach_number=1.0, beta=5.0)
+    hm = HyperbolicModule(eq, sd, init, dtype=dtype, device=device,
+                          separable=separable)
+    ti = TimeIntegrator(hm, "erk 33", cfl_min=0.3, cfl_max=0.3,
+                        cfl_recovery_strategy="none")
+    return eq, sd, hm, ti, interpolate_nodal(init, sd, eq, 0.0, dtype, device)
+
+
+def build_periodic_box3d(refinement: int, dtype, device,
+                         subdiv=(2, 2, 2), separable: bool = False):
+    """(eq, sd, hm, ti, U0) of a fully periodic 3D box: [0, 1]^3 with
+    `subdiv` cells before `refinement`, [Boundary.periodic] * 6, cG Q1
+    packed with z and y margins of 2 (ghost bands of 2 planes and 2 rows)
+    and the x period padded to 128 (a minor wrap), a uniform flow along
+    (1, 0.5, 0.25) at speed 1 with its density and energy times a smooth
+    bump 1 + 0.25 exp(-8 |x - (0.5, 0.5, 0.5)|^2); ERK33 at CFL 0.9 /
+    0.45 with bang-bang recovery."""
+    eq = Euler(dim=3)
+    mesh = geometry.rectangular_domain(
+        [0.0, 0.0, 0.0], [1.0, 1.0, 1.0], list(subdiv),
+        refinement=refinement, boundary_conditions=[Boundary.periodic] * 6,
+        dim=3,
+    )
+    sd = structured.pack_structured(assembly.assemble(mesh), mesh,
+                                    margin=(2, 2))
+    init = make_initial_state(eq, "uniform", direction=[1.0, 0.5, 0.25],
+                              primitive_state=(1.4, 1.0, 1.0))
+    hm, ti, U0 = _modules(eq, sd, init, dtype, device, "bang bang control",
+                          separable)
+    pos = torch.as_tensor(sd.positions.T, dtype=dtype, device=device)
+    bump = 1.0 + 0.25 * torch.exp(-8.0 * torch.sum((pos - 0.5) ** 2, 0))
+    U0[0] *= bump
+    U0[-1] *= bump
+    return eq, sd, hm, ti, U0
+
+
 def build_box3d(refinement: int, dtype, device, subdiv=(31, 16, 16),
                 ansatz: str = "cG Q1", separable: bool = False):
     """(eq, sd, hm, ti, U0) of the box3d case (bench.py:60-82): 3D Euler,
@@ -165,8 +225,8 @@ def build_cylinder3d(refinement: int, dtype, device, pad_minor: int = 128,
     and y margins of 2, bang-bang recovery.  The minor canvas axis is the
     periodic angle: 128 cells at refinement 3, so pad_minor = 128 keeps it
     exact and the canvas's roll is the periodic wrap; at refinement 1 the
-    angle has 32 cells and takes pad_minor = 32 (a wider pad would leave a
-    padded periodic axis, which the canvas kernels refuse)."""
+    angle has 32 cells: pad_minor = 32 packs it exactly, the default pads
+    it to 128 with a minor wrap (two ghost columns)."""
     eq = Euler(dim=3)
     mesh = geometry.cylinder(refinement=refinement, dim=3)
     sd = structured.pack_structured(

@@ -13,7 +13,9 @@
 // the mask (K), U (C), 1/n_i and the bounds (3), and writes U (C) and
 // l' (K).  PK5 reads no bounds and writes no l'.
 //
-// Design, PK4 at K = 24 and 26 (pk_up_tile_kernel): a block owns TX = 32
+// Design, PK4 at K = 24, 26 and 48 (pk_up_tile_kernel; at K = 48
+// pk_up_tile_dyn_kernel, the same body on dynamic shared memory, since
+// its arrays take 64,000 bytes in f64): a block owns TX = 32
 // consecutive cells of one x row, one warp per component (block (32, C)),
 // the grid over (x tiles, H, D); lanes are cells, so every plane is read
 // and written in 32-cell rows.  It reads each slot's P, l and transposed l once, where
@@ -47,32 +49,33 @@
 // slot; the TPU's pk_up reads no mask and relies on P carrying it, the
 // port keeps its masked loops.  The factor pointers come after the
 // constants, so the full-statics instances keep their parameter offsets.
-#include "statics.cuh"
+#include "staged.cuh"
 
 namespace ryujin {
 
 constexpr int UP_TX = 32;  // cells a block owns; mirrored by kernels/pk_up.py tile()
 
-// Shared bytes of the instance: P, l_sym, the live flags and U'.
+// Shared bytes of the instance: P, l_sym, the live flags and U' (the
+// dynamic layout of K = 48 puts the flags last).
 template <typename T, int DIM, int K>
 constexpr int pk_up_smem() {
   return (DIM + 2) * K * UP_TX * int(sizeof(T)) + K * UP_TX * int(sizeof(T)) + K * UP_TX +
          (DIM + 2) * UP_TX * int(sizeof(T));
 }
 
+// The staged PK4 on the row's shared arrays sP [C K][TX], sls [K][TX],
+// slive [K][TX] and sU [C][TX]: static in the K = 24 and 26 instances,
+// dynamic at K = 48, whose arrays pass the 48 KB of static shared memory
+// in f64 (sP alone 49,152 bytes).
 template <typename T, int DIM, int K, class ST>
-__global__ void __launch_bounds__(UP_TX * (DIM + 2))
-pk_up_tile_kernel(const T* __restrict__ inv_n, const T* __restrict__ mask, const T* __restrict__ U,
-             const T* __restrict__ bounds, const T* __restrict__ P, const T* __restrict__ l,
-             T* __restrict__ U_next, T* __restrict__ l_new,
-             const __grid_constant__ EqConsts<T> e, const T* __restrict__ g2,
-             const T* __restrict__ fz) {
+__device__ __forceinline__ void pk_up_tile_body(
+    const T* __restrict__ inv_n, const T* __restrict__ mask, const T* __restrict__ U,
+    const T* __restrict__ bounds, const T* __restrict__ P, const T* __restrict__ l,
+    T* __restrict__ U_next, T* __restrict__ l_new, const EqConsts<T>& e,
+    const T* __restrict__ g2, const T* __restrict__ fz, T (&sP)[(DIM + 2) * K][UP_TX],
+    T (&sls)[K][UP_TX], bool (&slive)[K][UP_TX], T (&sU)[DIM + 2][UP_TX]) {
   static_assert(!ST::kSeparable || (DIM == 3 && K == 26), "separable statics are 3D, K = 26");
   constexpr int NC = DIM + 2;
-  __shared__ T sP[NC * K][UP_TX];
-  __shared__ T sls[K][UP_TX];
-  __shared__ bool slive[K][UP_TX];
-  __shared__ T sU[NC][UP_TX];
   const int lane = threadIdx.x, w = threadIdx.y;
   Cell c;
   // every thread of the block reaches the barriers; `in` marks a cell of
@@ -129,6 +132,43 @@ pk_up_tile_kernel(const T* __restrict__ inv_n, const T* __restrict__ mask, const
     }
     l_new[k * n + i] = out;
   }
+}
+
+template <typename T, int DIM, int K, class ST>
+__global__ void __launch_bounds__(UP_TX * (DIM + 2))
+pk_up_tile_kernel(const T* __restrict__ inv_n, const T* __restrict__ mask, const T* __restrict__ U,
+             const T* __restrict__ bounds, const T* __restrict__ P, const T* __restrict__ l,
+             T* __restrict__ U_next, T* __restrict__ l_new,
+             const __grid_constant__ EqConsts<T> e, const T* __restrict__ g2,
+             const T* __restrict__ fz) {
+  constexpr int NC = DIM + 2;
+  __shared__ T sP[NC * K][UP_TX];
+  __shared__ T sls[K][UP_TX];
+  __shared__ bool slive[K][UP_TX];
+  __shared__ T sU[NC][UP_TX];
+  pk_up_tile_body<T, DIM, K, ST>(inv_n, mask, U, bounds, P, l, U_next, l_new, e, g2, fz, sP, sls,
+                                 slive, sU);
+}
+
+// The same in dynamic shared memory, laid out sP, sls, sU, then the flags
+// (pk_up_smem's bytes, the wrapper's tile()).
+template <typename T, int DIM, int K, class ST>
+__global__ void __launch_bounds__(UP_TX * (DIM + 2))
+pk_up_tile_dyn_kernel(const T* __restrict__ inv_n, const T* __restrict__ mask,
+                      const T* __restrict__ U, const T* __restrict__ bounds,
+                      const T* __restrict__ P, const T* __restrict__ l, T* __restrict__ U_next,
+                      T* __restrict__ l_new, const __grid_constant__ EqConsts<T> e,
+                      const T* __restrict__ g2, const T* __restrict__ fz) {
+  constexpr int NC = DIM + 2;
+  extern __shared__ __align__(16) unsigned char up_smem[];
+  T* base = reinterpret_cast<T*>(up_smem);
+  auto& sP = *reinterpret_cast<T(*)[NC * K][UP_TX]>(base);
+  auto& sls = *reinterpret_cast<T(*)[K][UP_TX]>(base + NC * K * UP_TX);
+  auto& sU = *reinterpret_cast<T(*)[NC][UP_TX]>(base + (NC + 1) * K * UP_TX);
+  auto& slive =
+      *reinterpret_cast<bool(*)[K][UP_TX]>(base + (NC + 1) * K * UP_TX + NC * UP_TX);
+  pk_up_tile_body<T, DIM, K, ST>(inv_n, mask, U, bounds, P, l, U_next, l_new, e, g2, fz, sP, sls,
+                                 slive, sU);
 }
 
 // The one-thread-per-cell form, unchanged: PK4 at K = 8, where
@@ -233,15 +273,22 @@ int launch_pk_up_instance(const T* inv_n, const T* mask, const T* U, const T* bo
       consts->block[2] != 1 || consts->smem != (cell ? 0 : pk_up_smem<T, DIM, K>()) ||
       int64_t(grid.x) * block.x < e.W || int(grid.y) < e.H || int(grid.z) < e.D)
     return int(cudaErrorInvalidValue);
-  if (last)
+  if (last) {
     pk_up_last_kernel<T, DIM, K, ST><<<grid, block, 0, stream>>>(inv_n, mask, U, P, l, U_next, e,
                                                                  g2, fz);
-  else if constexpr (K == 8)
+  } else if constexpr (K == 8) {
     pk_up_kernel<T, DIM, K, ST><<<grid, block, 0, stream>>>(inv_n, mask, U, bounds, P, l, U_next,
                                                             l_new, e, g2, fz);
-  else
+  } else if constexpr (K == 48) {
+    constexpr int smem = pk_up_smem<T, DIM, K>();
+    const int err = allow_smem(pk_up_tile_dyn_kernel<T, DIM, K, ST>, smem);
+    if (err != int(cudaSuccess)) return err;
+    pk_up_tile_dyn_kernel<T, DIM, K, ST><<<grid, block, smem, stream>>>(
+        inv_n, mask, U, bounds, P, l, U_next, l_new, e, g2, fz);
+  } else {
     pk_up_tile_kernel<T, DIM, K, ST><<<grid, block, 0, stream>>>(inv_n, mask, U, bounds, P, l,
                                                                  U_next, l_new, e, g2, fz);
+  }
   return int(cudaGetLastError());
 }
 
@@ -262,6 +309,9 @@ int launch_pk_up(const T* inv_n, const T* mask, const T* U, const T* bounds, con
                                                           l_new, g2, fz, e, consts, stream);
   if (consts->dim == 2 && e.K == 24)
     return launch_pk_up_instance<T, 2, 24, FullStatics<T>>(inv_n, mask, U, bounds, P, l, U_next,
+                                                           l_new, g2, fz, e, consts, stream);
+  if (consts->dim == 2 && e.K == 48)
+    return launch_pk_up_instance<T, 2, 48, FullStatics<T>>(inv_n, mask, U, bounds, P, l, U_next,
                                                            l_new, g2, fz, e, consts, stream);
   if (consts->dim == 3 && e.K == 26)
     return launch_pk_up_instance<T, 3, 26, FullStatics<T>>(inv_n, mask, U, bounds, P, l, U_next,

@@ -18,6 +18,14 @@ import torch
 from ..offline.mesh import Boundary
 
 
+def on_mask(x, mask):
+    """x * mask on the live slots (mask > 0) and 0 on the others: a select,
+    so that a neighbour value read through a masked slot never enters a
+    sum, even where it is NaN (NaN * 0 is NaN).  mask broadcasts to x."""
+    return torch.where(mask > 0, x * mask, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
 def _pos(x):
     return torch.clamp_min(x, 0.0)
 
@@ -258,9 +266,9 @@ class Euler:
         entropy_flux = (
             eta_j / self.density(U_j) - (eta_i * rho_i_inv)[None]
         ) * torch.sum(self.momentum(U_j) * c_ij, 0)
-        left = torch.sum(entropy_flux * mask, 0)
+        left = torch.sum(on_mask(entropy_flux, mask), 0)
         components = torch.sum((f_j - f_i[:, :, None]) * c_ij[None], 1)
-        right = torch.sum(components * mask[None], 1)
+        right = torch.sum(on_mask(components, mask[None]), 1)
 
         numerator = left - torch.sum(d_eta_i * right, 0)
         denominator = torch.abs(left) + torch.sum(torch.abs(d_eta_i * right), 0)
@@ -287,12 +295,12 @@ class Euler:
     def indicator_accum(self, state, U_j, prec_j, f_j, c_k, mask_k):
         """One stencil slot's (left [n], right [C, n]) increments."""
         eta_i, rho_i_inv, _, f_i = state
-        left = (
+        left = on_mask(
             (prec_j[1] / self.density(U_j) - eta_i * rho_i_inv)
-            * torch.sum(self.momentum(U_j) * c_k, 0)
-            * mask_k
+            * torch.sum(self.momentum(U_j) * c_k, 0),
+            mask_k,
         )
-        right = torch.sum((f_j - f_i) * c_k[None], 1) * mask_k[None]
+        right = on_mask(torch.sum((f_j - f_i) * c_k[None], 1), mask_k[None])
         return left, right
 
     def indicator_finalize(self, state, left, right, hd_i,
@@ -329,7 +337,8 @@ class Euler:
         s_min = torch.minimum(torch.amin(torch.where(on, prec_j[0], big), 0), s_i)
 
         k_count = torch.sum(mask, 0)
-        rho_relax_num = torch.sum((rho_i[None] + rho_j) * mask, 0) + 2.0 * rho_i
+        rho_relax_num = (torch.sum(on_mask(rho_i[None] + rho_j, mask), 0)
+                         + 2.0 * rho_i)
         rho_relax_den = k_count + 1.0
 
         s_interp = self.specific_entropy(0.5 * (U_i[:, None] + U_j))
@@ -383,7 +392,8 @@ class Euler:
         st["s_interp_max"] = torch.maximum(
             st["s_interp_max"], torch.where(on, s_interp, -big)
         )
-        st["rho_relax_num"] = st["rho_relax_num"] + (st["rho_i"] + rho_j) * mask_k
+        st["rho_relax_num"] = st["rho_relax_num"] + on_mask(
+            st["rho_i"] + rho_j, mask_k)
         st["k_count"] = st["k_count"] + mask_k
         return st
 

@@ -60,7 +60,8 @@ _STREAM = re.compile(
     r"NS_\d+(Full|Sep)Statics"
 )
 _UP = re.compile(
-    r"_ZN6ryujin\d+(pk_up|pk_up_tile|pk_up_last)_kernelI([fd])Li(\d)ELi(\d+)E"
+    r"_ZN6ryujin\d+(pk_up|pk_up_tile|pk_up_tile_dyn|pk_up_last)_kernelI([fd])"
+    r"Li(\d)ELi(\d+)E"
     r"NS_\d+(Full|Sep)Statics"
 )
 # the stacked kernels: pk2 and pk3 with their dG flag, pk1 without one
@@ -145,7 +146,8 @@ STAGED = ("pk2", "pk3", "pk2_stream", "pk2_stream_tile", "pk3_stream")
 def resources(log: str, tiles):
     """{instance: {regs, stack, threads, smem, warps}} of every pk1_stream
     (pk1_stream, pk1_stream_tile), pk2_stream (pk2_stream,
-    pk2_stream_tile), pk3_stream, pk_up (pk_up, pk_up_tile, pk_up_last)
+    pk2_stream_tile), pk3_stream, pk_up (pk_up, pk_up_tile,
+    pk_up_tile_dyn, pk_up_last)
     and stacked pk1, pk2 and pk3 instance in a -Xptxas -v report;
     tiles(kernel, dim, dtype[, stages]) gives the instance's (threads a
     block, shared bytes), at two stage slots without `stages`, else at
@@ -243,7 +245,7 @@ def resident_warps(regs: int, threads: int, smem: int) -> int:
 def launch_shape(kern, dim, dtype, stages=2):
     """(threads a block, shared bytes) of kernel `kern`'s launch at
     `stages` stage slots (two on the main path): K = 24 in 2D (the
-    stacked pk1, pk2 and pk3: 8), 26 in 3D; the ELL kernels from
+    stacked pk1, pk2 and pk3: 8; pk_up_tile_dyn: 48), 26 in 3D; the ELL kernels from
     ell_step_shape() at K = 2 in 1D, 8 in 2D, 26 in 3D ("ell_pk_up last":
     PK5's); a kernel without a tile() beside its wrapper, and the ELL
     kernels of one thread a row (" row"), launch 128 threads a block
@@ -265,6 +267,8 @@ def launch_shape(kern, dim, dtype, stages=2):
                                 last=kern.endswith(" last"))
         return sh.threads, sh.smem
     K = 8 if kern in ("pk1", "pk2", "pk3") else (24 if dim == 2 else 26)
+    if kern == "pk_up_tile_dyn":  # PK4 at K = 48, in dynamic shared memory
+        K, kern = 48, "pk_up_tile"
     shape = (64, 64) if dim == 2 else (8, 64, 64)
     mod = {"pk2": k2, "pk2_stream_tile": k2s, "pk3": k3,
            "pk3_stream": k3s}.get(kern)

@@ -322,8 +322,8 @@ class Tile(NamedTuple):
     """Launch shape of a tiled kernel (pk1_stream, pk2_stream, pk3_stream,
     the stacked pk1, pk2 and pk3, pk_up): threads of a block (x, y, z), the
     halo of staged cells around the tile, the shared bytes a block takes
-    (dynamic in the staged kernels, static in pk_up) and the grid (x, y,
-    z)."""
+    (dynamic in the staged kernels and in pk_up at K = 48, static in pk_up
+    at K = 24 and 26) and the grid (x, y, z)."""
 
     block: Tuple[int, int, int]
     halo: int

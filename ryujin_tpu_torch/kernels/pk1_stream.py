@@ -25,6 +25,7 @@ def pk1_stream_reference(eq, p, ca, U, prec, half=True):
     K = st.K
     K_e = K // 2 if half else K
     tiny = torch.finfo(U.dtype).tiny
+    U, prec = st.refresh_ghosts(U), st.refresh_ghosts(prec)
     f = eq.f(U)
     pa_i = eq.riemann_precompute(U)
     ind = eq.indicator_init(U, prec, f_i=f)

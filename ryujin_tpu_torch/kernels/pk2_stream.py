@@ -14,6 +14,7 @@ import collections
 
 import torch
 
+from ..equations.euler import on_mask
 from . import build
 from .pk2 import stage_tensor
 
@@ -50,10 +51,11 @@ def pk2_stream_reference(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights,
     ws = list(stage_weights)
     weight = 1.0 - sum(ws)
     regularization = 100.0 * torch.finfo(U.dtype).tiny
+    U, prec, e, alpha = map(st.refresh_ghosts, (U, prec, e, alpha))
     f = eq.f(U)
     cii = st.c_ii()
     flux_ii = eq.flux_divergence(f, f, cii)
-    f_s = [eq.f(stage_U[s]) for s in range(len(ws))]
+    f_s = [eq.f(st.refresh_ghosts(stage_U[s])) for s in range(len(ws))]
     low_acc = torch.zeros_like(U)
     F_acc = torch.zeros_like(U)
     bst = eq.limiter_bounds_init(U, prec)
@@ -65,12 +67,14 @@ def pk2_stream_reference(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights,
         flux_ij_k = eq.flux_divergence(f, st.shift(f, off), c_k)
         dU_k = U_jk - U
         dH_k = d_k * slot_factor(st, alpha, k)
-        low_acc = low_acc + (flux_ij_k + d_k[None] * dU_k) * mask_k[None]
-        F_acc = F_acc + (dH_k[None] * dU_k + weight * flux_ij_k) * mask_k[None]
+        low_acc = low_acc + on_mask(flux_ij_k + d_k[None] * dU_k,
+                                    mask_k[None])
+        F_acc = F_acc + on_mask(dH_k[None] * dU_k + weight * flux_ij_k,
+                                mask_k[None])
         for s, w_s in enumerate(ws):
-            F_acc = F_acc + w_s * eq.flux_divergence(
+            F_acc = F_acc + on_mask(w_s * eq.flux_divergence(
                 f_s[s], st.shift(f_s[s], off), c_k
-            ) * mask_k[None]
+            ), mask_k[None])
         scaled_c_k = c_k / torch.clamp_min(d_k, regularization)[None]
         bst = eq.limiter_bounds_accum(
             bst, U_jk, st.shift(prec, off), scaled_c_k, mask_k

@@ -26,8 +26,9 @@ def pk3_stream_reference(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
     st = ca.stencil
     ws = list(stage_weights)
     weight = 1.0 - sum(ws)
+    U, e, alpha, F = map(st.refresh_ghosts, (U, e, alpha, F))
     f = eq.f(U)
-    f_s = [eq.f(stage_U[s]) for s in range(len(ws))]
+    f_s = [eq.f(st.refresh_ghosts(stage_U[s])) for s in range(len(ws))]
     pfac = tau * st.m_lumped_inv * st.n_nbrs
     psi0 = eq.limiter_psi0(bounds, U_low)
     real = st.node_mask > 0

@@ -1,7 +1,7 @@
 """pk_up: the symmetrized limited update, PK4 (re-limits) and PK5 (last),
-on the 2D K = 8 (reach 1) and K = 24 (reach 2) canvases and the 3D K = 26
-(reach 1) canvas (CUDA kernel csrc/pk_up.cu; TPU kernels
-pallas_step.py:3265 and `_step_slab`'s pk_up, :2528).  With separable
+on the 2D K = 8 (reach 1), K = 24 (reach 2) and K = 48 (reach 3, cG Q3)
+canvases and the 3D K = 26 (reach 1) canvas (CUDA kernel csrc/pk_up.cu;
+TPU kernels pallas_step.py:3265 and `_step_slab`'s pk_up, :2528).  With separable
 statics (a 3D cG canvas) it launches the SEP instance, which synthesizes
 the mask per offset (_SepTile.mask_k, :1139): the port's pk_up reads the
 mask, where the TPU's relies on P carrying it."""
@@ -13,7 +13,7 @@ import torch
 from . import build
 
 # the (dim, K) the kernel template is instantiated for
-INSTANCES = ((2, 8), (2, 24), (3, 26))
+INSTANCES = ((2, 8), (2, 24), (2, 48), (3, 26))
 
 
 TX = 32  # cells a block owns (csrc/pk_up.cu UP_TX)
@@ -21,9 +21,10 @@ TX = 32  # cells a block owns (csrc/pk_up.cu UP_TX)
 
 def tile(shape, K: int, dtype, last: bool = False) -> build.Tile:
     """The launch shape of pk_up on a 2D [H, W] or 3D [D, H, W] canvas with
-    K lattice offsets.  PK4 at K = 24 and 26: a block owns TX cells of one
-    x row, one warp per component; its static shared arrays hold the row's
-    C K planes of P, l_sym, the live flags and U'.  PK5 (`last`) and PK4 at
+    K lattice offsets.  PK4 at K = 24, 26 and 48: a block owns TX cells of
+    one x row, one warp per component; its shared arrays hold the row's
+    C K planes of P, l_sym, the live flags and U' (static at K = 24 and
+    26; dynamic at K = 48, 64,000 bytes in f64).  PK5 (`last`) and PK4 at
     K = 8: one thread a cell, 128 along x, no shared memory.  No halo: the
     transposed l is read from device memory."""
     dim = len(shape)
@@ -45,9 +46,10 @@ def pk_up_reference(eq, p, ca, U_cur, bounds, P, l, last):
     K = st.K
     on = [st.live_k(k) for k in range(K)]
     zero = torch.zeros_like(l[0])
+    l_ghosts = st.refresh_ghosts(l)
     l_sym = [
-        torch.where(on[k], torch.minimum(l[k], st.shift(l[K - 1 - k], off)),
-                    zero)
+        torch.where(on[k], torch.minimum(
+            l[k], st.shift(l_ghosts[K - 1 - k], off)), zero)
         for k, off in enumerate(st.offsets)
     ]
     acc = torch.zeros_like(U_cur)

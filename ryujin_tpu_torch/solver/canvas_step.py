@@ -22,9 +22,14 @@ statics (a 3D cG canvas that is an extrusion along z,
 `CanvasArrays.from_structured(separable=True)`) the kernels take their
 SEP instances, which synthesize c_ij, m_ij, the mask, c_ii and cmax from
 z-profiles and 2D fields, and the d / tau glue rebuilds d offset by
-offset from the synthesized mask (pallas_step.py:2198-2212).  Every
-kernel wrapper runs its plain-torch reference for CPU tensors, so the
-same orchestration is testable on the CPU.
+offset from the synthesized mask (pallas_step.py:2198-2212).  On a
+canvas with ghost rows (periodic ghost bands, slabs of canvas axis 0, a
+padded periodic minor axis) `refresh` copies the wrapped real rows into
+the ghost rows of each array before a kernel reads it at its neighbours,
+where PallasStepper refreshes (pallas_step.py:1646-1810, 2611-2620,
+2789-2790, 3017, 3253, 3316).  Every kernel wrapper runs its plain-torch
+reference for CPU tensors, so the same orchestration is testable on the
+CPU.
 """
 
 from __future__ import annotations
@@ -83,6 +88,10 @@ class CanvasArrays:
     f_sepz: Optional[torch.Tensor] = None  # [133, D]
     # host seconds that separate_z took (0 with the full canvases)
     factor_seconds: float = 0.0
+    # the ghost layouts (StructuredData.ghosts, slab_spec, minor_wrap)
+    ghosts: Tuple[Optional[Tuple[int, int]], ...] = ()
+    slab_spec: Optional[Tuple[int, int, int]] = None
+    minor_wrap: Optional[Tuple[int, int]] = None
 
     @property
     def K(self) -> int:
@@ -122,6 +131,9 @@ class CanvasArrays:
             cmax=view(self.g_cmax, (K,)),
             g_sep2=self.g_sep2,
             f_sepz=self.f_sepz,
+            ghosts=self.ghosts,
+            slab_spec=self.slab_spec,
+            minor_wrap=self.minor_wrap,
         )
 
     @staticmethod
@@ -203,6 +215,9 @@ class CanvasArrays:
             offsets=offsets,
             measure_inv=float(1.0 / sd.measure_of_omega),
             factor_seconds=factor_seconds,
+            ghosts=tuple(sd.ghosts or (None,) * len(canvas)),
+            slab_spec=sd.slab_spec,
+            minor_wrap=sd.minor_wrap,
             **statics,
             g_node=canv(
                 np.concatenate(
@@ -228,13 +243,39 @@ class CanvasArrays:
         )
 
 
+def refresh(st: StructuredStencil, *arrays) -> None:
+    """Copy the wrapped real rows into the ghost rows of each node or edge
+    array [..., n] of the canvas, in place, by torch slice assignments on
+    the current stream (the XLA glue of PallasStepper._refresh,
+    _refresh_zm and _refresh_edge, pallas_step.py:1646-1810: the whole
+    g-row bands, where the TPU path copies `reach` rows of the slab bands).
+    A no-op on a canvas without ghosts; else each array adds one to
+    `refresh.launches`.  None entries are skipped."""
+    if not st.have_ghosts:
+        return
+    for X in arrays:
+        if X is None:
+            continue
+        if not X.is_contiguous():
+            raise ValueError("refresh takes contiguous arrays")
+        st.refresh_ghosts_(X)
+        refresh.launches += 1
+
+
+refresh.launches = 0
+
+
 class CanvasStepper:
     """Runs HyperbolicModule.step through the kernels.  Takes the Euler
     equations on a single-block lattice canvas, 2D of reach 1 or more or
-    3D of reach 1, of a continuous or a discontinuous ansatz (no initial
-    precomputed values, no sideband, multi-block or slab), and rejects any
-    other configuration.  A dG canvas (cG's lattice with the incidence
-    beta_ij, `CanvasArrays.g_inc`) takes the kernel form of its reach and
+    3D of reach 1, of a continuous or a discontinuous ansatz, with or
+    without ghosts (periodic ghost bands, slabs of canvas axis 0, a padded
+    periodic minor axis: the kernels read every neighbour through the
+    canvas's wrap, and `refresh` copies the ghost rows of each array
+    before a kernel reads its neighbours), and rejects any other
+    configuration (initial precomputed values, a sideband, multi-block).
+    A dG canvas (cG's lattice with the incidence beta_ij,
+    `CanvasArrays.g_inc`) takes the kernel form of its reach and
     dimension, as a cG one does: dG Q1 in 2D the stacked pk1 / pk2 / pk3,
     dG Q2 in 2D and dG Q1 in 3D the stream forms; PK2 and PK3 then raise
     the high-order viscosity factor to beta_ij.  `half` is the hyperbolic
@@ -279,12 +320,15 @@ class CanvasStepper:
              compute_tau):
         """Same contract as HyperbolicModule.step."""
         eq, p, ca, st = self.eq, self.params, self.arrays, self.stencil
+        # the inputs' ghost rows, before PK1 (pallas_step.py:2611-2620)
+        refresh(st, U, prec, stage_U)
         if self.stream:
             half = self.half
             lam, alpha = pk1_stream(eq, p, ca, U, prec, half)
             if half:
                 # e = lambda * cmax: the glue and PK2/PK3 never read cmax
                 lam = self.lambda_fixup(lam, U, prescaled=True)
+            refresh(st, lam, alpha)
             if st.separable:
                 # the row sums of d offset by offset from the synthesized
                 # mask: no K-plane static mask lives in the glue
@@ -304,6 +348,7 @@ class CanvasStepper:
         else:
             lam, alpha = pk1(eq, p, ca, U, prec)
             lam = self.lambda_fixup(lam, U)
+            refresh(st, lam, alpha)
             d = d_from_lambda(st, lam, ca.g_cmax.reshape(ca.K, -1))
             tau_max = tau_max_from_d(st, d, cfl, tau_cap)
             run_pk2, run_pk3 = pk2, pk3
@@ -312,6 +357,7 @@ class CanvasStepper:
         U_low, F, bounds = run_pk2(
             eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau
         )
+        refresh(st, F)
         P, l, okp = run_pk3(
             eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U,
             stage_weights, tau,
@@ -320,5 +366,7 @@ class CanvasStepper:
         U_cur = U_low
         for it in range(p.limiter_iterations):
             last = it + 1 == p.limiter_iterations
+            # l after PK3 and after each PK4 (pallas_step.py:3253, 3316)
+            refresh(st, l)
             U_cur, l = pk_up(eq, p, ca, U_cur, bounds, P, l, last)
         return U_cur, tau, ok

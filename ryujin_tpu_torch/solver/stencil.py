@@ -1,13 +1,20 @@
 """Lattice-canvas stencil in PyTorch (ryujin_tpu/solver/hyperbolic.py
-StructuredStencil, :144-398), for a single-block canvas without ghosts,
-of any lattice reach (K = (2 reach + 1)^dim - 1 offsets), continuous or
-discontinuous (dG, with the incidence beta_ij on the slots).
+StructuredStencil, :144-398), for a single-block canvas of any lattice
+reach (K = (2 reach + 1)^dim - 1 offsets), continuous or discontinuous
+(dG, with the incidence beta_ij on the slots), with the ghost layouts of
+offline/structured.py: ghost bands on periodic leading axes, the slab
+decomposition of canvas axis 0, and the padded periodic minor axis
+(minor_wrap).
 
 Neighbour access is a static shift of the canvas: `nbr` gives
 out[..., k, i] = X[..., i + offsets[k]] with the same wrap as jnp.roll /
 torch.roll; values wrapped in at the canvas edge only ever feed masked
 edges.  The offsets are ordered so that offsets[k] == -offsets[K-1-k]:
-the transposed slot of offset k is K-1-k for every reach.
+the transposed slot of offset k is K-1-k for every reach.  On a canvas
+with ghosts `nbr` and `transpose_edge` first copy the wrapped real rows
+into the ghost rows of their input (`refresh_ghosts`, hyperbolic.py:
+199-276), as the JAX nbr does; the per-offset `shift` reads its input as
+it stands, and its callers refresh each input once.
 
 The kernel references, the plain substep and the glue read the static
 planes through per-offset accessors (`cij_k`, `mask_k` / `live_k`,
@@ -41,23 +48,47 @@ from ..offline.structured import StructuredData
 def _unsupported(what: str):
     raise NotImplementedError(
         f"{what} canvases are not ported to the torch stencil yet "
-        '(ROADMAP queue 1, "The rest of the single-block canvas" and '
-        '"Multi-block canvases, then bench.py\'s last case")'
+        '(ROADMAP queue 1, "Multi-block canvases, then bench.py\'s last '
+        'case")'
     )
 
 
 def check_single_block(sd: StructuredData) -> None:
-    """Raise on the canvas features the torch stencil does not carry."""
-    if any(g is not None for g in (getattr(sd, "ghosts", ()) or ())):
-        _unsupported("ghost-banded (periodic)")
-    if getattr(sd, "slab_spec", None) is not None:
-        _unsupported("slab-decomposed")
+    """Raise NotImplementedError on a multi-block canvas, the one canvas
+    feature the torch stencil does not carry, and ValueError on ghosts
+    narrower than the stencil reads (check_ghost_width)."""
     for name in ("gmap_node", "gmap_edge", "gmap_node_z", "gmap_edge_z",
                  "ev_side"):
         if getattr(sd, name, None) is not None:
             _unsupported("multi-block")
-    if getattr(sd, "minor_wrap", None) is not None:
-        _unsupported("padded periodic-minor (minor_wrap)")
+    check_ghost_width(
+        getattr(sd, "ghosts", ()) or (), getattr(sd, "slab_spec", None),
+        getattr(sd, "minor_wrap", None), sd.reach,
+    )
+
+
+def check_ghost_width(ghosts, slab_spec, minor_wrap, reach: int) -> None:
+    """Raise ValueError where a neighbour read at the reach would pass the
+    ghost rows: every ghost band (g, P) and the slab bands (n, Ls, g) need
+    g >= reach, the padded periodic minor axis (P, W) W - P >= 2 reach
+    (the reference packs these widths and never checks them)."""
+    for ax, gh in enumerate(ghosts):
+        if gh is not None and gh[0] < reach:
+            raise ValueError(
+                f"canvas axis {ax}: ghost band of {gh[0]} rows, narrower "
+                f"than the stencil's reach {reach}"
+            )
+    if slab_spec is not None and slab_spec[2] < reach:
+        raise ValueError(
+            f"canvas axis 0: slab ghost bands of {slab_spec[2]} rows, "
+            f"narrower than the stencil's reach {reach}"
+        )
+    if minor_wrap is not None and minor_wrap[1] - minor_wrap[0] < 2 * reach:
+        P, W = minor_wrap
+        raise ValueError(
+            f"minor canvas axis: period {P} padded to {W} leaves {W - P} "
+            f"ghost columns, fewer than 2 x reach {reach}"
+        )
 
 
 # Separable statics in the JAX package's plane order (pallas_step.py:
@@ -110,10 +141,72 @@ class StructuredStencil:
     # separable statics: 2D fields [48, H, W] and z-profiles [133, D]
     g_sep2: Optional[torch.Tensor] = None
     f_sepz: Optional[torch.Tensor] = None
+    # the ghost layouts (StructuredData.ghosts, slab_spec, minor_wrap):
+    # (g, P) or None per canvas axis, (n_slabs, Ls, g), (P, W)
+    ghosts: Tuple[Optional[Tuple[int, int]], ...] = ()
+    slab_spec: Optional[Tuple[int, int, int]] = None
+    minor_wrap: Optional[Tuple[int, int]] = None
 
     @property
     def K(self) -> int:
         return len(self.offsets)
+
+    @property
+    def reach(self) -> int:
+        return max(abs(o) for off in self.offsets for o in off)
+
+    @property
+    def have_ghosts(self) -> bool:
+        return (any(g is not None for g in self.ghosts)
+                or self.slab_spec is not None or self.minor_wrap is not None)
+
+    def refresh_ghosts(self, X: torch.Tensor) -> torch.Tensor:
+        """[..., n]: a copy of X with the wrapped real rows copied into its
+        ghost rows (X itself on a canvas without ghosts).  An edge array
+        [..., K, n] takes the same copies slot by slot: bands, slabs and
+        the minor wrap move whole rows of a uniform slot layout
+        (refresh_edges, hyperbolic.py:289-335)."""
+        if not self.have_ghosts:
+            return X
+        X = X.clone(memory_format=torch.contiguous_format)
+        self.refresh_ghosts_(X)
+        return X
+
+    def refresh_ghosts_(self, X: torch.Tensor) -> None:
+        """refresh_ghosts in place on a contiguous [..., n] tensor, by slice
+        assignments on the canvas view (the whole g-row bands, as the XLA
+        path copies them): the slab bands first (a cyclic roll along the
+        slab axis: top band of slab s <- the last g real rows of slab
+        s - 1, bottom band <- the first g of slab s + 1), then the periodic
+        bands (top [0, g) <- [P, P + g), bottom [g + P, 2 g + P) <-
+        [g, 2 g)), then the minor wrap last, for corner completeness (cols
+        [P, P + reach) <- [0, reach), [W - reach, W) <- [P - reach, P))
+        (hyperbolic.py StructuredStencil._roll_ghosts, :216-276).  Each
+        source is copied before its destination is written."""
+        if not self.have_ghosts:
+            return
+        lead = X.ndim - 1
+        Xc = X.view(X.shape[:-1] + self.shape)
+        if self.slab_spec is not None:
+            n_sl, Ls, g = self.slab_spec
+            A = Ls + 2 * g
+            Xs = Xc.view(Xc.shape[:lead] + (n_sl, A) + Xc.shape[lead + 1:])
+            top = torch.roll(Xs.narrow(lead + 1, Ls, g), 1, lead)
+            bot = torch.roll(Xs.narrow(lead + 1, g, g), -1, lead)
+            Xs.narrow(lead + 1, 0, g).copy_(top)
+            Xs.narrow(lead + 1, g + Ls, g).copy_(bot)
+        for ax, gh in enumerate(self.ghosts):
+            if gh is None:
+                continue
+            g, P = gh
+            a = lead + ax
+            Xc.narrow(a, 0, g).copy_(Xc.narrow(a, P, g).clone())
+            Xc.narrow(a, g + P, g).copy_(Xc.narrow(a, g, g).clone())
+        if self.minor_wrap is not None:
+            P, W = self.minor_wrap
+            r, a = self.reach, Xc.ndim - 1
+            Xc.narrow(a, P, r).copy_(Xc.narrow(a, 0, r).clone())
+            Xc.narrow(a, W - r, r).copy_(Xc.narrow(a, P - r, r).clone())
 
     @property
     def separable(self) -> bool:
@@ -205,12 +298,16 @@ class StructuredStencil:
 
     def shift(self, X: torch.Tensor, off) -> torch.Tensor:
         """[..., n] -> [..., n]: out[..., i] = X[..., i + off], one slot of
-        `nbr` (the per-offset read of the slot-streaming forms)."""
+        `nbr` (the per-offset read of the slot-streaming forms).  X is read
+        as it stands: its reader refreshes its ghosts once
+        (refresh_ghosts), not once a slot."""
         lead = X.shape[:-1]
         return self._shift(X.reshape(lead + self.shape), off).reshape(X.shape)
 
     def nbr(self, X: torch.Tensor) -> torch.Tensor:
-        """[..., n] -> [..., K, n] by K static canvas shifts."""
+        """[..., n] -> [..., K, n] by K static canvas shifts of X with its
+        ghosts refreshed."""
+        X = self.refresh_ghosts(X)
         lead = X.shape[:-1]
         Xc = X.reshape(lead + self.shape)
         out = torch.stack(
@@ -219,7 +316,9 @@ class StructuredStencil:
         return out.reshape(lead + (self.K,) + X.shape[-1:])
 
     def transpose_edge(self, E: torch.Tensor) -> torch.Tensor:
-        """[..., K, n] -> [..., K, n]: out[..., k, i] = E[..., K-1-k, i+off_k]."""
+        """[..., K, n] -> [..., K, n]: out[..., k, i] = E[..., K-1-k, i+off_k],
+        of E with its ghosts refreshed."""
+        E = self.refresh_ghosts(E)
         K = E.shape[-2]
         lead = E.shape[:-2]
         Ec = E.reshape(lead + (K,) + self.shape)

@@ -25,7 +25,12 @@ the ELL gather-sum, moveaxis, pk1_shape and the lane gather also at every
 launch of their sweeps; and the padded-ELL kernels (ell_pk1, ell_pk2,
 ell_pk3, ell_pk_up) on the 1D tube, the dG Q1 step, a small box and the
 airfoil: three ERK33 steps against the plain path on the CPU, and each
-kernel against its plain version at every stage-slot count.
+kernel against its plain version at every stage-slot count; and the
+canvases with ghost rows refreshed between kernels (the periodic
+vortex, the step in 2 and 4 slabs, the periodic box) and cG Q3 (pk_up's
+K = 48 instance, the stream kernels at reach 3): three ERK33 steps
+against the plain path on the CPU, and the tiled kernels bit for bit
+against their plain twins on the refreshed inputs.
 """
 
 import collections
@@ -574,9 +579,79 @@ def _stage_inputs(hm, U_a, U):
         [0.75, -2.0], [0.25], [], list(W[3][:3]), list(W[4]))
 
 
+def ghost_case(name):
+    """A build_case(refinement, dtype, device) of a canvas with ghosts or
+    at K = 48: "periodic vortex" (a y ghost band, a minor wrap; K = 8),
+    "slabs 2" / "slabs 4" (the step in slabs of canvas axis 0), "periodic
+    box" (3D, z and y bands, a minor wrap), "q3" (cG Q3, K = 48, on the
+    2 x 1 rectangle [0, 2] x [0, 1] with dirichlet sides), "SEP
+    cylinder3d" (cylinder3d with separable statics and the default
+    pad_minor: a minor wrap (32, 128) at refinement 1)."""
+    from ryujin_tpu_torch import bench
+    from ryujin_tpu_torch.offline.mesh import Boundary
+
+    if name == "periodic vortex":
+        return bench.build_periodic_vortex
+    if name == "periodic box":
+        return bench.build_periodic_box3d
+    if name == "SEP cylinder3d":
+        return functools.partial(bench.build_cylinder3d, separable=True)
+
+    def build(refinement, dtype, device):
+        if name == "q3":
+            mesh = bench.geometry.rectangular_domain(
+                [0.0, 0.0], [2.0, 1.0], [2, 1], refinement + 2,
+                boundary_conditions=[Boundary.dirichlet] * 4)
+            data, kw = bench.assembly.assemble(mesh, ansatz="cG Q3"), {}
+        else:
+            mesh = bench.geometry.step(refinement=refinement)
+            data = bench.assembly.assemble(mesh)
+            kw = {"slabs": int(name.split()[1])}
+        sd = bench.structured.pack_structured(data, mesh, **kw)
+        eq = bench.Euler(dim=2)
+        init = bench.make_initial_state(eq, "uniform",
+                                        primitive_state=(1.4, 3.0, 1.0))
+        hm = bench.HyperbolicModule(eq, sd, init, dtype=dtype, device=device)
+        ti = bench.TimeIntegrator(hm, "erk 33", cfl_min=0.45, cfl_max=0.9,
+                                  cfl_recovery_strategy="bang bang control")
+        U0 = bench.interpolate_nodal(init, sd, eq, 0.0, dtype, device)
+        return eq, sd, hm, ti, U0
+
+    return build
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["periodic vortex", "slabs 2", "slabs 4",
+                                  "periodic box", "q3", "SEP cylinder3d"])
+def test_ghost_and_q3_kernels_on_card_match_plain_cpu(case):
+    """Three ERK33 steps through the kernels on canvases with ghost rows
+    refreshed between kernels (bands, slabs, minor wrap; the SEP instances
+    on a minor wrap) and at K = 48 (pk_up's K = 48 instance, the stream
+    kernels at reach 3) against the plain path on the CPU, with the launch
+    counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ryujin_tpu_torch.kernels import (
+        pk1, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
+    )
+
+    if case in ("periodic vortex", "slabs 2", "slabs 4"):
+        fns = (pk1.pk1, pk2.pk2, pk3.pk3, pk_up.pk_up)
+    else:
+        fns = (pk1_stream.pk1_stream, pk2_stream.pk2_stream,
+               pk3_stream.pk3_stream, pk_up.pk_up)
+    _three_steps_card_vs_cpu(ghost_case(case), fns, [3, 3, 3, 6],
+                             refinement={"periodic vortex": 4,
+                                         "periodic box": 1,
+                                         "SEP cylinder3d": 1}.get(case, 0),
+                             counter="sep_launches" if case.startswith("SEP")
+                             else "launches")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("case", ["ragged box", "ragged step", "cylinder"])
+@pytest.mark.parametrize("case", ["ragged box", "ragged step", "cylinder",
+                                  "periodic vortex", "periodic box", "q3"])
 def test_tiled_kernels_bit_equal_on_card(case, dtype):
     """pk1_stream's e, pk2_stream (U_low, F, bounds) and pk3_stream (P, l,
     okp), each at 2, 1 and 0 stages and at ERK54's 3 and 4, and pk_up (U
@@ -601,17 +676,27 @@ def test_tiled_kernels_bit_equal_on_card(case, dtype):
         d_from_e, d_from_lambda, tau_max_from_d,
     )
 
+    from ryujin_tpu_torch.solver.canvas_step import refresh
+
     dt = getattr(torch, dtype)
     if case == "cylinder":
         _, sd, hm, ti, U0 = build_cylinder3d(1, dt, "cuda", pad_minor=32)
         assert sd.shape[-1] == 32
+    elif case in ("periodic vortex", "periodic box", "q3"):
+        _, sd, hm, ti, U0 = ghost_case(case)(
+            {"periodic vortex": 4, "periodic box": 1, "q3": 0}[case], dt,
+            "cuda")
+        assert (sd.max_degree == 48) == (case == "q3")
     else:
         _, sd, hm, ti, U0 = ragged_case(3 if case == "ragged box" else 2)(
             1 if case == "ragged box" else 0, dt, "cuda")
         assert sd.shape[-1] % 32 and sd.shape[-2] % 4
     eq, p, ca = hm.eq, hm.params, hm.canvas.arrays
     st, half = ca.stencil, hm.half
-    U_a, U, prec = _limited_state(sd, hm, ti, U0, dt, case == "cylinder")
+    U_a, U, prec = _limited_state(sd, hm, ti, U0, dt,
+                                  case in ("cylinder", "periodic vortex",
+                                           "periodic box"))
+    refresh(st, U, prec)
     lam, alpha = pk1_stream.pk1_stream_reference(eq, p, ca, U, prec,
                                                  half=half)
     e_k, alpha_k = pk1_stream.pk1_stream(eq, p, ca, U, prec, half=half)
@@ -626,9 +711,11 @@ def test_tiled_kernels_bit_equal_on_card(case, dtype):
         d = d_from_lambda(full, lam, None)
     else:
         d = d_from_e(full.mask, lam, full.transpose_edge(lam))
+    refresh(st, lam, alpha)
     tau = tau_max_from_d(st, d, 0.9,
                          torch.full((), float("inf"), dtype=dt, device="cuda"))
     stage_U, weights = _stage_inputs(hm, U_a, U)
+    refresh(st, stage_U)
     limited = 0
     for w in weights:
         sU = stage_U[: len(w)]
@@ -638,6 +725,7 @@ def test_tiled_kernels_bit_equal_on_card(case, dtype):
         for name, a, b in zip(("U_low", "F", "bounds"), got2,
                               (U_low, F, bounds)):
             assert torch.equal(a, b), (name, len(w), (a - b).abs().max())
+        refresh(st, F)
         args = (eq, p, ca, U, lam, alpha, F, U_low, bounds, sU, w, tau)
         got = pk3_stream.pk3_stream(*args, half=half)
         want = pk3_stream.pk3_stream_reference(*args, half=half)
@@ -646,9 +734,11 @@ def test_tiled_kernels_bit_equal_on_card(case, dtype):
         limited += int((want[1] < 1).sum())
     assert limited > 0
     P, l = want[:2]
+    refresh(st, l)
     args4 = (eq, p, ca, U_low, bounds, P, l, False)
     (U4, l4), (U4_r, l4_r) = pk_up.pk_up(*args4), pk_up.pk_up_reference(*args4)
     assert torch.equal(U4, U4_r) and torch.equal(l4, l4_r)
+    refresh(st, l4_r)
     args5 = (eq, p, ca, U4_r, bounds, P, l4_r, True)
     assert torch.equal(pk_up.pk_up(*args5)[0],
                        pk_up.pk_up_reference(*args5)[0])

@@ -251,7 +251,7 @@ def test_separable_mode_allocates_no_static_canvas(name):
 def test_separable_raises_where_the_jax_package_would_not_factor():
     """separable=True on a 2D canvas, a dG canvas and a 3D canvas whose
     statics do not factor raises instead of falling back to the full
-    canvases; a padded periodic minor axis (minor_wrap) is refused in
+    canvases; a padded periodic minor axis (minor_wrap) is carried in
     either mode."""
     with pytest.raises(ValueError, match="3D cG"):
         bench.build_step2d(0, torch.float64, "cpu", separable=True)
@@ -268,6 +268,11 @@ def test_separable_raises_where_the_jax_package_would_not_factor():
     with pytest.raises(ValueError, match="do not factor"):
         HyperbolicModule(EQ, bent, init, dtype=torch.float64, device="cpu",
                          separable=True)
+    # a padded periodic minor axis (minor_wrap) is carried in either
+    # mode: its ghost columns are refreshed before every neighbour read
     for sep in (False, True):
-        with pytest.raises(NotImplementedError, match="minor_wrap"):
-            bench.build_cylinder3d(1, torch.float64, "cpu", separable=sep)
+        _, sd, hm, _, _ = bench.build_cylinder3d(1, torch.float64, "cpu",
+                                                 separable=sep)
+        assert sd.minor_wrap == (32, 128)
+        assert hm.stencil.minor_wrap == sd.minor_wrap
+        assert hm.canvas.arrays.separable == sep

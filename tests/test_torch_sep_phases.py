@@ -224,3 +224,50 @@ def test_one_erk33_step_matches_jax(mode):
     assert int(warns) == int(ref[5]) == 0
     assert float(tau) > 0.0
     assert bool(EQ.is_admissible(U[:, torch.as_tensor(real)]).all())
+
+
+def test_separable_step_on_the_minor_wrap_cylinder():
+    """The small cylinder packed with the default pad_minor (its 32-cell
+    angle on a 128-wide minor axis: minor_wrap (32, 128)) in separable
+    mode.  The synthesized planes equal the stored ones on every cell, the
+    ghost columns among them, to the factorization residual (the mask's
+    live set exactly); one bang-bang ERK33 step through CanvasStepper
+    from initial_state("cylinder"), placed vertex by vertex, equals the
+    JAX advance on the exactly packed canvas on every vertex at 5e-11."""
+    from ryujin_tpu_torch.offline.separable import _RTOL
+
+    from test_torch_sep_offline import (
+        _init, make_initial_state, t_assembly, t_geometry, t_structured,
+    )
+
+    mesh = t_geometry.cylinder(refinement=1, dim=3)
+    sd = t_structured.pack_structured(t_assembly.assemble(mesh), mesh,
+                                      margin=(2, 2))
+    assert sd.minor_wrap == (32, 128)
+    hm = thyp.HyperbolicModule(EQ, sd, _init(make_initial_state, EQ,
+                                             "cylinder"),
+                               params=PARAMS, dtype=torch.float64,
+                               device="cpu", separable=True)
+    st = hm.stencil
+    assert st.separable and st.minor_wrap == sd.minor_wrap
+    assert residual(st, sd) <= _RTOL
+    for k in range(K):
+        np.testing.assert_array_equal(st.mask_k(k).numpy(), sd.mask[:, k])
+    exact = sep_case("cylinder").sd
+    n2v, e2v = sd.node_to_vertex, exact.node_to_vertex
+    real, e_real = np.flatnonzero(n2v >= 0), np.flatnonzero(e2v >= 0)
+    order = real[np.argsort(n2v[real], kind="stable")]
+    e_order = e_real[np.argsort(e2v[e_real], kind="stable")]
+    np.testing.assert_array_equal(n2v[order], e2v[e_order])
+    from ryujin_tpu_torch import bench
+
+    U0 = bench.interpolate_nodal(hm.initial_state_fn, sd, EQ, 0.0,
+                                 torch.float64, "cpu").numpy()
+    U0[:, order] = initial_state("cylinder")[:, e_order]
+    out = TimeIntegrator(CanvasSteps(hm), "erk 33", **RECOVERY).advance(
+        to_torch(U0), 0.0, 1
+    )
+    ref = jax_step("cylinder")
+    assert_close(out[0].numpy()[:, order], ref[0][:, e_order], "U")
+    assert_close(out[3], ref[3], "tau")
+    assert int(out[4]) == int(ref[4]) == 0
