@@ -185,7 +185,24 @@ any failure exits non-zero):
    refinement 3 in 4 slabs against 1 after 20 steps, f32; cG Q3 on the
    step at refinement 1, f32: its four kernels against their plain
    versions (timed, pk_up's K = 48 instance among them), then 20 timed
-   steps.
+   steps;
+16. 2D multi-block canvases (offline/multiblock.py: block quilts,
+   extraordinary-vertex side rows, 2:1 AMR), which take the 2D
+   two-direction instances of pk1_stream, pk2_stream and pk3_stream and
+   pk_up, with the cross-block ghost refresh and the side rows
+   (solver/sideband.py) between them.  16a: each kernel against its
+   plain version, on states developed through the kernels, on the
+   cylinder blocks at refinement 1 (f64 and f32) and on amr2d at
+   refinement 8 (f32; timed, with bounds; its setup seconds printed).
+   16b, f64: the annulus at refinement 0, the disk at 1, the cylinder
+   blocks at 1 and the AMR square at 4 (the meshes of
+   tests/test_multiblock.py), 3 ERK33 steps through the canvas kernels
+   against the ELL kernels on the same mesh, every real vertex within
+   rtol 1e-11 / atol 1e-12 and tau within 1e-12, on the two-direction
+   route and, where the canvas has one (no side rows), the half-slot
+   route with the interface fixup.  16c: amr2d at refinement 8, f32,
+   100 warmup + 20 timed ERK33 steps with the gates of phase 3, MQ/s,
+   and the ghost refreshes and side-row calls a substep.
 Each phase prints its seconds ("[seconds]" lines).
 
 pk_up's two launches a substep, PK4 and PK5 (`last`), are timed, bounded
@@ -380,6 +397,24 @@ SLAB_STEPS = 20
 Q3_REFINEMENT = 1
 Q3_DEVELOP_STEPS = 30
 Q3_STEPS = 20
+# phase 16: multi-block canvases.  16a: the 2D two-direction instances
+# and pk_up on states developed for MB_DEVELOP_STEPS steps through the
+# kernels on the cylinder blocks and on amr2d at AMR_REFINEMENT, each
+# kernel against its plain version (f32 with the records at amr2d's
+# shapes, and f64 on the cylinder blocks); 16b: MB_CASES in f64 packed
+# as tests/test_multiblock.py packs them (pad_minor = pad_major = 8),
+# MB_STEPS ERK33 steps through the canvas kernels against the ELL kernels
+# on the same mesh, on each Riemann route the canvas has; 16c: amr2d at
+# AMR_REFINEMENT in f32 through the kernels, AMR_WARMUP + AMR_STEPS steps
+# with the gates of phase 3.  amr2d runs at refinement 8 here (98,000
+# nodes), not at the bench's 9: its host packing, numpy with Python
+# loops, takes about four times as long at each refinement
+MB_CASES = {"annulus": 0, "disk": 1, "cylinder blocks": 1, "amr": 4}
+MB_DEVELOP_STEPS = 20
+MB_STEPS = 3
+AMR_REFINEMENT = 8
+AMR_WARMUP = 100
+AMR_STEPS = 20
 
 # The limiter's l is decided at roundoff where psi is flat at its root,
 # so an ulp of difference in its input state can move one edge by up to
@@ -548,8 +583,9 @@ def bound_ms(name, dim, half, inputs, outputs, mask, live_edges, n_stages,
         K, n = mask.shape[0], mask[0].numel()
         mask_bits = 4 * n * -(-K // 32)
         mask_stored = mask.numel() * mask.element_size()
-    if dim == 3 and name == "pk1_stream" and not half:
-        per_edge += 99 / 2 + 0.5  # lambda and its scaling on every slot
+    if name == "pk1_stream" and not half:
+        # lambda and its scaling on every slot
+        per_edge += {2: 95, 3: 99}[dim] / 2 + 0.5
     if inc is not None:
         stored = inc.numel() * inc.element_size()
         binary = bool(((inc == 0) | (inc == 1)).all())
@@ -787,9 +823,15 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
         d = d_from_e(full.mask, lam, full.transpose_edge(lam))
     else:
         lam = hm._lambda_fixup(lam, U, prescaled=stream)
+        if hm._if is not None:
+            # a multi-block canvas's half-slot route: the interface fixup
+            # after the half-slot refresh, as CanvasStepper.step
+            refresh(st, lam, edges=True)
+            lam = hm._interface_fixup(lam, U)
         d = d_from_lambda(full, lam, None if stream else full.cmax)
     del full
-    refresh(st, lam, alpha)
+    refresh(st, lam, edges=True)
+    refresh(st, alpha)
     cap = torch.full((), float("inf"), dtype=dt, device=U.device)
     tau = tau_max_from_d(st, d, 0.9, cap)
 
@@ -811,14 +853,14 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
     print(f"  {n3} okp {dt} nodes differing: {n_ok}", flush=True)
     ok &= n_ok == 0
 
-    refresh(st, l)
+    refresh(st, l, edges=True)
     args4 = (eq, p, ca, U_low, bounds, P, l, False)
     (U4_k, l4_k), (U4, l4) = run("pk_up", *args4)
     errs[nu] = max(
         err("pk4 U", U4_k, U4, real, "U", exact=True),
         err("pk4 l'", l4_k, l4, live, "l", exact=exact_l),
     )
-    refresh(st, l4)
+    refresh(st, l4, edges=True)
     args5 = (eq, p, ca, U4, bounds, P, l4, True)
     (U5_k, _), (U5, _) = run("pk_up", *args5)
     errs[nu5] = err("pk5 U", U5_k, U5, real, "U", exact=True)
@@ -871,12 +913,15 @@ def compare_kernels(hm, U_a, U_b, tol, reps, records=None, stream=None,
             base + "_last" if name == nu5 else base, dim, half,
             *traffic[name], ca.g_mask, live_edges,
             len(weights) if pk23 else 0, dt, ca.g_inc if pk23 else None)
+        # a 2D canvas on the two-direction route (multi-block) takes the
+        # stream instances where the TPU runs its stacked kernels, sym off
+        tpu = base.replace("_stream", "") if dim == 2 and not half else base
         records[name] = {"max_abs_err": errs[name], "ms": ms,
                          "plain_ms": plain, "bound_ms": least, "bound_by": by,
                          "bound_ms_mask_as_stored": stored,
                          "source": f"ryujin_tpu_torch/csrc/{base}.cu",
                          "replaces": SEP_SOURCE if ca.separable else
-                         TPU_SOURCE[(dim, base, ca.g_inc is not None)]}
+                         TPU_SOURCE[(dim, tpu, ca.g_inc is not None)]}
         print(f"  {name:12s} kernel {ms:.4f} ms   plain {plain:.4f} ms   "
               f"bound {least:.4f} ms ({by}; {stored:.4f} ms with the mask "
               f"as stored)   {100 * least / ms:.1f} % of bound", flush=True)
@@ -2296,8 +2341,8 @@ class poisoned_rows:
                       for name in self.NAMES + ("refresh",)}
         dead, saved = self.dead, self.saved
 
-        def refresh(st, *arrays):
-            saved["refresh"](st, *arrays)
+        def refresh(st, *arrays, **kwargs):
+            saved["refresh"](st, *arrays, **kwargs)
             for X in arrays:
                 if X is not None:
                     X[..., dead] = float("nan")
@@ -2657,6 +2702,168 @@ def check_ghosts(dev, card, records, streamed, stacked, clock):
     records.update(recs)
 
 
+def mb_case(name, refinement, dtype, dev, sym_mb=False):
+    """Case `name` of phase 16b at `refinement` on its multi-block canvas
+    and on the ELL layout of the same assembly, in the dict canvas_vs_ell
+    reads: a uniform Mach-3 flow (1.4, 3.0, 1.0) with a smooth bump,
+    ERK33 at CFL 0.9 / 0.45 with bang-bang recovery; `sym_mb` the
+    half-slot route."""
+    from ryujin_tpu_torch import bench
+    from ryujin_tpu_torch.offline import multiblock
+
+    G = bench.geometry
+    if name == "annulus":
+        mesh = G.annulus(refinement=refinement)
+    elif name == "disk":
+        mesh = G.disk(refinement=refinement)
+    elif name == "cylinder blocks":
+        mesh = G.cylinder(refinement=refinement, variant="blocks")
+    else:
+        mesh = bench.amr2d_mesh(refinement)
+    eq = bench.Euler(dim=2)
+    init = bench.make_initial_state(eq, "uniform",
+                                    primitive_state=(1.4, 3.0, 1.0))
+    data = bench.assembly.assemble(mesh)
+    sd = multiblock.pack_multiblock(data, mesh, pad_minor=8, pad_major=8)
+    packed = bench.ell.pack(data)
+    out = {"sd": sd, "ell": packed, "rtol": TOL_F64["rel"]}
+    for key, packing, kw in (("", sd, {"sym_mb": sym_mb}), ("_e", packed, {})):
+        hm = bench.HyperbolicModule(eq, packing, init, dtype=dtype,
+                                    device=dev, **kw)
+        ti = bench.TimeIntegrator(hm, "erk 33", cfl_min=0.45, cfl_max=0.9,
+                                  cfl_recovery_strategy="bang bang control")
+        U0 = bumped(packing, bench.interpolate_nodal(init, packing, eq, 0.0,
+                                                     dtype, dev))
+        out.update({"hm" + key: hm, "ti" + key: ti, "U0" + key: U0})
+    real = np.flatnonzero(sd.node_to_vertex >= 0)
+    out["real"] = real
+    out["cols"] = packed.vertex_to_node[sd.node_to_vertex[real]]
+    return out
+
+
+def check_multiblock(dev, card, records, streamed, clock):
+    """Phase 16: 2D multi-block canvases (block quilts, extraordinary
+    vertices, 2:1 AMR) through the canvas kernels.  Fills `records` with
+    the 2D two-direction instances and pk_up on a multi-block canvas;
+    fails the run on any error."""
+    from ryujin_tpu_torch import bench
+    from ryujin_tpu_torch.solver.canvas_step import refresh
+    from ryujin_tpu_torch.solver.integrator import TimeIntegrator
+    from ryujin_tpu_torch.solver.sideband import Sideband
+
+    f64, f32 = torch.float64, torch.float32
+    ok = True
+    print(f"phase 16a: the 2D two-direction instances and pk_up on "
+          f"multi-block canvases, on states after {MB_DEVELOP_STEPS} ERK33 "
+          "steps through the kernels", flush=True)
+    c = mb_case("cylinder blocks", 1, f64, dev)
+    hm, ti = c["hm"], c["ti"]
+    sd = c["sd"]
+    print(f"  cylinder blocks, refinement 1, f64: canvas {sd.shape}, "
+          f"{sd.n_nodes} real nodes, {len(sd.ev_side['rows'])} side rows of "
+          f"{sd.ev_side['mask'].shape[1]} slots, route "
+          f"{'half-slot' if hm.half else 'two-direction'}, "
+          f"{'stream' if hm.canvas.stream else 'stacked'} kernels",
+          flush=True)
+    if hm.half or not hm.canvas.stream or hm.sideband is None:
+        fail("phase 16a: the cylinder blocks did not take the two-direction "
+             "stream kernels with side rows")
+    U_a, _, t_a, _, _, _ = ti.advance(c["U0"], 0.0, MB_DEVELOP_STEPS)
+    U_b = ti.advance(U_a, t_a, 1)[0]
+    ok &= compare_kernels(hm, U_a, U_b, TOL_F64, 2, exact_l64=False)
+    hm32 = bench.HyperbolicModule(hm.eq, sd, hm.initial_state_fn,
+                                  dtype=f32, device=dev)
+    ok &= compare_kernels(hm32, U_a.float(), U_b.float(), TOL_F32, 2)
+    del c, hm, ti, hm32
+
+    t0 = time.perf_counter()
+    mesh = bench.amr2d_mesh(AMR_REFINEMENT)
+    t_mesh = time.perf_counter() - t0
+    sd = bench.pack_amr2d(mesh)
+    t_pack = time.perf_counter() - t0 - t_mesh
+    eq = bench.Euler(dim=2)
+    init = bench.make_initial_state(eq, "uniform",
+                                    primitive_state=(1.4, 3.0, 1.0))
+    hm, ti, U0 = bench._modules(eq, sd, init, f32, dev, "bang bang control",
+                                False)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    print(f"  amr2d, refinement {AMR_REFINEMENT}, f32: canvas {sd.shape} "
+          f"(pad_minor {bench.AMR_PAD_MINOR}, pad_major "
+          f"{bench.AMR_PAD_MAJOR}), {sd.n_nodes} real nodes of {sd.n_pad} "
+          f"cells, {len(sd.gmap_node[0])} node and {len(sd.gmap_edge[0])} "
+          f"edge refresh entries, {len(sd.ev_side['rows'])} side rows of "
+          f"{sd.ev_side['mask'].shape[1]} slots; setup {t_setup:.1f} s "
+          f"(mesh {t_mesh:.1f} s, assembly + packing {t_pack:.1f} s, "
+          "module and state the rest)", flush=True)
+    if hm.half or not hm.canvas.stream or hm.sideband is None:
+        fail("phase 16a: amr2d did not take the two-direction stream "
+             "kernels with side rows")
+    U_a, _, t_a, _, _, _ = ti.advance(U0, 0.0, MB_DEVELOP_STEPS)
+    U_b = ti.advance(U_a, t_a, 1)[0]
+    recs = {}
+    ok &= compare_kernels(hm, U_a, U_b, TOL_F32, REPS, recs,
+                          tag="[2D two-direction, amr2d]",
+                          up_tag=" multi-block amr2d")
+    if not ok:
+        fail("phase 16a: a kernel disagrees with its plain version on a "
+             "multi-block canvas")
+    clock.lap("phase 16a")
+
+    print(f"phase 16b: {MB_STEPS} ERK33 steps through the canvas kernels "
+          "against the ELL kernels on the same mesh, f64, each Riemann "
+          "route the canvas has", flush=True)
+    for name, refinement in MB_CASES.items():
+        for sym_mb in (False, True):
+            t0 = time.perf_counter()
+            try:
+                c = mb_case(name, refinement, f64, dev, sym_mb)
+            except ValueError:
+                if not sym_mb:
+                    raise
+                print(f"  {name}: no half-slot route (side rows)",
+                      flush=True)
+                continue
+            sd_c, hm_c = c["sd"], c["hm"]
+            n_side = 0 if sd_c.ev_side is None else len(sd_c.ev_side["rows"])
+            print(f"  {name}, refinement {refinement}: canvas {sd_c.shape}, "
+                  f"{sd_c.n_nodes} real nodes, {n_side} side rows, route "
+                  f"{'half-slot' if hm_c.half else 'two-direction'} "
+                  f"({'stream' if hm_c.canvas.stream else 'stacked'} "
+                  f"kernels), setup {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            ok &= canvas_vs_ell(c, MB_STEPS)[0]
+    if not ok:
+        fail("phase 16b: a multi-block canvas disagrees with ELL")
+    clock.lap("phase 16b")
+
+    launches = run_slice(
+        f"phase 16c, amr2d at refinement {AMR_REFINEMENT}", eq, sd, ti,
+        TimeIntegrator(PlainSteps(hm), "erk 33", cfl_min=0.45, cfl_max=0.9,
+                       cfl_recovery_strategy="bang bang control"),
+        U_a, AMR_WARMUP, AMR_STEPS, 1, streamed,
+        {"pk1_stream": 1, "pk2_stream": 1, "pk3_stream": 1, "pk_up": 2},
+        card, allow_restarts=True)
+    # the glue beside the kernels, a substep: the ghost refreshes (one per
+    # array) and the side rows' calls
+    refresh.launches = Sideband.calls = 0
+    for fn in streamed.values():
+        fn.launches = 0
+    out = ti.advance(U_a, 0.0, 2)
+    substeps = 3 * (2 + int(out[4]))
+    print(f"  per substep: {refresh.launches / substeps:.0f} ghost refreshes, "
+          f"{Sideband.calls / substeps:.0f} side-row calls, kernel launches "
+          f"{ {k: fn.launches / substeps for k, fn in streamed.items()} }",
+          flush=True)
+    print(f"  amr2d setup {t_setup:.1f} s at refinement {AMR_REFINEMENT}",
+          flush=True)
+    for name in ("pk1_stream", "pk2_stream", "pk3_stream"):
+        recs[name + "[2D two-direction, amr2d]"]["launches"] = launches[name]
+    up_launches(recs, "pk_up[K=8 multi-block amr2d]", launches)
+    records.update(recs)
+    clock.lap("phase 16c, amr2d")
+
+
 def per_substep(fns):
     """Launches per substep of each wrapper in `fns`: PK1-PK3 once,
     pk_up twice."""
@@ -2995,6 +3202,11 @@ def main():
     # ---- phase 15: ghost rows and K = 48 --------------------------------------
     check_ghosts(dev, card, records, streamed, stacked, clock)
     clock.lap("phase 15b, cG Q3")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 16: multi-block canvases ---------------------------------------
+    check_multiblock(dev, card, records, streamed, clock)
     print(f"chip_smoke: every phase passed, {time.perf_counter() - t_start:.1f}"
           " s in all", flush=True)
 

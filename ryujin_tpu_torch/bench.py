@@ -5,8 +5,9 @@
     BENCH_CASE=box3d python -m ryujin_tpu_torch.bench
     BENCH_CASE=dg1box3d python -m ryujin_tpu_torch.bench
     BENCH_CASE=cylinder3d RYUJIN_SEP=1 python -m ryujin_tpu_torch.bench
+    BENCH_CASE=amr2d python -m ryujin_tpu_torch.bench
 
-Runs four of bench.py's cases and a dG form of the third on a CUDA
+Runs the five cases of bench.py and a dG form of the third on a CUDA
 device, in f32 with ERK33 through the CUDA kernels:
 
   step2d    (default) cG Q1, refinement 3, CFL 0.9, cfl_recovery_strategy
@@ -33,11 +34,32 @@ device, in f32 with ERK33 through the CUDA kernels:
             Galilei-shifted to x = 1; the two-direction route, CFL
             0.9 / 0.45 with "bang bang control", 1000-step warmup; metric
             euler3d_mach3_cylinder_throughput.
+  amr2d     2D, cG Q1 on bench.py's locally refined square (bench.py:
+            106-126): [-5, 5]^2 at refinement 9 with dirichlet on all four
+            sides, the cells whose centre has |x|, |y| < 2 refined once
+            more (2:1 hanging nodes along the interface), packed as a
+            multi-block canvas (offline/multiblock.py: the blocks of the
+            decomposition split where sparse, the coarse/fine interface
+            rows as extraordinary-vertex side rows); uniform Mach-3 flow
+            (1.4, 3.0, 1.0), the two-direction route, CFL 0.9 / 0.45 with
+            "bang bang control", 1000-step warmup; metric
+            euler2d_amr_adapted_throughput.
+            Its host packing is numpy with Python loops: see the setup
+            line.
+  annulus2d not a case of bench.py: the annulus obstacle
+            (geometry.annulus, slip walls) at refinement 3 packed as
+            amr2d is, a block quilt without side rows, so that
+            RYUJIN_SYM_MB=1 can time the half-slot route against the
+            default two-direction one; metric
+            euler2d_annulus_multiblock_throughput.
 
 RYUJIN_SEP=1 runs a 3D cG case with separable statics (the kernels'
 SEP instances; the full static canvases are not allocated), "0" (the
 default) with the full canvases; any other value is refused, and so is
-"1" on a case whose canvas does not factor (2D, dG).
+"1" on a case whose canvas does not factor (2D, dG).  RYUJIN_SYM_MB=1
+runs a multi-block case on its half-slot route (HyperbolicModule's
+sym_mb), "0" (the default) on the two-direction route; it is refused
+where the canvas has no half-slot route (amr2d: its side rows).
 
 Prints one JSON line {"metric", "value", "unit", "vs_baseline",
 "statics"} (+ "reps" with BENCH_REPS > 1), where value is MQ/s = real
@@ -59,8 +81,10 @@ import time
 
 import torch
 
-from .offline import assembly, ell, geometry, structured
-from .offline.mesh import Boundary
+import numpy as np
+
+from .offline import assembly, ell, geometry, multiblock, structured
+from .offline.mesh import Boundary, refine_local
 
 from .equations.euler import Euler
 from .equations.euler_initial_states import make_initial_state
@@ -80,11 +104,21 @@ def separable_from_env(environ=os.environ) -> bool:
     return value == "1"
 
 
-def _modules(eq, sd, init, dtype, device, recovery, separable):
+def sym_mb_from_env(environ=os.environ) -> bool:
+    """RYUJIN_SYM_MB: "1" for a multi-block canvas's half-slot route, "0"
+    or unset for its two-direction route; any other value raises
+    ValueError."""
+    value = environ.get("RYUJIN_SYM_MB", "0")
+    if value not in ("0", "1"):
+        raise ValueError(f"RYUJIN_SYM_MB={value!r}: expected '0' or '1'")
+    return value == "1"
+
+
+def _modules(eq, sd, init, dtype, device, recovery, separable, **kw):
     """(hm, ti, U0) of a case: the hyperbolic module, ERK33 at CFL
     0.9 / 0.45 with `recovery`, and the interpolated initial state."""
     hm = HyperbolicModule(eq, sd, init, dtype=dtype, device=device,
-                          separable=separable)
+                          separable=separable, **kw)
     ti = TimeIntegrator(hm, "erk 33", cfl_min=0.45, cfl_max=0.9,
                         cfl_recovery_strategy=recovery)
     U0 = interpolate_nodal(init, sd, eq, 0.0, dtype, device)
@@ -240,6 +274,69 @@ def build_cylinder3d(refinement: int, dtype, device, pad_minor: int = 128,
                                "bang bang control", separable)
 
 
+def amr2d_mesh(refinement: int):
+    """bench.py's locally refined square (bench.py:106-126): [-5, 5]^2 at
+    `refinement` with dirichlet on all four sides, the cells whose centre
+    has |x|, |y| < 2 refined once more (mesh.refine_local: 2:1 hanging
+    nodes)."""
+    mesh = geometry.rectangular_domain(
+        [-5.0, -5.0], [5.0, 5.0], [1, 1], refinement=refinement,
+        boundary_conditions=[Boundary.dirichlet] * 4,
+    )
+    centers = mesh.vertices[mesh.cells].mean(axis=1)
+    mesh, _ = refine_local(mesh, (np.abs(centers) < 2.0).all(axis=1))
+    return mesh
+
+
+# The amr2d canvas's padding: its width is a multiple of 32 cells, the
+# x extent of a tile of the staged kernels (csrc/staged.cuh TILE_TX) and
+# of pk_up's rows, and its height of 8 rows; the JAX bench's 128-lane
+# width (the TPU's vreg) is not carried over (ROADMAP "Not carried over").
+# The shelf layout tries widths in steps of pad_minor, so the narrower
+# step also packs the blocks tighter.
+AMR_PAD_MINOR, AMR_PAD_MAJOR = 32, 8
+
+
+def pack_amr2d(mesh, pad_minor: int = AMR_PAD_MINOR,
+               pad_major: int = AMR_PAD_MAJOR):
+    """The multi-block canvas of a 2D mesh as bench.py packs amr2d's: the
+    mesh assembled in cG Q1, the blocks of multiblock.decompose split
+    where sparse."""
+    data = assembly.assemble(mesh)
+    blocks = multiblock.split_sparse_blocks(multiblock.decompose(mesh))
+    return multiblock.pack_multiblock(data, mesh, pad_minor=pad_minor,
+                                      pad_major=pad_major, blocks=blocks)
+
+
+def build_amr2d(refinement: int, dtype, device, separable: bool = False,
+                sym_mb: bool = False):
+    """(eq, sd, hm, ti, U0) of the amr2d case (bench.py:106-126): 2D Euler,
+    uniform Mach-3 flow (1.4, 3.0, 1.0) on amr2d_mesh(refinement), cG Q1
+    on its multi-block canvas, ERK33 at CFL 0.9 / 0.45 with bang-bang
+    recovery (bench.py:160-165); `sym_mb` asks for the half-slot route,
+    which this canvas, with side rows, does not have (ValueError)."""
+    eq = Euler(dim=2)
+    sd = pack_amr2d(amr2d_mesh(refinement))
+    init = make_initial_state(eq, "uniform", primitive_state=(1.4, 3.0, 1.0))
+    return (eq, sd) + _modules(eq, sd, init, dtype, device,
+                               "bang bang control", separable, sym_mb=sym_mb)
+
+
+def build_annulus2d(refinement: int, dtype, device, separable: bool = False,
+                    sym_mb: bool = False):
+    """(eq, sd, hm, ti, U0) of a block quilt without side rows, where a
+    multi-block canvas has both Riemann routes: the annulus obstacle of
+    geometry.annulus (slip walls) at `refinement`, packed as amr2d packs,
+    the uniform Mach-3 flow (1.4, 3.0, 1.0), ERK33 at CFL 0.9 / 0.45 with
+    bang-bang recovery; `sym_mb` the half-slot route with the interface
+    fixup.  Not a case of bench.py: it times the route choice."""
+    eq = Euler(dim=2)
+    sd = pack_amr2d(geometry.annulus(refinement=refinement))
+    init = make_initial_state(eq, "uniform", primitive_state=(1.4, 3.0, 1.0))
+    return (eq, sd) + _modules(eq, sd, init, dtype, device,
+                               "bang bang control", separable, sym_mb=sym_mb)
+
+
 def build_ell(mesh, dtype, device, ansatz: str = "cG Q1",
               recovery: str = "bang bang control", speed: float = 3.0,
               pad_to: int = 8):
@@ -301,6 +398,9 @@ CASES = {
                  "euler3d_mach3_box_dgq1_throughput"),
     "cylinder3d": (build_cylinder3d, 3, 1000,
                    "euler3d_mach3_cylinder_throughput"),
+    "amr2d": (build_amr2d, 9, 1000, "euler2d_amr_adapted_throughput"),
+    "annulus2d": (build_annulus2d, 3, 1000,
+                  "euler2d_annulus_multiblock_throughput"),
 }
 
 
@@ -339,10 +439,11 @@ def main():
     warmup = int(os.environ.get("BENCH_WARMUP", str(warmup_default)))
     reps = int(os.environ.get("BENCH_REPS", "1"))
     separable = separable_from_env()
+    kw = {"sym_mb": True} if sym_mb_from_env() else {}
 
     t0 = time.perf_counter()
     _, sd, hm, ti, U0 = build_case(refinement, torch.float32, "cuda",
-                                   separable=separable)
+                                   separable=separable, **kw)
     print(f"setup {time.perf_counter() - t0:.1f} s: {case}, canvas "
           f"{sd.shape}, {sd.n_nodes} real nodes, K = {sd.max_degree}, "
           f"{'separable' if separable else 'full'} statics (factoring "

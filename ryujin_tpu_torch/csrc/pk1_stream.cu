@@ -16,6 +16,15 @@
 //   hyperbolic module takes this route when the coupling-boundary-pair set
 //   is too large for the half-slot fixup (a 3D box's whole surface).
 //
+// In 2D the two-direction route is that of a multi-block canvas
+// (offline/multiblock.py), whose rotated block frames break the k <->
+// K-1-k slot pairing at interfaces: the TPU runs the stacked pk1 / pk2 /
+// pk3 there with sym off (pallas_step.py:2709-2735, 2796-2810, 2925,
+// 3152); the port's stacked kernels are built around the K/2 half-slot
+// lambda planes, so that route takes this template's DIM = 2, HALF =
+// false instance instead, reading e across an interface after the
+// reader-frame refresh (gmap_edge) as it reads it on one block.
+//
 // Bound on an H100: memory traffic.  At K = 26 in 3D it reads c_ij (78
 // planes), the mask (26), the node planes, U (5) and prec, and writes e
 // (13 or 26) and alpha (1).
@@ -339,6 +348,9 @@ int launch_pk1_stream(const T* cij, const T* cmax, const T* mask, const T* node,
   if (consts->dim == 2 && consts->half)
     return launch_pk1_stream_tile<T, 2, true>(cij, cmax, mask, node, U, prec, e_out, alpha, e,
                                               consts, stream);
+  if (consts->dim == 2)
+    return launch_pk1_stream_tile<T, 2, false>(cij, cmax, mask, node, U, prec, e_out, alpha, e,
+                                               consts, stream);
   if (consts->dim == 3 && consts->half)
     return launch_pk1_stream_tile<T, 3, true>(cij, cmax, mask, node, U, prec, e_out, alpha, e,
                                               consts, stream);

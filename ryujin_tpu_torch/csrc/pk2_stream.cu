@@ -16,7 +16,8 @@
 // The graph viscosity of slot k (_slot_d, :2056-2070), by route (HALF):
 // half-slot, e_k at the cell for k < K/2 and plane K-1-k of neighbour k
 // otherwise; two-direction, max(e_k at the cell, plane K-1-k of
-// neighbour k).
+// neighbour k).  The 2D two-direction instance is the route of a
+// multi-block canvas (see pk1_stream.cu).
 //
 // Design, full statics (pk2_stream_tile_kernel): a block (32, TY, TZ) owns
 // a tile of TY rows of TILE_TX = 32 cells, in 3D at TZ consecutive z, one thread a cell; the grid covers the
@@ -429,6 +430,9 @@ int launch_pk2_stream_route(const T* cij, const T* mask, const T* inc, const T* 
   if (consts->dim == 2 && consts->half)
     return launch_pk2_stream_tile<T, 2, true, DG, MS>(cij, mask, inc, cii, node, U, prec, ed, alpha,
                                                   sU, tau, U_low, F, bounds, e, consts, stream);
+  if (consts->dim == 2)
+    return launch_pk2_stream_tile<T, 2, false, DG, MS>(cij, mask, inc, cii, node, U, prec, ed, alpha,
+                                                   sU, tau, U_low, F, bounds, e, consts, stream);
   if (consts->dim == 3 && consts->half)
     return launch_pk2_stream_tile<T, 3, true, DG, MS>(cij, mask, inc, cii, node, U, prec, ed, alpha,
                                                   sU, tau, U_low, F, bounds, e, consts, stream);

@@ -49,7 +49,8 @@
 // :2498), and masked slots write P = 0 and l = 0, so pk_up needs no guard
 // on its transposed read of l.  The limiter returns per lane where
 // psi(t_r) > 0 (exact, see limiter_limit).  The graph viscosity of slot k
-// is read by route (HALF) as in pk2_stream.cu; cmax is not read.  Every
+// is read by route (HALF) as in pk2_stream.cu (the 2D two-direction
+// instance is the route of a multi-block canvas); cmax is not read.  Every
 // slot does the arithmetic of the plain twin (pk3_stream_reference) in its
 // order, so P, l and okp are bit-equal to it.
 //
@@ -276,6 +277,10 @@ int launch_pk3_stream_route(const T* cij, const T* mij, const T* mask, const T* 
       return launch_pk3_stream_instance<T, 2, true, DG, ST, MS>(cij, mij, mask, inc, node, U, ed,
                                                             alpha, F, U_low, bounds, sU, tau, P,
                                                             l, okp, g2, fz, e, consts, stream);
+    if (consts->dim == 2)
+      return launch_pk3_stream_instance<T, 2, false, DG, ST, MS>(cij, mij, mask, inc, node, U, ed,
+                                                             alpha, F, U_low, bounds, sU, tau, P,
+                                                             l, okp, g2, fz, e, consts, stream);
   }
   if (consts->dim == 3 && consts->half)
     return launch_pk3_stream_instance<T, 3, true, DG, ST, MS>(cij, mij, mask, inc, node, U, ed, alpha,

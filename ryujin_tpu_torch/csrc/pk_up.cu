@@ -35,9 +35,12 @@
 // 0.30 ms against 0.43 (H100 SXM, 700 W; PERF.md §6).  The re-limit
 // loop is not unrolled: K inlined limiter bodies (≈30,000 instructions at
 // K = 24) thrashed the instruction cache in the one-thread-per-cell form
-// (rolled 16 % faster at K = 24, 3 times at K = 26 on a blast state).  No
-// mask on the transposed read is needed: this is a single-block canvas
-// and PK3 writes l = 0 on every masked slot.  The arithmetic per cell and
+// (rolled 16 % faster at K = 24, 3 times at K = 26 on a blast state).  The
+// transposed l is read on live slots only.  On a multi-block canvas a live
+// slot's neighbour may be a ghost cell in another block's frame: once l is
+// refreshed through gmap_edge, plane K-1-k there holds l of the transposed
+// edge (j -> i), the entry that the JAX package's mask_lT guards
+// (pallas_step.py:3280); a masked slot reads nothing.  The arithmetic per cell and
 // slot is that of the plain twin (pk_up_reference), in its order, so U
 // and l' are bit-equal.  PK4 at K = 8 keeps the one-thread-per-cell form
 // (pk_up_kernel), and PK5 its single pass in a kernel of its own

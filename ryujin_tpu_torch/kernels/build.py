@@ -275,19 +275,14 @@ def consts(eq, params, ca, stage_weights=(), half=True) -> Consts:
     """The scalars every kernel takes, from the equation, the module
     parameters, the canvas (2D [H, W] or 3D [D, H, W]), the (static) stage
     weights and the route of the stream kernels: half=True for the
-    half-slot pre-scaled wavespeeds, False for the two-direction ones
-    (instantiated for 3D canvases only)."""
+    half-slot pre-scaled wavespeeds, False for the two-direction ones (in
+    2D the route of multi-block canvases)."""
     fields = _equation_fields(eq, params, ca.measure_inv, stage_weights)
     dim = len(ca.shape)
     if ca.K > MAX_K or dim not in (2, 3):
         raise ValueError(
             f"the kernels take a 2D or 3D canvas with at most {MAX_K} "
             f"lattice offsets, not {ca.K} on {ca.shape}"
-        )
-    if dim == 2 and not half:
-        raise ValueError(
-            "the two-direction route of the stream kernels is built for 3D "
-            "canvases only"
         )
     D, H, W = canvas_dims(ca.shape)
     offsets = [(0,) * (3 - dim) + tuple(o) for o in ca.offsets]

@@ -6,7 +6,9 @@ csrc/pk1_stream.cu, a staged tile of launch shape tile(); TPU kernel
 Two routes (`half`): the half-slot route writes the pre-scaled e = lambda
 * cmax [K/2, n] (prescale), the two-direction route e = |c_ij| lambda
 [K, n] on every slot (3D canvases whose coupling-boundary-pair set is too
-large for the half-slot fixup; `sym` False in _step_slab).  With
+large for the half-slot fixup, `sym` False in _step_slab, and 2D
+multi-block canvases, whose interfaces break the slot pairing: the TPU
+runs its stacked pk1 there with sym off, pallas_step.py:2709-2735).  With
 separable statics (a 3D cG canvas) it launches the SEP instance, which
 synthesizes c_ij, the mask and cmax per offset (_SepTile, pallas_step.py:
 1092-1164, in _pk1_stream :1915-1917, 1974, 2003)."""

@@ -51,7 +51,8 @@ def pk2_stream_reference(eq, p, ca, U, prec, e, alpha, stage_U, stage_weights,
     ws = list(stage_weights)
     weight = 1.0 - sum(ws)
     regularization = 100.0 * torch.finfo(U.dtype).tiny
-    U, prec, e, alpha = map(st.refresh_ghosts, (U, prec, e, alpha))
+    U, prec, alpha = map(st.refresh_ghosts, (U, prec, alpha))
+    e = st.refresh_edges(e)
     f = eq.f(U)
     cii = st.c_ii()
     flux_ii = eq.flux_divergence(f, f, cii)

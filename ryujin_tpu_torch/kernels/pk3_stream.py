@@ -26,7 +26,8 @@ def pk3_stream_reference(eq, p, ca, U, e, alpha, F, U_low, bounds, stage_U,
     st = ca.stencil
     ws = list(stage_weights)
     weight = 1.0 - sum(ws)
-    U, e, alpha, F = map(st.refresh_ghosts, (U, e, alpha, F))
+    U, alpha, F = map(st.refresh_ghosts, (U, alpha, F))
+    e = st.refresh_edges(e)
     f = eq.f(U)
     f_s = [eq.f(st.refresh_ghosts(stage_U[s])) for s in range(len(ws))]
     pfac = tau * st.m_lumped_inv * st.n_nbrs

@@ -46,7 +46,7 @@ def pk_up_reference(eq, p, ca, U_cur, bounds, P, l, last):
     K = st.K
     on = [st.live_k(k) for k in range(K)]
     zero = torch.zeros_like(l[0])
-    l_ghosts = st.refresh_ghosts(l)
+    l_ghosts = st.refresh_edges(l)
     l_sym = [
         torch.where(on[k], torch.minimum(
             l[k], st.shift(l_ghosts[K - 1 - k], off)), zero)

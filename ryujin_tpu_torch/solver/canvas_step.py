@@ -1,35 +1,43 @@
-"""The substep on the single-block 2D or 3D canvas through the CUDA
-kernels: the counterpart of ryujin_tpu/solver/pallas_step.py
+"""The substep on the 2D or 3D canvas through the CUDA kernels: the
+counterpart of ryujin_tpu/solver/pallas_step.py
 (PallasStepper.step, :2582-3318, and its 3D z-slab form _step_slab,
 :2072-2579).
 
 One substep launches, in order: PK1 (wavespeeds + alpha), the
 boundary-pair fixup, the d rebuild and tau reduction in torch, PK2
 (U_low, F, bounds), PK3 (P, first limiter pass, okp), and pk_up twice
-(PK4 re-limits, PK5 is the last update).  On a dG canvas PK2 and PK3
-read the incidence planes (g_inc) as well.  A 2D reach-1 canvas (cG or
-dG Q1, K = 8) runs pk1 / pk2 / pk3 on the raw lambda; a 2D canvas of a
-larger reach (cG or dG Q2: reach 2, K = 24) and a 3D canvas (cG or dG
-Q1: K = 26) run the slot-streaming pk1_stream / pk2_stream / pk3_stream
-(`CanvasStepper.stream`), as the JAX package does (pallas_step.py:2626;
-its 3D dG canvas takes the stacked 3D launcher instead, :1226-1234).
-The stream kernels take one of two routes, chosen once by the hyperbolic
-module (`half`): the half-slot pre-scaled e = lambda * cmax with the
-boundary-pair fixup, or, when the boundary-pair set is too large for
-that fixup (a 3D box's whole surface), the two-direction e = |c_ij|
-lambda on every slot with d = max(e, e_T) and no fixup.  With separable
-statics (a 3D cG canvas that is an extrusion along z,
+(PK4 re-limits, PK5 is the last update). On a dG canvas PK2 and PK3 read
+the incidence planes (g_inc) as well.  A 2D reach-1 canvas (cG or dG Q1,
+K = 8) on the half-slot route runs pk1 / pk2 / pk3 on the raw lambda; a
+2D canvas of a larger reach (cG or dG Q2: reach 2, K = 24) and a 3D
+canvas (cG or dG Q1: K = 26) run the slot-streaming pk1_stream /
+pk2_stream / pk3_stream (`CanvasStepper.stream`), as the JAX package
+does (pallas_step.py:2626; its 3D dG canvas takes the stacked 3D
+launcher instead, :1226-1234). The stream kernels take one of two
+routes, chosen once by the hyperbolic module (`half`): the half-slot
+pre-scaled e = lambda * cmax with the boundary-pair fixup, or, when the
+boundary-pair set is too large for that fixup (a 3D box's whole surface)
+and on a 2D multi-block canvas, the two-direction e = |c_ij| lambda on
+every slot with d = max(e, e_T) and no fixup.  With separable statics (a
+3D cG canvas that is an extrusion along z,
 `CanvasArrays.from_structured(separable=True)`) the kernels take their
 SEP instances, which synthesize c_ij, m_ij, the mask, c_ii and cmax from
 z-profiles and 2D fields, and the d / tau glue rebuilds d offset by
-offset from the synthesized mask (pallas_step.py:2198-2212).  On a
-canvas with ghost rows (periodic ghost bands, slabs of canvas axis 0, a
-padded periodic minor axis) `refresh` copies the wrapped real rows into
-the ghost rows of each array before a kernel reads it at its neighbours,
+offset from the synthesized mask (pallas_step.py:2198-2212). On a canvas
+with ghost rows (periodic ghost bands, slabs of canvas axis 0, a padded
+periodic minor axis) `refresh` copies the wrapped real rows into the
+ghost rows of each array before a kernel reads it at its neighbours,
 where PallasStepper refreshes (pallas_step.py:1646-1810, 2611-2620,
-2789-2790, 3017, 3253, 3316).  Every kernel wrapper runs its plain-torch
-reference for CPU tensors, so the same orchestration is testable on the
-CPU.
+2789-2790, 3017, 3253, 3316). A 2D multi-block canvas
+(offline/multiblock.py) refreshes its cross-block ghost cells at the
+same points, node arrays from their owners and edge arrays through the
+reader-frame slot permutation; its extraordinary-vertex rows are
+computed beside the kernels (solver/sideband.py) and written into their
+outputs in the order of pallas_step.py:2777-2825, 3002 and 3281. Its
+half-slot route (the hyperbolic module's sym_mb) keeps the stacked K = 8
+kernels and adds the interface fixup after the half-slot refresh.  Every
+kernel wrapper runs its plain-torch reference for CPU tensors, so the
+same orchestration is testable on the CPU.
 """
 
 from __future__ import annotations
@@ -55,7 +63,9 @@ from ..kernels.pk_up import pk_up
 from .hyperbolic import (
     d_from_e, d_from_lambda, tau_max_from_d, tau_max_from_row_sum,
 )
-from .stencil import StructuredStencil, check_single_block
+from .stencil import (
+    StructuredStencil, check_single_block, half_edge_map, sorted_map,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +102,10 @@ class CanvasArrays:
     ghosts: Tuple[Optional[Tuple[int, int]], ...] = ()
     slab_spec: Optional[Tuple[int, int, int]] = None
     minor_wrap: Optional[Tuple[int, int]] = None
+    # the multi-block refresh maps (StructuredStencil has their layout)
+    gmap_node: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    gmap_edge: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    gmap_edge_half: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
     def K(self) -> int:
@@ -134,6 +148,9 @@ class CanvasArrays:
             ghosts=self.ghosts,
             slab_spec=self.slab_spec,
             minor_wrap=self.minor_wrap,
+            gmap_node=self.gmap_node,
+            gmap_edge=self.gmap_edge,
+            gmap_edge_half=self.gmap_edge_half,
         )
 
     @staticmethod
@@ -210,6 +227,17 @@ class CanvasArrays:
             )
         lumped = sd.lumped_mass.reshape((1,) + canvas)
         value_mask = sd.node_mask if sd.value_mask is None else sd.value_mask
+        maps = {}
+        if sd.gmap_node is not None:
+            fix = sd.sym_fixup
+            maps = dict(
+                gmap_node=sorted_map(sd.gmap_node, device),
+                gmap_edge=sorted_map(sd.gmap_edge, device),
+                # the half-slot route's map; a canvas without the interface
+                # fixup list (one with side rows) has no half-slot route
+                gmap_edge_half=None if fix is None else sorted_map(
+                    half_edge_map(sd, skip=fix["dst"]), device),
+            )
         return CanvasArrays(
             shape=canvas,
             offsets=offsets,
@@ -218,6 +246,7 @@ class CanvasArrays:
             ghosts=tuple(sd.ghosts or (None,) * len(canvas)),
             slab_spec=sd.slab_spec,
             minor_wrap=sd.minor_wrap,
+            **maps,
             **statics,
             g_node=canv(
                 np.concatenate(
@@ -243,14 +272,18 @@ class CanvasArrays:
         )
 
 
-def refresh(st: StructuredStencil, *arrays) -> None:
-    """Copy the wrapped real rows into the ghost rows of each node or edge
-    array [..., n] of the canvas, in place, by torch slice assignments on
-    the current stream (the XLA glue of PallasStepper._refresh,
-    _refresh_zm and _refresh_edge, pallas_step.py:1646-1810: the whole
-    g-row bands, where the TPU path copies `reach` rows of the slab bands).
-    A no-op on a canvas without ghosts; else each array adds one to
-    `refresh.launches`.  None entries are skipped."""
+def refresh(st: StructuredStencil, *arrays, edges: bool = False) -> None:
+    """Refresh the ghost rows of each node array [..., n] of the canvas (or
+    with `edges` each edge array [..., k, n]), in place, by torch index and
+    slice copies on the current stream (the XLA glue of
+    PallasStepper._refresh, _refresh_zm, _refresh_edge and
+    _refresh_edge_half, pallas_step.py:1646-1823: multi-block ghost cells
+    from their owners through gmap_node, or through gmap_edge with the
+    reader-frame slot permutation; the whole g-row bands, where the TPU
+    path copies `reach` rows of the slab bands).  On a single-block canvas
+    an edge array takes the node copies slot by slot, so `edges` changes
+    nothing there.  A no-op on a canvas without ghosts; else each array
+    adds one to `refresh.launches`.  None entries are skipped."""
     if not st.have_ghosts:
         return
     for X in arrays:
@@ -258,7 +291,10 @@ def refresh(st: StructuredStencil, *arrays) -> None:
             continue
         if not X.is_contiguous():
             raise ValueError("refresh takes contiguous arrays")
-        st.refresh_ghosts_(X)
+        if edges:
+            st.refresh_edges_(X)
+        else:
+            st.refresh_ghosts_(X)
         refresh.launches += 1
 
 
@@ -267,25 +303,29 @@ refresh.launches = 0
 
 class CanvasStepper:
     """Runs HyperbolicModule.step through the kernels.  Takes the Euler
-    equations on a single-block lattice canvas, 2D of reach 1 or more or
-    3D of reach 1, of a continuous or a discontinuous ansatz, with or
-    without ghosts (periodic ghost bands, slabs of canvas axis 0, a padded
-    periodic minor axis: the kernels read every neighbour through the
-    canvas's wrap, and `refresh` copies the ghost rows of each array
-    before a kernel reads its neighbours), and rejects any other
-    configuration (initial precomputed values, a sideband, multi-block).
-    A dG canvas (cG's lattice with the incidence beta_ij,
-    `CanvasArrays.g_inc`) takes the kernel form of its reach and
-    dimension, as a cG one does: dG Q1 in 2D the stacked pk1 / pk2 / pk3,
-    dG Q2 in 2D and dG Q1 in 3D the stream forms; PK2 and PK3 then raise
-    the high-order viscosity factor to beta_ij.  `half` is the hyperbolic
-    module's choice of Riemann route: the half-slot evaluation with
-    `lambda_fixup`, or the two-direction evaluation on every slot (3D
-    canvases only).  `separable` keeps the statics as factors (3D cG
-    canvases only; see CanvasArrays.from_structured)."""
+    equations on a lattice canvas, 2D of reach 1 or more or 3D of reach 1,
+    of a continuous or a discontinuous ansatz, with or without ghosts
+    (periodic ghost bands, slabs of canvas axis 0, a padded periodic minor
+    axis, or the cross-block ghost cells of a 2D multi-block canvas: the
+    kernels read every neighbour through the canvas, and `refresh` copies
+    the ghost rows of each array before a kernel reads its neighbours),
+    and rejects any other configuration (initial precomputed values,
+    extruded multi-block quilts).  A dG canvas (cG's lattice with the
+    incidence beta_ij, `CanvasArrays.g_inc`) takes the kernel form of its
+    reach and dimension, as a cG one does: dG Q1 in 2D the stacked pk1 /
+    pk2 / pk3, dG Q2 in 2D and dG Q1 in 3D the stream forms; PK2 and PK3
+    then raise the high-order viscosity factor to beta_ij.  `half` is the
+    hyperbolic module's choice of Riemann route: the half-slot evaluation
+    with `lambda_fixup` (and on a multi-block canvas `interface_fixup`), or
+    the two-direction evaluation on every slot, which takes the stream
+    forms in 2D as in 3D.  `sideband` (solver/sideband.py) computes the
+    extraordinary-vertex rows of a multi-block canvas, which the kernels'
+    outputs are then overwritten with.  `separable` keeps the statics as
+    factors (3D cG canvases only; see CanvasArrays.from_structured)."""
 
     def __init__(self, eq, params, sd: StructuredData, dtype, device,
-                 lambda_fixup: Callable, half: bool, separable: bool = False):
+                 lambda_fixup: Callable, half: bool, separable: bool = False,
+                 interface_fixup: Optional[Callable] = None, sideband=None):
         if getattr(eq, "name", None) != "euler" or sd.dim not in (2, 3):
             raise ValueError("the canvas kernels take the 2D or 3D Euler "
                              "equations")
@@ -299,18 +339,26 @@ class CanvasStepper:
                 f"canvas's reach ({reach}) in 2D, and of reach 1 (K = 26) in "
                 f"3D, not K = {len(offsets)} in {sd.dim}D"
             )
+        if sideband is not None and half:
+            raise ValueError("the side rows take the two-direction route")
         self.eq = eq
         self.params = params
         self.lambda_fixup = lambda_fixup
+        self.interface_fixup = interface_fixup
+        self.sideband = sideband
         # The one place that chooses the kernel form: a 2D canvas of
-        # reach > 1 and every 3D canvas run the slot-streaming PK1-PK3, a
-        # 2D reach-1 canvas the stacked K = 8 kernels (PallasStepper
-        # decides the same at pallas_step.py:2734-2745, 2982-2985,
-        # 3040-3042 and, for 3D, :1226-1234 and :2626).  The ansatz does
-        # not enter: a 3D dG canvas, which the JAX package sends to the
-        # stacked 3D launcher (_tiled_call_3d, :597), runs the 3D stream
-        # forms here, as a cG one does.
-        self.stream = reach > 1 or sd.dim == 3
+        # reach > 1, every 3D canvas and the two-direction route run the
+        # slot-streaming PK1-PK3, a 2D reach-1 canvas on the half-slot
+        # route the stacked K = 8 kernels (PallasStepper decides the same
+        # at pallas_step.py:2734-2745, 2982-2985, 3040-3042 and, for 3D,
+        # :1226-1234 and :2626).  The TPU runs a 2D multi-block canvas on
+        # the two-direction route through its stacked kernels with sym off
+        # (:2709-2735); the port's stacked kernels hold the K/2 half-slot
+        # planes, so that route takes the 2D two-direction stream
+        # instances.  The ansatz does not enter: a 3D dG canvas, which the
+        # JAX package sends to the stacked 3D launcher (_tiled_call_3d,
+        # :597), runs the 3D stream forms here, as a cG one does.
+        self.stream = reach > 1 or sd.dim == 3 or not half
         self.half = half
         self.arrays = CanvasArrays.from_structured(sd, dtype, device,
                                                    separable)
@@ -320,6 +368,7 @@ class CanvasStepper:
              compute_tau):
         """Same contract as HyperbolicModule.step."""
         eq, p, ca, st = self.eq, self.params, self.arrays, self.stencil
+        sb = self.sideband
         # the inputs' ghost rows, before PK1 (pallas_step.py:2611-2620)
         refresh(st, U, prec, stage_U)
         if self.stream:
@@ -328,7 +377,15 @@ class CanvasStepper:
             if half:
                 # e = lambda * cmax: the glue and PK2/PK3 never read cmax
                 lam = self.lambda_fixup(lam, U, prescaled=True)
-            refresh(st, lam, alpha)
+            if sb is not None:
+                # the side rows' e and alpha, written where the canvas
+                # reads them BEFORE the edge refresh, so that their owner
+                # slots propagate (pallas_step.py:2777-2790)
+                e_s, alpha_s = sb.e_alpha(U, prec)
+                sb.scatter_edge_(lam, e_s)
+                sb.scatter_rows_(alpha, alpha_s)
+            refresh(st, lam, edges=True)
+            refresh(st, alpha)
             if st.separable:
                 # the row sums of d offset by offset from the synthesized
                 # mask: no K-plane static mask lives in the glue
@@ -348,25 +405,58 @@ class CanvasStepper:
         else:
             lam, alpha = pk1(eq, p, ca, U, prec)
             lam = self.lambda_fixup(lam, U)
-            refresh(st, lam, alpha)
+            refresh(st, lam, edges=True)
+            if self.interface_fixup is not None:
+                # the two-direction values at the interface routes that
+                # the half-slot pairing breaks (pallas_step.py:2766-2775)
+                lam = self.interface_fixup(lam, U)
+            refresh(st, alpha)
             d = d_from_lambda(st, lam, ca.g_cmax.reshape(ca.K, -1))
             tau_max = tau_max_from_d(st, d, cfl, tau_cap)
             run_pk2, run_pk3 = pk2, pk3
+        if sb is not None:
+            # the canvas d_ii of a side row misses its unembedded edges:
+            # the side rows' tau takes part in the min (:2821-2825)
+            d_s = sb.d_side(e_s, lam)
+            tau_max = torch.minimum(tau_max, sb.tau_side(d_s, cfl, tau_cap))
         if compute_tau:
             tau = tau_max
         U_low, F, bounds = run_pk2(
             eq, p, ca, U, prec, lam, alpha, stage_U, stage_weights, tau
         )
+        if sb is not None:
+            Ul_s, F_s, b_s = sb.low_order(U, prec, d_s, alpha, tau, stage_U,
+                                          stage_weights)
+            sb.scatter_rows_(U_low, Ul_s)
+            sb.scatter_rows_(F, F_s)
+            sb.scatter_rows_(bounds, b_s)
         refresh(st, F)
         P, l, okp = run_pk3(
             eq, p, ca, U, lam, alpha, F, U_low, bounds, stage_U,
             stage_weights, tau,
         )
+        if sb is not None:
+            P_s, l_s, succ_s = sb.p_l1(U, d_s, alpha, tau, F, st.m_lumped,
+                                       Ul_s, b_s, stage_U, stage_weights)
+            sb.scatter_edge_(l, l_s)
+            # the side rows' partial canvas success is replaced (:3002)
+            sb.scatter_rows_(okp, torch.ones_like(alpha_s))
         ok = okp.min() > 0.5
+        if sb is not None:
+            ok = ok & torch.all(succ_s | (sb.st.mask == 0.0))
         U_cur = U_low
+        U_side = Ul_s if sb is not None else None
         for it in range(p.limiter_iterations):
             last = it + 1 == p.limiter_iterations
             # l after PK3 and after each PK4 (pallas_step.py:3253, 3316)
-            refresh(st, l)
-            U_cur, l = pk_up(eq, p, ca, U_cur, bounds, P, l, last)
+            refresh(st, l, edges=True)
+            U_next, l_next = pk_up(eq, p, ca, U_cur, bounds, P, l, last)
+            if sb is not None:
+                # the side pass reads the same pass's canvas l (:3281-3310)
+                U_side, l_s_next = sb.update(U_side, b_s, P_s, l_s, l, last)
+                sb.scatter_rows_(U_next, U_side)
+                if not last:
+                    sb.scatter_edge_(l_next, l_s_next)
+                    l_s = l_s_next
+            U_cur, l = U_next, l_next
         return U_cur, tau, ok

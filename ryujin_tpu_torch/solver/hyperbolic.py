@@ -2,26 +2,29 @@
 convex limiting (ryujin_tpu/solver/hyperbolic.py).
 
 Scope: the Euler equations on the padded-ELL gather stencil (offline/
-ell.py: 1D, 2D and 3D, any mesh, cG or dG; the two-direction wavespeeds on
-every slot, no boundary-pair fixup, scatter boundary conditions, as the
-JAX package runs ELL), or on a single-block structured canvas, with or
-without ghosts (periodic ghost bands, slabs, a padded periodic minor
-axis: every neighbour read refreshes them first), 2D of any lattice
-reach (the Mach-3 step of bench cases step2d, cG Q1 with K = 8, and
-q2step2d, cG Q2 with K = 24; cG Q3 with K = 48) or 3D of reach 1 (the
-Mach-3 box of bench cases box3d, cG Q1 with K = 26, and dg1box3d, dG Q1
-with K = 26),
-continuous or discontinuous (the dG incidence raises the high-order
-viscosity factor to beta_ij, `viscosity_factor`), with the scatter route
-for boundary conditions; a 3D cG canvas that is an extrusion along z (the
-Mach-3 box, the cylinder o-grid of bench case cylinder3d) may keep its
-statics as separable factors.  The Riemann wavespeeds take the symmetric
-half-slot evaluation with the coupling-boundary-pair fixup, or, above
-the JAX package's cut-off on the size of that pair set, the
-two-direction evaluation on every slot.  The phase functions are plain
-tensor code on full canvases or the ELL stencil; `HyperbolicModule.step`
-runs them for CPU tensors and the hand-written CUDA kernels
-(solver/canvas_step.py, solver/ell_step.py) for CUDA tensors.
+ell.py: 1D, 2D and 3D, any mesh, cG or dG; the two-direction wavespeeds
+on every slot, no boundary-pair fixup, scatter boundary conditions, as
+the JAX package runs ELL), or on a structured canvas, with or without
+ghosts (periodic ghost bands, slabs, a padded periodic minor axis, the
+cross-block ghost cells of a 2D multi-block canvas with its
+extraordinary-vertex side rows, solver/sideband.py: every neighbour read
+refreshes them first), 2D of any lattice reach (the Mach-3 step of bench
+cases step2d, cG Q1 with K = 8, and q2step2d, cG Q2 with K = 24; cG Q3
+with K = 48) or 3D of reach 1 (the Mach-3 box of bench cases box3d, cG
+Q1 with K = 26, and dg1box3d, dG Q1 with K = 26), continuous or
+discontinuous (the dG incidence raises the high-order viscosity factor
+to beta_ij, `viscosity_factor`), with the scatter route for boundary
+conditions; a 3D cG canvas that is an extrusion along z (the Mach-3 box,
+the cylinder o-grid of bench case cylinder3d) may keep its statics as
+separable factors.  The Riemann wavespeeds take the symmetric half-slot
+evaluation with the coupling-boundary-pair fixup, or, above the JAX
+package's cut-off on the size of that pair set and on a multi-block
+canvas unless its half-slot route (with the interface fixup) is asked
+for, the two-direction evaluation on every slot.  The phase functions
+are plain tensor code on full canvases or the ELL stencil;
+`HyperbolicModule.step` runs them for CPU tensors and the hand-written
+CUDA kernels (solver/canvas_step.py, solver/ell_step.py) for CUDA
+tensors.
 
 Differences from the JAX signatures: stage weights are static Python
 floats (the JAX lax.cond on a zero weight becomes a Python `if`), and the
@@ -134,6 +137,34 @@ def _boundary_pair_data(sd: StructuredData, dtype, device):
     }
 
 
+def _interface_fixup_data(fix, dtype, device):
+    """The multi-block interface fixup list (StructuredData.sym_fixup) on
+    the device, as hyperbolic.py:1332-1356 builds it: the unit normals of
+    the forward and reverse c_ij, and their norms over cmax, all computed
+    from c_ij rounded to `dtype`."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    tiny = float(np.finfo(np_dtype).tiny)
+    c_f = np.asarray(fix["c_f"], np_dtype)
+    c_r = np.asarray(fix["c_r"], np_dtype)
+    nf = np.sqrt(np.sum(c_f * c_f, axis=1))
+    nr = np.sqrt(np.sum(c_r * c_r, axis=1))
+    icm = np.asarray(fix["inv_cmax"], np_dtype)
+
+    def t(x, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dt,
+                               device=device)
+
+    return {
+        "dst": t(fix["dst"], torch.int64),
+        "i": t(fix["i"], torch.int64),
+        "j": t(fix["j"], torch.int64),
+        "n_f": t((c_f / np.maximum(nf, tiny)[:, None]).T),
+        "n_r": t((c_r / np.maximum(nr, tiny)[:, None]).T),
+        "w_f": t(nf * icm),
+        "w_r": t(nr * icm),
+    }
+
+
 def _owner_index(sd: StructuredData, midx):
     """Canvas multi-indices [m, dim] with every ghost cell replaced by the
     real cell it copies, so that the fixup's direct reads of U see owner
@@ -141,8 +172,17 @@ def _owner_index(sd: StructuredData, midx):
     a minor-wrap column to its owner column, as the JAX package remaps
     (hyperbolic.py:500-545), and a row of a periodic ghost band to its
     wrapped real row, which the JAX package does not remap (its XLA path
-    then reads the unrefreshed U_old there)."""
+    then reads the unrefreshed U_old there); on a multi-block canvas a
+    ghost cell to its owner cell (gmap_node), as the JAX package remaps
+    (:501-507)."""
     midx = midx.copy()
+    if getattr(sd, "gmap_node", None) is not None:
+        shape = tuple(sd.shape)
+        dst, src = (np.asarray(a, np.int64) for a in sd.gmap_node)
+        own = np.arange(int(np.prod(shape)), dtype=np.int64)
+        own[dst] = src
+        flat = own[np.ravel_multi_index(tuple(midx.T), shape)]
+        midx = np.stack(np.unravel_index(flat, shape), axis=1)
     if sd.slab_spec is not None:
         n_sl, Ls, g = sd.slab_spec
         A = Ls + 2 * g
@@ -177,7 +217,7 @@ def d_from_lambda(st, lam_half, cmax=None):
     kernels' e; cmax_k(i) == cmax_{K-1-k}(j), so the transposed read of e
     is d itself)."""
     K = st.K
-    lam_half = st.refresh_ghosts(lam_half)
+    lam_half = st.refresh_edges(lam_half)
     lam_T = torch.stack([
         st.shift(lam_half[K - 1 - k], st.offsets[k]) for k in range(K // 2, K)
     ])
@@ -380,8 +420,14 @@ class HyperbolicModule:
     `separable=True` keeps the statics of a 3D cG canvas that is an
     extrusion along z as z-profiles x 2D fields, never allocating the
     full static canvases (the JAX package's RYUJIN_SEP=1); it raises on
-    any other canvas.  `canvas` is the CanvasStepper of a canvas, `ell`
-    the EllStepper of an ELL stencil (None otherwise)."""
+    any other canvas.  A 2D multi-block canvas (offline/multiblock.py)
+    runs the two-direction route, as the JAX package runs it by default;
+    `sym_mb=True` asks for its half-slot route with the interface fixup
+    instead (the JAX package's RYUJIN_SYM_MB=1), which a canvas with
+    extraordinary-vertex side rows does not have (ValueError).  `canvas` is
+    the CanvasStepper of a canvas, `ell` the EllStepper of an ELL stencil
+    (None otherwise), `sideband` the side rows of a multi-block canvas
+    (solver/sideband.py; None otherwise)."""
 
     def __init__(
         self,
@@ -392,6 +438,7 @@ class HyperbolicModule:
         dtype=torch.float64,
         device="cuda",
         separable: bool = False,
+        sym_mb: bool = False,
     ):
         if params.riemann_newton_max_iterations != 0:
             raise NotImplementedError(
@@ -429,7 +476,11 @@ class HyperbolicModule:
                                              device=self.device),
                 ))
 
-        self.canvas = self.ell = None
+        self.canvas = self.ell = self.sideband = None
+        self._if = None
+        multiblock = getattr(sd, "gmap_node", None) is not None
+        if sym_mb and not multiblock:
+            raise ValueError("sym_mb takes a multi-block canvas")
         if isinstance(sd, EllData):
             # ELL keeps the two-direction evaluation (the generic transpose
             # is an arbitrary permutation, hyperbolic.py:1276-1278)
@@ -449,12 +500,35 @@ class HyperbolicModule:
         # (a 3D box's whole surface) every slot is evaluated both ways
         # instead, with no fixup.  Both the kernels and plain_step follow
         # `half`.
-        self._bp = _boundary_pair_data(sd, dtype, self.device)
-        self.half = self._bp is None or (
-            len(self._bp["k"]) <= max(1024, sd.n_pad // 16)
-        )
-        if not self.half:
-            self._bp = None
+        # A multi-block canvas breaks the k <-> K-1-k pairing at its block
+        # interfaces: the two-direction route by default, the half-slot
+        # route with the boundary pairs and the interface fixup on request
+        # (hyperbolic.py:1276-1368; the JAX package's cut-off on the pair
+        # set does not apply there).
+        if multiblock:
+            if sym_mb and sd.sym_fixup is None:
+                raise ValueError(
+                    "this multi-block canvas has no half-slot route (its "
+                    "extraordinary-vertex side rows take the two-direction "
+                    "evaluation; StructuredData.sym_fixup is None)"
+                )
+            self.half = sym_mb
+            self._bp = (_boundary_pair_data(sd, dtype, self.device)
+                        if sym_mb else None)
+            if sym_mb:
+                self._if = _interface_fixup_data(sd.sym_fixup, dtype,
+                                                 self.device)
+        else:
+            self._bp = _boundary_pair_data(sd, dtype, self.device)
+            self.half = self._bp is None or (
+                len(self._bp["k"]) <= max(1024, sd.n_pad // 16)
+            )
+            if not self.half:
+                self._bp = None
+        if getattr(sd, "ev_side", None) is not None:
+            from .sideband import Sideband
+
+            self.sideband = Sideband(equation, params, sd, dtype, self.device)
 
         from .canvas_step import CanvasStepper
 
@@ -462,6 +536,8 @@ class HyperbolicModule:
         self.canvas = CanvasStepper(
             equation, params, sd, dtype, self.device, self._lambda_fixup,
             self.half, separable,
+            interface_fixup=self._interface_fixup if sym_mb else None,
+            sideband=self.sideband,
         )
         self.stencil = self.canvas.stencil
 
@@ -492,6 +568,28 @@ class HyperbolicModule:
         w_rev = bp["c_rev_norm"] if prescaled else bp["w_rev"]
         val = torch.maximum(cur * bp["w_fwd"], lam_rev * w_rev)
         return lam.index_put((bp["k"], bp["i"]), val)
+
+    def _interface_fixup(self, lam, Up):
+        """The multi-block half-slot route's interface fixup
+        (hyperbolic.py:1418-1463): each directed edge whose transposed-slot
+        route breaks at a block interface is evaluated in both directions,
+        and max(lambda_f |c_f|, lambda_r |c_r|) / cmax is written into the
+        half-slot lambda [K/2, n] at the route's read entry, so that the d
+        rebuild lambda * cmax recovers the two-direction d_ij there.
+        Returns a new tensor."""
+        f = self._if
+        if f is None or f["dst"].numel() == 0:
+            return lam
+        eq = self.eq
+        U_i, U_j = Up[:, f["i"]], Up[:, f["j"]]
+        pa_i, pa_j = eq.riemann_precompute(U_i), eq.riemann_precompute(U_j)
+        lam_f = eq.riemann_lambda_max(U_i, U_j, f["n_f"], pa_i=pa_i,
+                                      pa_j=pa_j)
+        lam_r = eq.riemann_lambda_max(U_j, U_i, f["n_r"], pa_i=pa_j,
+                                      pa_j=pa_i)
+        val = torch.maximum(lam_f * f["w_f"], lam_r * f["w_r"])
+        return torch.index_copy(lam.reshape(-1), 0, f["dst"],
+                                val).reshape(lam.shape)
 
     # ---- step 1: boundary conditions + precomputation -------------------
     def prepare_state_vector(self, U, t):
@@ -537,8 +635,10 @@ class HyperbolicModule:
         """The substep as plain tensor code (the phase functions on full
         canvases or on the ELL stencil), on whatever device the tensors
         are on; with separable statics on the stacks synthesized for this
-        call."""
+        call.  The side rows of a multi-block canvas are computed and
+        written in the order of hyperbolic.py:1621-1699."""
         eq, p, st = self.eq, self.params, self.stencil.full()
+        sb = self.sideband
         U_j = st.nbr(U_old)
         prec_j = st.nbr(prec_old)
         stage_U_j = [st.nbr(stage_U[s]) for s in range(len(stage_weights))]
@@ -546,13 +646,23 @@ class HyperbolicModule:
         if self.half:
             lam, alpha = phase_e_alpha(eq, p, st, U_old, prec_old, U_j, prec_j)
             lam = self._lambda_fixup(lam, U_old)
+            if self._if is not None:
+                lam = self._interface_fixup(st.refresh_edges(lam), U_old)
             d = d_from_lambda(st, lam, st.cmax)
         else:
             e, alpha = phase_e_alpha(
                 eq, p, st, U_old, prec_old, U_j, prec_j, half=False
             )
+            if sb is not None:
+                e_s, alpha_s = sb.e_alpha(U_old, prec_old)
+                sb.scatter_edge_(e, e_s)
+                sb.scatter_rows_(alpha, alpha_s)
             d = d_from_e(st.mask, e, st.transpose_edge(e))
         tau_max = tau_max_from_d(st, d, cfl, tau_cap)
+        if sb is not None:
+            # the side transposes read owner slots: no refresh needed
+            d_s = sb.d_side(e_s, e)
+            tau_max = torch.minimum(tau_max, sb.tau_side(d_s, cfl, tau_cap))
         if compute_tau:
             tau = tau_max
 
@@ -561,18 +671,43 @@ class HyperbolicModule:
             eq, p, st, U_old, prec_old, U_j, prec_j, d, alpha, alpha_j, tau,
             stage_U, stage_U_j, stage_weights,
         )
+        if sb is not None:
+            Ul_s, F_s, b_s = sb.low_order(U_old, prec_old, d_s, alpha, tau,
+                                          stage_U, stage_weights)
+            sb.scatter_rows_(U_low, Ul_s)
+            sb.scatter_rows_(F, F_s)
+            sb.scatter_rows_(bounds, b_s)
         P, l, success = phase_p_l1(
             eq, p, st, U_old, U_j, d, alpha, alpha_j, tau, F, st.nbr(F),
             st.nbr(st.m_lumped), U_low, bounds, stage_U, stage_U_j,
             stage_weights,
         )
+        if sb is not None:
+            P_s, l_s, succ_s = sb.p_l1(U_old, d_s, alpha, tau, F,
+                                       st.m_lumped, Ul_s, b_s, stage_U,
+                                       stage_weights)
+            sb.scatter_edge_(l, l_s)
+            # the side rows' partial canvas success is replaced
+            success[:, sb.cells] = True
         ok = torch.all(
             success | (st.mask == 0.0) | (st.node_mask[None] == 0.0)
         )
+        if sb is not None:
+            ok = ok & torch.all(succ_s | (sb.st.mask == 0.0))
         U_new = U_low
+        U_side = Ul_s if sb is not None else None
         for it in range(p.limiter_iterations):
             last = it + 1 == p.limiter_iterations
-            U_new, l = phase_update(
-                eq, p, st, U_new, bounds, P, l, st.transpose_edge(l), last
+            l_T = st.transpose_edge(l)
+            U_next, l_next = phase_update(
+                eq, p, st, U_new, bounds, P, l, l_T, last
             )
+            if sb is not None:
+                # the side pass reads the same pass's canvas l
+                U_side, l_s_next = sb.update(U_side, b_s, P_s, l_s, l, last)
+                sb.scatter_rows_(U_next, U_side)
+                if not last:
+                    sb.scatter_edge_(l_next, l_s_next)
+                    l_s = l_s_next
+            U_new, l = U_next, l_next
         return U_new, tau, ok

@@ -3,8 +3,11 @@ StructuredStencil, :144-398), for a single-block canvas of any lattice
 reach (K = (2 reach + 1)^dim - 1 offsets), continuous or discontinuous
 (dG, with the incidence beta_ij on the slots), with the ghost layouts of
 offline/structured.py: ghost bands on periodic leading axes, the slab
-decomposition of canvas axis 0, and the padded periodic minor axis
-(minor_wrap).
+decomposition of canvas axis 0, the padded periodic minor axis
+(minor_wrap), and the 2D multi-block canvas of offline/multiblock.py,
+whose ghost cells are refreshed through the maps gmap_node (node arrays)
+and gmap_edge (edge arrays, with the reader-frame slot permutation at
+block interfaces).
 
 Neighbour access is a static shift of the canvas: `nbr` gives
 out[..., k, i] = X[..., i + offsets[k]] with the same wrap as jnp.roll /
@@ -12,9 +15,10 @@ torch.roll; values wrapped in at the canvas edge only ever feed masked
 edges.  The offsets are ordered so that offsets[k] == -offsets[K-1-k]:
 the transposed slot of offset k is K-1-k for every reach.  On a canvas
 with ghosts `nbr` and `transpose_edge` first copy the wrapped real rows
-into the ghost rows of their input (`refresh_ghosts`, hyperbolic.py:
-199-276), as the JAX nbr does; the per-offset `shift` reads its input as
-it stands, and its callers refresh each input once.
+into the ghost rows of their input (`refresh_ghosts` for node arrays,
+`refresh_edges` for edge arrays, hyperbolic.py:199-335), as the JAX nbr
+does; the per-offset `shift` reads its input as it stands, and its
+callers refresh each input once.
 
 The kernel references, the plain substep and the glue read the static
 planes through per-offset accessors (`cij_k`, `mask_k` / `live_k`,
@@ -45,22 +49,19 @@ from ..offline.ell import EllData
 from ..offline.structured import StructuredData
 
 
-def _unsupported(what: str):
-    raise NotImplementedError(
-        f"{what} canvases are not ported to the torch stencil yet "
-        '(ROADMAP queue 1, "Multi-block canvases, then bench.py\'s last '
-        'case")'
-    )
-
-
 def check_single_block(sd: StructuredData) -> None:
-    """Raise NotImplementedError on a multi-block canvas, the one canvas
-    feature the torch stencil does not carry, and ValueError on ghosts
-    narrower than the stencil reads (check_ghost_width)."""
-    for name in ("gmap_node", "gmap_edge", "gmap_node_z", "gmap_edge_z",
-                 "ev_side"):
+    """Raise NotImplementedError on an extruded multi-block canvas (the
+    z-vectorized maps gmap_node_z / gmap_edge_z), the one canvas feature the
+    torch stencil does not carry, and ValueError on ghosts narrower than
+    the stencil reads (check_ghost_width).  A 2D multi-block canvas
+    (gmap_node, gmap_edge, ev_side) passes."""
+    for name in ("gmap_node_z", "gmap_edge_z"):
         if getattr(sd, name, None) is not None:
-            _unsupported("multi-block")
+            raise NotImplementedError(
+                "extruded multi-block canvases are not ported to the torch "
+                'stencil yet (ROADMAP queue 1, "Multi-block canvases": the '
+                "extruded quilts)"
+            )
     check_ghost_width(
         getattr(sd, "ghosts", ()) or (), getattr(sd, "slab_spec", None),
         getattr(sd, "minor_wrap", None), sd.reach,
@@ -146,6 +147,14 @@ class StructuredStencil:
     ghosts: Tuple[Optional[Tuple[int, int]], ...] = ()
     slab_spec: Optional[Tuple[int, int, int]] = None
     minor_wrap: Optional[Tuple[int, int]] = None
+    # multi-block refresh maps (StructuredData.gmap_node / gmap_edge), int64
+    # (dst, src) pairs sorted by dst, every dst once: gmap_node over canvas
+    # cells, gmap_edge over the flat [K n] edge layout k * n + cell, and
+    # gmap_edge_half its entries within the first K/2 slots that the
+    # half-slot route refreshes ([K/2, n] arrays; see half_edge_map)
+    gmap_node: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    gmap_edge: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    gmap_edge_half: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
     def K(self) -> int:
@@ -156,24 +165,80 @@ class StructuredStencil:
         return max(abs(o) for off in self.offsets for o in off)
 
     @property
+    def multiblock(self) -> bool:
+        return self.gmap_node is not None
+
+    @property
     def have_ghosts(self) -> bool:
         return (any(g is not None for g in self.ghosts)
-                or self.slab_spec is not None or self.minor_wrap is not None)
+                or self.slab_spec is not None or self.minor_wrap is not None
+                or self.multiblock)
 
     def refresh_ghosts(self, X: torch.Tensor) -> torch.Tensor:
-        """[..., n]: a copy of X with the wrapped real rows copied into its
-        ghost rows (X itself on a canvas without ghosts).  An edge array
-        [..., K, n] takes the same copies slot by slot: bands, slabs and
-        the minor wrap move whole rows of a uniform slot layout
-        (refresh_edges, hyperbolic.py:289-335)."""
+        """[..., n]: a copy of the node array X with its ghost rows
+        refreshed (X itself on a canvas without ghosts): multi-block ghost
+        cells from their owners, then the wrapped real rows of bands, slabs
+        and the minor wrap.  Edge arrays take refresh_edges."""
         if not self.have_ghosts:
             return X
         X = X.clone(memory_format=torch.contiguous_format)
         self.refresh_ghosts_(X)
         return X
 
+    def refresh_edges(self, E: torch.Tensor) -> torch.Tensor:
+        """[..., k, n] with k = K or K/2: a copy of the edge array E with its
+        ghosts refreshed (E itself on a canvas without ghosts).  Bands,
+        slabs and the minor wrap move whole rows of a uniform slot layout,
+        so they copy slot by slot as for node arrays; a multi-block canvas
+        instead applies gmap_edge, the reader-frame slot permutation
+        (refresh_edges, hyperbolic.py:278-335), or on [K/2, n] the half map
+        (_refresh_half, :1405)."""
+        if not self.have_ghosts:
+            return E
+        E = E.clone(memory_format=torch.contiguous_format)
+        self.refresh_edges_(E)
+        return E
+
+    @staticmethod
+    def _apply_map(X: torch.Tensor, gmap, n: int) -> None:
+        """X[..., dst] = X[..., src] over the last n entries of each row,
+        in place: a gather, then an index copy whose destinations are
+        unique, so the result is deterministic."""
+        dst, src = gmap
+        Xf = X.view(-1, n)
+        Xf.index_copy_(1, dst, Xf.index_select(1, src))
+
+    def refresh_edges_(self, E: torch.Tensor) -> None:
+        """refresh_edges in place on a contiguous [..., k, n] tensor."""
+        if not self.multiblock:
+            self.refresh_ghosts_(E)
+            return
+        k, n = E.shape[-2], E.shape[-1]
+        if k == self.K:
+            gmap = self.gmap_edge
+        elif 2 * k == self.K and self.gmap_edge_half is not None:
+            gmap = self.gmap_edge_half
+        else:
+            raise ValueError(
+                f"an edge array of {k} slots on a multi-block canvas of K = "
+                f"{self.K}" + ("" if 2 * k != self.K else
+                               " without the half-slot map")
+            )
+        self._apply_map(E, gmap, k * n)
+        self._roll_ghosts_(E)
+
     def refresh_ghosts_(self, X: torch.Tensor) -> None:
-        """refresh_ghosts in place on a contiguous [..., n] tensor, by slice
+        """refresh_ghosts in place on a contiguous [..., n] node array:
+        on a multi-block canvas each ghost cell from its owner cell
+        (gmap_node), then the whole-row copies of _roll_ghosts_."""
+        if not self.have_ghosts:
+            return
+        if self.multiblock:
+            self._apply_map(X, self.gmap_node, X.shape[-1])
+        self._roll_ghosts_(X)
+
+    def _roll_ghosts_(self, X: torch.Tensor) -> None:
+        """The whole-row part of the refresh, in place, by slice
         assignments on the canvas view (the whole g-row bands, as the XLA
         path copies them): the slab bands first (a cyclic roll along the
         slab axis: top band of slab s <- the last g real rows of slab
@@ -183,8 +248,6 @@ class StructuredStencil:
         [P, P + reach) <- [0, reach), [W - reach, W) <- [P - reach, P))
         (hyperbolic.py StructuredStencil._roll_ghosts, :216-276).  Each
         source is copied before its destination is written."""
-        if not self.have_ghosts:
-            return
         lead = X.ndim - 1
         Xc = X.view(X.shape[:-1] + self.shape)
         if self.slab_spec is not None:
@@ -318,7 +381,7 @@ class StructuredStencil:
     def transpose_edge(self, E: torch.Tensor) -> torch.Tensor:
         """[..., K, n] -> [..., K, n]: out[..., k, i] = E[..., K-1-k, i+off_k],
         of E with its ghosts refreshed."""
-        E = self.refresh_ghosts(E)
+        E = self.refresh_edges(E)
         K = E.shape[-2]
         lead = E.shape[:-2]
         Ec = E.reshape(lead + (K,) + self.shape)
@@ -331,6 +394,35 @@ class StructuredStencil:
             kax,
         )
         return out.reshape(E.shape)
+
+
+def sorted_map(gmap, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A (dst, src) refresh map as int64 tensors on `device`, sorted by dst
+    (_sorted_map, hyperbolic.py:370-376); raises ValueError on a repeated
+    destination."""
+    dst, src = (np.asarray(a, np.int64) for a in gmap)
+    o = np.argsort(dst, kind="stable")
+    dst, src = dst[o], src[o]
+    if len(dst) > 1 and (dst[1:] == dst[:-1]).any():
+        raise ValueError("a refresh map writes one destination twice")
+    return (torch.as_tensor(dst, device=device),
+            torch.as_tensor(src, device=device))
+
+
+def half_edge_map(sd: StructuredData, skip=None):
+    """The (dst, src) entries of gmap_edge whose destination and source
+    both lie in the first K/2 slots (the same flat k * n + cell indices in
+    the [K/2, n] layout of the half-slot lambda), without the destinations
+    in `skip` (the interface fixup's entries, which it writes after the
+    refresh, so that a second refresh leaves them as they are); the JAX
+    package's _gmap_half (hyperbolic.py:1365-1377) keeps those entries and
+    relies on refreshing once."""
+    dst, src = (np.asarray(a, np.int64) for a in sd.gmap_edge)
+    K2n = (sd.max_degree // 2) * sd.n_pad
+    keep = (dst < K2n) & (src < K2n)
+    if skip is not None and len(skip):
+        keep &= ~np.isin(dst, np.asarray(skip, np.int64))
+    return dst[keep], src[keep]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from ryujin_tpu.equations.euler import Euler as JEuler, EulerParams  # noqa: E402
@@ -99,50 +100,72 @@ def jax_case(name):
 
 
 @functools.lru_cache(maxsize=None)
+def jax_inputs(name):
+    """(U, prec, the four stage states, their precomputed values) of case
+    `name`, once for both slot counts: the prepared state one JAX step
+    after the case's state, and the stage states U_a, U and convex
+    combinations of the two, as one compiled graph (op by op the step
+    dispatches for most of the time the phases take)."""
+    packed, jhm, U0 = jax_case(name)
+
+    def inputs(U0):
+        Ua, preca = jhm.prepare_state_vector(U0, 0.0)
+        Ub, _, _ = jhm.step(
+            Ua, preca, jnp.zeros((0,) + Ua.shape),
+            jnp.zeros((0,) + preca.shape), jnp.zeros((0,)), 0.0, CFL,
+            jnp.inf, compute_tau=True,
+        )
+        U, prec = jhm.prepare_state_vector(Ub, 0.0)
+        stages = [Ua, U] + [
+            jhm.prepare_state_vector(Ua + (U - Ua) * f, 0.0)[0]
+            for f in (0.5, 0.25)
+        ]
+        sP = [jhm.prepare_state_vector(s, 0.0)[1] for s in stages]
+        return U, prec, jnp.stack(stages), jnp.stack(sP)
+
+    return jax.jit(inputs)(jnp.asarray(U0))
+
+
+@functools.lru_cache(maxsize=None)
 def jax_substep(name, slots):
-    """Every intermediate of one JAX substep on the ELL stencil, numpy."""
+    """Every intermediate of one JAX substep on the ELL stencil, numpy: the
+    phases on jax_inputs as one compiled graph (op by op they dispatch for
+    most of a minute)."""
     packed, jhm, U0 = jax_case(name)
     jeq, p, st = jhm.eq, jhm.params, jhm.stencil
-    Ua, preca = jhm.prepare_state_vector(jnp.asarray(U0), 0.0)
-    Ub, _, _ = jhm.step(
-        Ua, preca, jnp.zeros((0,) + Ua.shape), jnp.zeros((0,) + preca.shape),
-        jnp.zeros((0,)), 0.0, CFL, jnp.inf, compute_tau=True,
-    )
-    U, prec = jhm.prepare_state_vector(Ub, 0.0)
-    # the stage states: U_a, U and convex combinations of the two
-    stages = [Ua, U] + [jhm.prepare_state_vector(Ua + (U - Ua) * f, 0.0)[0]
-                        for f in (0.5, 0.25)]
-    sU = jnp.stack(stages[:slots])
-    sP = jnp.stack([jhm.prepare_state_vector(s, 0.0)[1] for s in stages[:slots]])
     w = jnp.asarray(WEIGHTS[slots])
-    U_j, prec_j = st.nbr(U), st.nbr(prec)
-    sU_j = jnp.stack([st.nbr(sU[s]) for s in range(slots)])
-    sP_j = jnp.stack([st.nbr(sP[s]) for s in range(slots)])
     ip = jhm.initial_precomputed
     ip_j = jnp.zeros((0,) + st.mask.shape)
 
-    e, alpha = jhyp.phase_e_alpha(jeq, p, st, U, prec, U_j, prec_j)
-    d = jhyp.d_from_e(st.mask, e, st.transpose_edge(e))
-    tau = jhyp.tau_max_from_d(st, d, CFL, jnp.inf)
-    alpha_j = st.nbr(alpha)
-    U_low, F, bounds = jhyp.phase_low_order(
-        jeq, p, st, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
-        sU, sP, sU_j, sP_j, w, ip, ip_j,
-    )
-    P, l, success = jhyp.phase_p_l1(
-        jeq, p, st, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
-        F, st.nbr(F), st.nbr(st.m_lumped), U_low, bounds,
-        sU, sP, sU_j, sP_j, w, ip, ip_j,
-    )
-    U4, l4 = jhyp.phase_update(
-        jeq, p, st, U_low, bounds, P, l, st.transpose_edge(l), False
-    )
-    U5, _ = jhyp.phase_update(
-        jeq, p, st, U4, bounds, P, l4, st.transpose_edge(l4), True
-    )
-    out = dict(U=U, prec=prec, sU=sU, e=e, alpha=alpha, d=d, tau=tau,
-               U_low=U_low, F=F, bounds=bounds, P=P, l=l, success=success,
-               U4=U4, l4=l4, U5=U5)
+    def phases(U, prec, sU, sP):
+        U_j, prec_j = st.nbr(U), st.nbr(prec)
+        sU_j = jnp.stack([st.nbr(sU[s]) for s in range(slots)])
+        sP_j = jnp.stack([st.nbr(sP[s]) for s in range(slots)])
+        e, alpha = jhyp.phase_e_alpha(jeq, p, st, U, prec, U_j, prec_j)
+        d = jhyp.d_from_e(st.mask, e, st.transpose_edge(e))
+        tau = jhyp.tau_max_from_d(st, d, CFL, jnp.inf)
+        alpha_j = st.nbr(alpha)
+        U_low, F, bounds = jhyp.phase_low_order(
+            jeq, p, st, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
+            sU, sP, sU_j, sP_j, w, ip, ip_j,
+        )
+        P, l, success = jhyp.phase_p_l1(
+            jeq, p, st, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
+            F, st.nbr(F), st.nbr(st.m_lumped), U_low, bounds,
+            sU, sP, sU_j, sP_j, w, ip, ip_j,
+        )
+        U4, l4 = jhyp.phase_update(
+            jeq, p, st, U_low, bounds, P, l, st.transpose_edge(l), False
+        )
+        U5, _ = jhyp.phase_update(
+            jeq, p, st, U4, bounds, P, l4, st.transpose_edge(l4), True
+        )
+        return dict(U=U, prec=prec, sU=sU, e=e, alpha=alpha, d=d, tau=tau,
+                    U_low=U_low, F=F, bounds=bounds, P=P, l=l,
+                    success=success, U4=U4, l4=l4, U5=U5)
+
+    U, prec, stages, stages_prec = jax_inputs(name)
+    out = jax.jit(phases)(U, prec, stages[:slots], stages_prec[:slots])
     return {k: np.asarray(v) for k, v in out.items()}
 
 

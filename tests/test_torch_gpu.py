@@ -648,6 +648,57 @@ def test_ghost_and_q3_kernels_on_card_match_plain_cpu(case):
                              else "launches")
 
 
+def multiblock_case(name):
+    """A build_case(refinement, dtype, device) of a 2D multi-block canvas:
+    "amr2d" (bench.build_amr2d: side rows along the 2:1 interface, the
+    two-direction route), "cylinder blocks" (six valence-6 corners as side
+    rows, packed as amr2d is, the two-direction route), "annulus2d
+    half-slot" (bench.build_annulus2d with sym_mb: the stacked kernels
+    and the interface fixup)."""
+    from ryujin_tpu_torch import bench
+
+    if name == "amr2d":
+        return bench.build_amr2d
+    if name == "annulus2d half-slot":
+        return functools.partial(bench.build_annulus2d, sym_mb=True)
+
+    def build(refinement, dtype, device):
+        eq = bench.Euler(dim=2)
+        sd = bench.pack_amr2d(bench.geometry.cylinder(refinement=refinement,
+                                                      variant="blocks"))
+        init = bench.make_initial_state(eq, "uniform",
+                                        primitive_state=(1.4, 3.0, 1.0))
+        return (eq, sd) + bench._modules(eq, sd, init, dtype, device,
+                                         "bang bang control", False)
+
+    return build
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["amr2d", "cylinder blocks",
+                                  "annulus2d half-slot"])
+def test_multiblock_kernels_on_card_match_plain_cpu(case):
+    """Three ERK33 steps through the kernels on 2D multi-block canvases
+    (the cross-block refreshes and the side rows between kernels; the 2D
+    two-direction stream instances, or the stacked kernels on the
+    half-slot route) against the plain path on the CPU, with the launch
+    counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ryujin_tpu_torch.kernels import (
+        pk1, pk1_stream, pk2, pk2_stream, pk3, pk3_stream, pk_up,
+    )
+
+    if case.endswith("half-slot"):
+        fns = (pk1.pk1, pk2.pk2, pk3.pk3, pk_up.pk_up)
+    else:
+        fns = (pk1_stream.pk1_stream, pk2_stream.pk2_stream,
+               pk3_stream.pk3_stream, pk_up.pk_up)
+    _three_steps_card_vs_cpu(multiblock_case(case), fns, [3, 3, 3, 6],
+                             refinement={"amr2d": 4,
+                                         "cylinder blocks": 1}.get(case, 0))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("case", ["ragged box", "ragged step", "cylinder",

@@ -155,7 +155,7 @@ def test_entry_points_mean_the_card_unless_the_cpu_is_named():
     U, tau, ok = fn(*args)
     assert U.device.type == "cpu" and bool(ok) and float(tau) > 0.0
     assert set(bench.CASES) == {"step2d", "q2step2d", "box3d", "dg1box3d",
-                                "cylinder3d"}
+                                "cylinder3d", "amr2d", "annulus2d"}
 
 
 def test_bench_reads_separable_mode_from_two_values_only():

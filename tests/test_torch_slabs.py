@@ -134,8 +134,8 @@ def port_run(slabs, orchestration, poison=False):
         vm = hm.canvas.arrays.g_node[4].reshape(-1)
         st = hm.canvas.stencil
 
-        def refresh(st_, *arrays):
-            saved["refresh"](st_, *arrays)
+        def refresh(st_, *arrays, **kwargs):
+            saved["refresh"](st_, *arrays, **kwargs)
             for X in arrays:
                 if X is not None:
                     X[..., vm == 0] = float("nan")
@@ -223,8 +223,10 @@ def test_ghosts_narrower_than_the_reach_raise(name):
 
 
 def test_multi_block_still_refused():
-    sd = dataclasses.replace(port_sd(1), gmap_node=(np.zeros(1, np.int64),
-                                                    np.zeros(1, np.int64)))
-    with pytest.raises(NotImplementedError, match="multi-block"):
+    """The extruded multi-block quilt (its z-vectorized refresh maps) is
+    the canvas the torch stencil still refuses."""
+    sd = dataclasses.replace(port_sd(1), gmap_node_z=(np.zeros(1, np.int64),
+                                                      np.zeros(1, np.int64)))
+    with pytest.raises(NotImplementedError, match="extruded multi-block"):
         HyperbolicModule(Euler(dim=2), sd, _init, dtype=torch.float64,
                          device="cpu")
